@@ -2,7 +2,8 @@ from bevformer_torch.configs.config import (
     CONFIGS,
     BEVFormerConfig,
     DataConfig,
+    OptimConfig,
     get_config,
 )
 
-__all__ = ["CONFIGS", "BEVFormerConfig", "DataConfig", "get_config"]
+__all__ = ["CONFIGS", "BEVFormerConfig", "DataConfig", "OptimConfig", "get_config"]

@@ -1,7 +1,8 @@
 """Model configuration: frozen dataclasses and a preset registry.
 
-The fields are the ones the bevformer_base inference path reads, with the
-values of the JAX package's presets (`bevformer_tpu/configs/config.py`).
+The fields are the ones the bevformer_base inference and training paths
+read, with the values of the JAX package's presets
+(`bevformer_tpu/configs/config.py`).
 What bevformer_base fixes is code, not a field: a caffe-style backbone, the
 ego-motion shift, the prev-BEV rotation, the CAN-bus embedding and the
 prev-BEV carry across the frames of a scene (video test mode).
@@ -27,6 +28,9 @@ class DataConfig:
     # per-channel mean/std of caffe-style (BGR) normalisation
     mean: Tuple[float, float, float] = (103.530, 116.280, 123.675)
     std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    # frames per training sample: queue_length - 1 history frames, then
+    # the trained one
+    queue_length: int = 4
     num_cams: int = 6
 
     @property
@@ -51,6 +55,21 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """AdamW with a warmup + cosine schedule (`bevformer_base.py:228-244`)."""
+
+    lr: float = 2e-4
+    weight_decay: float = 0.01
+    backbone_lr_mult: float = 0.1
+    grad_clip_norm: float = 35.0
+    warmup_iters: int = 500
+    warmup_ratio: float = 1.0 / 3.0
+    min_lr_ratio: float = 1e-3
+    # the stem and stages 1..frozen_stages of the backbone do not train
+    frozen_stages: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class BEVFormerConfig:
     name: str = "bevformer_base"
     # backbone / neck
@@ -67,6 +86,7 @@ class BEVFormerConfig:
     decoder_layers: int = 6
     num_heads: int = 8
     feedforward_channels: int = 512
+    ffn_dropout: float = 0.1
     num_points_in_pillar: int = 4
     sca_num_points: int = 8
     tsa_num_points: int = 4
@@ -77,14 +97,27 @@ class BEVFormerConfig:
     num_query: int = 900
     num_classes: int = 10
     code_size: int = 10
+    code_weights: Tuple[float, ...] = (
+        1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.2, 0.2,
+    )
     num_reg_fcs: int = 2
     pc_range: Tuple[float, ...] = PC_RANGE
     post_center_range: Tuple[float, ...] = (
         -61.2, -61.2, -10.0, 61.2, 61.2, 10.0,
     )
     max_num: int = 300  # NMS-free decode top-k
+    # losses (FocalLoss gamma/alpha, weights; `bevformer_base.py:143-150`)
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    cls_loss_weight: float = 2.0
+    bbox_loss_weight: float = 0.25
+    # GridMask on the trained frame's images (train mode only)
+    use_grid_mask: bool = True
+    # training max GT boxes per sample (static padding for the matcher)
+    max_gt: int = 320
 
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
 
     @property
     def grid_length(self) -> Tuple[float, float]:

@@ -1,3 +1,3 @@
-from bevformer_torch.core import boxes, coder, geometry
+from bevformer_torch.core import assigner, boxes, coder, geometry, losses
 
-__all__ = ["boxes", "coder", "geometry"]
+__all__ = ["assigner", "boxes", "coder", "geometry", "losses"]

@@ -3,8 +3,8 @@
 network code: (cx, cy, log w, log l, cz, log h, sin yaw, cos yaw, vx, vy)
 metric box  : (cx, cy, cz, w, l, h, yaw, vx, vy), z at the gravity centre
 
-Port of `bevformer_tpu/core/boxes.py::denormalize_bbox`
-(reference `core/bbox/util.py:26-53`).
+Ports of `bevformer_tpu/core/boxes.py::normalize_bbox` and
+`denormalize_bbox` (reference `core/bbox/util.py:4-53`).
 """
 
 from __future__ import annotations
@@ -24,6 +24,25 @@ CLASS_NAMES = (
     "pedestrian",
     "traffic_cone",
 )
+
+
+def normalize_bbox(bboxes: torch.Tensor) -> torch.Tensor:
+    """Metric 9-dim (or 7-dim) box -> 10-dim (or 8-dim) network code:
+    log sizes and yaw as (sin, cos)."""
+    rot = bboxes[..., 6:7]
+    parts = [
+        bboxes[..., 0:1],
+        bboxes[..., 1:2],
+        bboxes[..., 3:4].log(),
+        bboxes[..., 4:5].log(),
+        bboxes[..., 2:3],
+        bboxes[..., 5:6].log(),
+        rot.sin(),
+        rot.cos(),
+    ]
+    if bboxes.shape[-1] > 7:
+        parts += [bboxes[..., 7:8], bboxes[..., 8:9]]
+    return torch.cat(parts, dim=-1)
 
 
 def denormalize_bbox(normalized: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,25 @@
-"""Synthetic video frames for the inference path.
+"""Synthetic video frames for the inference path, and synthetic training
+batches.
 
 Camera rigs and `lidar2img` are ports of
 `bevformer_tpu/data/synth.py::_camera_rigs` and
 `bevformer_tpu/data/dataset.py::lidar2img_from_cam_info`. The frames are
 seeded noise images, already normalised as the data pipeline would
 (caffe-style mean subtraction), with CAN-bus poses along a smooth ego
-trajectory packed as the dataset packs them.
+trajectory packed as the dataset packs them. `train_batch` makes one
+training sample in the layout of `runtime.train.Batch`, with ground-truth
+boxes placed as `bevformer_tpu/data/synth.py::generate` places objects.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from bevformer_torch.runtime.train import Batch
 
 CAM_ORDER = (
     "CAM_FRONT",
@@ -92,6 +97,85 @@ def can_bus_pose(pos: Sequence[float], yaw: float, speed: float) -> np.ndarray:
     return can_bus
 
 
+def _noise_images(cfg, n: int, seed: int, device) -> torch.Tensor:
+    """[n, cams, H, W, 3]: uniform noise in [0, 255] minus the config's
+    mean, over its std."""
+    d = cfg.data
+    h, w = d.img_size
+    gen = torch.Generator(device=device).manual_seed(seed)
+    img = torch.rand((n, d.num_cams, h, w, 3), generator=gen, device=device) * 255.0
+    return (img - torch.tensor(d.mean, device=device)) / torch.tensor(d.std, device=device)
+
+
+NUM_OBJECTS = 12  # GT boxes per training sample (`generate`'s default)
+
+
+def train_batch(cfg, seed: int = 0, device="cpu", scene_break_at: Optional[int] = None) -> Batch:
+    """One seeded training sample (batch 1) of `cfg.data.queue_length`
+    frames: noise images, the six rigs' `lidar2img`, CAN-bus deltas of one
+    moving ego pose in the dataset's union2one packing, and `NUM_OBJECTS`
+    GT boxes in the last frame's ego frame, padded to `cfg.max_gt`.
+
+    Boxes lie inside `pc_range` (x, y in [-40, 40] m), with gravity-centre
+    z in [-1.5, 0.5] m, w/l/h = |N(0, 1)| * 0.8 + (1.9, 4.5, 1.7) m, yaw in
+    [-pi, pi), velocity N(0, 0.5^2) m/s and labels 0-9. `scene_break_at`:
+    that frame starts a new scene (its `prev_exists` is false and its
+    CAN-bus deltas restart from zero)."""
+    device = torch.device(device)
+    rng = np.random.RandomState(seed)
+    t_len = cfg.data.queue_length
+    raw_h, raw_w = cfg.data.resized_size
+    l2i = rig_lidar2img(raw_w, raw_h)[: cfg.data.num_cams]
+
+    can_bus = np.zeros((t_len, 18), np.float32)
+    prev_exists = np.zeros((t_len,), bool)
+    prev_pos = prev_angle = None
+    for t in range(t_len):
+        new_scene = t == 0 or t == scene_break_at
+        if new_scene:
+            start, yaw0, speed = t, rng.uniform(-np.pi, np.pi), rng.uniform(3, 8)
+            origin = rng.uniform(-500, 500, 2)
+        dt = 0.5 * (t - start)
+        yaw = yaw0 + 0.05 * (t - start)
+        pos = [origin[0] + speed * dt * np.cos(yaw), origin[1] + speed * dt * np.sin(yaw), 0.0]
+        cb = can_bus_pose(pos, yaw, speed)
+        # union2one (`nuscenes_dataset.py:58-84`)
+        tmp_pos, tmp_angle = cb[:3].copy(), cb[-1]
+        if new_scene:
+            cb[:3] = 0
+            cb[-1] = 0
+        else:
+            prev_exists[t] = True
+            cb[:3] -= prev_pos
+            cb[-1] -= prev_angle
+        prev_pos, prev_angle = tmp_pos, tmp_angle
+        can_bus[t] = cb
+
+    g = cfg.max_gt
+    n = min(NUM_OBJECTS, g)
+    gt_boxes = np.zeros((g, 9), np.float32)
+    gt_labels = np.zeros((g,), np.int64)
+    gt_boxes[:n, 0:2] = rng.uniform(-40, 40, (n, 2))
+    gt_boxes[:n, 2] = rng.uniform(-1.5, 0.5, n)
+    gt_boxes[:n, 3:6] = np.abs(rng.randn(n, 3)) * 0.8 + np.array([1.9, 4.5, 1.7])
+    gt_boxes[:n, 6] = rng.uniform(-np.pi, np.pi, n)
+    gt_boxes[:n, 7:9] = rng.randn(n, 2) * 0.5
+    gt_labels[:n] = rng.randint(0, 10, n)
+
+    def dev(a, dtype=None):
+        return torch.as_tensor(np.array(a)[None], dtype=dtype, device=device)
+
+    return Batch(
+        images=_noise_images(cfg, t_len, seed, device)[None],
+        can_bus=dev(can_bus, torch.float32),
+        lidar2img=dev(np.broadcast_to(l2i, (t_len,) + l2i.shape), torch.float32),
+        prev_exists=dev(prev_exists),
+        gt_boxes=dev(gt_boxes, torch.float32),
+        gt_labels=dev(gt_labels),
+        num_gt=torch.tensor([n], device=device),
+    )
+
+
 class SyntheticVideo:
     """Frames of `scene_lengths[i]` consecutive frames per scene, served by
     `get_test_sample` like the dataset's test samples.
@@ -128,13 +212,7 @@ class SyntheticVideo:
 
     def images(self, index: int) -> torch.Tensor:
         """[cams, H, W, 3] normalised float32 noise for frame `index`."""
-        d = self.cfg.data
-        h, w = d.img_size
-        gen = torch.Generator(device=self.device).manual_seed(self.seed * 100003 + index)
-        img = torch.rand((d.num_cams, h, w, 3), generator=gen, device=self.device) * 255.0
-        mean = torch.tensor(d.mean, device=self.device)
-        std = torch.tensor(d.std, device=self.device)
-        return (img - mean) / std
+        return _noise_images(self.cfg, 1, self.seed * 100003 + index, self.device)[0]
 
     def get_test_sample(self, index: int) -> dict:
         f = self.frames[index]

@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` (Hopper) into one
-shared library with a plain C interface, which `ctypes` loads. The library
-is built at first use into `bevformer_torch/build/`, keyed by a hash of the
-sources and flags, so a fresh checkout builds it on its first kernel call
-and later processes reuse it.
+Every `csrc/*.cu` file is compiled by its own `nvcc` for `sm_90a` (Hopper),
+all of them at once, and linked into one shared library with a plain C
+interface, which `ctypes` loads. The library is built at first use into
+`bevformer_torch/build/`, keyed by a hash of the sources and flags, so a
+fresh checkout builds it on its first kernel call and later processes
+reuse it.
 
 The C entry points take no torch headers: pointers and the stream go in as
 `c_void_p`, sizes as `c_int`, and each returns `cudaGetLastError()` after
@@ -28,9 +29,10 @@ BUILD_DIR = PKG_DIR / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +46,16 @@ SIGNATURES = {
     # stream
     "dcn_conv_fwd": [_P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # value, loc, attw, grad_out, dvalue (zeroed), dloc, dattw, level_hw,
+    # L, B, K, Q, H, D, P, stream
+    "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, off_y, off_x, mask, cols, B, H, W, C, OH, OW, stride, stream
+    "dcn_im2col": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, off_y, off_x, mask, dcols, dx (zeroed), doff_y, doff_x, dmask,
+    # B, H, W, C, OH, OW, stride, stream
+    "dcn_col2im": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -67,7 +79,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -92,14 +104,39 @@ def build(force: bool = False) -> BuildResult:
     if out.exists() and not force:
         return BuildResult(out, 0.0, "", built=False)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all at once, then one link
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    compiles = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(srcs, objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(srcs, compiles):
+        text, _ = proc.communicate()
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    tmp = out.with_suffix(f".{tag}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{log}")
     os.replace(tmp, out)
     return BuildResult(out, seconds, log, built=True)
 

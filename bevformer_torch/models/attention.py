@@ -3,9 +3,11 @@
 Ports of `bevformer_tpu/models/attention.py` (reference
 `temporal_self_attention.py`, `spatial_cross_attention.py` and
 `decoder.py::CustomMSDeformableAttention`). Every module samples through
-`kernels.msda.ms_deform_attn`. Projections are plain `nn.Linear` layers with
-their output channels in reference order: TSA (h, queue, l, p[, 2]), the SCA
-inner attention (h, l, p[, 2]) with p split offset-major over the Z anchors.
+`kernels.msda.ms_deform_attn` and drops out (`DROPOUT`, train mode only) its
+output projection before the residual, as the JAX package does. Projections
+are plain `nn.Linear` layers with their output channels in reference order:
+TSA (h, queue, l, p[, 2]), the SCA inner attention (h, l, p[, 2]) with p
+split offset-major over the Z anchors.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import torch.nn as nn
 from bevformer_torch.kernels.msda import ms_deform_attn
 
 Shapes = Sequence[Tuple[int, int]]
+
+DROPOUT = 0.1  # on each module's output projection (train mode only)
 
 
 def grid_init_bias(num_heads: int, num_levels: int, num_points: int) -> np.ndarray:
@@ -120,6 +124,7 @@ class SpatialCrossAttention(nn.Module):
             embed_dims, num_heads, num_levels, num_points
         )
         self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.dropout = nn.Dropout(DROPOUT)
 
     def forward(
         self,
@@ -163,7 +168,7 @@ class SpatialCrossAttention(nn.Module):
 
         count = anyz.float().sum(dim=1).clamp(min=1.0)
         slots = slots / count[..., None]
-        return self.output_proj(slots) + query
+        return self.dropout(self.output_proj(slots)) + query
 
 
 class TemporalSelfAttention(nn.Module):
@@ -184,6 +189,7 @@ class TemporalSelfAttention(nn.Module):
         )
         self.value_proj = nn.Linear(embed_dims, embed_dims)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.dropout = nn.Dropout(DROPOUT)
 
     def forward(
         self,
@@ -217,7 +223,7 @@ class TemporalSelfAttention(nn.Module):
         loc = ref[:, :, None, :, None, :] + offsets / norm[:, None, :]
         out = ms_deform_attn(v, ((bev_h, bev_w),), loc, weights)
         out = out.view(bs, nq, q, e).mean(dim=1)
-        return self.output_proj(out) + identity
+        return self.dropout(self.output_proj(out)) + identity
 
 
 class CustomMSDeformableAttention(nn.Module):
@@ -232,6 +238,7 @@ class CustomMSDeformableAttention(nn.Module):
         self.attention_weights = nn.Linear(embed_dims, num_heads * num_levels * num_points)
         self.value_proj = nn.Linear(embed_dims, embed_dims)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.dropout = nn.Dropout(DROPOUT)
 
     def forward(
         self,
@@ -257,4 +264,4 @@ class CustomMSDeformableAttention(nn.Module):
             + offsets / _normalizer(spatial_shapes, query)[:, None, :]
         )
         out = ms_deform_attn(v, spatial_shapes, loc, weights)
-        return self.output_proj(out) + identity
+        return self.dropout(self.output_proj(out)) + identity

@@ -21,14 +21,15 @@ from bevformer_torch.models.layers import (
 
 
 class DetrDecoderLayer(nn.Module):
-    def __init__(self, embed_dims=256, num_heads=8, feedforward_channels=512):
+    def __init__(self, embed_dims=256, num_heads=8, feedforward_channels=512,
+                 ffn_dropout=0.1):
         super().__init__()
         self.attentions = nn.ModuleList([
             MultiheadAttention(embed_dims, num_heads),
             CustomMSDeformableAttention(embed_dims, num_heads, num_levels=1),
         ])
         self.norms = nn.ModuleList(layer_norm(embed_dims) for _ in range(3))
-        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels)])
+        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels, ffn_dropout)])
 
     def forward(self, query, bev_value, query_pos, reference_points,
                 bev_spatial_shape: Tuple[int, int]):
@@ -49,10 +50,10 @@ class DetectionTransformerDecoder(nn.Module):
     inverse-sigmoid space, then sigmoid."""
 
     def __init__(self, num_layers=6, embed_dims=256, num_heads=8,
-                 feedforward_channels=512):
+                 feedforward_channels=512, ffn_dropout=0.1):
         super().__init__()
         self.layers = nn.ModuleList(
-            DetrDecoderLayer(embed_dims, num_heads, feedforward_channels)
+            DetrDecoderLayer(embed_dims, num_heads, feedforward_channels, ffn_dropout)
             for _ in range(num_layers)
         )
 

@@ -25,7 +25,8 @@ class BEVFormerLayer(nn.Module):
     """operation_order = (self_attn, norm, cross_attn, norm, ffn, norm)."""
 
     def __init__(self, embed_dims=256, num_heads=8, feedforward_channels=512,
-                 num_cams=6, num_levels=4, sca_num_points=8, tsa_num_points=4):
+                 num_cams=6, num_levels=4, sca_num_points=8, tsa_num_points=4,
+                 ffn_dropout=0.1):
         super().__init__()
         self.attentions = nn.ModuleList([
             TemporalSelfAttention(embed_dims, num_heads, 1, tsa_num_points),
@@ -34,7 +35,7 @@ class BEVFormerLayer(nn.Module):
             ),
         ])
         self.norms = nn.ModuleList(layer_norm(embed_dims) for _ in range(3))
-        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels)])
+        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels, ffn_dropout)])
 
     def forward(self, query, value, bev_pos, value_queue, hybrid_ref_2d,
                 reference_points_cam, bev_mask, spatial_shapes, bev_h, bev_w,
@@ -55,7 +56,8 @@ class BEVFormerEncoder(nn.Module):
                  feedforward_channels=512, num_cams=6, num_levels=4,
                  num_points_in_pillar=4,
                  pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
-                 sca_num_points=8, tsa_num_points=4, sca_capacity_ratio=0.0):
+                 sca_num_points=8, tsa_num_points=4, sca_capacity_ratio=0.0,
+                 ffn_dropout=0.1):
         super().__init__()
         self.num_points_in_pillar = num_points_in_pillar
         self.pc_range = tuple(pc_range)
@@ -63,7 +65,7 @@ class BEVFormerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             BEVFormerLayer(
                 embed_dims, num_heads, feedforward_channels, num_cams,
-                num_levels, sca_num_points, tsa_num_points,
+                num_levels, sca_num_points, tsa_num_points, ffn_dropout,
             )
             for _ in range(num_layers)
         )

@@ -7,7 +7,7 @@ per-layer cls/reg branches. Port of `bevformer_tpu/models/head.py`
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -63,6 +63,7 @@ class BEVFormerHead(nn.Module):
             tsa_num_points=c.tsa_num_points,
             sca_capacity_ratio=c.sca_capacity_ratio,
             rotate_center=c.rotate_center,
+            ffn_dropout=c.ffn_dropout,
         )
         self.cls_branches = nn.ModuleList(
             cls_branch(e, c.num_classes, c.num_reg_fcs) for _ in range(c.decoder_layers)
@@ -78,10 +79,19 @@ class BEVFormerHead(nn.Module):
         lidar2img: torch.Tensor,  # [bs, cams, 4, 4]
         prev_bev: Optional[torch.Tensor],  # [bs, HW, e]
         has_prev: torch.Tensor,  # [bs] bool
-    ) -> Dict[str, torch.Tensor]:
+        only_bev: bool = False,
+    ):
+        """Head outputs, or only the BEV features [bs, HW, e] (encoder only,
+        for the history frames of a training sample)."""
         c = self.cfg
         bs = can_bus.shape[0]
         bev_pos = self.positional_encoding(bs)
+        if only_bev:
+            return self.transformer.get_bev_features(
+                mlvl_feats, self.bev_embedding.weight, bev_pos, c.bev_h, c.bev_w,
+                c.grid_length, can_bus, lidar2img, c.data.img_size, prev_bev,
+                has_prev,
+            )
         bev_embed, hs, init_reference, inter_references = self.transformer(
             mlvl_feats,
             self.bev_embedding.weight,

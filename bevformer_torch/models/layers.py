@@ -2,8 +2,9 @@
 self-attention, the learned BEV positional encoding and `inverse_sigmoid`.
 
 Submodule and parameter names follow the reference `.pth` keys, so a
-reference state dict loads with `load_state_dict`. Inference only: dropout
-is the identity and is left out.
+reference state dict loads with `load_state_dict`. Dropout sits where the
+reference (and the JAX package) has it; `nn.Dropout` follows the module's
+train/eval mode.
 """
 
 from __future__ import annotations
@@ -24,13 +25,17 @@ def layer_norm(dims: int) -> nn.LayerNorm:
 
 
 class FFN(nn.Module):
-    """mmcv FFN: Linear -> ReLU -> Linear, plus the residual."""
+    """mmcv FFN: Linear -> ReLU -> Dropout -> Linear -> Dropout, plus the
+    residual."""
 
-    def __init__(self, embed_dims: int, feedforward_channels: int):
+    def __init__(self, embed_dims: int, feedforward_channels: int, dropout: float = 0.1):
         super().__init__()
         self.layers = nn.Sequential(
-            nn.Sequential(nn.Linear(embed_dims, feedforward_channels), nn.ReLU()),
+            nn.Sequential(
+                nn.Linear(embed_dims, feedforward_channels), nn.ReLU(), nn.Dropout(dropout)
+            ),
             nn.Linear(feedforward_channels, embed_dims),
+            nn.Dropout(dropout),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -50,14 +55,18 @@ class _PackedProjection(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    """Multi-head self-attention written as matmul and softmax, with the
-    residual. Inputs are batch-first [bs, n, e]."""
+    """Multi-head self-attention written as matmul and softmax, with dropout
+    on the attention map and on the output projection, and the residual.
+    Inputs are batch-first [bs, n, e]."""
 
     def __init__(self, embed_dims: int, num_heads: int):
         super().__init__()
         self.embed_dims = embed_dims
         self.num_heads = num_heads
         self.attn = _PackedProjection(embed_dims)
+        # the decoder's attn_dropout (`decoder.py:46-47` of the JAX package)
+        self.attn_drop = nn.Dropout(0.1)
+        self.proj_drop = nn.Dropout(0.1)
 
     def forward(
         self, query: torch.Tensor, query_pos: Optional[torch.Tensor] = None
@@ -75,9 +84,9 @@ class MultiheadAttention(nn.Module):
         k = k.view(bs, n, h, dh).transpose(1, 2)
         v = v.view(bs, n, h, dh).transpose(1, 2)
         logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
-        out = torch.matmul(logits.softmax(dim=-1), v)
+        out = torch.matmul(self.attn_drop(logits.softmax(dim=-1)), v)
         out = out.transpose(1, 2).reshape(bs, n, e)
-        return identity + self.attn.out_proj(out)
+        return identity + self.proj_drop(self.attn.out_proj(out))
 
 
 class LearnedPositionalEncoding(nn.Module):

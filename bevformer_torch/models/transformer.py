@@ -24,7 +24,7 @@ class PerceptionTransformer(nn.Module):
                  feedforward_channels=512, num_points_in_pillar=4,
                  pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
                  sca_num_points=8, tsa_num_points=4, sca_capacity_ratio=0.0,
-                 rotate_center=(100.0, 100.0)):
+                 rotate_center=(100.0, 100.0), ffn_dropout=0.1):
         super().__init__()
         e = embed_dims
         self.embed_dims = e
@@ -39,10 +39,10 @@ class PerceptionTransformer(nn.Module):
         self.encoder = BEVFormerEncoder(
             encoder_layers, e, num_heads, feedforward_channels, num_cams,
             num_feature_levels, num_points_in_pillar, pc_range,
-            sca_num_points, tsa_num_points, sca_capacity_ratio,
+            sca_num_points, tsa_num_points, sca_capacity_ratio, ffn_dropout,
         )
         self.decoder = DetectionTransformerDecoder(
-            decoder_layers, e, num_heads, feedforward_channels
+            decoder_layers, e, num_heads, feedforward_channels, ffn_dropout
         )
 
     def flatten_feats(self, mlvl_feats: Sequence[torch.Tensor], bs: int):

@@ -11,8 +11,30 @@ Phases, each printed as it runs:
      the inference path (TSA, SCA, decoder), with times;
   4. K2 (dcn_conv_fwd) against its plain version at the stage-3 and stage-4
      shapes, with offsets past +-2 px and off the image, with times;
-  5. the slice: bevformer_base (R101-DCN, 6 x 928 x 1600, fp32) with seeded
-     weights runs a 4-frame synthetic video through
+  5. K3/K4 (msda_bwd) against autograd through the plain msda at K1's three
+     shapes, with times;
+  6. K5/K6 (dcn_im2col, dcn_col2im) and the DCN backward they make with two
+     matrix products, against autograd through the plain DCN at K2's shapes,
+     with times of each kernel alone;
+  7. training: bevformer_base at full size with seeded weights takes 4
+     AdamW steps (`Trainer.step`, train mode: dropout and GridMask on) on a
+     seeded synthetic batch of queue 4 (3 history frames without gradient,
+     then the trained frame). It prints each step's loss, grad norm, lr and
+     seconds, the median of steps 1-3 and the peak memory, checks finite
+     losses, launches of all five kernels in every step, frozen parameters
+     bitwise unchanged and trainable ones moved, and profiles one more step;
+  8. training witness, in eval mode at full size (the plain path's msda and
+     DCN calls recompute their gathers in backward under
+     torch.utils.checkpoint, so that its autograd fits the card): loss and
+     per-group gradients (backbone, neck, encoder, decoder, head) of the
+     kernel path against the plain path, within 10x of the plain path with
+     fp32-sized noise on every msda and DCN output and input gradient, and,
+     with the reg branches' outputs x0.1, loss and transformer-side groups
+     to 1e-3 (the backbone again within 10x of the noisy path: ReLU inputs
+     within rounding of 0 flip between paths, which the damping does not
+     reach);
+  9. the inference slice: bevformer_base (R101-DCN, 6 x 928 x 1600, fp32)
+     with seeded weights runs a 4-frame synthetic video through
      `VideoEvaluator.run` (frames 0-2 one scene, frame 3 a new one). It
      checks 18 K1 and 26 K2 launches per frame and finite outputs. The
      same video through the plain versions: at these weights the kernel
@@ -20,7 +42,7 @@ Phases, each printed as it runs:
      noise on its msda and DCN outputs does (a witness of how far rounding
      alone moves the outputs); with the reg branches' output layers scaled
      by 0.1, bev_embed, cls and bbox agree to 1e-3;
-  6. profile: one frame that carries prev_bev under torch.profiler, its
+  10. profile: one frame that carries prev_bev under torch.profiler, its
      device busy share and the ops that take the device time.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -31,6 +53,7 @@ without a CUDA device the script exits nonzero at once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,10 +67,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 K1_PER_FRAME = 18
 K2_PER_FRAME = 26
 FRAMES = (3, 1)  # scene lengths
+# per training step (queue 4): K1 in 3 history frames (encoder only, 12
+# each) and the trained frame (18); K2 in one backbone pass over the 18
+# history images and one over the trained frame's 6; the backward kernels
+# once per K1 / K2 call of the trained frame
+TRAIN_PER_STEP = dict(msda_fwd=3 * 12 + 18, dcn_conv_fwd=2 * 26, msda_bwd=18,
+                      dcn_im2col=26, dcn_col2im=26)
+TRAIN_STEPS = 4
+TRAIN_TOTAL_STEPS = 1000  # length of the lr schedule the steps run on
 
 K1_TOL = 1e-5  # max abs error on N(0, 1) values and softmaxed weights
 K2_TOL = 1e-4  # max abs error over max |plain|: fp32 sums of 9*C terms
+K34_TOL = 1e-4  # max abs err over max |plain| of dValue, dLoc, dAttw
+K56_TOL = 1e-4  # max abs err over max |plain| of dx, d off_y, d off_x, dmask, dW
 SLICE_TOL = 1e-3  # max abs error over max |plain| of bev_embed, cls, bbox
+TRAIN_TOL = 1e-3  # loss, and ||kernel - plain|| / ||plain|| of each gradient group
 WITNESS_NOISE = 1e-6  # relative noise on the plain msda and DCN outputs
 WITNESS_FACTOR = 10.0  # kernel vs plain within this multiple of noisy vs plain
 PROFILE_ROWS = 10
@@ -177,6 +211,95 @@ def check_k2(device, gen):
     return rows
 
 
+def check_k34(device, gen):
+    import torch
+    from bevformer_torch.kernels import msda
+
+    levels = ((116, 200), (58, 100), (29, 50), (15, 25))
+    # (name, B, Q, H, D, shapes, P, launches per training step)
+    cases = [
+        ("tsa", 2, 40000, 8, 32, ((200, 200),), 4, 6),
+        ("sca", 6, 10112, 8, 32, levels, 8, 6),
+        ("decoder", 1, 900, 8, 32, ((200, 200),), 4, 6),
+    ]
+    rows = []
+    for name, b, q, h, d, shapes, p, per_step in cases:
+        value, loc, attw = msda_inputs(b, q, h, d, shapes, p, gen, device)
+        g = torch.randn((b, q, h * d), generator=gen, device=device)
+        ours = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
+        ref = msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g)
+        torch.cuda.synchronize()
+        errs = {k: rel_err(a, r) for k, a, r in zip(("dvalue", "dloc", "dattw"), ours, ref)}
+        del ours, ref
+        ms = time_ms(lambda: msda.ms_deform_attn_backward(value, shapes, loc, attw, g), 10)
+        plain_ms = time_ms(
+            lambda: msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g), 2)
+        log(f"[k3k4] {name}: value {list(value.shape)} loc {list(loc.shape)} "
+            f"max abs err / max |plain|: {fmt_errors(errs)} (tol {K34_TOL:.0e}) "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        for k, e in errs.items():
+            check(e <= K34_TOL, f"msda_bwd {name} {k}: {e:.2e} > {K34_TOL}")
+        rows.append(dict(shape=name, max_abs_err=max(errs.values()), ms=ms,
+                         plain_ms=plain_ms, per_step=per_step))
+        del value, loc, attw, g
+    return rows
+
+
+def check_k56(device, gen):
+    import torch
+    from bevformer_torch.kernels import dcn
+
+    cases = [("layer3", 6, 58, 100, 256, 256, 23), ("layer4", 6, 29, 50, 512, 512, 3)]
+    im2col_rows, col2im_rows = [], []
+    for name, b, h, w, c, cout, per_step in cases:
+        x = torch.randn((b, h, w, c), generator=gen, device=device)
+        off_y = torch.randn((b, h, w, 9), generator=gen, device=device) * 3
+        off_x = torch.randn((b, h, w, 9), generator=gen, device=device) * 3
+        mask = torch.rand((b, h, w, 9), generator=gen, device=device)
+        weight = torch.randn((9 * c, cout), generator=gen, device=device) / (9 * c) ** 0.5
+        g = torch.randn((b, h, w, cout), generator=gen, device=device)
+        gm = g.view(-1, cout)
+
+        def kernel_bwd():
+            cols = dcn.dcn_im2col(x, off_y, off_x, mask)
+            dweight = cols.t() @ gm
+            del cols
+            return (*dcn.dcn_col2im(x, off_y, off_x, mask, gm @ weight.t()), dweight)
+
+        ours = kernel_bwd()
+        ref = dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g)
+        cols_err = rel_err(dcn.dcn_im2col(x, off_y, off_x, mask),
+                           dcn.dcn_im2col_plain(x, off_y, off_x, mask))
+        torch.cuda.synchronize()
+        names = ("dx", "doff_y", "doff_x", "dmask", "dweight")
+        errs = {k: rel_err(a, r) for k, a, r in zip(names, ours, ref)}
+        del ours, ref
+        dcols = torch.randn((b * h * w, 9 * c), generator=gen, device=device)
+        im2col_ms = time_ms(lambda: dcn.dcn_im2col(x, off_y, off_x, mask), 10)
+        im2col_plain_ms = time_ms(lambda: dcn.dcn_im2col_plain(x, off_y, off_x, mask), 3)
+        col2im_ms = time_ms(lambda: dcn.dcn_col2im(x, off_y, off_x, mask, dcols), 10)
+        col2im_plain_ms = time_ms(
+            lambda: dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols), 3)
+        bwd_ms = time_ms(kernel_bwd, 5)
+        bwd_plain_ms = time_ms(
+            lambda: dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g), 2)
+        log(f"[k5k6] {name}: x {list(x.shape)} weight {list(weight.shape)} "
+            f"im2col max abs err / max |plain| {cols_err:.2e}; backward: {fmt_errors(errs)} "
+            f"(tol {K56_TOL:.0e}); dcn_im2col {im2col_ms:.4f} ms (plain {im2col_plain_ms:.4f}), "
+            f"dcn_col2im {col2im_ms:.4f} ms (plain {col2im_plain_ms:.4f}), whole backward "
+            f"(im2col + 2 matmuls + col2im) {bwd_ms:.4f} ms (plain autograd {bwd_plain_ms:.4f})")
+        check(cols_err <= K56_TOL, f"dcn_im2col {name}: {cols_err:.2e} > {K56_TOL}")
+        for k, e in errs.items():
+            check(e <= K56_TOL, f"DCN backward {name} {k}: {e:.2e} > {K56_TOL}")
+        im2col_rows.append(dict(shape=name, max_abs_err=cols_err, ms=im2col_ms,
+                                plain_ms=im2col_plain_ms, per_step=per_step))
+        col2im_rows.append(dict(shape=name, max_abs_err=max(errs.values()), ms=col2im_ms,
+                                plain_ms=col2im_plain_ms, per_step=per_step,
+                                backward_ms=bwd_ms, backward_plain_ms=bwd_plain_ms))
+        del x, off_y, off_x, mask, weight, g, gm, dcols
+    return im2col_rows, col2im_rows
+
+
 # ---------------------------------------------------------------- slice
 
 class TimedFrames:
@@ -206,23 +329,44 @@ class TimedFrames:
 
 
 @contextmanager
-def plain_kernels(noise: float = 0.0, seed: int = 0):
-    """Route the model's two kernel call sites to the plain versions. With
-    `noise`, each output is multiplied by (1 + noise * N(0, 1)): a
-    perturbation of the size of a few fp32 roundings."""
+def plain_kernels(noise: float = 0.0, seed: int = 0, recompute: bool = False):
+    """Route the model's two kernel call sites to the plain versions (their
+    gradients then come from autograd). With `noise`, each output is
+    multiplied by (1 + noise * N(0, 1)), and so is each gradient that flows
+    back into their inputs: a perturbation of the size of a few fp32
+    roundings. With `recompute`, each plain call runs under
+    `torch.utils.checkpoint`: autograd recomputes its gathers in backward
+    instead of keeping them (the SCA's alone are ~8 GB per encoder layer),
+    with the same arithmetic."""
     import torch
+    import torch.utils.checkpoint
     from bevformer_torch.kernels import dcn, msda
     from bevformer_torch.models import attention, resnet
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
+    def jitter(t):
+        return t * torch.randn(t.shape, generator=gen, device=t.device) * noise
+
+    class GradNoise(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad + jitter(grad)
+
     def perturbed(fn):
         def call(*args):
-            out = fn(*args)
             if noise:
-                out = out + out * torch.randn(
-                    out.shape, generator=gen, device=out.device) * noise
-            return out
+                args = [GradNoise.apply(a) if torch.is_tensor(a) and a.requires_grad else a
+                        for a in args]
+            if recompute and torch.is_grad_enabled():
+                out = torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+            else:
+                out = fn(*args)
+            return out + jitter(out) if noise else out
         return call
 
     saved = attention.ms_deform_attn, resnet.dcn_conv
@@ -291,12 +435,14 @@ def check_slice(device, smi):
         f"{n} frames (scenes {FRAMES}); weights ready in {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats(device)
-    msda.ms_deform_attn.launches = 0
-    dcn.dcn_conv.launches = 0
+    zero_counts()
     results, preds, secs = run_video(model, video)
-    k1, k2 = msda.ms_deform_attn.launches, dcn.dcn_conv.launches
+    counts = read_counts()
+    k1, k2 = counts["msda_fwd"], counts["dcn_conv_fwd"]
     peak = torch.cuda.max_memory_allocated(device)
     log(f"[slice] launches: K1 {k1} ({k1 / n:g}/frame), K2 {k2} ({k2 / n:g}/frame)")
+    check(counts["msda_bwd"] == counts["dcn_im2col"] == counts["dcn_col2im"] == 0,
+          f"inference launched a backward kernel: {counts}")
     check(k1 == K1_PER_FRAME * n, f"K1 launched {k1} times, expected {K1_PER_FRAME * n}")
     check(k2 == K2_PER_FRAME * n, f"K2 launched {k2} times, expected {K2_PER_FRAME * n}")
     for i, p in enumerate(preds):
@@ -357,43 +503,221 @@ def check_slice(device, smi):
                 model=model, video=video)
 
 
-def profile_frame(model, video, smi):
-    """One frame that carries prev_bev (frame 2 of the first scene) under
-    torch.profiler: wall time, device kernel time, and the ops that take it."""
+KERNEL_NAMES = ("msda_fwd_kernel", "dcn_conv_fwd_kernel", "msda_bwd_kernel",
+                "dcn_im2col_kernel", "dcn_col2im_kernel")
+
+
+def profile_run(fn, tag, what, smi):
+    """Run `fn` once under torch.profiler: wall time, device kernel time,
+    busy share, and the ops that take the device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from bevformer_torch.runtime import VideoEvaluator
-
-    ev = VideoEvaluator(model)
-    ev.infer_frame(video.get_test_sample(0))
-    ev.infer_frame(video.get_test_sample(1))
-    sample = video.get_test_sample(2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ev.infer_frame(sample)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    check(busy_ms > 0, "the profiled frame ran nothing on the device")
+    check(busy_ms > 0, f"the profiled {what} ran nothing on the device")
     # device time by the aten op that launched it; the port's kernels are
     # launched through ctypes, under no aten op
     rows = [
         (a.key, a.self_device_time_total / 1e3, a.count)
         for a in prof.key_averages()
         if a.self_device_time_total > 0
-        and (a.key.startswith("aten::") or "msda_fwd_kernel" in a.key
-             or "dcn_conv_fwd_kernel" in a.key)
+        and (a.key.startswith("aten::") or any(k in a.key for k in KERNEL_NAMES))
     ]
     rows.sort(key=lambda r: -r[1])
-    log(f"[profile] frame 2: wall {wall_ms:.2f} ms (profiler on), device kernel time "
+    log(f"[{tag}] {what}: wall {wall_ms:.2f} ms (profiler on), device kernel time "
         f"{busy_ms:.2f} ms in {len(kernels)} kernels, busy {busy_ms / wall_ms:.1%}, "
         f"idle {1 - busy_ms / wall_ms:.1%}; card: {smi}")
     for name, ms, count in rows[:PROFILE_ROWS]:
-        log(f"[profile]   {ms:9.3f} ms {ms / busy_ms:6.1%} {count:5d} calls  {name[:70]}")
+        log(f"[{tag}]   {ms:9.3f} ms {ms / busy_ms:6.1%} {count:5d} calls  {name[:70]}")
+
+
+def profile_frame(model, video, smi):
+    """One frame that carries prev_bev (frame 2 of the first scene) under
+    torch.profiler."""
+    from bevformer_torch.runtime import VideoEvaluator
+
+    ev = VideoEvaluator(model)
+    ev.infer_frame(video.get_test_sample(0))
+    ev.infer_frame(video.get_test_sample(1))
+    sample = video.get_test_sample(2)
+    profile_run(lambda: ev.infer_frame(sample), "profile", "frame 2", smi)
+
+
+# ---------------------------------------------------------------- training
+
+def kernel_counters():
+    from bevformer_torch.kernels import dcn, msda
+
+    return dict(msda_fwd=msda.ms_deform_attn, dcn_conv_fwd=dcn.dcn_conv,
+                msda_bwd=msda.ms_deform_attn_backward, dcn_im2col=dcn.dcn_im2col,
+                dcn_col2im=dcn.dcn_col2im)
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def zero_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def check_training(device, smi):
+    """bevformer_base at full size: TRAIN_STEPS train-mode steps."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.data import train_batch
+    from bevformer_torch.runtime import Trainer, build_model, init_state_dict
+
+    cfg = get_config("bevformer_base")
+    t0 = time.perf_counter()
+    model = build_model(cfg, init_state_dict(cfg, seed=0), device)
+    trainer = Trainer(model, total_steps=TRAIN_TOTAL_STEPS, seed=0)
+    batch = train_batch(cfg, seed=0, device=device)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
+    log(f"[train] {cfg.name}: batch 1, queue {cfg.data.queue_length} "
+        f"({cfg.data.queue_length - 1} history frames without gradient), "
+        f"{cfg.data.num_cams} x {cfg.data.img_size} images, {int(batch.num_gt[0])} GT boxes, "
+        f"{sum(p.numel() for p in trainer.params)} trainable parameters "
+        f"({len(frozen)} frozen tensors); ready in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    secs, per_step = [], []
+    for step in range(TRAIN_STEPS):
+        start = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = trainer.step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        per_step.append({k: v - start[k] for k, v in read_counts().items()})
+        log(f"[train] step {step}: loss {out['total']:.4f} (cls {out['loss_cls']:.4f}, "
+            f"bbox {out['loss_bbox']:.4f}), grad_norm {out['grad_norm']:.3f}, "
+            f"lr {out['lr']:.4e}, {secs[-1]:.4f} s, launches {per_step[-1]}")
+        check(all(math.isfinite(v) for v in out.values()), f"step {step}: not finite: {out}")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    for step, c in enumerate(per_step):
+        check(c == TRAIN_PER_STEP, f"step {step} launched {c}, expected {TRAIN_PER_STEP}")
+    for name, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[name])
+        check(same == (name in frozen), f"{name}: {'moved' if not same else 'did not move'}")
+    for name, buf in model.named_buffers():
+        check(torch.equal(buf, before[name]), f"buffer {name} moved")
+    steady = sorted(secs[1:])
+    median = steady[len(steady) // 2]
+    log(f"[train] step seconds: {', '.join(f'{x:.4f}' for x in secs)}; median of steps "
+        f"1-{TRAIN_STEPS - 1}: {median * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB; "
+        f"frozen parameters unchanged, trainable ones moved; card: {smi}")
+    profile_run(lambda: trainer.step(batch), "train-profile", f"step {TRAIN_STEPS}", smi)
+    del trainer, model, batch, before
+    return dict(counts=counts, median_ms=median * 1e3, peak_gib=peak / 2**30)
+
+
+GROUPS = (("backbone", "img_backbone."), ("neck", "img_neck."),
+          ("encoder", "pts_bbox_head.transformer.encoder."),
+          ("decoder", "pts_bbox_head.transformer.decoder."), ("head", ""))
+
+
+def group_of(name: str) -> str:
+    return next(g for g, prefix in GROUPS if name.startswith(prefix))
+
+
+def train_grads(model, batch):
+    """Eval-mode loss and its gradients, concatenated per group."""
+    import torch
+    from bevformer_torch.runtime import loss_fn
+
+    model.zero_grad(set_to_none=True)
+    total, _ = loss_fn(model.eval(), batch)
+    total.backward()
+    grads = {}
+    for g, _ in GROUPS:
+        parts = [p.grad.reshape(-1) for n, p in model.named_parameters()
+                 if p.requires_grad and group_of(n) == g]
+        grads[g] = torch.cat(parts)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return float(total.detach()), grads
+
+
+def grad_errors(run, ref):
+    """Loss relative error and ||a - b|| / ||b|| per gradient group."""
+    errs = {"loss": abs(run[0] - ref[0]) / max(abs(ref[0]), 1e-12)}
+    for g, b in ref[1].items():
+        errs[g] = float((run[1][g] - b).norm() / b.norm().clamp(min=1e-12))
+    return errs
+
+
+def check_training_witness(device, smi):
+    """Kernel path against plain path, eval mode, at full size (the plain
+    calls recompute their gathers in backward, so that they fit the card)."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.data import train_batch
+    from bevformer_torch.runtime import build_model, init_state_dict, label_params
+
+    cfg = get_config("bevformer_base")
+    model = build_model(cfg, init_state_dict(cfg, seed=0), device)
+    labels = label_params(model, cfg.optim.frozen_stages)
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] != "frozen")
+    batch = train_batch(cfg, seed=1, device=device)
+    log(f"[witness] {cfg.name} at {cfg.data.num_cams} x {cfg.data.img_size} images, "
+        f"queue {cfg.data.queue_length}, eval mode; errors are |loss| relative and "
+        f"||kernel - plain|| / ||plain|| of each gradient group")
+
+    def runs():
+        kernel = train_grads(model, batch)
+        counts = read_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        with plain_kernels(recompute=True):
+            plain = train_grads(model, batch)
+        peak = torch.cuda.max_memory_allocated(device)
+        check(read_counts() == counts, "the plain run launched a kernel")
+        return kernel, plain, peak
+
+    kernel, plain, peak = runs()
+    with plain_kernels(noise=WITNESS_NOISE, recompute=True):
+        noisy = train_grads(model, batch)
+    kernel_errs, noise_errs = grad_errors(kernel, plain), grad_errors(noisy, plain)
+    log(f"[witness] undamped: kernel vs plain: {fmt_errors(kernel_errs)}; plain x (1 + "
+        f"{WITNESS_NOISE:.0e} N(0,1)) at every msda and DCN output and input gradient vs "
+        f"plain: {fmt_errors(noise_errs)} (kernel must stay within {WITNESS_FACTOR:g}x); "
+        f"plain path peak memory {peak / 2**30:.2f} GiB; card: {smi}")
+    for key, e in kernel_errs.items():
+        check(e <= WITNESS_FACTOR * max(noise_errs[key], 1e-7),
+              f"{key}: kernel vs plain {e:.2e} > {WITNESS_FACTOR:g} x {noise_errs[key]:.2e}")
+
+    # damped, the decoder no longer amplifies rounding: the loss and the
+    # transformer-side groups are held to TRAIN_TOL. The backbone's gradient
+    # still moves where one of its ~1e8 ReLU inputs sits within fp32
+    # rounding of 0 and flips between the two paths, which the damping does
+    # not reach: it is held to the noisy witness, as undamped
+    damp_box_refinement(model)
+    kernel, plain, _ = runs()
+    with plain_kernels(noise=WITNESS_NOISE, recompute=True):
+        noisy = train_grads(model, batch)
+    errs, noise_errs = grad_errors(kernel, plain), grad_errors(noisy, plain)
+    log(f"[witness] reg branch outputs x0.1: kernel vs plain: {fmt_errors(errs)} "
+        f"(tol {TRAIN_TOL:.0e}; backbone within {WITNESS_FACTOR:g}x of noisy); noisy plain vs "
+        f"plain: {fmt_errors(noise_errs)}")
+    for key, e in errs.items():
+        limit = WITNESS_FACTOR * max(noise_errs[key], 1e-7) if key == "backbone" else TRAIN_TOL
+        check(e <= limit, f"{key}: kernel vs plain {e:.2e} > {limit:.2e}")
+    del model, batch, kernel, plain, noisy
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -429,28 +753,45 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(0)
     k1_rows = check_k1(device, gen)
     k2_rows = check_k2(device, gen)
+    k34_rows = check_k34(device, gen)
+    im2col_rows, col2im_rows = check_k56(device, gen)
+    torch.cuda.empty_cache()
+    tr = check_training(device, smi)
+    torch.cuda.empty_cache()
+    check_training_witness(device, smi)
     torch.cuda.empty_cache()
     sl = check_slice(device, smi)
     profile_frame(sl["model"], sl["video"], smi)
 
-    def record(name, src, replaces, launches, rows):
+    def record(name, src, replaces, rows, per):
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches,
+            launches=tr["counts"][name],
             max_abs_err=max(r["max_abs_err"] for r in rows),
-            # one frame's worth of launches at the path's shapes
-            ms=sum(r["ms"] * r["per_frame"] for r in rows),
-            plain_ms=sum(r["plain_ms"] * r["per_frame"] for r in rows),
+            # one frame's (forward kernels) or one training step's (backward
+            # kernels) worth of launches at the path's shapes
+            ms=sum(r["ms"] * r[per] for r in rows),
+            plain_ms=sum(r["plain_ms"] * r[per] for r in rows),
             shapes=rows,
         )
 
     kernels = [
         record("msda_fwd", "bevformer_torch/csrc/msda_fwd.cu",
-               "bevformer_tpu/kernels/msda_hi.py:243", sl["k1"], k1_rows),
+               "bevformer_tpu/kernels/msda_hi.py:243", k1_rows, "per_frame"),
         record("dcn_conv_fwd", "bevformer_torch/csrc/dcn_conv_fwd.cu",
-               "bevformer_tpu/kernels/dcn_pallas.py:329", sl["k2"], k2_rows),
+               "bevformer_tpu/kernels/dcn_pallas.py:329", k2_rows, "per_frame"),
+        record("msda_bwd", "bevformer_torch/csrc/msda_bwd.cu",
+               "bevformer_tpu/kernels/msda_hi.py:744", k34_rows, "per_step"),
+        record("dcn_im2col", "bevformer_torch/csrc/dcn_im2col.cu",
+               "bevformer_tpu/kernels/dcn_pallas.py:112", im2col_rows, "per_step"),
+        record("dcn_col2im", "bevformer_torch/csrc/dcn_col2im.cu",
+               "bevformer_tpu/kernels/msda_pallas.py:318", col2im_rows, "per_step"),
     ]
-    log(f"[summary] frame median {sl['median_ms']:.1f} ms, peak {sl['peak_gib']:.2f} GiB "
+    # launches: the training run's (all five kernels); the inference run's too
+    kernels[0]["inference_launches"] = sl["k1"]
+    kernels[1]["inference_launches"] = sl["k2"]
+    log(f"[summary] training step median {tr['median_ms']:.1f} ms, peak {tr['peak_gib']:.2f} GiB; "
+        f"inference frame median {sl['median_ms']:.1f} ms, peak {sl['peak_gib']:.2f} GiB; "
         f"on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,7 +49,7 @@ def test_temporal_self_attention_matches_jax():
     params = _init(jmod, rng, *args, bev_h, bev_w)
     expect = jmod.apply({"params": params}, *args, bev_h, bev_w)
 
-    mod = att.TemporalSelfAttention(E, H)
+    mod = att.TemporalSelfAttention(E, H).eval()  # no dropout, as JAX's default
     mod.load_state_dict(dense_state_dict(params))
     with torch.no_grad():
         out = mod(t(query), t(value_queue), t(pos), t(ref), bev_h, bev_w)
@@ -86,7 +86,7 @@ def test_spatial_cross_attention_matches_jax(capacity):
     params = _init(jmod, rng, *args, SHAPES)
     expect = jmod.apply({"params": params}, *args, SHAPES)
 
-    mod = att.SpatialCrossAttention(E, 6, H, 4, 8)
+    mod = att.SpatialCrossAttention(E, 6, H, 4, 8).eval()
     mod.load_state_dict(dense_state_dict(params))
     routing = att.sca_capacity_routing(t(bev_mask), capacity) if capacity else None
     with torch.no_grad():
@@ -117,7 +117,7 @@ def test_decoder_cross_attention_matches_jax():
     params = _init(jmod, rng, *args, shapes)
     expect = jmod.apply({"params": params}, *args, shapes)
 
-    mod = att.CustomMSDeformableAttention(E, H)
+    mod = att.CustomMSDeformableAttention(E, H).eval()
     mod.load_state_dict(dense_state_dict(params))
     with torch.no_grad():
         out = mod(t(query), t(value), t(pos), t(ref), shapes)
@@ -134,7 +134,7 @@ def test_decoder_self_attention_matches_jax():
     )
     expect = jmod.apply({"params": params}, jnp.asarray(query), query_pos=jnp.asarray(pos))
 
-    mod = MultiheadAttention(E, H)
+    mod = MultiheadAttention(E, H).eval()
     names = ("q_proj", "k_proj", "v_proj")
     mod.load_state_dict({
         "attn.in_proj_weight": t(np.concatenate([params[n]["kernel"].T for n in names])),

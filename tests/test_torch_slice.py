@@ -145,31 +145,72 @@ def test_scene_reset_and_history(runs):
 
 
 def test_call_sites_meet_the_kernel_contract(monkeypatch):
-    """Every msda and DCN call of the inference path hands its kernel what
-    the CUDA wrapper accepts (shapes, fp32, contiguity), checked here with
-    the wrappers' own checks in front of the plain versions."""
+    """Every msda and DCN call of the inference path, and of a training
+    step's forward and backward, hands its kernel what the CUDA wrapper
+    accepts (shapes, fp32, contiguity), checked here with the wrappers' own
+    checks in front of the plain versions. The training step runs through
+    the kernels' autograd Functions, so the gradients that autograd hands
+    their backward (often strided views) meet the backward kernels'
+    checks too."""
+    import dataclasses
+
+    from bevformer_torch.data import train_batch
     from bevformer_torch.kernels import dcn, msda
     from bevformer_torch.models import attention, resnet
-    from bevformer_torch.runtime import init_state_dict
+    from bevformer_torch.runtime import Trainer, init_state_dict
 
-    calls = {"msda": 0, "dcn": 0}
+    calls = dict.fromkeys(("msda", "msda_bwd", "dcn", "im2col", "col2im"), 0)
 
-    def msda_checked(value, shapes, loc, attw):
+    def msda_fwd_checked(value, shapes, loc, attw):
         msda._check(value, tuple(shapes), loc, attw)
         calls["msda"] += 1
         return msda.ms_deform_attn_plain(value, shapes, loc, attw)
 
-    def dcn_checked(x, off_y, off_x, mask, weight, stride):
+    def msda_bwd_checked(value, shapes, loc, attw, grad_out):
+        msda._check(value, tuple(shapes), loc, attw)
+        msda._check_grad(value, loc, grad_out)
+        calls["msda_bwd"] += 1
+        return msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, grad_out)
+
+    def dcn_fwd_checked(x, off_y, off_x, mask, weight, stride):
         dcn._check(x, off_y, off_x, mask, weight, stride)
         calls["dcn"] += 1
         return dcn.dcn_conv_plain(x, off_y, off_x, mask, weight, stride)
 
-    monkeypatch.setattr(attention, "ms_deform_attn", msda_checked)
-    monkeypatch.setattr(resnet, "dcn_conv", dcn_checked)
+    def im2col_checked(x, off_y, off_x, mask, stride):
+        dcn._check_sampling(x, off_y, off_x, mask, stride)
+        calls["im2col"] += 1
+        return dcn.dcn_im2col_plain(x, off_y, off_x, mask, stride)
+
+    def col2im_checked(x, off_y, off_x, mask, dcols, stride):
+        dcn._check_sampling(x, off_y, off_x, mask, stride)
+        dcn._check_tensor("dcols", dcols, x.device)
+        calls["col2im"] += 1
+        return dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols, stride)
+
+    # the call sites run the kernels' autograd Functions, with each launch
+    # replaced by its checked plain version
+    monkeypatch.setattr(msda, "_launch_fwd", msda_fwd_checked)
+    monkeypatch.setattr(msda, "ms_deform_attn_backward", msda_bwd_checked)
+    monkeypatch.setattr(dcn, "_launch_fwd", dcn_fwd_checked)
+    monkeypatch.setattr(dcn, "dcn_im2col", im2col_checked)
+    monkeypatch.setattr(dcn, "dcn_col2im", col2im_checked)
+    monkeypatch.setattr(attention, "ms_deform_attn", lambda v, s, loc, w: msda._MSDeformAttn.apply(
+        v, loc, w, tuple((int(h), int(ww)) for h, ww in s)))
+    monkeypatch.setattr(resnet, "dcn_conv", lambda *a: dcn._DCNConv.apply(*a))
     cfg = port_config(JCFG)
     model = build_model(cfg, init_state_dict(cfg, seed=0))
     VideoEvaluator(model).run(SyntheticVideo(cfg, (2,), seed=1), progress_every=0)
     # per frame: (TSA + SCA) per encoder layer + one per decoder layer; one
     # DCN in each of the 2 blocks of stages 3-4 at depth 10
     per_frame = 2 * cfg.encoder_layers + cfg.decoder_layers
-    assert calls == {"msda": 2 * per_frame, "dcn": 2 * 2}
+    assert calls == dict(msda=2 * per_frame, msda_bwd=0, dcn=2 * 2, im2col=0, col2im=0)
+
+    # one train-mode step on a queue of 2: the history frame runs the
+    # encoder only, the trained frame runs everything and its backward
+    calls.update(dict.fromkeys(calls, 0))
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, queue_length=2))
+    out = Trainer(model, total_steps=10).step(train_batch(cfg, seed=2))
+    assert all(np.isfinite(v) for v in out.values()), out
+    assert calls == dict(msda=2 * cfg.encoder_layers + per_frame, msda_bwd=per_frame,
+                         dcn=2 * 2, im2col=2, col2im=2)

@@ -22,7 +22,7 @@ from bevformer_tpu.configs import DataConfig as JaxData
 from bevformer_tpu.configs import get_config as jax_get_config
 from bevformer_tpu.models import BEVFormer as JaxBEVFormer
 from bevformer_tpu.runtime.checkpoint import export_reference_state_dict
-from bevformer_torch.configs import BEVFormerConfig, DataConfig, get_config
+from bevformer_torch.configs import BEVFormerConfig, DataConfig, OptimConfig, get_config
 from bevformer_torch.models import BEVFormer
 from bevformer_torch.runtime.checkpoint import (
     build_model,
@@ -32,17 +32,19 @@ from bevformer_torch.runtime.checkpoint import (
 from tests.torch_port_helpers import port_config
 
 
-@pytest.mark.parametrize("cls", [BEVFormerConfig, DataConfig])
+@pytest.mark.parametrize("cls", [BEVFormerConfig, DataConfig, OptimConfig])
 def test_base_preset_holds_the_jax_values(cls):
     ours, ref = get_config("bevformer_base"), jax_get_config("bevformer_base")
     if cls is DataConfig:
         ours, ref = ours.data, ref.data
+    elif cls is OptimConfig:
+        ours, ref = ours.optim, ref.optim
     for f in dataclasses.fields(cls):
-        if f.name != "data":
+        if f.name not in ("data", "optim"):
             assert getattr(ours, f.name) == getattr(ref, f.name), f.name
     if cls is DataConfig:
         assert ours.img_size == ref.img_size == (928, 1600)
-    else:
+    elif cls is BEVFormerConfig:
         assert ours.grid_length == ref.grid_length
         assert port_config(ref) == ours  # and the hard-coded settings agree
 

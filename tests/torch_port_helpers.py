@@ -77,16 +77,15 @@ PORT_FIXED = dict(backbone_style="caffe", rotate_prev_bev=True, use_shift=True,
 def port_config(jcfg, **kw):
     """The port's config with the values of a JAX config, which must hold
     the values the port hard-codes."""
-    from bevformer_torch.configs import BEVFormerConfig, DataConfig
+    from bevformer_torch.configs import BEVFormerConfig, DataConfig, OptimConfig
 
     fixed = {k: getattr(jcfg, k) for k in PORT_FIXED}
     assert fixed == PORT_FIXED and not jcfg.data.to_rgb, (fixed, jcfg.data.to_rgb)
-    data = {
-        f.name: getattr(jcfg.data, f.name) for f in dataclasses.fields(DataConfig)
-    }
-    top = {
-        f.name: getattr(jcfg, f.name)
-        for f in dataclasses.fields(BEVFormerConfig) if f.name != "data"
-    }
-    top.update(kw)
-    return BEVFormerConfig(data=DataConfig(**data), **top)
+
+    def fields(cls, src):
+        return {f.name: getattr(src, f.name) for f in dataclasses.fields(cls)}
+
+    top = fields(BEVFormerConfig, jcfg)
+    top.update(data=DataConfig(**fields(DataConfig, jcfg.data)),
+               optim=OptimConfig(**fields(OptimConfig, jcfg.optim)), **kw)
+    return BEVFormerConfig(**top)
