@@ -19,6 +19,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from bevformer_torch.device import DEFAULT as DEFAULT_DEVICE
+from bevformer_torch.device import resolve as resolve_device
 from bevformer_torch.runtime.train import Batch
 
 CAM_ORDER = (
@@ -110,7 +112,8 @@ def _noise_images(cfg, n: int, seed: int, device) -> torch.Tensor:
 NUM_OBJECTS = 12  # GT boxes per training sample (`generate`'s default)
 
 
-def train_batch(cfg, seed: int = 0, device="cpu", scene_break_at: Optional[int] = None) -> Batch:
+def train_batch(cfg, seed: int = 0, device=DEFAULT_DEVICE,
+                scene_break_at: Optional[int] = None) -> Batch:
     """One seeded training sample (batch 1) of `cfg.data.queue_length`
     frames: noise images, the six rigs' `lidar2img`, CAN-bus deltas of one
     moving ego pose in the dataset's union2one packing, and `NUM_OBJECTS`
@@ -120,8 +123,9 @@ def train_batch(cfg, seed: int = 0, device="cpu", scene_break_at: Optional[int] 
     z in [-1.5, 0.5] m, w/l/h = |N(0, 1)| * 0.8 + (1.9, 4.5, 1.7) m, yaw in
     [-pi, pi), velocity N(0, 0.5^2) m/s and labels 0-9. `scene_break_at`:
     that frame starts a new scene (its `prev_exists` is false and its
-    CAN-bus deltas restart from zero)."""
-    device = torch.device(device)
+    CAN-bus deltas restart from zero). Made on the card unless `device`
+    says otherwise."""
+    device = resolve_device(device)
     rng = np.random.RandomState(seed)
     t_len = cfg.data.queue_length
     raw_h, raw_w = cfg.data.resized_size
@@ -181,14 +185,15 @@ class SyntheticVideo:
     `get_test_sample` like the dataset's test samples.
 
     Images are uniform noise in [0, 255] per pixel minus the config's mean,
-    divided by its std, made on `device` from `seed`; the rigs are those
+    divided by its std, made on `device` (the card unless the caller asks
+    for another) from `seed`; the rigs are those
     of `camera_rigs` at the raw image size (padding to `img_size` adds
     rows at the bottom and leaves the projection as it is)."""
 
     def __init__(self, cfg, scene_lengths: Sequence[int] = (3, 1), seed: int = 0,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.seed = seed
         rng = np.random.RandomState(seed)
         raw_h, raw_w = cfg.data.resized_size

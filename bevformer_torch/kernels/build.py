@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by its own `nvcc` for `sm_90a` (Hopper),
-all of them at once, and linked into one shared library with a plain C
-interface, which `ctypes` loads. The library is built at first use into
-`bevformer_torch/build/`, keyed by a hash of the sources and flags, so a
+Every `csrc/*.cu` file (with the `csrc/*.cuh` headers it includes) is
+compiled by its own `nvcc` for `sm_90a` (Hopper), all of them at once, and
+linked into one shared library with a plain C interface, which `ctypes`
+loads. The library is built at first use into `bevformer_torch/build/`,
+keyed by a hash of the sources, headers and flags, so a
 fresh checkout builds it on its first kernel call and later processes
 reuse it.
 
@@ -42,6 +43,14 @@ SIGNATURES = {
     # value, loc, attw, out, level_hw (host int32 [2L]), L, B, K, Q, H, D, P,
     # stream
     "msda_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # msda_fwd's arguments with the probe mode (1 gather, 2 weights, 3 noop)
+    # before the stream
+    "msda_fwd_probe": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # msda_fwd's arguments with the mode (0 full, 1-3 as above), the
+    # queries per block and the accumulators per lane before the stream
+    "msda_fwd_ho": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # src, idx (int32), out, B, M, R, row bytes, stream
+    "row_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, off_y, off_x, mask, weight, out, B, H, W, C, OH, OW, Cout, stride,
     # stream
     "dcn_conv_fwd": [_P, _P, _P, _P, _P, _P,
@@ -63,6 +72,10 @@ def sources():
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def headers():
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     # CUDA_HOME as PyTorch resolves it (env var, nvcc on PATH, or the
     # toolkit's default prefix)
@@ -80,7 +93,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -153,6 +166,12 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+CUDA_ERROR_INVALID_VALUE = 1
+
+
 def check_launch(name: str, rc: int) -> None:
+    if rc == CUDA_ERROR_INVALID_VALUE:
+        raise RuntimeError(f"{name}: the kernel does not take these arguments "
+                           f"(cudaErrorInvalidValue)")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

@@ -15,6 +15,13 @@ as a `torch.autograd.Function` whose backward is `ms_deform_attn_backward`
 `ms_deform_attn_plain` under ordinary autograd on a CPU tensor. The
 backward's plain version `ms_deform_attn_backward_plain` is autograd
 through `ms_deform_attn_plain`.
+
+`ms_deform_attn_ho` computes the same forward with the heads-outer kernel
+`csrc/msda_fwd_ho.cu` (the counterpart of the JAX package's
+`msda_pallas.py::_kernel`), forward only. `msda_probe` runs either forward
+kernel in one of the cost-split modes of `csrc/msda_fwd.cuh` (and the
+heads-outer one at another tile), for the probes in `bevformer_torch/tools`;
+`msda_probe_plain` is each mode's plain version.
 """
 
 from __future__ import annotations
@@ -38,6 +45,13 @@ def ms_deform_attn_plain(
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
     """Gather formulation of msda in plain PyTorch (any device)."""
+    return _corner_sum(value, spatial_shapes, sampling_locations, attention_weights)
+
+
+def _corner_sum(value, spatial_shapes, sampling_locations, attention_weights,
+                unit_weights: bool = False) -> torch.Tensor:
+    """Sum over (level, point, in-bounds corner) of the corner's value times
+    bilinear weight * attw, or times 1 with `unit_weights`."""
     b, k, h, d = value.shape
     _, q, _, l, p, _ = sampling_locations.shape
     assert sum(hh * ww for hh, ww in spatial_shapes) == k, (spatial_shapes, k)
@@ -50,26 +64,9 @@ def ms_deform_attn_plain(
     for lvl, (hh, ww) in enumerate(spatial_shapes):
         val_l = val[:, start:start + hh * ww]
         start += hh * ww
-        x = loc[:, :, :, lvl, :, 0] * ww - 0.5  # [B, Q, H, P]
-        y = loc[:, :, :, lvl, :, 1] * hh - 0.5
-        x0 = torch.floor(x)
-        y0 = torch.floor(y)
-        tx = x - x0
-        ty = y - y0
-        x0i = x0.long()
-        y0i = y0.long()
         w_l = attw[:, :, :, lvl, :]
-        for dy, dx, wgt in (
-            (0, 0, (1 - tx) * (1 - ty)),
-            (0, 1, tx * (1 - ty)),
-            (1, 0, (1 - tx) * ty),
-            (1, 1, tx * ty),
-        ):
-            cx = x0i + dx
-            cy = y0i + dy
-            valid = (cx >= 0) & (cx < ww) & (cy >= 0) & (cy < hh)
-            idx = cy.clamp(0, hh - 1) * ww + cx.clamp(0, ww - 1)
-            cw = wgt * w_l * valid.float()
+        for idx, wgt, valid in _corners(loc[:, :, :, lvl], hh, ww):
+            cw = valid.float() if unit_weights else wgt * w_l * valid.float()
             idx_bh = idx.transpose(1, 2).reshape(b * h, q * p)
             cw_bh = cw.transpose(1, 2).reshape(b * h, q, p)
             g = torch.gather(
@@ -79,6 +76,30 @@ def ms_deform_attn_plain(
 
     out = out.view(b, h, q, d).transpose(1, 2).reshape(b, q, h * d)
     return out.to(value.dtype)
+
+
+def _corners(loc_l: torch.Tensor, hh: int, ww: int):
+    """The four bilinear corners of one level's locations [B, Q, H, P, 2]:
+    for each, the clamped pixel index (long), the bilinear weight and
+    whether the corner lies on the map, each [B, Q, H, P]."""
+    x = loc_l[..., 0] * ww - 0.5
+    y = loc_l[..., 1] * hh - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    tx = x - x0
+    ty = y - y0
+    x0i = x0.long()
+    y0i = y0.long()
+    for dy, dx, wgt in (
+        (0, 0, (1 - tx) * (1 - ty)),
+        (0, 1, tx * (1 - ty)),
+        (1, 0, (1 - tx) * ty),
+        (1, 1, tx * ty),
+    ):
+        cx = x0i + dx
+        cy = y0i + dy
+        valid = (cx >= 0) & (cx < ww) & (cy >= 0) & (cy < hh)
+        yield cy.clamp(0, hh - 1) * ww + cx.clamp(0, ww - 1), wgt, valid
 
 
 def _check(value, spatial_shapes, loc, attw):
@@ -119,7 +140,20 @@ def _level_hw(spatial_shapes: Shapes) -> np.ndarray:
     return np.asarray(spatial_shapes, dtype=np.int32).reshape(-1)
 
 
-def _launch_fwd(value, spatial_shapes, loc, attw) -> torch.Tensor:
+def _cuda_args(name, value, spatial_shapes, loc, attw):
+    """The checked spatial shapes, as ints, of a call that launches a
+    kernel; a tensor on neither the CPU nor a card raises."""
+    if value.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {value.device}")
+    spatial_shapes = tuple((int(hh), int(ww)) for hh, ww in spatial_shapes)
+    _check(value, spatial_shapes, loc, attw)
+    return spatial_shapes
+
+
+def _launch(entry: str, value, spatial_shapes, loc, attw, *extra: int) -> torch.Tensor:
+    """One launch of a forward entry (`msda_fwd`, `msda_fwd_probe`,
+    `msda_fwd_ho`), whose C arguments are value, loc, attw, out, level_hw,
+    L, B, K, Q, H, D, P, then `extra`, then the stream."""
     b, k, h, d = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
     out = torch.empty((b, q, h * d), dtype=torch.float32, device=value.device)
@@ -127,11 +161,16 @@ def _launch_fwd(value, spatial_shapes, loc, attw) -> torch.Tensor:
     lib = build.library()
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.msda_fwd(
+        rc = getattr(lib, entry)(
             value.data_ptr(), loc.data_ptr(), attw.data_ptr(), out.data_ptr(),
-            level_hw.ctypes.data, l, b, k, q, h, d, p, stream,
+            level_hw.ctypes.data, l, b, k, q, h, d, p, *extra, stream,
         )
-    build.check_launch("msda_fwd", rc)
+    build.check_launch(entry, rc)
+    return out
+
+
+def _launch_fwd(value, spatial_shapes, loc, attw) -> torch.Tensor:
+    out = _launch("msda_fwd", value, spatial_shapes, loc, attw)
     ms_deform_attn.launches += 1
     return out
 
@@ -169,10 +208,8 @@ def ms_deform_attn(
         return ms_deform_attn_plain(
             value, spatial_shapes, sampling_locations, attention_weights
         )
-    if value.device.type != "cuda":
-        raise ValueError(f"ms_deform_attn: unsupported device {value.device}")
-    spatial_shapes = tuple((int(hh), int(ww)) for hh, ww in spatial_shapes)
-    _check(value, spatial_shapes, sampling_locations, attention_weights)
+    spatial_shapes = _cuda_args("ms_deform_attn", value, spatial_shapes,
+                                sampling_locations, attention_weights)
     return _MSDeformAttn.apply(
         value, sampling_locations, attention_weights, spatial_shapes
     )
@@ -206,10 +243,7 @@ def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
     for a CPU tensor, the CUDA kernel `msda_bwd` for a CUDA tensor."""
     if value.device.type == "cpu":
         return ms_deform_attn_backward_plain(value, spatial_shapes, loc, attw, grad_out)
-    if value.device.type != "cuda":
-        raise ValueError(f"ms_deform_attn_backward: unsupported device {value.device}")
-    spatial_shapes = tuple((int(hh), int(ww)) for hh, ww in spatial_shapes)
-    _check(value, spatial_shapes, loc, attw)
+    spatial_shapes = _cuda_args("ms_deform_attn_backward", value, spatial_shapes, loc, attw)
     _check_grad(value, loc, grad_out)
     b, k, h, d = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
@@ -231,3 +265,91 @@ def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
 
 
 ms_deform_attn_backward.launches = 0
+
+
+# ---------------------------------------------------------------- K7 and probes
+
+PROBE_MODES = ("full", "gather", "weights", "noop")  # csrc/msda_fwd.cuh MsdaMode
+# the (queries per block, accumulators per lane) instantiations of
+# csrc/msda_fwd_ho.cu, whose C entry refuses any other, and one too large
+# for shared memory, with cudaErrorInvalidValue
+HO_TILES = (8, 16, 32, 64)
+HO_ACCS = (1, 2)
+HO_TILE, HO_ACC = 16, 1  # ms_deform_attn_ho's, and the other modes' (the fastest of the sweep)
+
+
+def msda_probe_plain(mode: str, value, spatial_shapes, loc, attw) -> torch.Tensor:
+    """The plain version of each probe mode, [B, Q, H*D] fp32 (see
+    csrc/msda_fwd.cuh): `full` the msda; `gather` the sum over (level,
+    point) of the in-bounds corners' values; `weights` the sum of the
+    in-bounds corners' bilinear weight * attw and `noop` the sum of attw,
+    both the same in every channel."""
+    if mode == "full":
+        return ms_deform_attn_plain(value, spatial_shapes, loc, attw)
+    if mode not in PROBE_MODES:
+        raise ValueError(f"unknown probe mode {mode!r}: {PROBE_MODES}")
+    b, k, h, d = value.shape
+    q = loc.shape[1]
+    attw = attw.float()
+    if mode == "noop":
+        per_head = attw.sum((3, 4))
+    elif mode == "weights":
+        per_head = attw.new_zeros((b, q, h))
+        for lvl, (hh, ww) in enumerate(spatial_shapes):
+            for _, wgt, valid in _corners(loc[:, :, :, lvl].float(), hh, ww):
+                per_head += (wgt * attw[:, :, :, lvl] * valid.float()).sum(-1)
+    else:  # gather: ms_deform_attn_plain with unit weights
+        return _corner_sum(value, spatial_shapes, loc, attw, unit_weights=True)
+    return per_head[..., None].expand(b, q, h, d).reshape(b, q, h * d)
+
+
+def _launch_ho(value, spatial_shapes, loc, attw, mode: str, tile: int, acc: int):
+    return _launch("msda_fwd_ho", value, spatial_shapes, loc, attw,
+                   PROBE_MODES.index(mode), tile, acc)
+
+
+def ms_deform_attn_ho(value, spatial_shapes, sampling_locations, attention_weights):
+    """msda forward by the heads-outer kernel K7 (`csrc/msda_fwd_ho.cu`, at
+    tile HO_TILE, HO_ACC accumulators): the plain version for a CPU tensor,
+    the kernel for a CUDA tensor. Same function and layouts as
+    `ms_deform_attn`. Forward only, not differentiable: the model's msda
+    runs K1 and its backward kernel through `ms_deform_attn`."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
+                                    attention_weights)
+    shapes = _cuda_args("ms_deform_attn_ho", value, spatial_shapes, sampling_locations,
+                        attention_weights)
+    out = _launch_ho(value, shapes, sampling_locations, attention_weights, "full",
+                     HO_TILE, HO_ACC)
+    ms_deform_attn_ho.launches += 1
+    return out
+
+
+ms_deform_attn_ho.launches = 0
+
+
+def msda_probe(kernel: str, mode: str, value, spatial_shapes, sampling_locations,
+               attention_weights, tile: int = HO_TILE, acc: int = HO_ACC) -> torch.Tensor:
+    """One probe launch: `kernel` "hi" (K1, `csrc/msda_fwd.cu`; modes gather,
+    weights, noop: its `full` is `ms_deform_attn`) or "ho" (K7,
+    `csrc/msda_fwd_ho.cu`; `full` at any (tile, acc) of HO_TILES x HO_ACCS,
+    the other modes at HO_TILE, HO_ACC). The plain version
+    `msda_probe_plain(mode, ...)` for a CPU tensor, the kernel for a CUDA
+    tensor. Forward only."""
+    if kernel not in ("hi", "ho") or mode not in PROBE_MODES or (kernel, mode) == ("hi", "full"):
+        raise ValueError(f"no probe {kernel!r} {mode!r}")
+    if value.device.type == "cpu":
+        return msda_probe_plain(mode, value, spatial_shapes, sampling_locations,
+                                attention_weights)
+    shapes = _cuda_args("msda_probe", value, spatial_shapes, sampling_locations,
+                        attention_weights)
+    if kernel == "ho":
+        out = _launch_ho(value, shapes, sampling_locations, attention_weights, mode, tile, acc)
+    else:
+        out = _launch("msda_fwd_probe", value, shapes, sampling_locations, attention_weights,
+                      PROBE_MODES.index(mode))
+    msda_probe.launches += 1
+    return out
+
+
+msda_probe.launches = 0

@@ -7,7 +7,7 @@
 * `init_state_dict(cfg, seed)`: seeded numpy weights for every key, for
   runs with no JAX checkpoint at hand.
 * `build_model(cfg, state_dict, device)`: the port's model with those
-  weights, on `device`.
+  weights, on `device` (default: the card).
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from bevformer_torch.device import DEFAULT as DEFAULT_DEVICE
+from bevformer_torch.device import resolve as resolve_device
 from bevformer_torch.models import BEVFormer
 from bevformer_torch.models.attention import (
     CustomMSDeformableAttention,
@@ -284,9 +286,11 @@ def init_state_dict(cfg, seed: int = 0) -> StateDict:
     return sd
 
 
-def build_model(cfg, state_dict: Mapping[str, Any], device="cpu") -> BEVFormer:
+def build_model(cfg, state_dict: Mapping[str, Any], device=DEFAULT_DEVICE) -> BEVFormer:
     """The port's model holding `state_dict` (numpy or torch values),
-    evaluated on `device`. Every key must match (strict load)."""
+    evaluated on `device` (the card unless the caller asks for another).
+    Every key must match (strict load)."""
+    device = resolve_device(device)
     with torch.device("meta"):
         model = BEVFormer(cfg)
     tensors = {k: torch.as_tensor(np.array(v, np.float32)) for k, v in state_dict.items()}

@@ -1,0 +1,133 @@
+"""The least time the card could take for each kernel's call, from its shapes.
+
+Plain Python on shapes; it runs anywhere and measures nothing. For each call
+it counts the bytes the function must move and the operations it must do:
+
+- every input byte is read once and every output byte written once, however
+  often the kernel reads it again; for msda the whole value tensor counts
+  as read once (the samples may touch any of it);
+- operations are fp32 arithmetic, an FMA counted as two: per msda sample
+  (batch, query, head, level, point) 14 for the pixel position and the four
+  corner weights, and per channel 2 for each of the four corners it sums;
+  per DCN tap and channel 8 for the four corners, and 2 * Cout for the
+  contraction.
+
+`bound_ms` is the larger of bytes over the memory rate and operations over
+the fp32 rate outside the tensor cores (every kernel of the port computes in
+fp32 on the SIMT units today), and `bound_by` names which. The rates are
+the NVIDIA H100 SXM data sheet's, at its 700 W power limit; a card set below
+it runs slower under load, so a measurement states its card's `nvidia-smi`
+name and power limit beside its share of the bound.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence, Tuple
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+PEAKS = "H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s fp32 (SIMT), 700 W"
+
+F32 = 4
+SAMPLE_FLOPS = 14  # pixel position and four corner weights of one msda sample
+
+
+@dataclass(frozen=True)
+class Cost:
+    bytes: float
+    flops: float
+
+    @property
+    def bytes_ms(self) -> float:
+        return self.bytes / HBM_BYTES_PER_S * 1e3
+
+    @property
+    def flops_ms(self) -> float:
+        return self.flops / FP32_FLOPS * 1e3
+
+    @property
+    def bound_ms(self) -> float:
+        return max(self.bytes_ms, self.flops_ms)
+
+    @property
+    def bound_by(self) -> str:
+        return "bytes" if self.bytes_ms >= self.flops_ms else "operations"
+
+    def as_dict(self) -> dict:
+        return dict(bytes=self.bytes, flops=self.flops, bound_ms=self.bound_ms,
+                    bound_by=self.bound_by)
+
+
+def total(calls: Sequence[Tuple[Cost, int]]) -> dict:
+    """The bound of `n` launches of each call, summed call by call; bound by
+    what bounds the call that contributes most."""
+    bound = sum(c.bound_ms * n for c, n in calls)
+    top = max(calls, key=lambda cn: cn[0].bound_ms * cn[1])[0]
+    return dict(bound_ms=bound, bound_by=top.bound_by)
+
+
+def msda_fwd(b: int, q: int, h: int, d: int, shapes, p: int, mode: str = "full") -> Cost:
+    """One msda forward (K1, K7) or one of its probe modes: value [b, K, h, d],
+    loc [b, q, h, L, p, 2], attw [b, q, h, L, p] -> out [b, q, h*d], fp32.
+    `gather` needs no attw, `weights` and `noop` no value; `weights` adds
+    the four corner weights, `noop` sums attw."""
+    k = sum(hh * ww for hh, ww in shapes)
+    samples = b * q * h * len(shapes) * p
+    value, loc, attw, out = b * k * h * d * F32, samples * 2 * F32, samples * F32, b * q * h * d * F32
+    if mode == "full":
+        return Cost(value + loc + attw + out, samples * (SAMPLE_FLOPS + 8 * d))
+    if mode == "gather":
+        return Cost(value + loc + out, samples * (SAMPLE_FLOPS + 4 * d))
+    if mode == "weights":
+        return Cost(loc + attw + out, samples * (SAMPLE_FLOPS + 4))
+    if mode == "noop":
+        return Cost(loc + attw + out, samples)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def msda_bwd(b: int, q: int, h: int, d: int, shapes, p: int) -> Cost:
+    """One msda backward (K3/K4): reads value, loc, attw and grad_out, writes
+    dvalue, dloc and dattw. Per sample and channel: the four corners
+    resampled (8), the dAttw dot (2), the dLoc dots of corner differences
+    (8) and the four dValue adds (8)."""
+    k = sum(hh * ww for hh, ww in shapes)
+    samples = b * q * h * len(shapes) * p
+    value, loc, attw, out = b * k * h * d * F32, samples * 2 * F32, samples * F32, b * q * h * d * F32
+    return Cost(2 * (value + loc + attw) + out, samples * (SAMPLE_FLOPS + 26 * d))
+
+
+def _dcn_sizes(b, h, w, c, stride):
+    oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+    taps = b * oh * ow * 9
+    # x, and off_y, off_x and mask [b, oh, ow, 9]
+    return b * oh * ow, taps, b * h * w * c * F32, 3 * taps * F32
+
+
+def dcn_conv(b: int, h: int, w: int, c: int, cout: int, stride: int = 1) -> Cost:
+    """One DCNv2 forward (K2): x [b, h, w, c], offsets and mask, weight
+    [9c, cout] -> out [b, oh, ow, cout]; sampling (8 per tap and channel)
+    and the contraction (2 * cout per tap and channel)."""
+    pixels, taps, x, offsets = _dcn_sizes(b, h, w, c, stride)
+    return Cost(x + offsets + 9 * c * cout * F32 + pixels * cout * F32,
+                taps * c * (8 + 2 * cout))
+
+
+def dcn_im2col(b: int, h: int, w: int, c: int, stride: int = 1) -> Cost:
+    """One modulated im2col (K5): x and offsets -> cols [b*oh*ow, 9c]."""
+    _, taps, x, offsets = _dcn_sizes(b, h, w, c, stride)
+    return Cost(x + offsets + taps * c * F32, taps * c * 8)
+
+
+def dcn_col2im(b: int, h: int, w: int, c: int, stride: int = 1) -> Cost:
+    """One DCN col2im (K6): x, offsets and dcols [b*oh*ow, 9c] -> dx, d
+    offsets, dmask. Per tap and channel: dx's four corner adds (8), the
+    resample for dmask (8) and the offset slopes (8)."""
+    _, taps, x, offsets = _dcn_sizes(b, h, w, c, stride)
+    return Cost(2 * (x + offsets) + taps * c * F32, taps * c * 24)
+
+
+def row_gather(b: int, m: int, r: int, e: int, itemsize: int) -> Cost:
+    """One row gather: src [b, m, e], idx [b, r] int32 -> out [b, r, e]; no
+    arithmetic."""
+    return Cost(b * m * e * itemsize + b * r * 4 + b * r * e * itemsize, 0)

@@ -16,14 +16,22 @@ Phases, each printed as it runs:
   6. K5/K6 (dcn_im2col, dcn_col2im) and the DCN backward they make with two
      matrix products, against autograd through the plain DCN at K2's shapes,
      with times of each kernel alone;
-  7. training: bevformer_base at full size with seeded weights takes 4
+  7. probes: the kernel benchmark and probe tools (bevformer_torch/tools),
+     each through its `main` at bevformer_base's full SCA width (and TSA's
+     for K1's cost split): K7 (msda_fwd_ho) against K1 and the plain msda on
+     y-coherent and y-incoherent inputs, K7's tile and accumulator sweep,
+     the cost split (gather, weights, noop) of K7 and of K1, both kernels at
+     SCA's level 0 alone, and the row gather against take_along_dim; every
+     case held against its plain version (msda 1e-5 max abs, modes 1e-5 of
+     scale, the gather bitwise), every new kernel launched;
+  8. training: bevformer_base at full size with seeded weights takes 4
      AdamW steps (`Trainer.step`, train mode: dropout and GridMask on) on a
      seeded synthetic batch of queue 4 (3 history frames without gradient,
      then the trained frame). It prints each step's loss, grad norm, lr and
      seconds, the median of steps 1-3 and the peak memory, checks finite
      losses, launches of all five kernels in every step, frozen parameters
      bitwise unchanged and trainable ones moved, and profiles one more step;
-  8. training witness, in eval mode at full size (the plain path's msda and
+  9. training witness, in eval mode at full size (the plain path's msda and
      DCN calls recompute their gathers in backward under
      torch.utils.checkpoint, so that its autograd fits the card): loss and
      per-group gradients (backbone, neck, encoder, decoder, head) of the
@@ -33,7 +41,7 @@ Phases, each printed as it runs:
      to 1e-3 (the backbone again within 10x of the noisy path: ReLU inputs
      within rounding of 0 flip between paths, which the damping does not
      reach);
-  9. the inference slice: bevformer_base (R101-DCN, 6 x 928 x 1600, fp32)
+  10. the inference slice: bevformer_base (R101-DCN, 6 x 928 x 1600, fp32)
      with seeded weights runs a 4-frame synthetic video through
      `VideoEvaluator.run` (frames 0-2 one scene, frame 3 a new one). It
      checks 18 K1 and 26 K2 launches per frame and finite outputs. The
@@ -42,10 +50,14 @@ Phases, each printed as it runs:
      noise on its msda and DCN outputs does (a witness of how far rounding
      alone moves the outputs); with the reg branches' output layers scaled
      by 0.1, bev_embed, cls and bbox agree to 1e-3;
-  10. profile: one frame that carries prev_bev under torch.profiler, its
+  11. profile: one frame that carries prev_bev under torch.profiler, its
      device busy share and the ops that take the device time.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record: for each kernel its
+time, launches, plain version's time, bound (bevformer_torch/tools/
+roofline.py, against the H100 SXM data sheet's peaks) and what bounds it,
+and the time of one PyTorch call that computes the same function, or null
+with the reason there is none; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero;
 without a CUDA device the script exits nonzero at once.
 """
@@ -55,7 +67,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 from contextlib import contextmanager
@@ -100,14 +111,6 @@ def check(ok: bool, msg: str) -> None:
         raise Failure(msg)
 
 
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def time_ms(fn, iters: int) -> float:
     import torch
 
@@ -145,6 +148,7 @@ def msda_inputs(b, q, h, d, shapes, p, gen, device):
 def check_k1(device, gen):
     import torch
     from bevformer_torch.kernels import msda
+    from bevformer_torch.tools import roofline
 
     levels = ((116, 200), (58, 100), (29, 50), (15, 25))
     # (name, B, Q, H, D, shapes, P, launches per frame)
@@ -168,7 +172,8 @@ def check_k1(device, gen):
             f"(tol {K1_TOL:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         check(err <= K1_TOL, f"K1 {name}: max abs error {err} > {K1_TOL}")
         rows.append(dict(shape=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         per_frame=per_frame))
+                         per_frame=per_frame,
+                         cost=roofline.msda_fwd(b, q, h, d, shapes, p)))
         del args, out, ref
     return rows
 
@@ -176,6 +181,7 @@ def check_k1(device, gen):
 def check_k2(device, gen):
     import torch
     from bevformer_torch.kernels import dcn
+    from bevformer_torch.tools import roofline
 
     # (name, B, H, W, C, Cout, launches per frame); stride 1 (caffe style)
     cases = [("layer3", 6, 58, 100, 256, 256, 23), ("layer4", 6, 29, 50, 512, 512, 3)]
@@ -206,7 +212,7 @@ def check_k2(device, gen):
             f"plain {plain_ms:.4f} ms")
         check(err <= K2_TOL * scale, f"K2 {name}: error {err} > {K2_TOL} x {scale}")
         rows.append(dict(shape=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         per_frame=per_frame))
+                         per_frame=per_frame, cost=roofline.dcn_conv(b, h, w, c, cout)))
         del x, off_y, off_x, mask, weight, args, out, ref
     return rows
 
@@ -214,6 +220,7 @@ def check_k2(device, gen):
 def check_k34(device, gen):
     import torch
     from bevformer_torch.kernels import msda
+    from bevformer_torch.tools import roofline
 
     levels = ((116, 200), (58, 100), (29, 50), (15, 25))
     # (name, B, Q, H, D, shapes, P, launches per training step)
@@ -240,7 +247,8 @@ def check_k34(device, gen):
         for k, e in errs.items():
             check(e <= K34_TOL, f"msda_bwd {name} {k}: {e:.2e} > {K34_TOL}")
         rows.append(dict(shape=name, max_abs_err=max(errs.values()), ms=ms,
-                         plain_ms=plain_ms, per_step=per_step))
+                         plain_ms=plain_ms, per_step=per_step,
+                         cost=roofline.msda_bwd(b, q, h, d, shapes, p)))
         del value, loc, attw, g
     return rows
 
@@ -248,6 +256,7 @@ def check_k34(device, gen):
 def check_k56(device, gen):
     import torch
     from bevformer_torch.kernels import dcn
+    from bevformer_torch.tools import roofline
 
     cases = [("layer3", 6, 58, 100, 256, 256, 23), ("layer4", 6, 29, 50, 512, 512, 3)]
     im2col_rows, col2im_rows = [], []
@@ -292,12 +301,121 @@ def check_k56(device, gen):
         for k, e in errs.items():
             check(e <= K56_TOL, f"DCN backward {name} {k}: {e:.2e} > {K56_TOL}")
         im2col_rows.append(dict(shape=name, max_abs_err=cols_err, ms=im2col_ms,
-                                plain_ms=im2col_plain_ms, per_step=per_step))
+                                plain_ms=im2col_plain_ms, per_step=per_step,
+                                cost=roofline.dcn_im2col(b, h, w, c)))
         col2im_rows.append(dict(shape=name, max_abs_err=max(errs.values()), ms=col2im_ms,
                                 plain_ms=col2im_plain_ms, per_step=per_step,
-                                backward_ms=bwd_ms, backward_plain_ms=bwd_plain_ms))
+                                backward_ms=bwd_ms, backward_plain_ms=bwd_plain_ms,
+                                cost=roofline.dcn_col2im(b, h, w, c)))
         del x, off_y, off_x, mask, weight, g, gm, dcols
     return im2col_rows, col2im_rows
+
+
+# ---------------------------------------------------------------- probes
+
+PROBE_REPS = 5  # timed launches per case (the tools' default is 20)
+GATHER_REPS = 20
+PROBE_TOL = 1e-5  # msda: max abs error; probe modes: max abs error over max |plain|
+
+
+def check_probes():
+    """The kernel benchmark and probe entry points, each through its `main`
+    at its default full-width shapes, with every launch count set to 0 just
+    before and read just after. Each case's first launch is its warm-up and
+    the output its tool holds against the plain version, so the comparison
+    adds no launch; the plain versions launch no kernel."""
+    from bevformer_torch.tools import (bench_dma_gather, bench_hi_probe, bench_kernel_probe,
+                                       bench_kernel_probe3, bench_msda_decompose,
+                                       bench_msda_kernel, common)
+
+    counters = common.launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    reps = ["--reps", str(PROBE_REPS)]
+    t0 = time.perf_counter()
+    runs = dict(
+        bench=bench_msda_kernel.main(reps),
+        sweep=bench_kernel_probe3.main(reps),
+        k7_modes=bench_kernel_probe.main(reps),
+        k1_modes=bench_hi_probe.main(reps),
+        k1_modes_tsa=bench_hi_probe.main(reps + ["--tsa"]),
+        level0=bench_msda_decompose.main(reps),
+        gather=bench_dma_gather.main(["--reps", str(GATHER_REPS)]),
+    )
+    counts = {k: fn.launches for k, fn in counters.items()}
+    log(f"[probes] the six tools ran {sum(len(r) for r in runs.values())} cases in "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    check(all(v > 0 for v in counts.values()), f"a kernel of the probes never launched: {counts}")
+    for tool, recs in runs.items():
+        for r in recs:
+            what = f"{r['tool']} {r['case']}"
+            if r["case"] != "plain":
+                check(r["launches"] > 0, f"{what}: no kernel launched")
+            if "bitwise_equal" in r:
+                check(r["bitwise_equal"], f"{what}: not bitwise equal to take_along_dim")
+            elif r.get("mode", "full") == "full":
+                check(r["max_abs_err"] <= PROBE_TOL,
+                      f"{what}: max abs error {r['max_abs_err']:.2e} > {PROBE_TOL}")
+            else:
+                check(r["max_abs_err"] <= PROBE_TOL * r["scale"],
+                      f"{what}: max abs error {r['max_abs_err']:.2e} > {PROBE_TOL} x {r['scale']:.3e}")
+    log(f"[probes] every case within tolerance (msda {PROBE_TOL:.0e} max abs, probe modes "
+        f"{PROBE_TOL:.0e} of max |plain|, row gather bitwise)")
+    return runs, counts
+
+
+def probe_records(runs, counts):
+    """The `kernels` line's records of the probes' kernels."""
+    def pick(tool, case):
+        return next(r for r in runs[tool] if r["case"] == case)
+
+    def rec(name, source, replaces, r, launches, plain_ms, library_ms=None, **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=plain_ms, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=library_ms, shape=r["shape"], **extra)
+
+    no_call = "no single PyTorch call computes msda"
+    ho, ho_src = "msda_fwd_ho", "bevformer_torch/csrc/msda_fwd_ho.cu"
+    k7, plain = pick("bench", "k7"), pick("bench", "plain")
+    sweep = runs["sweep"]
+    best = min(sweep, key=lambda r: r["ms"])
+    level0 = pick("level0", "k7")
+    records = [
+        rec(ho, ho_src, "bevformer_tpu/kernels/msda_pallas.py:159", k7, counts[ho],
+            plain["ms"], library_note=no_call,
+            incoherent=dict((k, pick("bench", "check_k7")[k]) for k in ("ms", "max_abs_err")),
+            k1_ms=pick("bench", "k1")["ms"]),
+        rec(f"{ho}[sweep]", ho_src, "tools/bench_kernel_probe3.py:63", best,
+            sum(r["launches"] for r in sweep), plain["ms"], library_note=no_call,
+            fastest=f"tile {best['tile']}, acc {best['acc']}",
+            sweep=[dict((k, r[k]) for k in ("tile", "acc", "ms", "max_abs_err")) for r in sweep]),
+        rec(f"{ho}[level0]", ho_src, "tools/bench_msda_decompose.py:107", level0,
+            level0["launches"], level0["plain_ms"], library_note=no_call,
+            k1_ms=pick("level0", "k1")["ms"],
+            random_ms=dict((c, pick("level0", c)["ms"]) for c in ("k7_random", "k1_random"))),
+    ]
+    for tool, name, source, replaces in (
+            ("k7_modes", ho, ho_src, "tools/bench_kernel_probe.py:42"),
+            ("k1_modes", "msda_fwd", "bevformer_torch/csrc/msda_fwd.cuh",
+             "tools/bench_hi_probe.py:74")):
+        for r in runs[tool]:
+            if r["mode"] == "full":
+                continue
+            extra = {}
+            if tool == "k1_modes":
+                tsa = pick("k1_modes_tsa", r["mode"])
+                extra["tsa"] = dict((k, tsa[k]) for k in ("ms", "plain_ms", "bound_ms", "max_abs_err"))
+            records.append(rec(f"{name}[{r['mode']}]", source, replaces, r, r["launches"],
+                               r["plain_ms"], library_note="no single PyTorch call",
+                               scale=r["scale"], **extra))
+    bf16, fp32 = pick("gather", "bf16"), pick("gather", "fp32")
+    records.append(rec("row_gather", "bevformer_torch/csrc/row_gather.cu",
+                       "tools/bench_dma_gather.py:46", bf16, counts["row_gather"],
+                       bf16["plain_ms"], bf16["library_ms"], GB_per_s=bf16["GB_per_s"],
+                       fp32=dict((k, fp32[k]) for k in ("ms", "library_ms", "bound_ms",
+                                                        "GB_per_s", "bitwise_equal"))))
+    return records
 
 
 # ---------------------------------------------------------------- slice
@@ -731,9 +849,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from bevformer_torch.kernels import build
+    from bevformer_torch.tools import common, roofline
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
-    smi = smi_line()
+    smi = common.card_line()
     log(f"[device] nvidia-smi: {smi}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -756,6 +876,8 @@ def main() -> int:
     k34_rows = check_k34(device, gen)
     im2col_rows, col2im_rows = check_k56(device, gen)
     torch.cuda.empty_cache()
+    probe_runs, probe_counts = check_probes()
+    torch.cuda.empty_cache()
     tr = check_training(device, smi)
     torch.cuda.empty_cache()
     check_training_witness(device, smi)
@@ -763,7 +885,8 @@ def main() -> int:
     sl = check_slice(device, smi)
     profile_frame(sl["model"], sl["video"], smi)
 
-    def record(name, src, replaces, rows, per):
+    def record(name, src, replaces, rows, per, library_note):
+        bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=tr["counts"][name],
@@ -772,27 +895,35 @@ def main() -> int:
             # kernels) worth of launches at the path's shapes
             ms=sum(r["ms"] * r[per] for r in rows),
             plain_ms=sum(r["plain_ms"] * r[per] for r in rows),
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+            library_ms=None, library_note=library_note,
             shapes=rows,
         )
 
+    no_msda = "no single PyTorch call computes msda"
+    no_dcn = "no single PyTorch call computes DCNv2"
     kernels = [
         record("msda_fwd", "bevformer_torch/csrc/msda_fwd.cu",
-               "bevformer_tpu/kernels/msda_hi.py:243", k1_rows, "per_frame"),
+               "bevformer_tpu/kernels/msda_hi.py:243", k1_rows, "per_frame", no_msda),
         record("dcn_conv_fwd", "bevformer_torch/csrc/dcn_conv_fwd.cu",
-               "bevformer_tpu/kernels/dcn_pallas.py:329", k2_rows, "per_frame"),
+               "bevformer_tpu/kernels/dcn_pallas.py:329", k2_rows, "per_frame", no_dcn),
         record("msda_bwd", "bevformer_torch/csrc/msda_bwd.cu",
-               "bevformer_tpu/kernels/msda_hi.py:744", k34_rows, "per_step"),
+               "bevformer_tpu/kernels/msda_hi.py:744", k34_rows, "per_step",
+               "no single PyTorch call computes the msda backward"),
         record("dcn_im2col", "bevformer_torch/csrc/dcn_im2col.cu",
-               "bevformer_tpu/kernels/dcn_pallas.py:112", im2col_rows, "per_step"),
+               "bevformer_tpu/kernels/dcn_pallas.py:112", im2col_rows, "per_step",
+               "no single PyTorch call computes a modulated deformable im2col"),
         record("dcn_col2im", "bevformer_torch/csrc/dcn_col2im.cu",
-               "bevformer_tpu/kernels/msda_pallas.py:318", col2im_rows, "per_step"),
-    ]
+               "bevformer_tpu/kernels/msda_pallas.py:318", col2im_rows, "per_step",
+               "no single PyTorch call computes the DCN col2im"),
+    ] + probe_records(probe_runs, probe_counts)
     # launches: the training run's (all five kernels); the inference run's too
     kernels[0]["inference_launches"] = sl["k1"]
     kernels[1]["inference_launches"] = sl["k2"]
     log(f"[summary] training step median {tr['median_ms']:.1f} ms, peak {tr['peak_gib']:.2f} GiB; "
         f"inference frame median {sl['median_ms']:.1f} ms, peak {sl['peak_gib']:.2f} GiB; "
-        f"on {smi}")
+        f"on {smi}; bounds against {roofline.PEAKS}")
+    log(f"[summary] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

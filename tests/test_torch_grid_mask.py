@@ -62,7 +62,7 @@ def test_detector_masks_only_in_train_mode():
     cfg = get_config("bevformer_base", backbone_depth=10, bev_h=8, bev_w=8,
                      encoder_layers=1, decoder_layers=1, num_query=20,
                      data=DataConfig(raw_size=(64, 96)))
-    model = build_model(cfg, init_state_dict(cfg, seed=0))
+    model = build_model(cfg, init_state_dict(cfg, seed=0), "cpu")
     seen = []
     model.img_backbone.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
     images = torch.ones(1, cfg.data.num_cams, 64, 96, 3)

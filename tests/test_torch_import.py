@@ -32,8 +32,8 @@ from bevformer_torch.runtime import VideoEvaluator, build_model, init_state_dict
 cfg = get_config("bevformer_base", backbone_depth=10, bev_h=8, bev_w=8,
                  encoder_layers=1, decoder_layers=1, num_query=20,
                  data=DataConfig(raw_size=(64, 96)))
-model = build_model(cfg, init_state_dict(cfg, seed=0))
-res = VideoEvaluator(model).run(SyntheticVideo(cfg, (1,), seed=0), progress_every=0)
+model = build_model(cfg, init_state_dict(cfg, seed=0), "cpu")
+res = VideoEvaluator(model).run(SyntheticVideo(cfg, (1,), seed=0, device="cpu"), progress_every=0)
 assert len(res) == 1 and res[0]["boxes_3d"].shape[1] == 9, res
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in {BLOCKED!r}]

@@ -7,7 +7,9 @@ also runs on a machine without it, from the repo root:
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Tolerances: msda 1e-5 absolute on N(0, 1) values (same corners, sums in
-another order; the pixel position rounds as in the plain version); DCN 1e-5
+another order; the pixel position rounds as in the plain version), for K1,
+K7 and each of K7's tiles; the probe modes 1e-5 of their scale; the row
+gather bitwise (it copies bytes); DCN 1e-5
 of the output's scale (fp32 sums of 9*C products in another order). The
 backward kernels: 1e-5 of each gradient's scale (the same corners; sums over
 channels and atomic adds in another order, so dValue and dx are not bitwise
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from bevformer_torch.kernels import dcn, msda
+from bevformer_torch.kernels import dcn, gather, msda
 # by module name, not as `tests.torch_port_helpers`: pytest puts this
 # directory on sys.path, and another installed `tests` package would shadow
 # the repo's on a machine that has one
@@ -68,6 +70,64 @@ def test_msda_kernel_matches_plain(cuda_device, name, b, q, h, d, shapes, p):
     assert msda.ms_deform_attn.launches == before + 1
     ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
     assert float((out - ref).abs().max()) <= 1e-5, name
+
+
+@pytest.mark.parametrize("name,b,q,h,d,shapes,p", MSDA_CASES, ids=[c[0] for c in MSDA_CASES])
+def test_msda_ho_kernel_matches_plain(cuda_device, name, b, q, h, d, shapes, p):
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 20 + len(name), cuda_device)
+    before = msda.ms_deform_attn_ho.launches
+    out = msda.ms_deform_attn_ho(value, shapes, loc, attw)
+    torch.cuda.synchronize()
+    assert msda.ms_deform_attn_ho.launches == before + 1
+    ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
+    assert float((out - ref).abs().max()) <= 1e-5, name
+
+
+@pytest.mark.parametrize("tile", msda.HO_TILES)
+@pytest.mark.parametrize("acc", msda.HO_ACCS)
+def test_msda_ho_tiles_match_plain(cuda_device, tile, acc):
+    """Every instantiation of the sweep, with a query count no tile divides."""
+    name, b, q, h, d, shapes, p = MSDA_CASES[1]
+    value, loc, attw = _msda_inputs(b, q + 3, h, d, shapes, p, tile + acc, cuda_device)
+    out = msda.msda_probe("ho", "full", value, shapes, loc, attw, tile=tile, acc=acc)
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("mode,tile,acc", [("full", 12, 1), ("full", 16, 3), ("gather", 32, 1)])
+def test_msda_ho_refuses_an_instantiation_it_lacks(cuda_device, mode, tile, acc):
+    name, b, q, h, d, shapes, p = MSDA_CASES[1]
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 31, cuda_device)
+    before = msda.msda_probe.launches
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        msda.msda_probe("ho", mode, value, shapes, loc, attw, tile=tile, acc=acc)
+    assert msda.msda_probe.launches == before
+
+
+@pytest.mark.parametrize("kernel,mode", [(k, m) for k in ("hi", "ho")
+                                         for m in msda.PROBE_MODES[1:]])
+def test_msda_probe_modes_match_plain(cuda_device, kernel, mode):
+    name, b, q, h, d, shapes, p = MSDA_CASES[1]
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 30, cuda_device)
+    before = msda.msda_probe.launches
+    out = msda.msda_probe(kernel, mode, value, shapes, loc, attw)
+    torch.cuda.synchronize()
+    assert msda.msda_probe.launches == before + 1
+    assert_close(out, msda.msda_probe_plain(mode, value, shapes, loc, attw), 1e-5,
+                 f"{kernel} {mode}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_gather_kernel_matches_take_along_dim_bitwise(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    src = torch.randn((3, 1000, 256), generator=g, device=cuda_device).to(dtype)
+    idx = torch.randint(0, 1000, (3, 700), generator=g, device=cuda_device, dtype=torch.int32)
+    before = gather.row_gather.launches
+    out = gather.row_gather(src, idx)
+    torch.cuda.synchronize()
+    assert gather.row_gather.launches == before + 1
+    assert torch.equal(out, torch.take_along_dim(src, idx[..., None].long(), 1))
 
 
 def _dcn_inputs(seed, device, b=3, h=13, w=21, c=64, cout=96, stride=1):
@@ -169,6 +229,11 @@ def test_wrappers_raise_on_cuda_input_they_cannot_take(cuda_device):
     x, off_y, off_x, mask, weight = _dcn_inputs(0, cuda_device, c=48, cout=32)
     with pytest.raises(ValueError):
         dcn.dcn_conv(x, off_y, off_x, mask, weight, 1)
+    with pytest.raises(ValueError):
+        msda.ms_deform_attn_ho(value, ((4, 5),), strided, attw)
+    src = torch.zeros((2, 8, 3), device=cuda_device)
+    with pytest.raises(ValueError):  # 12-byte rows
+        gather.row_gather(src, torch.zeros((2, 4), dtype=torch.int32, device=cuda_device))
 
 
 def test_mini_slice_kernel_path_matches_plain_path(cuda_device):

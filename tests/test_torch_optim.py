@@ -57,7 +57,8 @@ def test_labels_match_jax_through_the_weight_bridge():
     codes = jax.tree.map(lambda s, lab: np.full(s.shape, CODES[lab], np.float32), shapes, labels)
     bridged = state_dict_from_jax(to_numpy_tree(codes), SLICE_CFG)
 
-    port = build_model(cfg, {k: np.zeros(v.shape, np.float32) for k, v in bridged.items()})
+    port = build_model(cfg, {k: np.zeros(v.shape, np.float32) for k, v in bridged.items()},
+                       "cpu")
     ours = label_params(port, cfg.optim.frozen_stages)
     params = dict(port.named_parameters())
     assert set(bridged) == set(port.state_dict())
@@ -77,7 +78,7 @@ def test_schedule_matches_optax():
     sched = jax_optim.cosine_schedule(jcfg, total)
     cfg = port_config(SLICE_CFG)
     optimizer, scheduler, _ = make_optimizer(
-        build_model(cfg, init_state_dict(cfg, seed=0)), cfg.optim, total
+        build_model(cfg, init_state_dict(cfg, seed=0), "cpu"), cfg.optim, total
     )
     checks = {0, 250, 500, 1000, total - 1}
     for step in range(total):
@@ -155,7 +156,7 @@ def test_grad_norm_matches_optax_global_norm():
     jcfg = SLICE_CFG.replace(encoder_layers=1, decoder_layers=1, max_gt=16,
                              data=JaxData(raw_size=(96, 160), queue_length=1))
     cfg = port_config(jcfg)
-    batch = train_batch(cfg, seed=6)
+    batch = train_batch(cfg, seed=6, device="cpu")
     jb = jax_batch(batch)
     jmodel, params = jax_params(jcfg, jb, seed=3)
     jgrads = jax.jit(jax.grad(lambda p: jax_deterministic_loss(jmodel, p, jb)[0]))(params)
@@ -164,7 +165,7 @@ def test_grad_norm_matches_optax_global_norm():
                            jgrads, labels)
     want = float(optax.global_norm(trained))
 
-    model = build_model(cfg, state_dict_from_jax(params, jcfg)).eval()
+    model = build_model(cfg, state_dict_from_jax(params, jcfg), "cpu").eval()
     optimizer, scheduler, trainable = make_optimizer(model, cfg.optim, 100)
     out = train_step(model, optimizer, scheduler, trainable, cfg.optim.grad_clip_norm, batch)
     np.testing.assert_allclose(out["grad_norm"], want, rtol=1e-4)

@@ -97,7 +97,7 @@ def _match_boxes(ours, ref, name):
 @pytest.fixture(scope="module")
 def runs():
     cfg = port_config(JCFG)
-    video = SyntheticVideo(cfg, scene_lengths=(2, 1), seed=5)
+    video = SyntheticVideo(cfg, scene_lengths=(2, 1), seed=5, device="cpu")
     frames = _NumpyFrames(video)
     s0 = frames.get_test_sample(0)
 
@@ -116,7 +116,7 @@ def runs():
     jev = _TracedJaxEvaluator(jmodel, params)
     jres = jev.run(frames, progress_every=0)
 
-    model = build_model(cfg, state_dict_from_jax(params, JCFG))
+    model = build_model(cfg, state_dict_from_jax(params, JCFG), "cpu")
     preds = []
     model.register_forward_hook(lambda m, i, out: preds.append(out))
     ev = VideoEvaluator(model)
@@ -199,8 +199,8 @@ def test_call_sites_meet_the_kernel_contract(monkeypatch):
         v, loc, w, tuple((int(h), int(ww)) for h, ww in s)))
     monkeypatch.setattr(resnet, "dcn_conv", lambda *a: dcn._DCNConv.apply(*a))
     cfg = port_config(JCFG)
-    model = build_model(cfg, init_state_dict(cfg, seed=0))
-    VideoEvaluator(model).run(SyntheticVideo(cfg, (2,), seed=1), progress_every=0)
+    model = build_model(cfg, init_state_dict(cfg, seed=0), "cpu")
+    VideoEvaluator(model).run(SyntheticVideo(cfg, (2,), seed=1, device="cpu"), progress_every=0)
     # per frame: (TSA + SCA) per encoder layer + one per decoder layer; one
     # DCN in each of the 2 blocks of stages 3-4 at depth 10
     per_frame = 2 * cfg.encoder_layers + cfg.decoder_layers
@@ -210,7 +210,7 @@ def test_call_sites_meet_the_kernel_contract(monkeypatch):
     # encoder only, the trained frame runs everything and its backward
     calls.update(dict.fromkeys(calls, 0))
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, queue_length=2))
-    out = Trainer(model, total_steps=10).step(train_batch(cfg, seed=2))
+    out = Trainer(model, total_steps=10).step(train_batch(cfg, seed=2, device="cpu"))
     assert all(np.isfinite(v) for v in out.values()), out
     assert calls == dict(msda=2 * cfg.encoder_layers + per_frame, msda_bwd=per_frame,
                          dcn=2 * 2, im2col=2, col2im=2)

@@ -106,14 +106,14 @@ def jax_deterministic_loss(model, params, batch):
 @pytest.fixture(scope="module")
 def runs():
     cfg = port_config(JCFG)
-    batch = train_batch(cfg, seed=6, scene_break_at=1)
+    batch = train_batch(cfg, seed=6, device="cpu", scene_break_at=1)
     jb = jax_batch(batch)
     jmodel, params = jax_params(JCFG, jb, seed=3)
     (_, (jlosses, jpreds)), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jax_deterministic_loss(jmodel, p, jb), has_aux=True
     ))(params)
 
-    model = build_model(cfg, state_dict_from_jax(params, JCFG))
+    model = build_model(cfg, state_dict_from_jax(params, JCFG), "cpu")
     labels = label_params(model, cfg.optim.frozen_stages)
     for name, p in model.named_parameters():
         p.requires_grad_(labels[name] != "frozen")
@@ -176,10 +176,10 @@ def test_frozen_params_stay_frozen():
     from bevformer_torch.runtime import Trainer, init_state_dict
 
     cfg = dataclasses.replace(port_config(JCFG), use_grid_mask=True)
-    model = build_model(cfg, init_state_dict(cfg, seed=1))
+    model = build_model(cfg, init_state_dict(cfg, seed=1), "cpu")
     before = {k: v.clone() for k, v in model.state_dict().items()}
     trainer = Trainer(model, total_steps=10, seed=0)
-    batch = train_batch(cfg, seed=4)
+    batch = train_batch(cfg, seed=4, device="cpu")
     for _ in range(2):
         out = trainer.step(batch)
         assert all(np.isfinite(v) for v in out.values()), out
@@ -200,7 +200,7 @@ def test_train_batch_layout():
 
     cfg = port_config(JCFG)
     t_len, cams = cfg.data.queue_length, cfg.data.num_cams
-    b = train_batch(cfg, seed=0, scene_break_at=1)
+    b = train_batch(cfg, seed=0, device="cpu", scene_break_at=1)
     h, w = cfg.data.img_size
     assert b.images.shape == (1, t_len, cams, h, w, 3)
     assert b.can_bus.shape == (1, t_len, 18) and b.lidar2img.shape == (1, t_len, cams, 4, 4)
@@ -223,4 +223,5 @@ def test_train_batch_layout():
     np.testing.assert_allclose(
         b.lidar2img[0, 0].numpy(), rig_lidar2img(rw, rh)[:cams].astype(np.float32), rtol=1e-6
     )
-    assert torch.equal(train_batch(cfg, seed=0, scene_break_at=1).images, b.images)
+    assert torch.equal(train_batch(cfg, seed=0, device="cpu", scene_break_at=1).images,
+                       b.images)

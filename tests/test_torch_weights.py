@@ -99,6 +99,6 @@ def test_init_state_dict_covers_the_model():
     ).max() > 0
     again = init_state_dict(cfg, seed=1)
     assert all(np.array_equal(sd[k], again[k]) for k in sd)
-    model = build_model(cfg, sd)
+    model = build_model(cfg, sd, "cpu")
     assert torch.equal(model.state_dict()["pts_bbox_head.bev_embedding.weight"],
                        torch.from_numpy(sd["pts_bbox_head.bev_embedding.weight"]))
