@@ -41,19 +41,19 @@ _I = ctypes.c_int
 # C signatures of the entry points, in argument order
 SIGNATURES = {
     # value, loc, attw, out, level_hw (host int32 [2L]), L, B, K, Q, H, D, P,
-    # stream
-    "msda_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # queries per block, stream
+    "msda_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # msda_fwd's arguments with the probe mode (1 gather, 2 weights, 3 noop)
-    # before the stream
-    "msda_fwd_probe": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # msda_fwd's arguments with the mode (0 full, 1-3 as above), the
-    # queries per block and the accumulators per lane before the stream
+    # before the queries per block
+    "msda_fwd_probe": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # value .. P as msda_fwd, then the mode (0 full, 1-3 as above), the
+    # queries per block, the accumulators per lane and the stream
     "msda_fwd_ho": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # src, idx (int32), out, B, M, R, row bytes, stream
     "row_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # x, off_y, off_x, mask, weight, out, B, H, W, C, OH, OW, Cout, stride,
-    # stream
-    "dcn_conv_fwd": [_P, _P, _P, _P, _P, _P,
+    # x, off_y, off_x, mask, weight, the weight's split scratch, out, B, H,
+    # W, C, OH, OW, Cout, stride, stream
+    "dcn_conv_fwd": [_P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # value, loc, attw, grad_out, dvalue (zeroed), dloc, dattw, level_hw,
     # L, B, K, Q, H, D, P, stream

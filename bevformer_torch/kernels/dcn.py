@@ -27,6 +27,7 @@ import torch
 from bevformer_torch.kernels import build
 
 K_TILE = 32  # csrc/dcn_conv_fwd.cu: a K tile never spans two taps
+N_BLOCK = 256  # csrc/dcn_conv_fwd.cu: output channels per block
 
 
 def bilinear_gather(img: torch.Tensor, py: torch.Tensor, px: torch.Tensor):
@@ -117,12 +118,15 @@ def _launch_fwd(x, off_y, off_x, mask, weight, stride) -> torch.Tensor:
     oh, ow = off_y.shape[1], off_y.shape[2]
     cout = weight.shape[1]
     out = torch.empty((b, oh, ow, cout), dtype=torch.float32, device=x.device)
+    # the kernel's copy of the weight, split into TF32 halves in its tile order
+    split = torch.empty(2 * -(-cout // N_BLOCK) * N_BLOCK * 9 * c, dtype=torch.float32,
+                        device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.dcn_conv_fwd(
             x.data_ptr(), off_y.data_ptr(), off_x.data_ptr(),
-            mask.data_ptr(), weight.data_ptr(), out.data_ptr(),
+            mask.data_ptr(), weight.data_ptr(), split.data_ptr(), out.data_ptr(),
             b, h, w, c, oh, ow, cout, stride, stream,
         )
     build.check_launch("dcn_conv_fwd", rc)

@@ -26,6 +26,7 @@ heads-outer one at another tile), for the probes in `bevformer_torch/tools`;
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -33,7 +34,7 @@ import torch
 
 from bevformer_torch.kernels import build
 
-MAX_LEVELS = 8  # csrc/msda_fwd.cu
+MAX_LEVELS = 8  # csrc/msda_fwd.cuh
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -169,8 +170,37 @@ def _launch(entry: str, value, spatial_shapes, loc, attw, *extra: int) -> torch.
     return out
 
 
+K1_TILES = (1, 2, 4, 8, 16, 32, 64, 128)  # csrc/msda_fwd.cu: queries per block
+K1_ITEMS = 512  # samples per block K1's tile aims at: two per thread in phase 1
+K1_MIN_BLOCKS_PER_SM = 2
+
+
+def k1_tile(b: int, q: int, h: int, samples: int, sms: int) -> int:
+    """K1's queries per block for B `b`, Q `q`, H `h` and `samples` = L*P
+    per query on a card of `sms` SMs: the largest tile of K1_TILES whose
+    payload holds at most K1_ITEMS samples (TSA and the decoder 128, SCA
+    16), halved, down to 8, while the grid has fewer than
+    K1_MIN_BLOCKS_PER_SM blocks per SM (the decoder's 900 queries: 16)."""
+    tile = max([t for t in K1_TILES if t * samples <= K1_ITEMS] or [1])
+    while tile > 8 and b * h * -(-q // tile) < K1_MIN_BLOCKS_PER_SM * sms:
+        tile //= 2
+    return tile
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def k1_tile_for(value, loc) -> int:
+    """K1's queries per block for these inputs on their card."""
+    b, _, h, _ = value.shape
+    q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    return k1_tile(b, q, h, l * p, _sm_count(value.device))
+
+
 def _launch_fwd(value, spatial_shapes, loc, attw) -> torch.Tensor:
-    out = _launch("msda_fwd", value, spatial_shapes, loc, attw)
+    out = _launch("msda_fwd", value, spatial_shapes, loc, attw, k1_tile_for(value, loc))
     ms_deform_attn.launches += 1
     return out
 
@@ -347,7 +377,7 @@ def msda_probe(kernel: str, mode: str, value, spatial_shapes, sampling_locations
         out = _launch_ho(value, shapes, sampling_locations, attention_weights, mode, tile, acc)
     else:
         out = _launch("msda_fwd_probe", value, shapes, sampling_locations, attention_weights,
-                      PROBE_MODES.index(mode))
+                      PROBE_MODES.index(mode), k1_tile_for(value, sampling_locations))
     msda_probe.launches += 1
     return out
 

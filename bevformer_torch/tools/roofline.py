@@ -12,12 +12,22 @@ it counts the bytes the function must move and the operations it must do:
   per DCN tap and channel 8 for the four corners, and 2 * Cout for the
   contraction.
 
-`bound_ms` is the larger of bytes over the memory rate and operations over
-the fp32 rate outside the tensor cores (every kernel of the port computes in
-fp32 on the SIMT units today), and `bound_by` names which. The rates are
-the NVIDIA H100 SXM data sheet's, at its 700 W power limit; a card set below
-it runs slower under load, so a measurement states its card's `nvidia-smi`
-name and power limit beside its share of the bound.
+Each kind of operation counts against the units that can do it at fp32
+accuracy:
+
+- DCN's contraction (K2) on the tensor cores in TF32, at three TF32
+  products per fp32 multiply-add (3xTF32: big*big' + big*small' +
+  small*big', the least that keeps fp32's accuracy; one TF32 product misses
+  the port's 1e-4 tolerance at K = 9*256), against 495 TFLOP/s dense TF32;
+- everything else (sampling, msda, the backward kernels) on the fp32 SIMT
+  units, against 67 TFLOP/s.
+
+`bound_ms` is the largest of bytes over the memory rate and each kind of
+operations over its rate, and `bound_by` names which of bytes and
+operations. The rates are the NVIDIA H100 SXM data sheet's, at its 700 W
+power limit; a card set below it runs slower under load, so a measurement
+states its card's `nvidia-smi` name and power limit beside its share of the
+bound.
 """
 
 from __future__ import annotations
@@ -27,16 +37,20 @@ from typing import Sequence, Tuple
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-PEAKS = "H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s fp32 (SIMT), 700 W"
+TF32_FLOPS = 495e12
+PEAKS = ("H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s fp32 (SIMT), "
+         "495 TFLOP/s TF32 tensor cores (dense), 700 W")
 
 F32 = 4
 SAMPLE_FLOPS = 14  # pixel position and four corner weights of one msda sample
+TF32_PRODUCTS = 3  # TF32 tensor-core products per fp32-accurate multiply-add
 
 
 @dataclass(frozen=True)
 class Cost:
     bytes: float
-    flops: float
+    flops: float  # fp32 operations on the SIMT units
+    tf32_flops: float = 0.0  # TF32 tensor-core operations, as issued
 
     @property
     def bytes_ms(self) -> float:
@@ -44,7 +58,7 @@ class Cost:
 
     @property
     def flops_ms(self) -> float:
-        return self.flops / FP32_FLOPS * 1e3
+        return max(self.flops / FP32_FLOPS, self.tf32_flops / TF32_FLOPS) * 1e3
 
     @property
     def bound_ms(self) -> float:
@@ -55,8 +69,8 @@ class Cost:
         return "bytes" if self.bytes_ms >= self.flops_ms else "operations"
 
     def as_dict(self) -> dict:
-        return dict(bytes=self.bytes, flops=self.flops, bound_ms=self.bound_ms,
-                    bound_by=self.bound_by)
+        return dict(bytes=self.bytes, flops=self.flops, tf32_flops=self.tf32_flops,
+                    bound_ms=self.bound_ms, bound_by=self.bound_by)
 
 
 def total(calls: Sequence[Tuple[Cost, int]]) -> dict:
@@ -106,11 +120,12 @@ def _dcn_sizes(b, h, w, c, stride):
 
 def dcn_conv(b: int, h: int, w: int, c: int, cout: int, stride: int = 1) -> Cost:
     """One DCNv2 forward (K2): x [b, h, w, c], offsets and mask, weight
-    [9c, cout] -> out [b, oh, ow, cout]; sampling (8 per tap and channel)
-    and the contraction (2 * cout per tap and channel)."""
+    [9c, cout] -> out [b, oh, ow, cout]; sampling (8 per tap and channel) on
+    the SIMT units and the contraction (2 * cout per tap and channel) on the
+    tensor cores, three TF32 products each."""
     pixels, taps, x, offsets = _dcn_sizes(b, h, w, c, stride)
     return Cost(x + offsets + 9 * c * cout * F32 + pixels * cout * F32,
-                taps * c * (8 + 2 * cout))
+                taps * c * 8, TF32_PRODUCTS * taps * c * 2 * cout)
 
 
 def dcn_im2col(b: int, h: int, w: int, c: int, stride: int = 1) -> Cost:

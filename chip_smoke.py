@@ -8,9 +8,15 @@ Phases, each printed as it runs:
      fp32 matmuls and convolutions;
   2. build: nvcc compiles bevformer_torch/csrc/*.cu for sm_90a;
   3. K1 (msda_fwd) against its plain PyTorch version at the three shapes of
-     the inference path (TSA, SCA, decoder), with times;
+     the inference path (TSA, SCA, decoder), with times, the share of
+     outputs bitwise equal to the plain version's, its corner-request rate
+     (corner rows x 128 B over the time) and, as a yardstick, K7
+     (msda_fwd_ho) at the same shapes;
   4. K2 (dcn_conv_fwd) against its plain version at the stage-3 and stage-4
-     shapes, with offsets past +-2 px and off the image, with times;
+     shapes, with offsets past +-2 px and off the image, with times, its
+     TFLOP/s, the error of both against a float64 product and, as a
+     yardstick, the two-call composition dcn_im2col + torch.matmul (fp32,
+     TF32 off) of the same function;
   5. K3/K4 (msda_bwd) against autograd through the plain msda at K1's three
      shapes, with times;
   6. K5/K6 (dcn_im2col, dcn_col2im) and the DCN backward they make with two
@@ -40,7 +46,8 @@ Phases, each printed as it runs:
      with the reg branches' outputs x0.1, loss and transformer-side groups
      to 1e-3 (the backbone again within 10x of the noisy path: ReLU inputs
      within rounding of 0 flip between paths, which the damping does not
-     reach);
+     reach), on a batch at which the noisy path itself stays within 1e-3
+     damped (checked);
   10. the inference slice: bevformer_base (R101-DCN, 6 x 928 x 1600, fp32)
      with seeded weights runs a 4-frame synthetic video through
      `VideoEvaluator.run` (frames 0-2 one scene, frame 3 a new one). It
@@ -95,6 +102,7 @@ SLICE_TOL = 1e-3  # max abs error over max |plain| of bev_embed, cls, bbox
 TRAIN_TOL = 1e-3  # loss, and ||kernel - plain|| / ||plain|| of each gradient group
 WITNESS_NOISE = 1e-6  # relative noise on the plain msda and DCN outputs
 WITNESS_FACTOR = 10.0  # kernel vs plain within this multiple of noisy vs plain
+WITNESS_BATCH_SEED = 2  # the training witness's batch (see check_training_witness)
 PROFILE_ROWS = 10
 
 
@@ -164,15 +172,23 @@ def check_k1(device, gen):
         ref = msda.ms_deform_attn_plain(args[0], shapes, args[1], args[2])
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
+        same = float((out == ref).float().mean())
         outside = float(((args[1] < 0) | (args[1] > 1)).float().mean())
         ms = time_ms(lambda: msda.ms_deform_attn(args[0], shapes, args[1], args[2]), 20)
+        k7_ms = time_ms(lambda: msda.ms_deform_attn_ho(args[0], shapes, args[1], args[2]), 20)
         plain_ms = time_ms(lambda: msda.ms_deform_attn_plain(args[0], shapes, args[1], args[2]), 3)
+        # every corner of every sample is one 128-byte row per 32 channels
+        corner_bytes = b * q * h * len(shapes) * p * 4 * (d // 32) * 128
         log(f"[k1] {name}: value {list(args[0].shape)} loc {list(args[1].shape)} "
             f"({outside:.1%} of coords outside [0,1]) max_abs_err {err:.3e} "
-            f"(tol {K1_TOL:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"(tol {K1_TOL:.0e}; {same:.1%} bitwise equal) kernel {ms:.4f} ms "
+            f"(tile {msda.k1_tile_for(args[0], args[1])}; "
+            f"corner requests {corner_bytes / 1e9:.3f} GB, {corner_bytes / ms / 1e9:.2f} TB/s) "
+            f"K7 {k7_ms:.4f} ms plain {plain_ms:.4f} ms")
         check(err <= K1_TOL, f"K1 {name}: max abs error {err} > {K1_TOL}")
         rows.append(dict(shape=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         per_frame=per_frame,
+                         per_frame=per_frame, k7_ms=k7_ms, bitwise_equal_share=same,
+                         corner_TB_per_s=corner_bytes / ms / 1e9,
                          cost=roofline.msda_fwd(b, q, h, d, shapes, p)))
         del args, out, ref
     return rows
@@ -198,21 +214,37 @@ def check_k2(device, gen):
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
+        # both against the float64 product of the plain path's fp32 column
+        exact = (dcn.dcn_im2col_plain(x, off_y, off_x, mask).double() @ weight.double())
+        exact = exact.view(out.shape)
+        exact_scale = float(exact.abs().max())
+        vs_exact = [float((o.double() - exact).abs().max()) / exact_scale for o in (out, ref)]
+        del exact
         big_dy = float((off_y.abs() > 2).float().mean())
         ky = torch.arange(3, device=device).repeat_interleave(3)  # tap row
         py = torch.arange(h, device=device)[None, :, None, None] - 1 + ky + off_y
         off_img = float(((py <= -1) | (py >= h)).float().mean())
         ms = time_ms(lambda: dcn.dcn_conv(*args), 10)
         plain_ms = time_ms(lambda: dcn.dcn_conv_plain(*args), 3)
+        # yardstick, used nowhere in the port: the column by K5, then one
+        # fp32 cuBLAS product (TF32 is off)
+        wm = weight.view(9 * c, cout)
+        two_call_ms = time_ms(lambda: dcn.dcn_im2col(x, off_y, off_x, mask) @ wm, 10)
         gflop = 2.0 * b * h * w * 9 * c * cout / 1e9
         log(f"[k2] {name}: x {list(x.shape)} weight {list(weight.shape)} "
             f"(|dy|>2: {big_dy:.1%}, rows off the image: {off_img:.1%}) "
             f"max_abs_err {err:.3e} = {err / scale:.2e} of max|plain| "
-            f"(tol {K2_TOL:.0e}) kernel {ms:.4f} ms ({gflop / ms:.2f} TFLOP/s) "
+            f"(tol {K2_TOL:.0e}; against float64 products of the plain column: kernel "
+            f"{vs_exact[0]:.2e}, plain {vs_exact[1]:.2e} of scale) "
+            f"kernel {ms:.4f} ms ({gflop / ms:.2f} TFLOP/s) "
+            f"dcn_im2col + matmul {two_call_ms:.4f} ms ({gflop / two_call_ms:.2f} TFLOP/s) "
             f"plain {plain_ms:.4f} ms")
         check(err <= K2_TOL * scale, f"K2 {name}: error {err} > {K2_TOL} x {scale}")
         rows.append(dict(shape=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         per_frame=per_frame, cost=roofline.dcn_conv(b, h, w, c, cout)))
+                         per_frame=per_frame, TFLOP_per_s=gflop / ms,
+                         im2col_matmul_ms=two_call_ms, err_vs_float64=vs_exact[0],
+                         plain_err_vs_float64=vs_exact[1],
+                         cost=roofline.dcn_conv(b, h, w, c, cout)))
         del x, off_y, off_x, mask, weight, args, out, ref
     return rows
 
@@ -778,12 +810,10 @@ def grad_errors(run, ref):
     return errs
 
 
-def check_training_witness(device, smi):
-    """Kernel path against plain path, eval mode, at full size (the plain
-    calls recompute their gathers in backward, so that they fit the card)."""
-    import torch
+def witness_model(device):
+    """bevformer_base at seeded weights, its parameters trainable as in
+    training, for the training witness."""
     from bevformer_torch.configs import get_config
-    from bevformer_torch.data import train_batch
     from bevformer_torch.runtime import build_model, init_state_dict, label_params
 
     cfg = get_config("bevformer_base")
@@ -791,50 +821,84 @@ def check_training_witness(device, smi):
     labels = label_params(model, cfg.optim.frozen_stages)
     for name, p in model.named_parameters():
         p.requires_grad_(labels[name] != "frozen")
-    batch = train_batch(cfg, seed=1, device=device)
-    log(f"[witness] {cfg.name} at {cfg.data.num_cams} x {cfg.data.img_size} images, "
-        f"queue {cfg.data.queue_length}, eval mode; errors are |loss| relative and "
-        f"||kernel - plain|| / ||plain|| of each gradient group")
+    return cfg, model
 
-    def runs():
-        kernel = train_grads(model, batch)
-        counts = read_counts()
-        torch.cuda.reset_peak_memory_stats(device)
-        with plain_kernels(recompute=True):
-            plain = train_grads(model, batch)
-        peak = torch.cuda.max_memory_allocated(device)
-        check(read_counts() == counts, "the plain run launched a kernel")
-        return kernel, plain, peak
 
-    kernel, plain, peak = runs()
+def witness_errors(model, batch, device):
+    """Kernel vs plain and noisy plain vs plain (eval mode; the plain calls
+    recompute their gathers in backward, so that they fit the card), and the
+    plain path's peak memory."""
+    import torch
+
+    kernel = train_grads(model, batch)
+    counts = read_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    with plain_kernels(recompute=True):
+        plain = train_grads(model, batch)
+    peak = torch.cuda.max_memory_allocated(device)
+    check(read_counts() == counts, "the plain run launched a kernel")
     with plain_kernels(noise=WITNESS_NOISE, recompute=True):
         noisy = train_grads(model, batch)
-    kernel_errs, noise_errs = grad_errors(kernel, plain), grad_errors(noisy, plain)
-    log(f"[witness] undamped: kernel vs plain: {fmt_errors(kernel_errs)}; plain x (1 + "
+    return grad_errors(kernel, plain), grad_errors(noisy, plain), peak
+
+
+def witness_failures(errs, noise_errs, damped: bool):
+    """What the training witness refuses, from kernel vs plain (`errs`) and
+    noisy plain vs plain (`noise_errs`). Undamped, every key stays within
+    WITNESS_FACTOR of the noisy path. Damped, the decoder no longer
+    amplifies rounding: the loss and the transformer-side groups are held to
+    TRAIN_TOL, on a batch at which the noisy path itself stays within it
+    (where it does not, a switch sits within fp32 rounding of its edge and
+    the check would measure that switch, not the kernels). The backbone's
+    gradient still moves where one of its ~1e8 ReLU inputs sits within fp32
+    rounding of 0 and flips between the two paths, which the damping does
+    not reach: it is held to the noisy witness, as undamped."""
+    fails = []
+    for key, e in errs.items():
+        noisy = noise_errs[key]
+        limit = WITNESS_FACTOR * max(noisy, 1e-7)
+        if damped and key != "backbone":
+            limit = TRAIN_TOL
+            if noisy > TRAIN_TOL:
+                fails.append(f"{key}: noisy plain vs plain {noisy:.2e} > {TRAIN_TOL:.0e}: "
+                             f"the batch puts a switch within fp32 noise")
+        if e > limit:
+            fails.append(f"{key}: kernel vs plain {e:.2e} > {limit:.2e}")
+    return fails
+
+
+def check_training_witness(device, smi):
+    """Kernel path against plain path at full size, undamped and damped."""
+    import torch
+    from bevformer_torch.data import train_batch
+
+    cfg, model = witness_model(device)
+    # a batch at which fp32-sized noise on the plain path stays within
+    # TRAIN_TOL damped (checked). At seed 1 it does not: a switch in decoder
+    # layer 4 sits within fp32 rounding of its edge there, and the noise,
+    # like either kernel alone, flips it; every transformer-side group then
+    # moves by ~3e-3 (bevformer_torch/tools/witness_seeds.py surveys seeds)
+    batch = train_batch(cfg, seed=WITNESS_BATCH_SEED, device=device)
+    log(f"[witness] {cfg.name} at {cfg.data.num_cams} x {cfg.data.img_size} images, "
+        f"queue {cfg.data.queue_length}, batch seed {WITNESS_BATCH_SEED}, eval mode; errors are "
+        f"|loss| relative and ||kernel - plain|| / ||plain|| of each gradient group")
+
+    errs, noise_errs, peak = witness_errors(model, batch, device)
+    log(f"[witness] undamped: kernel vs plain: {fmt_errors(errs)}; plain x (1 + "
         f"{WITNESS_NOISE:.0e} N(0,1)) at every msda and DCN output and input gradient vs "
         f"plain: {fmt_errors(noise_errs)} (kernel must stay within {WITNESS_FACTOR:g}x); "
         f"plain path peak memory {peak / 2**30:.2f} GiB; card: {smi}")
-    for key, e in kernel_errs.items():
-        check(e <= WITNESS_FACTOR * max(noise_errs[key], 1e-7),
-              f"{key}: kernel vs plain {e:.2e} > {WITNESS_FACTOR:g} x {noise_errs[key]:.2e}")
+    fails = witness_failures(errs, noise_errs, damped=False)
+    check(not fails, "; ".join(fails))
 
-    # damped, the decoder no longer amplifies rounding: the loss and the
-    # transformer-side groups are held to TRAIN_TOL. The backbone's gradient
-    # still moves where one of its ~1e8 ReLU inputs sits within fp32
-    # rounding of 0 and flips between the two paths, which the damping does
-    # not reach: it is held to the noisy witness, as undamped
     damp_box_refinement(model)
-    kernel, plain, _ = runs()
-    with plain_kernels(noise=WITNESS_NOISE, recompute=True):
-        noisy = train_grads(model, batch)
-    errs, noise_errs = grad_errors(kernel, plain), grad_errors(noisy, plain)
+    errs, noise_errs, _ = witness_errors(model, batch, device)
     log(f"[witness] reg branch outputs x0.1: kernel vs plain: {fmt_errors(errs)} "
         f"(tol {TRAIN_TOL:.0e}; backbone within {WITNESS_FACTOR:g}x of noisy); noisy plain vs "
         f"plain: {fmt_errors(noise_errs)}")
-    for key, e in errs.items():
-        limit = WITNESS_FACTOR * max(noise_errs[key], 1e-7) if key == "backbone" else TRAIN_TOL
-        check(e <= limit, f"{key}: kernel vs plain {e:.2e} > {limit:.2e}")
-    del model, batch, kernel, plain, noisy
+    fails = witness_failures(errs, noise_errs, damped=True)
+    check(not fails, "; ".join(fails))
+    del model, batch
     torch.cuda.empty_cache()
 
 
@@ -920,6 +984,9 @@ def main() -> int:
     # launches: the training run's (all five kernels); the inference run's too
     kernels[0]["inference_launches"] = sl["k1"]
     kernels[1]["inference_launches"] = sl["k2"]
+    # the yardsticks, per frame: K7 at K1's shapes, dcn_im2col + matmul at K2's
+    kernels[0]["k7_ms"] = sum(r["k7_ms"] * r["per_frame"] for r in k1_rows)
+    kernels[1]["im2col_matmul_ms"] = sum(r["im2col_matmul_ms"] * r["per_frame"] for r in k2_rows)
     log(f"[summary] training step median {tr['median_ms']:.1f} ms, peak {tr['peak_gib']:.2f} GiB; "
         f"inference frame median {sl['median_ms']:.1f} ms, peak {sl['peak_gib']:.2f} GiB; "
         f"on {smi}; bounds against {roofline.PEAKS}")

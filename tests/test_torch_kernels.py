@@ -7,10 +7,11 @@ also runs on a machine without it, from the repo root:
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Tolerances: msda 1e-5 absolute on N(0, 1) values (same corners, sums in
-another order; the pixel position rounds as in the plain version), for K1,
-K7 and each of K7's tiles; the probe modes 1e-5 of their scale; the row
-gather bitwise (it copies bytes); DCN 1e-5
-of the output's scale (fp32 sums of 9*C products in another order). The
+another order; the pixel position rounds as in the plain version), for K1
+and each of its tiles, K7 and each of K7's tiles; the probe modes 1e-5 of
+their scale; the row gather bitwise (it copies bytes); DCN 1e-5 of the
+output's scale (3xTF32 products keep fp32's accuracy: sums of 9*C products
+in another order). The
 backward kernels: 1e-5 of each gradient's scale (the same corners; sums over
 channels and atomic adds in another order, so dValue and dx are not bitwise
 deterministic from run to run).
@@ -95,6 +96,53 @@ def test_msda_ho_tiles_match_plain(cuda_device, tile, acc):
     assert float((out - ref).abs().max()) <= 1e-5
 
 
+# K1 at the inference path's shapes with Q cut (the value maps at full
+# size), a ragged Q, and D = 64
+K1_PATH_CASES = [
+    ("tsa", 2, 1000, 8, 32, ((200, 200),), 4),
+    ("sca", 6, 300, 8, 32, ((116, 200), (58, 100), (29, 50), (15, 25)), 8),
+    ("decoder", 1, 900, 8, 32, ((200, 200),), 4),
+    ("ragged_q", 2, 131, 8, 32, ((30, 40), (15, 20)), 4),
+    ("d64", 2, 77, 4, 64, ((20, 30), (10, 15), (5, 8)), 8),
+]
+
+
+@pytest.mark.parametrize("name,b,q,h,d,shapes,p", K1_PATH_CASES,
+                         ids=[c[0] for c in K1_PATH_CASES])
+def test_msda_kernel_at_the_path_shapes(cuda_device, name, b, q, h, d, shapes, p):
+    """Locations uniform on [-0.2, 1.2] with no order (fully incoherent)."""
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 40 + len(name), cuda_device)
+    out = msda.ms_deform_attn(value, shapes, loc, attw)
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
+    assert float((out - ref).abs().max()) <= 1e-5, name
+
+
+@pytest.mark.parametrize("tile", msda.K1_TILES)
+@pytest.mark.parametrize("case", [0, 1, 4], ids=["tsa", "sca", "d64"])
+def test_msda_kernel_every_tile(cuda_device, tile, case):
+    """K1 at each tile the C entry takes (and so each share of a query's
+    samples among a warp's 8-lane groups), with a Q no tile divides."""
+    name, b, q, h, d, shapes, p = K1_PATH_CASES[case]
+    value, loc, attw = _msda_inputs(b, min(q, 137), h, d, shapes, p, tile, cuda_device)
+    out = msda._launch("msda_fwd", value, shapes, loc, attw, tile)
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
+    assert float((out - ref).abs().max()) <= 1e-5, (name, tile)
+
+
+def test_msda_kernel_refuses_what_its_c_entry_does_not_take(cuda_device):
+    value, loc, attw = _msda_inputs(1, 5, 8, 32, ((4, 5),), 2, 0, cuda_device)
+    for tile in (0, 3, 256):
+        with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+            msda._launch("msda_fwd", value, ((4, 5),), loc, attw, tile)
+    # a value tensor off a 16-byte boundary (the kernel's float4 loads)
+    shifted = torch.empty(value.numel() + 1, device=cuda_device)[1:].view_as(value)
+    shifted.copy_(value)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        msda.ms_deform_attn(shifted, ((4, 5),), loc, attw)
+
+
 @pytest.mark.parametrize("mode,tile,acc", [("full", 12, 1), ("full", 16, 3), ("gather", 32, 1)])
 def test_msda_ho_refuses_an_instantiation_it_lacks(cuda_device, mode, tile, acc):
     name, b, q, h, d, shapes, p = MSDA_CASES[1]
@@ -116,6 +164,16 @@ def test_msda_probe_modes_match_plain(cuda_device, kernel, mode):
     assert msda.msda_probe.launches == before + 1
     assert_close(out, msda.msda_probe_plain(mode, value, shapes, loc, attw), 1e-5,
                  f"{kernel} {mode}")
+
+
+@pytest.mark.parametrize("mode", msda.PROBE_MODES[1:])
+def test_msda_probe_modes_of_k1_at_tsa_shape(cuda_device, mode):
+    """K1's modes where each 8-lane group takes whole queries (4 samples)."""
+    name, b, q, h, d, shapes, p = K1_PATH_CASES[0]
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 50, cuda_device)
+    out = msda.msda_probe("hi", mode, value, shapes, loc, attw)
+    torch.cuda.synchronize()
+    assert_close(out, msda.msda_probe_plain(mode, value, shapes, loc, attw), 1e-5, mode)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -149,6 +207,25 @@ def test_dcn_kernel_matches_plain(cuda_device, stride):
     torch.cuda.synchronize()
     assert dcn.dcn_conv.launches == before + 1
     assert_close(out, dcn.dcn_conv_plain(*args, stride), 1e-5, f"stride {stride}")
+
+
+DCN_CASES = [
+    # name, B, H, W, C, Cout, stride: M = B*OH*OW is no multiple of the
+    # block's 64 pixels in any of them
+    ("c512_cout512_s2", 1, 11, 13, 512, 512, 2),
+    ("c512_cout96", 2, 7, 9, 512, 96, 1),
+    ("cout300", 2, 9, 10, 64, 300, 1),
+    ("cout50", 1, 8, 11, 32, 50, 2),  # Cout % 8 != 0: a ragged core matrix of the weight
+    ("stage4_rows", 1, 29, 50, 512, 512, 1),
+]
+
+
+@pytest.mark.parametrize("name,b,h,w,c,cout,stride", DCN_CASES, ids=[x[0] for x in DCN_CASES])
+def test_dcn_kernel_ragged_shapes(cuda_device, name, b, h, w, c, cout, stride):
+    args = _dcn_inputs(11, cuda_device, b=b, h=h, w=w, c=c, cout=cout, stride=stride)
+    out = dcn.dcn_conv(*args, stride)
+    torch.cuda.synchronize()
+    assert_close(out, dcn.dcn_conv_plain(*args, stride), 1e-5, name)
 
 
 @pytest.mark.parametrize("name,b,q,h,d,shapes,p", MSDA_CASES, ids=[c[0] for c in MSDA_CASES])

@@ -70,3 +70,19 @@ def test_wrapper_checks_reject_what_the_kernel_cannot_take(bad):
         value = value[..., :16].contiguous()
     with pytest.raises((TypeError, ValueError)):
         msda._check(value, shapes, loc, attw)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((2, 40000, 8, 1 * 4), 128),   # TSA: 4 samples per query
+    ((6, 10112, 8, 4 * 8), 16),    # SCA: 32
+    ((1, 900, 8, 1 * 4), 16),      # decoder: halved until 2 blocks per SM
+    ((1, 5, 8, 4), 8),             # tiny Q: not below 8
+    ((2, 1000, 8, 8 * 64), 1),     # a payload of 512 samples per query
+    ((2, 1000, 8, 8 * 100), 1),    # more than K1_ITEMS: still one query
+], ids=["tsa", "sca", "decoder", "tiny_q", "wide", "wider"])
+def test_k1_tile_per_shape(shape, want):
+    """K1's queries per block on a 132-SM card (an H100 SXM)."""
+    b, q, h, samples = shape
+    tile = msda.k1_tile(b, q, h, samples, 132)
+    assert tile == want and tile in msda.K1_TILES
+    assert tile * samples * 32 <= 227 * 1024  # the payload fits shared memory

@@ -20,10 +20,11 @@ from bevformer_torch.tools import (
     bench_msda_kernel,
     common,
     roofline,
+    witness_seeds,
 )
 
 TOOLS = [bench_msda_kernel, bench_kernel_probe3, bench_kernel_probe, bench_hi_probe,
-         bench_msda_decompose, bench_dma_gather]
+         bench_msda_decompose, bench_dma_gather, witness_seeds]
 
 
 def _no_card():
@@ -52,10 +53,34 @@ def test_roofline_k2_stage3_call():
     pixels = 6 * 58 * 100
     want_bytes = pixels * 256 * 4 + 3 * pixels * 9 * 4 + 2304 * 256 * 4 + pixels * 256 * 4
     assert cost.bytes == want_bytes == 77_388_096
-    # 2 * 9C * Cout for the contraction, 8 per tap and channel for sampling
-    assert cost.flops == 2 * pixels * 2304 * 256 + 8 * pixels * 2304 == 41_693_184_000
+    # 8 per tap and channel for sampling on the SIMT units; 2 * 9C * Cout for
+    # the contraction on the tensor cores, three TF32 products each
+    assert cost.flops == 8 * pixels * 2304 == 641_433_600
+    assert cost.tf32_flops == 3 * 2 * pixels * 2304 * 256 == 123_155_251_200
     assert cost.bound_by == "operations"
-    assert cost.bound_ms == pytest.approx(41.693184e9 / 67e12 * 1e3)
+    assert cost.bound_ms == pytest.approx(123.1552512e9 / 495e12 * 1e3)
+    assert cost.bound_ms == pytest.approx(0.249, abs=5e-4)
+    # per frame, with stage 4's 3 calls: about 6.5 ms
+    per_frame = roofline.total([(cost, 23), (roofline.dcn_conv(6, 29, 50, 512, 512), 3)])
+    assert per_frame["bound_ms"] == pytest.approx(6.47, abs=0.01)
+
+
+def test_roofline_k2_stage4_call():
+    """K2 at stage 4: x [6, 29, 50, 512], weight [4608, 512], out [6, 29, 50,
+    512]: the same contraction as stage 3, so the same bound; the SIMT
+    sampling and the bytes stay far below it."""
+    cost = roofline.dcn_conv(6, 29, 50, 512, 512)
+    pixels = 6 * 29 * 50
+    want_bytes = 2 * pixels * 512 * 4 + 3 * pixels * 9 * 4 + 4608 * 512 * 4
+    assert cost.bytes == want_bytes == 46_011_984
+    assert cost.flops == 8 * pixels * 4608
+    assert cost.tf32_flops == 3 * 2 * pixels * 4608 * 512 == 123_155_251_200
+    assert cost.bound_by == "operations"
+    assert cost.bound_ms == pytest.approx(0.2488, abs=1e-4)
+    assert cost.flops / roofline.FP32_FLOPS < cost.tf32_flops / roofline.TF32_FLOPS / 20
+    # stride 2 quarters the pixels and the contraction
+    half = roofline.dcn_conv(6, 29, 50, 512, 512, stride=2)
+    assert half.tf32_flops == 3 * 2 * (6 * 15 * 25) * 4608 * 512
 
 
 def test_roofline_totals_and_the_gather_bound():
