@@ -1,6 +1,6 @@
-// Multi-scale deformable attention, forward: what the two forward kernels,
-// K1 (csrc/msda_fwd.cu) and K7 (csrc/msda_fwd_ho.cu), share: the level
-// table and the probe modes.
+// Multi-scale deformable attention: what the two forward kernels, K1
+// (csrc/msda_fwd.cu) and K7 (csrc/msda_fwd_ho.cu), share: the level table
+// (which the backward, csrc/msda_bwd.cu, reads too) and the probe modes.
 //
 // The modes split a kernel's cost (the probes of tools/bench_hi_probe.py
 // and tools/bench_kernel_probe.py time them). Each is a function of the

@@ -56,9 +56,9 @@ SIGNATURES = {
     "dcn_conv_fwd": [_P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # value, loc, attw, grad_out, dvalue (zeroed), dloc, dattw, level_hw,
-    # L, B, K, Q, H, D, P, stream
+    # L, B, K, Q, H, D, P, queries per block, stream
     "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _P],
+                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, off_y, off_x, mask, cols, B, H, W, C, OH, OW, stride, stream
     "dcn_im2col": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, off_y, off_x, mask, dcols, dx (zeroed), doff_y, doff_x, dmask,
@@ -152,6 +152,14 @@ def build(force: bool = False) -> BuildResult:
         raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{log}")
     os.replace(tmp, out)
     return BuildResult(out, seconds, log, built=True)
+
+
+def sass(path: Path) -> str:
+    """The SASS of a built library, as the toolkit's `cuobjdump -sass`
+    prints it (next to nvcc)."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,10 +11,11 @@ weights [B, Q, H, L, P] -> output [B, Q, H*D].
 
 `ms_deform_attn` runs the CUDA kernel `csrc/msda_fwd.cu` on a CUDA tensor,
 as a `torch.autograd.Function` whose backward is `ms_deform_attn_backward`
-(the CUDA kernel `csrc/msda_bwd.cu`), and the plain PyTorch version
-`ms_deform_attn_plain` under ordinary autograd on a CPU tensor. The
-backward's plain version `ms_deform_attn_backward_plain` is autograd
-through `ms_deform_attn_plain`.
+(the CUDA kernel `csrc/msda_bwd.cu`, on the forward's block mapping and
+tile), and the plain PyTorch version `ms_deform_attn_plain` under ordinary
+autograd on a CPU tensor. The backward's plain version
+`ms_deform_attn_backward_plain` is autograd through
+`ms_deform_attn_plain`.
 
 `ms_deform_attn_ho` computes the same forward with the heads-outer kernel
 `csrc/msda_fwd_ho.cu` (the counterpart of the JAX package's
@@ -176,10 +177,10 @@ K1_MIN_BLOCKS_PER_SM = 2
 
 
 def k1_tile(b: int, q: int, h: int, samples: int, sms: int) -> int:
-    """K1's queries per block for B `b`, Q `q`, H `h` and `samples` = L*P
-    per query on a card of `sms` SMs: the largest tile of K1_TILES whose
-    payload holds at most K1_ITEMS samples (TSA and the decoder 128, SCA
-    16), halved, down to 8, while the grid has fewer than
+    """K1's (and its backward's) queries per block for B `b`, Q `q`, H `h`
+    and `samples` = L*P per query on a card of `sms` SMs: the largest tile
+    of K1_TILES whose payload holds at most K1_ITEMS samples (TSA and the
+    decoder 128, SCA 16), halved, down to 8, while the grid has fewer than
     K1_MIN_BLOCKS_PER_SM blocks per SM (the decoder's 900 queries: 16)."""
     tile = max([t for t in K1_TILES if t * samples <= K1_ITEMS] or [1])
     while tile > 8 and b * h * -(-q // tile) < K1_MIN_BLOCKS_PER_SM * sms:
@@ -193,7 +194,8 @@ def _sm_count(device: torch.device) -> int:
 
 
 def k1_tile_for(value, loc) -> int:
-    """K1's queries per block for these inputs on their card."""
+    """K1's (and its backward's) queries per block for these inputs on their
+    card."""
     b, _, h, _ = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
     return k1_tile(b, q, h, l * p, _sm_count(value.device))
@@ -267,14 +269,9 @@ def _check_grad(value, loc, grad_out):
         raise ValueError("grad_out must be contiguous")
 
 
-def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
-    """msda backward: grad_out [B, Q, H*D] -> dValue [B, K, H, D], dLoc
-    [B, Q, H, L, P, 2], dAttw [B, Q, H, L, P], all fp32. The plain version
-    for a CPU tensor, the CUDA kernel `msda_bwd` for a CUDA tensor."""
-    if value.device.type == "cpu":
-        return ms_deform_attn_backward_plain(value, spatial_shapes, loc, attw, grad_out)
-    spatial_shapes = _cuda_args("ms_deform_attn_backward", value, spatial_shapes, loc, attw)
-    _check_grad(value, loc, grad_out)
+def _launch_bwd(value, spatial_shapes, loc, attw, grad_out, tile: int):
+    """One launch of `msda_bwd` at `tile` queries per block: (dValue, dLoc,
+    dAttw)."""
     b, k, h, d = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
     dvalue = torch.zeros_like(value)
@@ -287,11 +284,24 @@ def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
         rc = lib.msda_bwd(
             value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
             grad_out.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
-            dattw.data_ptr(), level_hw.ctypes.data, l, b, k, q, h, d, p, stream,
+            dattw.data_ptr(), level_hw.ctypes.data, l, b, k, q, h, d, p, tile, stream,
         )
     build.check_launch("msda_bwd", rc)
-    ms_deform_attn_backward.launches += 1
     return dvalue, dloc, dattw
+
+
+def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
+    """msda backward: grad_out [B, Q, H*D] -> dValue [B, K, H, D], dLoc
+    [B, Q, H, L, P, 2], dAttw [B, Q, H, L, P], all fp32. The plain version
+    for a CPU tensor, the CUDA kernel `msda_bwd` for a CUDA tensor, at K1's
+    tile for the shape."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_backward_plain(value, spatial_shapes, loc, attw, grad_out)
+    spatial_shapes = _cuda_args("ms_deform_attn_backward", value, spatial_shapes, loc, attw)
+    _check_grad(value, loc, grad_out)
+    grads = _launch_bwd(value, spatial_shapes, loc, attw, grad_out, k1_tile_for(value, loc))
+    ms_deform_attn_backward.launches += 1
+    return grads
 
 
 ms_deform_attn_backward.launches = 0

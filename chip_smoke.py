@@ -18,10 +18,14 @@ Phases, each printed as it runs:
      yardstick, the two-call composition dcn_im2col + torch.matmul (fp32,
      TF32 off) of the same function;
   5. K3/K4 (msda_bwd) against autograd through the plain msda at K1's three
-     shapes, with times;
+     shapes, and at SCA's also on y-coherent locations as the kernel tools
+     build them (their corners collide in the atomics), with times, the
+     corner rows read and the 16-byte atomic adds made per call and their
+     rates; the build's SASS must hold the dValue adds as vector reductions;
   6. K5/K6 (dcn_im2col, dcn_col2im) and the DCN backward they make with two
      matrix products, against autograd through the plain DCN at K2's shapes,
-     with times of each kernel alone;
+     with times of each kernel alone, K5's share of its bound and the share
+     of its column bitwise equal to the plain version's;
   7. probes: the kernel benchmark and probe tools (bevformer_torch/tools),
      each through its `main` at bevformer_base's full SCA width (and TSA's
      for K1's cost split): K7 (msda_fwd_ho) against K1 and the plain msda on
@@ -74,6 +78,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import sys
 import time
 from contextlib import contextmanager
@@ -251,8 +256,7 @@ def check_k2(device, gen):
 
 def check_k34(device, gen):
     import torch
-    from bevformer_torch.kernels import msda
-    from bevformer_torch.tools import roofline
+    from bevformer_torch.tools import common, roofline
 
     levels = ((116, 200), (58, 100), (29, 50), (15, 25))
     # (name, B, Q, H, D, shapes, P, launches per training step)
@@ -265,24 +269,88 @@ def check_k34(device, gen):
     for name, b, q, h, d, shapes, p, per_step in cases:
         value, loc, attw = msda_inputs(b, q, h, d, shapes, p, gen, device)
         g = torch.randn((b, q, h * d), generator=gen, device=device)
-        ours = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
-        ref = msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g)
-        torch.cuda.synchronize()
-        errs = {k: rel_err(a, r) for k, a, r in zip(("dvalue", "dloc", "dattw"), ours, ref)}
-        del ours, ref
-        ms = time_ms(lambda: msda.ms_deform_attn_backward(value, shapes, loc, attw, g), 10)
-        plain_ms = time_ms(
-            lambda: msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g), 2)
-        log(f"[k3k4] {name}: value {list(value.shape)} loc {list(loc.shape)} "
-            f"max abs err / max |plain|: {fmt_errors(errs)} (tol {K34_TOL:.0e}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        for k, e in errs.items():
-            check(e <= K34_TOL, f"msda_bwd {name} {k}: {e:.2e} > {K34_TOL}")
-        rows.append(dict(shape=name, max_abs_err=max(errs.values()), ms=ms,
-                         plain_ms=plain_ms, per_step=per_step,
-                         cost=roofline.msda_bwd(b, q, h, d, shapes, p)))
+        cost = roofline.msda_bwd(b, q, h, d, shapes, p)
+        row = dict(shape=name, per_step=per_step, cost=cost,
+                   **k34_case(name, value, shapes, loc, attw, g, cost))
         del value, loc, attw, g
+        if name == "sca":
+            # locations as the kernel tools build them: y-coherent, as SCA's
+            # anchor sort leaves them; not part of the per-step sum
+            value, loc, attw = common.to_device(
+                common.coherent_inputs(common.sca_shape(q)), device)
+            g = torch.randn((b, q, h * d), generator=gen, device=device)
+            row["coherent"] = k34_case(f"{name} y-coherent", value, shapes, loc, attw, g, cost,
+                                       plain=False)
+            row["max_abs_err"] = max(row["max_abs_err"], row["coherent"]["max_abs_err"])
+            del value, loc, attw, g
+        rows.append(row)
     return rows
+
+
+def msda_bwd_traffic(loc, attw, shapes, d):
+    """(corner rows, 16-byte atomic adds) K3/K4 makes for these inputs: it
+    reads one 128-byte row per in-bounds corner of a sample and 32 channels,
+    and each lane adds 4 channels into every in-bounds corner whose weight x
+    attw is not 0 (D/4 vector atomics per corner)."""
+    from bevformer_torch.kernels import msda
+
+    rows = adds = 0
+    for lvl, (hh, ww) in enumerate(shapes):
+        for _, wgt, valid in msda._corners(loc[:, :, :, lvl], hh, ww):
+            rows += int(valid.sum())
+            adds += int((valid & (wgt * attw[:, :, :, lvl] != 0)).sum())
+    return rows * (d // 32), adds * (d // 4)
+
+
+def k34_case(name, value, shapes, loc, attw, g, cost, plain=True):
+    """K3/K4 on one input against autograd through the plain msda: the
+    errors, the time, and the corner-request and atomic rates (and the plain
+    version's time)."""
+    import torch
+    from bevformer_torch.kernels import msda
+
+    ours = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
+    ref = msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g)
+    torch.cuda.synchronize()
+    errs = {k: rel_err(a, r) for k, a, r in zip(("dvalue", "dloc", "dattw"), ours, ref)}
+    del ours, ref
+    ms = time_ms(lambda: msda.ms_deform_attn_backward(value, shapes, loc, attw, g), 10)
+    rows, adds = msda_bwd_traffic(loc, attw, shapes, value.shape[3])
+    out = dict(max_abs_err=max(errs.values()), ms=ms, share_of_bound=cost.bound_ms / ms,
+               corner_rows=rows, corner_TB_per_s=rows * 128 / ms / 1e9, atomic_adds=adds,
+               atomic_TB_per_s=adds * 16 / ms / 1e9)
+    if plain:
+        out["plain_ms"] = time_ms(
+            lambda: msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g), 2)
+    log(f"[k3k4] {name}: value {list(value.shape)} loc {list(loc.shape)} "
+        f"max abs err / max |plain|: {fmt_errors(errs)} (tol {K34_TOL:.0e}) kernel {ms:.4f} ms "
+        f"({cost.bound_ms / ms:.1%} of its bound {cost.bound_ms:.4f}; tile "
+        f"{msda.k1_tile_for(value, loc)}; corner rows {rows / 1e6:.2f} M, "
+        f"{out['corner_TB_per_s']:.2f} TB/s; 16-byte atomic adds {adds / 1e6:.1f} M, "
+        f"{out['atomic_TB_per_s']:.2f} TB/s)"
+        + (f" plain {out['plain_ms']:.4f} ms" if plain else ""))
+    for k, e in errs.items():
+        check(e <= K34_TOL, f"msda_bwd {name} {k}: {e:.2e} > {K34_TOL}")
+    return out
+
+
+def check_vector_atomics(lib_path):
+    """The dValue adds of every msda_bwd_kernel instantiation in the built
+    library are 16-byte vector reductions (REDG.E.ADD.F32x4 in the SASS)."""
+    from bevformer_torch.kernels import build
+
+    ops, kernel = {}, False
+    for line in build.sass(lib_path).splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            kernel = "msda_bwd_kernel" in fn.group(1)
+            continue
+        op = re.search(r"\b((?:REDG?|ATOMG?)\.[\w.]+)", line)
+        if kernel and op:
+            ops[op.group(1)] = ops.get(op.group(1), 0) + 1
+    log(f"[build] msda_bwd_kernel's atomic instructions in the SASS: {ops}")
+    check(bool(ops) and all("F32x4" in op for op in ops),
+          f"msda_bwd_kernel's dValue adds are not all 16-byte vector reductions: {ops}")
 
 
 def check_k56(device, gen):
@@ -309,8 +377,11 @@ def check_k56(device, gen):
 
         ours = kernel_bwd()
         ref = dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g)
-        cols_err = rel_err(dcn.dcn_im2col(x, off_y, off_x, mask),
-                           dcn.dcn_im2col_plain(x, off_y, off_x, mask))
+        cols, ref_cols = dcn.dcn_im2col(x, off_y, off_x, mask), dcn.dcn_im2col_plain(
+            x, off_y, off_x, mask)
+        cols_err = rel_err(cols, ref_cols)
+        cols_same = float((cols == ref_cols).float().mean())
+        del cols, ref_cols
         torch.cuda.synchronize()
         names = ("dx", "doff_y", "doff_x", "dmask", "dweight")
         errs = {k: rel_err(a, r) for k, a, r in zip(names, ours, ref)}
@@ -324,9 +395,12 @@ def check_k56(device, gen):
         bwd_ms = time_ms(kernel_bwd, 5)
         bwd_plain_ms = time_ms(
             lambda: dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g), 2)
+        im2col_cost = roofline.dcn_im2col(b, h, w, c)
         log(f"[k5k6] {name}: x {list(x.shape)} weight {list(weight.shape)} "
-            f"im2col max abs err / max |plain| {cols_err:.2e}; backward: {fmt_errors(errs)} "
-            f"(tol {K56_TOL:.0e}); dcn_im2col {im2col_ms:.4f} ms (plain {im2col_plain_ms:.4f}), "
+            f"im2col max abs err / max |plain| {cols_err:.2e} ({cols_same:.4%} of the column "
+            f"bitwise equal); backward: {fmt_errors(errs)} (tol {K56_TOL:.0e}); dcn_im2col "
+            f"{im2col_ms:.4f} ms ({im2col_cost.bound_ms / im2col_ms:.1%} of its bound "
+            f"{im2col_cost.bound_ms:.4f}; plain {im2col_plain_ms:.4f}), "
             f"dcn_col2im {col2im_ms:.4f} ms (plain {col2im_plain_ms:.4f}), whole backward "
             f"(im2col + 2 matmuls + col2im) {bwd_ms:.4f} ms (plain autograd {bwd_plain_ms:.4f})")
         check(cols_err <= K56_TOL, f"dcn_im2col {name}: {cols_err:.2e} > {K56_TOL}")
@@ -334,7 +408,8 @@ def check_k56(device, gen):
             check(e <= K56_TOL, f"DCN backward {name} {k}: {e:.2e} > {K56_TOL}")
         im2col_rows.append(dict(shape=name, max_abs_err=cols_err, ms=im2col_ms,
                                 plain_ms=im2col_plain_ms, per_step=per_step,
-                                cost=roofline.dcn_im2col(b, h, w, c)))
+                                share_of_bound=im2col_cost.bound_ms / im2col_ms,
+                                bitwise_equal_share=cols_same, cost=im2col_cost))
         col2im_rows.append(dict(shape=name, max_abs_err=max(errs.values()), ms=col2im_ms,
                                 plain_ms=col2im_plain_ms, per_step=per_step,
                                 backward_ms=bwd_ms, backward_plain_ms=bwd_plain_ms,
@@ -675,18 +750,24 @@ def profile_run(fn, tag, what, smi):
     check(busy_ms > 0, f"the profiled {what} ran nothing on the device")
     # device time by the aten op that launched it; the port's kernels are
     # launched through ctypes, under no aten op
+    averages = prof.key_averages()
     rows = [
         (a.key, a.self_device_time_total / 1e3, a.count)
-        for a in prof.key_averages()
+        for a in averages
         if a.self_device_time_total > 0
         and (a.key.startswith("aten::") or any(k in a.key for k in KERNEL_NAMES))
     ]
+    # each of the port's kernels, all its instantiations together
+    port = {k: (sum(a.self_device_time_total for a in averages if k in a.key) / 1e3,
+                sum(a.count for a in averages if k in a.key)) for k in KERNEL_NAMES}
     rows.sort(key=lambda r: -r[1])
     log(f"[{tag}] {what}: wall {wall_ms:.2f} ms (profiler on), device kernel time "
         f"{busy_ms:.2f} ms in {len(kernels)} kernels, busy {busy_ms / wall_ms:.1%}, "
         f"idle {1 - busy_ms / wall_ms:.1%}; card: {smi}")
     for name, ms, count in rows[:PROFILE_ROWS]:
         log(f"[{tag}]   {ms:9.3f} ms {ms / busy_ms:6.1%} {count:5d} calls  {name[:70]}")
+    log(f"[{tag}] the port's kernels: " + ", ".join(
+        f"{k} {ms:.3f} ms ({n} calls)" for k, (ms, n) in port.items()))
 
 
 def profile_frame(model, video, smi):
@@ -933,6 +1014,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
     build.library()
+    check_vector_atomics(res.path)
 
     gen = torch.Generator(device=device).manual_seed(0)
     k1_rows = check_k1(device, gen)

@@ -14,7 +14,8 @@ output's scale (3xTF32 products keep fp32's accuracy: sums of 9*C products
 in another order). The
 backward kernels: 1e-5 of each gradient's scale (the same corners; sums over
 channels and atomic adds in another order, so dValue and dx are not bitwise
-deterministic from run to run).
+deterministic from run to run); K5's column bitwise at the shapes of its own
+test (the plain version's operations, unfused).
 """
 
 import numpy as np
@@ -25,7 +26,7 @@ from bevformer_torch.kernels import dcn, gather, msda
 # by module name, not as `tests.torch_port_helpers`: pytest puts this
 # directory on sys.path, and another installed `tests` package would shadow
 # the repo's on a machine that has one
-from torch_port_helpers import assert_close, t
+from torch_port_helpers import assert_close, edge_locations, t
 
 pytestmark = pytest.mark.cuda
 
@@ -228,17 +229,106 @@ def test_dcn_kernel_ragged_shapes(cuda_device, name, b, h, w, c, cout, stride):
     assert_close(out, dcn.dcn_conv_plain(*args, stride), 1e-5, name)
 
 
+def _check_backward(grads, value, shapes, loc, attw, g, name):
+    """The kernel's (dValue, dLoc, dAttw) against autograd through the plain
+    msda, 1e-5 of each gradient's scale."""
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g)
+    for what, a, r in zip(("dvalue", "dloc", "dattw"), grads, ref):
+        assert_close(a, r, 1e-5, f"{name} {what}")
+
+
 @pytest.mark.parametrize("name,b,q,h,d,shapes,p", MSDA_CASES, ids=[c[0] for c in MSDA_CASES])
 def test_msda_backward_kernel_matches_plain(cuda_device, name, b, q, h, d, shapes, p):
     value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 7 + len(name), cuda_device)
     g = torch.randn((b, q, h * d), device=cuda_device)
     before = msda.ms_deform_attn_backward.launches
     grads = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
-    torch.cuda.synchronize()
     assert msda.ms_deform_attn_backward.launches == before + 1
-    ref = msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g)
-    for what, a, r in zip(("dvalue", "dloc", "dattw"), grads, ref):
-        assert_close(a, r, 1e-5, f"{name} {what}")
+    _check_backward(grads, value, shapes, loc, attw, g, name)
+
+
+@pytest.mark.parametrize("name,b,q,h,d,shapes,p", K1_PATH_CASES,
+                         ids=[c[0] for c in K1_PATH_CASES])
+def test_msda_backward_kernel_at_the_path_shapes(cuda_device, name, b, q, h, d, shapes, p):
+    """K3/K4 at the training path's three shapes with Q cut (the value maps
+    at full size), a ragged Q and D = 64; locations incoherent."""
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 60 + len(name), cuda_device)
+    g = torch.randn((b, q, h * d), device=cuda_device)
+    grads = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
+    _check_backward(grads, value, shapes, loc, attw, g, name)
+
+
+@pytest.mark.parametrize("tile", msda.K1_TILES)
+@pytest.mark.parametrize("case", [0, 1, 4], ids=["tsa", "sca", "d64"])
+def test_msda_backward_kernel_every_tile(cuda_device, tile, case):
+    """K3/K4 at each tile the C entry takes (and so each share of a query's
+    samples among a warp's 8-lane groups), with a Q no tile divides."""
+    name, b, q, h, d, shapes, p = K1_PATH_CASES[case]
+    q = min(q, 137)
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 70 + tile, cuda_device)
+    g = torch.randn((b, q, h * d), device=cuda_device)
+    grads = msda._launch_bwd(value, shapes, loc, attw, g, tile)
+    _check_backward(grads, value, shapes, loc, attw, g, f"{name} tile {tile}")
+
+
+EDGE_CASES = [
+    # name, B, Q, H, D, spatial shapes (powers of two), P
+    ("one_level", 2, 50, 8, 32, ((16, 32),), 4),
+    ("four_levels", 2, 37, 8, 32, ((16, 32), (8, 16), (4, 8), (2, 4)), 8),
+    ("d64", 1, 29, 4, 64, ((8, 16), (4, 8)), 4),
+]
+
+
+@pytest.mark.parametrize("name,b,q,h,d,shapes,p", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_msda_backward_kernel_at_exact_pixel_edges(cuda_device, name, b, q, h, d, shapes, p):
+    """Pixel positions exactly on cell edges (x or y = -1, 0, integers,
+    size - 1) and off the map: the kernel's bounds test (-1 <= x < w, -1 <=
+    y < h) and pixel rounding give the plain version's gradients, including
+    the nonzero dLoc.x of a sample at x == -1."""
+    value, _, attw = _msda_inputs(b, q, h, d, shapes, p, 80 + len(name), cuda_device)
+    loc = t(edge_locations(np.random.RandomState(len(name)), b, q, h, shapes, p)).to(cuda_device)
+    g = torch.randn((b, q, h * d), device=cuda_device)
+    grads = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
+    _check_backward(grads, value, shapes, loc, attw, g, name)
+
+
+def test_msda_backward_kernel_samples_off_the_map(cuda_device):
+    """Queries whose every sample lies off the map on some side: their dLoc
+    and dAttw are exactly 0 (and dValue, held to the plain version, gets
+    nothing from them)."""
+    name, b, q, h, d, shapes, p = K1_PATH_CASES[1]
+    q = 64
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 90, cuda_device)
+    off = loc.clone()
+    hw = torch.tensor([[ww, hh] for hh, ww in shapes], dtype=torch.float32, device=cuda_device)
+    # pixel positions below -1 (x and y), or half a pixel past the map's
+    # width or height, a query each
+    off[:, 0::4] = -1.5 / hw[:, None, :] - loc[:, 0::4].abs()
+    off[:, 1::4, ..., 0] = 1 + 1 / hw[:, None, 0] + loc[:, 1::4, ..., 0].abs()
+    off[:, 2::4, ..., 1] = 1 + 1 / hw[:, None, 1]
+    g = torch.randn((b, q, h * d), device=cuda_device)
+    grads = msda.ms_deform_attn_backward(value, shapes, off, attw, g)
+    _check_backward(grads, value, shapes, off, attw, g, "off the map")
+    for qs in (slice(0, None, 4), slice(1, None, 4), slice(2, None, 4)):
+        assert not grads[1][:, qs].any() and not grads[2][:, qs].any()
+
+
+def test_msda_backward_kernel_refuses_what_its_c_entry_does_not_take(cuda_device):
+    value, loc, attw = _msda_inputs(1, 5, 8, 32, ((4, 5),), 2, 0, cuda_device)
+    g = torch.randn((1, 5, 256), device=cuda_device)
+    for tile in (0, 3, 256):
+        with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+            msda._launch_bwd(value, ((4, 5),), loc, attw, g, tile)
+    # value or grad_out off a 16-byte boundary (the float4 loads)
+    before = msda.ms_deform_attn_backward.launches
+    for which in (0, 1):
+        args = [value, g]
+        shifted = torch.empty(args[which].numel() + 1, device=cuda_device)[1:]
+        args[which] = shifted.view_as(args[which]).copy_(args[which])
+        with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+            msda.ms_deform_attn_backward(args[0], ((4, 5),), loc, attw, args[1])
+    assert msda.ms_deform_attn_backward.launches == before
 
 
 def test_msda_autograd_runs_the_backward_kernel(cuda_device):
@@ -265,6 +355,39 @@ def test_dcn_im2col_kernel_matches_plain(cuda_device, stride):
     torch.cuda.synchronize()
     assert dcn.dcn_im2col.launches == before + 1
     assert_close(cols, dcn.dcn_im2col_plain(x, off_y, off_x, mask, stride), 1e-6, "cols")
+
+
+IM2COL_CASES = [
+    # name, B, H, W, C, stride: B*OH*OW no multiple of the block's pixels
+    ("ragged", 1, 7, 9, 64, 1),
+    ("stride2", 2, 11, 13, 256, 2),
+    ("c32", 3, 13, 21, 32, 1),
+    ("c512", 1, 9, 11, 512, 1),
+]
+
+
+@pytest.mark.parametrize("name,b,h,w,c,stride", IM2COL_CASES, ids=[x[0] for x in IM2COL_CASES])
+def test_dcn_im2col_kernel_shapes(cuda_device, name, b, h, w, c, stride):
+    """K5 does the plain version's arithmetic operation for operation, with
+    no FMA, so its column is the plain one's bitwise."""
+    x, off_y, off_x, mask, _ = _dcn_inputs(12, cuda_device, b=b, h=h, w=w, c=c, cout=32,
+                                           stride=stride)
+    cols = dcn.dcn_im2col(x, off_y, off_x, mask, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(cols, dcn.dcn_im2col_plain(x, off_y, off_x, mask, stride)), name
+
+
+def test_dcn_im2col_kernel_refuses_what_its_c_entry_does_not_take(cuda_device):
+    before = dcn.dcn_im2col.launches
+    x, off_y, off_x, mask, _ = _dcn_inputs(0, cuda_device, c=6, cout=8)  # C % 4 != 0
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        dcn.dcn_im2col(x, off_y, off_x, mask)
+    x, off_y, off_x, mask, _ = _dcn_inputs(0, cuda_device, c=32, cout=8)
+    # x off a 16-byte boundary (the float4 loads)
+    shifted = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x).copy_(x)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        dcn.dcn_im2col(shifted, off_y, off_x, mask)
+    assert dcn.dcn_im2col.launches == before
 
 
 @pytest.mark.parametrize("stride", [1, 2])

@@ -83,6 +83,38 @@ def test_roofline_k2_stage4_call():
     assert half.tf32_flops == 3 * 2 * (6 * 15 * 25) * 4608 * 512
 
 
+@pytest.mark.parametrize("args,bound", [
+    ((2, 40000, 8, 32, ((200, 200),), 4), 0.0917),
+    ((6, 10112, 8, 32, common.SCA_LEVELS, 8), 0.2429),
+    ((1, 900, 8, 32, ((200, 200),), 4), 0.0249),
+], ids=["tsa", "sca", "decoder"])
+def test_roofline_k34_per_shape(args, bound):
+    """K3/K4 at the training path's three shapes: value, loc and attw read
+    and their gradients written, and grad_out read, fp32; bound by bytes."""
+    b, q, h, d, shapes, p = args
+    cost = roofline.msda_bwd(*args)
+    k = sum(hh * ww for hh, ww in shapes)
+    samples = b * q * h * len(shapes) * p
+    assert cost.bytes == 2 * (b * k * h * d * 4 + samples * 3 * 4) + b * q * h * d * 4
+    assert cost.flops == samples * (14 + 26 * d)
+    assert cost.bound_by == "bytes"
+    assert cost.bound_ms == pytest.approx(bound, abs=5e-5)
+
+
+@pytest.mark.parametrize("args,bound", [((6, 58, 100, 256), 0.1075), ((6, 29, 50, 512), 0.0535)],
+                         ids=["layer3", "layer4"])
+def test_roofline_k5_per_stage(args, bound):
+    """K5 at R101 stages 3 and 4 (stride 1): x, offsets and mask read, the
+    column [B*H*W, 9C] written; the column is nine tenths of the bytes."""
+    b, h, w, c = args
+    cost = roofline.dcn_im2col(*args)
+    column = b * h * w * 9 * c * 4
+    assert cost.bytes == b * h * w * c * 4 + 3 * b * h * w * 9 * 4 + column
+    assert column / cost.bytes > 0.89
+    assert cost.bound_by == "bytes"
+    assert cost.bound_ms == pytest.approx(bound, abs=5e-5)
+
+
 def test_roofline_totals_and_the_gather_bound():
     tsa = roofline.msda_fwd(2, 40000, 8, 32, ((200, 200),), 4)
     dec = roofline.msda_fwd(1, 900, 8, 32, ((200, 200),), 4)

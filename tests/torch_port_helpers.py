@@ -30,6 +30,23 @@ def assert_close(ours, ref, tol, name=""):
     assert err <= tol * scale, f"{name}: max abs err {err:.3e} > {tol:.0e} x {scale:.3e}"
 
 
+def edge_locations(rng, b, q, h, shapes, p) -> np.ndarray:
+    """msda sampling locations [b, q, h, L, p, 2], fp32, whose pixel
+    positions (loc * size - 0.5) lie exactly on the edges of the bilinear
+    cells: -1, 0, integers inside the map, size - 1, and, around them,
+    half-pixels and positions off the map (-1.5 and size). Each map size
+    must be a power of two, so that every location and its pixel position
+    are exact in fp32."""
+    loc = np.empty((b, q, h, len(shapes), p, 2), np.float32)
+    for lvl, (hh, ww) in enumerate(shapes):
+        for axis, size in ((0, ww), (1, hh)):
+            assert size & (size - 1) == 0, size
+            px = np.array([-1.5, -1.0, -0.5, 0.0, 1.0, 2.0, size / 2, size - 1.5,
+                           size - 1.0, size - 0.5, size, 0.25])
+            loc[:, :, :, lvl, :, axis] = (rng.choice(px, (b, q, h, p)) + 0.5) / size
+    return loc
+
+
 def to_numpy_tree(tree):
     """Flax params (FrozenDict or dict, jax leaves) -> nested dicts of numpy."""
     if hasattr(tree, "items"):
