@@ -113,6 +113,10 @@ class BEVFormerConfig:
     bbox_loss_weight: float = 0.25
     # GridMask on the trained frame's images (train mode only)
     use_grid_mask: bool = True
+    # compute dtype of the network, the JAX config's field: "float32" (the
+    # entry points turn TF32 off around the model, `device.precision`); no
+    # other value runs yet
+    dtype: str = "float32"
     # training max GT boxes per sample (static padding for the matcher)
     max_gt: int = 320
 

@@ -76,10 +76,6 @@ constexpr int kSmemLimit = 227 * 1024;  // shared memory a block may use on sm_9
 constexpr int kMaxTile = 128;           // kernels/msda.py::K1_TILES
 constexpr int kBlocksPerSm = 4;         // 64 registers a thread: 32 warps an SM
 
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }

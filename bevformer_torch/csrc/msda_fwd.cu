@@ -15,7 +15,9 @@
 // least time is the bytes of value, loc, attw and out at the memory rate;
 // the corner requests themselves are many times that, through L1 and L2).
 //
-// What the design does about it (from K7's measured design, then further):
+// What the design does about it (from K7's first design, then further; the
+// two phases are csrc/msda_fwd.cuh's build_payload and sum_payload, which
+// K7 runs too):
 // - One block per (b, head, tile of `tile` consecutive queries), heads
 //   fastest in the grid so that the blocks in flight share value rows.
 //   Phase 1 writes each sample's four corner pixels (-1 outside) and its
@@ -52,65 +54,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kSmemLimit = 227 * 1024;  // shared memory a block may use on sm_90
 constexpr int kMaxTile = 128;           // kernels/msda.py::K1_TILES
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ void add4(float4& acc, float s) {
-  acc.x += s;
-  acc.y += s;
-  acc.z += s;
-  acc.w += s;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
-  acc.x += w * v.x;
-  acc.y += w * v.y;
-  acc.z += w * v.z;
-  acc.w += w * v.w;
-}
-
-__device__ __forceinline__ float4 shfl_xor4(float4 v, int m) {
-  v.x += __shfl_xor_sync(0xffffffffu, v.x, m);
-  v.y += __shfl_xor_sync(0xffffffffu, v.y, m);
-  v.z += __shfl_xor_sync(0xffffffffu, v.z, m);
-  v.w += __shfl_xor_sync(0xffffffffu, v.w, m);
-  return v;
-}
-
-// one sample's terms for this lane's 4 channels, into one accumulator per
-// corner: `v` points at the channels in the sample's pixel 0 of the batch,
-// `row` floats between pixels. The four corner loads go out before any is
-// used
-template <int MODE>
-__device__ __forceinline__ void add_sample(float4 (&s)[4], int4 c, float4 w, const float* v,
-                                           int64_t row) {
-  if (MODE == kNoop) {
-    add4(s[0], w.x);
-    return;
-  }
-  if (MODE == kWeights) {
-    add4(s[0], w.x);
-    add4(s[1], w.y);
-    add4(s[2], w.z);
-    add4(s[3], w.w);
-    return;
-  }
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 v0 = c.x >= 0 ? ldg4(v + c.x * row) : zero;
-  const float4 v1 = c.y >= 0 ? ldg4(v + c.y * row) : zero;
-  const float4 v2 = c.z >= 0 ? ldg4(v + c.z * row) : zero;
-  const float4 v3 = c.w >= 0 ? ldg4(v + c.w * row) : zero;
-  const bool unit = MODE == kGather;
-  fma4(s[0], unit ? 1.f : w.x, v0);
-  fma4(s[1], unit ? 1.f : w.y, v1);
-  fma4(s[2], unit ? 1.f : w.z, v2);
-  fma4(s[3], unit ? 1.f : w.w, v3);
-}
 
 template <int MODE, int SPLIT>
 __global__ void __launch_bounds__(kThreads)
@@ -121,106 +66,16 @@ msda_fwd_kernel(const float* __restrict__ value,  // [B, K, H, D]
                 int K, int Q, int H, int D, int L, int P, int tile, int tiles,
                 Levels lv) {
   extern __shared__ int4 payload[];
-  const int lp_n = L * P;
-  const int items = tile * lp_n;
-  int4* corners = payload;                                      // [tile * L * P]
-  float4* weights = reinterpret_cast<float4*>(payload + items);  // [tile * L * P]
+  int4* corners = payload;                                           // [tile * L * P]
+  float4* weights = reinterpret_cast<float4*>(payload + tile * L * P);  // [tile * L * P]
   const int h = (int)(blockIdx.x % H);
   const int rest = (int)(blockIdx.x / H);
   const int q0 = (rest % tiles) * tile;
   const int b = rest / tiles;
-
-  // phase 1: the tile's payload, one sample per thread at a time
-  for (int i = threadIdx.x; i < items; i += kThreads) {
-    const int qi = i / lp_n;
-    const int lp = i - qi * lp_n;
-    const int q = q0 + qi;
-    int4 c = make_int4(-1, -1, -1, -1);
-    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q < Q) {
-      const int64_t it = (((int64_t)b * Q + q) * H + h) * lp_n + lp;
-      const float lx = loc[2 * it];
-      const float ly = loc[2 * it + 1];
-      const float a = attw[it];
-      if (MODE == kNoop) {
-        w.x = a + 0.f * (lx + ly);
-      } else {
-        const int l = lp / P;
-        const int hh = lv.h[l];
-        const int ww = lv.w[l];
-        // __fmul_rn keeps loc * size out of an FMA, so the pixel position
-        // rounds as in the plain version (at x ~ 200 one ulp of an fp32
-        // position is 1.5e-5 px)
-        const float x = __fmul_rn(lx, (float)ww) - 0.5f;
-        const float y = __fmul_rn(ly, (float)hh) - 0.5f;
-        // all four corners lie outside unless -1 < x < ww and -1 < y < hh
-        // (NaN fails too)
-        if (x > -1.f && y > -1.f && x < (float)ww && y < (float)hh) {
-          const float fx = floorf(x);
-          const float fy = floorf(y);
-          const int x0 = (int)fx;
-          const int y0 = (int)fy;
-          const float tx = x - fx;
-          const float ty = y - fy;
-          const int k00 = lv.start[l] + y0 * ww + x0;
-          if (y0 >= 0 && x0 >= 0) { c.x = k00; w.x = (1.f - tx) * (1.f - ty) * a; }
-          if (y0 >= 0 && x0 + 1 < ww) { c.y = k00 + 1; w.y = tx * (1.f - ty) * a; }
-          if (y0 + 1 < hh && x0 >= 0) { c.z = k00 + ww; w.z = (1.f - tx) * ty * a; }
-          if (y0 + 1 < hh && x0 + 1 < ww) { c.w = k00 + ww + 1; w.w = tx * ty * a; }
-        }
-      }
-    }
-    corners[i] = c;
-    weights[i] = w;
-  }
+  build_payload<MODE, kThreads>(corners, weights, loc, attw, b, h, q0, tile, Q, H, L, P, lv);
   __syncthreads();
-
-  // phase 2: 8 lanes x 16 bytes per 128-byte row; the warp's four 8-lane
-  // groups take SPLIT shares of each of 4 / SPLIT queries
-  constexpr int kQueriesPerPass = 4 / SPLIT;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int grp = lane >> 3;
-  const int slot = grp / SPLIT;  // this group's query in the pass
-  const int part = grp % SPLIT;  // its share of that query's samples
-  const int64_t row = (int64_t)H * D;  // floats between value pixels
-  const float* vb = value + (int64_t)b * K * row + (int64_t)h * D + 4 * (lane & 7);
-  // the loop bounds are the same in every lane: the shuffles need them all
-  for (int base = warp * kQueriesPerPass; base < tile; base += kWarps * kQueriesPerPass) {
-    const int qi = base + slot;
-    const bool active = qi < tile && q0 + qi < Q;
-    const int4* ck = corners + qi * lp_n;
-    const float4* cw = weights + qi * lp_n;
-    float* op = out + (((int64_t)b * Q + q0 + qi) * H + h) * D + 4 * (lane & 7);
-    for (int d0 = 0; d0 < D; d0 += 32) {
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 acc = zero;
-      if (active) {
-        // the plain version's order: per level, each corner summed over
-        // the points, then the corners in turn (with SPLIT 1, as at TSA,
-        // most outputs agree with it bitwise)
-        for (int l = 0; l < L; ++l) {
-          float4 s[4] = {zero, zero, zero, zero};
-          // this group's share of the level: every SPLIT-th sample, from
-          // the first whose index is `part` modulo SPLIT
-          const int first = l * P + (part - l * P % SPLIT + SPLIT) % SPLIT;
-#pragma unroll 2
-          for (int j = first; j < (l + 1) * P; j += SPLIT)
-            add_sample<MODE>(s, ck[j], cw[j], vb + d0, row);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            acc.x += s[k].x;
-            acc.y += s[k].y;
-            acc.z += s[k].z;
-            acc.w += s[k].w;
-          }
-        }
-      }
-      if (SPLIT >= 2) acc = shfl_xor4(acc, 8);
-      if (SPLIT == 4) acc = shfl_xor4(acc, 16);
-      if (active && part == 0) *reinterpret_cast<float4*>(op + d0) = acc;
-    }
-  }
+  sum_payload<MODE, SPLIT, 1, kThreads>(corners, weights, value, out, b, h, q0, tile, K, Q, H,
+                                        D, L, P);
 }
 
 template <int MODE, int SPLIT>
@@ -258,9 +113,7 @@ int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* 
   const int tiles = (Q + tile - 1) / tile;
   const int64_t blocks = (int64_t)B * H * tiles;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  // SPLIT groups per query, as many as give each at least 4 samples (one
-  // group per query keeps the plain version's order of sums)
-  const int split = lp_n >= 16 ? 4 : lp_n >= 8 ? 2 : 1;
+  const int split = split_for(lp_n);
   const float* v = static_cast<const float*>(value);
   const float* lo = static_cast<const float*>(loc);
   const float* a = static_cast<const float*>(attw);

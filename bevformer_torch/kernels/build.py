@@ -19,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,7 +48,7 @@ SIGNATURES = {
     # before the queries per block
     "msda_fwd_probe": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # value .. P as msda_fwd, then the mode (0 full, 1-3 as above), the
-    # queries per block, the accumulators per lane and the stream
+    # queries per block, the accumulator sets per 8-lane group and the stream
     "msda_fwd_ho": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # src, idx (int32), out, B, M, R, row bytes, stream
     "row_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -160,6 +161,23 @@ def sass(path: Path) -> str:
     cuobjdump = Path(_nvcc()).parent / "cuobjdump"
     return subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+def atomic_ops(path: Path, kernel: str) -> dict:
+    """{SASS atomic or reduction opcode: count} over every function of the
+    built library `path` whose name contains `kernel` (all instantiations).
+    A float add the hardware cannot do in one instruction shows as a
+    compare-and-swap loop (an opcode with CAS)."""
+    ops, inside = {}, False
+    for line in sass(path).splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            inside = kernel in fn.group(1)
+            continue
+        op = re.search(r"\b((?:REDG?|REDS|ATOM[GS]?)\.[\w.]+)", line)
+        if inside and op:
+            ops[op.group(1)] = ops.get(op.group(1), 0) + 1
+    return ops
 
 
 @functools.lru_cache(maxsize=None)

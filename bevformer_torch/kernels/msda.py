@@ -310,9 +310,9 @@ ms_deform_attn_backward.launches = 0
 # ---------------------------------------------------------------- K7 and probes
 
 PROBE_MODES = ("full", "gather", "weights", "noop")  # csrc/msda_fwd.cuh MsdaMode
-# the (queries per block, accumulators per lane) instantiations of
-# csrc/msda_fwd_ho.cu, whose C entry refuses any other, and one too large
-# for shared memory, with cudaErrorInvalidValue
+# the (queries per block, accumulator sets per 8-lane group) that
+# csrc/msda_fwd_ho.cu takes; its C entry refuses any other, and one too
+# large for shared memory, with cudaErrorInvalidValue
 HO_TILES = (8, 16, 32, 64)
 HO_ACCS = (1, 2)
 HO_TILE, HO_ACC = 16, 1  # ms_deform_attn_ho's, and the other modes' (the fastest of the sweep)

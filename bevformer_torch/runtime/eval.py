@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from bevformer_torch.core import coder
+from bevformer_torch.device import precision
 from bevformer_torch.models import BEVFormer
 
 
@@ -38,10 +39,12 @@ class VideoEvaluator:
 
     @torch.no_grad()
     def step(self, images, can_bus, lidar2img, prev_bev, has_prev):
-        """One frame: model forward and top-k decode. Returns (bev_embed,
-        decoded batch)."""
+        """One frame: model forward and top-k decode, in the config's dtype
+        whatever the caller's TF32 flags. Returns (bev_embed, decoded
+        batch)."""
         c = self.cfg
-        preds = self.model(images, can_bus, lidar2img, prev_bev, has_prev)
+        with precision(c.dtype):
+            preds = self.model(images, can_bus, lidar2img, prev_bev, has_prev)
         dec = coder.decode_batch(
             preds,
             max_num=self.max_num,

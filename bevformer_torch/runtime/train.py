@@ -15,6 +15,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from bevformer_torch.core.losses import bevformer_loss
+from bevformer_torch.device import precision
 from bevformer_torch.models import BEVFormer
 from bevformer_torch.runtime.optim import make_optimizer
 
@@ -132,5 +133,8 @@ class Trainer:
         )
 
     def step(self, batch: Batch) -> Dict[str, float]:
-        return train_step(self.model, self.optimizer, self.scheduler, self.params,
-                          self.cfg.optim.grad_clip_norm, batch)
+        """One training step in the config's dtype, whatever the caller's
+        TF32 flags."""
+        with precision(self.cfg.dtype):
+            return train_step(self.model, self.optimizer, self.scheduler, self.params,
+                              self.cfg.optim.grad_clip_norm, batch)

@@ -7,8 +7,8 @@ The TPU probe swept the windowed kernel's geometry (row stride, halo, item
 tile) and its independent accumulators (acc2, acc4) for the row combine.
 The port's K7 (csrc/msda_fwd_ho.cu) has no windows; its geometry is the
 number of queries a block takes (the tile whose payload it builds in shared
-memory: 8, 16, 32 or 64) and its independent accumulators per lane (1 or
-2). Case `t{tile}a{acc}` runs that instantiation in `full` mode on the
+memory: 8, 16, 32 or 64) and its independent accumulator sets per 8-lane
+group (1 or 2). Case `t{tile}a{acc}` runs that instantiation in `full` mode on the
 y-coherent inputs and prints ms, the max abs error against the plain
 version, the bound and the share of it.
 """

@@ -5,7 +5,8 @@
 
 Phases, each printed as it runs:
   1. device: the card's name and power limit (nvidia-smi); TF32 off for
-     fp32 matmuls and convolutions;
+     fp32 matmuls and convolutions (the entry points turn it off around the
+     model themselves: phase 10 checks it);
   2. build: nvcc compiles bevformer_torch/csrc/*.cu for sm_90a;
   3. K1 (msda_fwd) against its plain PyTorch version at the three shapes of
      the inference path (TSA, SCA, decoder), with times, the share of
@@ -25,7 +26,11 @@ Phases, each printed as it runs:
   6. K5/K6 (dcn_im2col, dcn_col2im) and the DCN backward they make with two
      matrix products, against autograd through the plain DCN at K2's shapes,
      with times of each kernel alone, K5's share of its bound and the share
-     of its column bitwise equal to the plain version's;
+     of its column bitwise equal to the plain version's; K6's share of its
+     bound, the bytes it adds into dx through global atomics and their rate,
+     and, as a yardstick, ATen's grid_sampler_2d_backward on the same
+     sampling (dx and the position gradient; with grid_sampler_2d and a
+     channel dot for dmask, the two-call composition of K6's function);
   7. probes: the kernel benchmark and probe tools (bevformer_torch/tools),
      each through its `main` at bevformer_base's full SCA width (and TSA's
      for K1's cost split): K7 (msda_fwd_ho) against K1 and the plain msda on
@@ -40,7 +45,11 @@ Phases, each printed as it runs:
      then the trained frame). It prints each step's loss, grad norm, lr and
      seconds, the median of steps 1-3 and the peak memory, checks finite
      losses, launches of all five kernels in every step, frozen parameters
-     bitwise unchanged and trainable ones moved, and profiles one more step;
+     bitwise unchanged and trainable ones moved, and profiles one more step.
+     One more step records what its backward hands K6 (the offsets and
+     masks of the model's offset convs, the column gradients): K6 on each
+     recorded call alone, timed, its dx adds counted, held against the
+     plain version;
   9. training witness, in eval mode at full size (the plain path's msda and
      DCN calls recompute their gathers in backward under
      torch.utils.checkpoint, so that its autograd fits the card): loss and
@@ -60,7 +69,9 @@ Phases, each printed as it runs:
      path stays as close to the plain path as the plain path with fp32-sized
      noise on its msda and DCN outputs does (a witness of how far rounding
      alone moves the outputs); with the reg branches' output layers scaled
-     by 0.1, bev_embed, cls and bbox agree to 1e-3;
+     by 0.1, bev_embed, cls and bbox agree to 1e-3. Then one frame with the
+     caller's TF32 flags on: its outputs equal the flags-off frame's to 1e-6
+     of scale, and the flags read on again after it;
   11. profile: one frame that carries prev_bev under torch.profiler, its
      device busy share and the ops that take the device time.
 
@@ -78,7 +89,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import re
 import sys
 import time
 from contextlib import contextmanager
@@ -336,19 +346,13 @@ def k34_case(name, value, shapes, loc, attw, g, cost, plain=True):
 
 def check_vector_atomics(lib_path):
     """The dValue adds of every msda_bwd_kernel instantiation in the built
-    library are 16-byte vector reductions (REDG.E.ADD.F32x4 in the SASS)."""
+    library are 16-byte vector reductions (REDG.E.ADD.F32x4 in the SASS);
+    K6's dx adds are printed beside them."""
     from bevformer_torch.kernels import build
 
-    ops, kernel = {}, False
-    for line in build.sass(lib_path).splitlines():
-        fn = re.search(r"Function : (\S+)", line)
-        if fn:
-            kernel = "msda_bwd_kernel" in fn.group(1)
-            continue
-        op = re.search(r"\b((?:REDG?|ATOMG?)\.[\w.]+)", line)
-        if kernel and op:
-            ops[op.group(1)] = ops.get(op.group(1), 0) + 1
-    log(f"[build] msda_bwd_kernel's atomic instructions in the SASS: {ops}")
+    ops = build.atomic_ops(lib_path, "msda_bwd_kernel")
+    log(f"[build] atomic instructions in the SASS: msda_bwd_kernel {ops}, "
+        f"dcn_col2im_kernel {build.atomic_ops(lib_path, 'dcn_col2im_kernel')}")
     check(bool(ops) and all("F32x4" in op for op in ops),
           f"msda_bwd_kernel's dValue adds are not all 16-byte vector reductions: {ops}")
 
@@ -367,55 +371,128 @@ def check_k56(device, gen):
         mask = torch.rand((b, h, w, 9), generator=gen, device=device)
         weight = torch.randn((9 * c, cout), generator=gen, device=device) / (9 * c) ** 0.5
         g = torch.randn((b, h, w, cout), generator=gen, device=device)
-        gm = g.view(-1, cout)
+        dcols = torch.randn((b * h * w, 9 * c), generator=gen, device=device)
 
-        def kernel_bwd():
-            cols = dcn.dcn_im2col(x, off_y, off_x, mask)
-            dweight = cols.t() @ gm
-            del cols
-            return (*dcn.dcn_col2im(x, off_y, off_x, mask, gm @ weight.t()), dweight)
-
-        ours = kernel_bwd()
-        ref = dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g)
         cols, ref_cols = dcn.dcn_im2col(x, off_y, off_x, mask), dcn.dcn_im2col_plain(
             x, off_y, off_x, mask)
         cols_err = rel_err(cols, ref_cols)
         cols_same = float((cols == ref_cols).float().mean())
         del cols, ref_cols
-        torch.cuda.synchronize()
-        names = ("dx", "doff_y", "doff_x", "dmask", "dweight")
-        errs = {k: rel_err(a, r) for k, a, r in zip(names, ours, ref)}
-        del ours, ref
-        dcols = torch.randn((b * h * w, 9 * c), generator=gen, device=device)
         im2col_ms = time_ms(lambda: dcn.dcn_im2col(x, off_y, off_x, mask), 10)
         im2col_plain_ms = time_ms(lambda: dcn.dcn_im2col_plain(x, off_y, off_x, mask), 3)
-        col2im_ms = time_ms(lambda: dcn.dcn_col2im(x, off_y, off_x, mask, dcols), 10)
-        col2im_plain_ms = time_ms(
-            lambda: dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols), 3)
-        bwd_ms = time_ms(kernel_bwd, 5)
-        bwd_plain_ms = time_ms(
-            lambda: dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g), 2)
         im2col_cost = roofline.dcn_im2col(b, h, w, c)
-        log(f"[k5k6] {name}: x {list(x.shape)} weight {list(weight.shape)} "
-            f"im2col max abs err / max |plain| {cols_err:.2e} ({cols_same:.4%} of the column "
-            f"bitwise equal); backward: {fmt_errors(errs)} (tol {K56_TOL:.0e}); dcn_im2col "
-            f"{im2col_ms:.4f} ms ({im2col_cost.bound_ms / im2col_ms:.1%} of its bound "
-            f"{im2col_cost.bound_ms:.4f}; plain {im2col_plain_ms:.4f}), "
-            f"dcn_col2im {col2im_ms:.4f} ms (plain {col2im_plain_ms:.4f}), whole backward "
-            f"(im2col + 2 matmuls + col2im) {bwd_ms:.4f} ms (plain autograd {bwd_plain_ms:.4f})")
+        log(f"[k5] {name}: x {list(x.shape)} max abs err / max |plain| {cols_err:.2e} "
+            f"({cols_same:.4%} of the column bitwise equal); dcn_im2col {im2col_ms:.4f} ms "
+            f"({im2col_cost.bound_ms / im2col_ms:.1%} of its bound {im2col_cost.bound_ms:.4f}; "
+            f"plain {im2col_plain_ms:.4f})")
         check(cols_err <= K56_TOL, f"dcn_im2col {name}: {cols_err:.2e} > {K56_TOL}")
-        for k, e in errs.items():
-            check(e <= K56_TOL, f"DCN backward {name} {k}: {e:.2e} > {K56_TOL}")
         im2col_rows.append(dict(shape=name, max_abs_err=cols_err, ms=im2col_ms,
                                 plain_ms=im2col_plain_ms, per_step=per_step,
                                 share_of_bound=im2col_cost.bound_ms / im2col_ms,
                                 bitwise_equal_share=cols_same, cost=im2col_cost))
-        col2im_rows.append(dict(shape=name, max_abs_err=max(errs.values()), ms=col2im_ms,
-                                plain_ms=col2im_plain_ms, per_step=per_step,
-                                backward_ms=bwd_ms, backward_plain_ms=bwd_plain_ms,
-                                cost=roofline.dcn_col2im(b, h, w, c)))
-        del x, off_y, off_x, mask, weight, g, gm, dcols
+        col2im_rows.append(dict(shape=name, per_step=per_step, cost=roofline.dcn_col2im(
+            b, h, w, c), **k6_case(name, x, off_y, off_x, mask, weight, g, dcols)))
+        del x, off_y, off_x, mask, weight, g, dcols
     return im2col_rows, col2im_rows
+
+
+def col2im_dx_adds(x_shape, off_y, off_x, stride: int = 1) -> int:
+    """The corners K6 adds into dx for these offsets: the on-image corners
+    of every (pixel, tap) that passes the backward's bounds test (-1 <= p <
+    size), each C floats through a global atomic."""
+    import torch
+    from bevformer_torch.kernels import dcn
+
+    _, h, w, _ = x_shape
+    py, px = dcn._grid(off_y.shape[1], off_y.shape[2], stride, off_y, off_x)
+    live = (py >= -1) & (px >= -1) & (py < h) & (px < w)
+    y0, x0 = torch.floor(py), torch.floor(px)
+    adds = 0
+    for yy in (y0, y0 + 1):
+        for xx in (x0, x0 + 1):
+            adds += int((live & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)).sum())
+    return adds
+
+
+def k6_case(name, x, off_y, off_x, mask, weight, g, dcols):
+    """K6 at one stage: the DCN backward it ends (K5, two products, K6)
+    against autograd through the plain DCN, and K6 alone against
+    dcn_col2im_plain on `dcols`; K6's time, share of its bound, the bytes it
+    adds into dx by global atomics and their rate; the yardstick, ATen's
+    grid_sampler_2d_backward on the same sampling (dx and the position
+    gradient, not dmask: with grid_sampler_2d and a channel dot for dmask it
+    is the two-call composition); the plain versions' times."""
+    import torch
+    from bevformer_torch.kernels import dcn
+    from bevformer_torch.tools import roofline
+
+    b, h, w, c = x.shape
+    cout = weight.shape[1]
+    gm = g.view(-1, cout)
+    cost = roofline.dcn_col2im(b, h, w, c)
+
+    def kernel_bwd():
+        cols = dcn.dcn_im2col(x, off_y, off_x, mask)
+        dweight = cols.t() @ gm
+        del cols
+        return (*dcn.dcn_col2im(x, off_y, off_x, mask, gm @ weight.t()), dweight)
+
+    names = ("dx", "doff_y", "doff_x", "dmask", "dweight")
+    ours = kernel_bwd()
+    ref = dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g)
+    torch.cuda.synchronize()
+    errs = {k: rel_err(a, r) for k, a, r in zip(names, ours, ref)}
+    del ours, ref
+    ours = dcn.dcn_col2im(x, off_y, off_x, mask, dcols)
+    ref = dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols)
+    torch.cuda.synchronize()
+    errs.update({f"{k} alone": rel_err(a, r) for k, a, r in zip(names, ours, ref)})
+    dx = ours[0]
+    del ours, ref
+    ms = time_ms(lambda: dcn.dcn_col2im(x, off_y, off_x, mask, dcols), 10)
+    bwd_ms = time_ms(kernel_bwd, 5)
+    adds = col2im_dx_adds(x.shape, off_y, off_x)
+
+    # the yardstick's tensors, made outside the timed region: NCHW x, the
+    # sample positions as an align_corners grid [B, OH, OW*9, 2], and the
+    # column gradient times the mask as its NCHW output gradient
+    py, px = dcn._grid(h, w, 1, off_y, off_x)
+    grid = torch.stack([px * (2 / (w - 1)) - 1, py * (2 / (h - 1)) - 1], -1).view(b, h, w * 9, 2)
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    gcols = dcols.view(b, h, w, 9, c).permute(0, 4, 1, 2, 3).reshape(b, c, h, w * 9)
+    gout = (dcols.view(b, h, w, 9, c) * mask[..., None]).permute(0, 4, 1, 2, 3).reshape(
+        b, c, h, w * 9)
+    aten = torch.ops.aten
+
+    def grid_bwd():
+        return aten.grid_sampler_2d_backward(gout, xn, grid, 0, 0, True, [True, True])
+
+    def grid_pair():
+        grads = grid_bwd()
+        return grads, (aten.grid_sampler_2d(xn, grid, 0, 0, True) * gcols).sum(1)
+
+    yard_dx = rel_err(grid_bwd()[0].permute(0, 2, 3, 1), dx)
+    gs_ms = time_ms(grid_bwd, 10)
+    pair_ms = time_ms(grid_pair, 10)
+    del grid, xn, gcols, gout, dx
+    out = dict(max_abs_err=max(errs.values()), ms=ms, backward_ms=bwd_ms,
+               share_of_bound=cost.bound_ms / ms, dx_add_bytes=adds * c * 4,
+               dx_add_TB_per_s=adds * c * 4 / ms / 1e9, grid_sampler_ms=gs_ms,
+               grid_sampler_pair_ms=pair_ms)
+    out["plain_ms"] = time_ms(lambda: dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols), 3)
+    out["backward_plain_ms"] = time_ms(
+        lambda: dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g), 2)
+    log(f"[k6] {name}, offsets N(0, 3) px: max abs err / max |plain|: {fmt_errors(errs)} "
+        f"(tol {K56_TOL:.0e}); dcn_col2im {ms:.4f} ms ({cost.bound_ms / ms:.1%} of its bound "
+        f"{cost.bound_ms:.4f}); dx adds through global atomics {adds * c * 4 / 1e6:.1f} MB "
+        f"({adds / 1e6:.2f} M corners x {c} channels, {out['dx_add_TB_per_s']:.2f} TB/s); "
+        f"whole backward (im2col + 2 matmuls + col2im) {bwd_ms:.4f} ms; yardstick aten "
+        f"grid_sampler_2d_backward {gs_ms:.4f} ms (dx vs K6 {yard_dx:.2e} of scale), + "
+        f"grid_sampler_2d and the dmask dot {pair_ms:.4f} ms; plain dcn_col2im "
+        f"{out['plain_ms']:.4f} ms, plain autograd backward {out['backward_plain_ms']:.4f} ms")
+    for k, e in errs.items():
+        check(e <= K56_TOL, f"DCN backward {name} {k}: {e:.2e} > {K56_TOL}")
+    return out
 
 
 # ---------------------------------------------------------------- probes
@@ -728,6 +805,44 @@ def check_slice(device, smi):
                 model=model, video=video)
 
 
+FP32_TOL = 1e-6  # max abs err over max |flags off| of a frame run with the caller's TF32 on
+
+
+def check_precision(model, video):
+    """One frame with the caller's TF32 flags on for cuBLAS and cuDNN (cuDNN's
+    is on by PyTorch's default) equals the same frame with them off (as this
+    script runs): `VideoEvaluator.step` computes in the config's fp32 whatever
+    the caller's flags, and hands them back."""
+    import torch
+    from bevformer_torch.runtime import VideoEvaluator
+
+    sample = video.get_test_sample(0)
+
+    def frame():
+        preds = []
+        hook = model.register_forward_hook(lambda m, i, out: preds.append(out))
+        try:
+            VideoEvaluator(model).infer_frame(sample)
+        finally:
+            hook.remove()
+        return preds[0]
+
+    off = frame()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        on = frame()
+        after = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    errs = {k: rel_err(on[k], off[k]) for k in ("bev_embed", "all_cls_scores", "all_bbox_preds")}
+    log(f"[precision] frame 0 with the caller's TF32 on vs off, max abs err / max |off|: "
+        f"{fmt_errors(errs)} (tol {FP32_TOL:.0e}); flags after the frame: matmul "
+        f"{after[0]}, cuDNN {after[1]}")
+    check(after == (True, True), f"the caller's TF32 flags were not restored: {after}")
+    for key, e in errs.items():
+        check(e <= FP32_TOL, f"{key}: TF32-on caller vs off {e:.2e} > {FP32_TOL}")
+
+
 KERNEL_NAMES = ("msda_fwd_kernel", "dcn_conv_fwd_kernel", "msda_bwd_kernel",
                 "dcn_im2col_kernel", "dcn_col2im_kernel")
 
@@ -852,8 +967,91 @@ def check_training(device, smi):
         f"1-{TRAIN_STEPS - 1}: {median * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB; "
         f"frozen parameters unchanged, trainable ones moved; card: {smi}")
     profile_run(lambda: trainer.step(batch), "train-profile", f"step {TRAIN_STEPS}", smi)
+    k6 = check_k6_training_step(trainer, batch, smi)
     del trainer, model, batch, before
-    return dict(counts=counts, median_ms=median * 1e3, peak_gib=peak / 2**30)
+    return dict(counts=counts, median_ms=median * 1e3, peak_gib=peak / 2**30, k6=k6)
+
+
+@contextmanager
+def recorded_col2im(calls: list):
+    """Within the block, each call of `dcn.dcn_col2im` (the DCN backward's)
+    also appends its arguments (x, off_y, off_x, mask, dcols, stride) to
+    `calls`."""
+    from bevformer_torch.kernels import dcn
+
+    kernel = dcn.dcn_col2im
+
+    def recording(x, off_y, off_x, mask, dcols, stride=1):
+        calls.append((x, off_y, off_x, mask, dcols, stride))
+        return kernel(x, off_y, off_x, mask, dcols, stride)
+
+    # the wrapper counts its launches under the module's name, which is
+    # this function's while recording: those launches land here
+    recording.launches = 0
+    dcn.dcn_col2im = recording
+    try:
+        yield calls
+    finally:
+        dcn.dcn_col2im = kernel
+
+
+def check_k6_training_step(trainer, batch, smi):
+    """K6 on what a training step hands it: one more step with every
+    dcn_col2im call recorded (the offsets and masks of the model's offset
+    convs, the column gradients of its backward); each call then runs alone
+    on those tensors, timed, its dx adds counted, and the first call of each
+    shape held against the plain version."""
+    import torch
+    from bevformer_torch.kernels import dcn
+    from bevformer_torch.tools import roofline
+
+    calls = []
+    with recorded_col2im(calls):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    want = TRAIN_PER_STEP["dcn_col2im"]
+    check(len(calls) == want, f"the step made {len(calls)} dcn_col2im calls, expected {want}")
+    shapes = {}
+    for x, off_y, off_x, mask, dcols, stride in calls:
+        b, h, w, c = x.shape
+        key = f"x [{b}, {h}, {w}, {c}] stride {stride}"
+        ms = time_ms(lambda: dcn.dcn_col2im(x, off_y, off_x, mask, dcols, stride), 5)
+        adds = col2im_dx_adds(x.shape, off_y, off_x, stride)
+        offsets = torch.cat([off_y.reshape(-1), off_x.reshape(-1)])
+        if key not in shapes:
+            ours = dcn.dcn_col2im(x, off_y, off_x, mask, dcols, stride)
+            ref = dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols, stride)
+            torch.cuda.synchronize()
+            err = max(rel_err(a, r) for a, r in zip(ours, ref))
+            del ours, ref
+            check(err <= K56_TOL, f"dcn_col2im on the training step's {key}: {err:.2e} > "
+                                  f"{K56_TOL}")
+            shapes[key] = dict(calls=0, ms=0.0, dx_add_bytes=0, max_abs_err=err,
+                               offset_rms_px=[], bound_ms=0.0)
+        s = shapes[key]
+        s["calls"] += 1
+        s["ms"] += ms
+        s["dx_add_bytes"] += adds * c * 4
+        s["offset_rms_px"].append(float(offsets.square().mean().sqrt()))
+        s["bound_ms"] += roofline.dcn_col2im(b, h, w, c, stride).bound_ms
+    del calls
+    for key, s in shapes.items():
+        rms = s.pop("offset_rms_px")
+        s["offset_rms_px"] = [min(rms), max(rms)]
+        s["dx_add_TB_per_s"] = s["dx_add_bytes"] / s["ms"] / 1e9
+        log(f"[train-k6] {key}: {s['calls']} calls, K6 {s['ms']:.4f} ms in all "
+            f"({s['bound_ms'] / s['ms']:.1%} of their bound {s['bound_ms']:.4f}); dx adds "
+            f"through global atomics {s['dx_add_bytes'] / 1e6:.1f} MB "
+            f"({s['dx_add_TB_per_s']:.2f} TB/s); offsets' rms {s['offset_rms_px'][0]:.3f}"
+            f"-{s['offset_rms_px'][1]:.3f} px; first call vs plain {s['max_abs_err']:.2e} of "
+            f"scale (tol {K56_TOL:.0e})")
+    total = dict(ms=sum(s["ms"] for s in shapes.values()),
+                 bound_ms=sum(s["bound_ms"] for s in shapes.values()),
+                 dx_add_bytes=sum(s["dx_add_bytes"] for s in shapes.values()), shapes=shapes)
+    log(f"[train-k6] K6 on one training step's own inputs: {total['ms']:.4f} ms "
+        f"({total['bound_ms'] / total['ms']:.1%} of its bound {total['bound_ms']:.4f}), "
+        f"{total['dx_add_bytes'] / 1e6:.1f} MB of dx adds; card: {smi}")
+    return total
 
 
 GROUPS = (("backbone", "img_backbone."), ("neck", "img_neck."),
@@ -1029,6 +1227,7 @@ def main() -> int:
     check_training_witness(device, smi)
     torch.cuda.empty_cache()
     sl = check_slice(device, smi)
+    check_precision(sl["model"], sl["video"])
     profile_frame(sl["model"], sl["video"], smi)
 
     def record(name, src, replaces, rows, per, library_note):
@@ -1061,7 +1260,9 @@ def main() -> int:
                "no single PyTorch call computes a modulated deformable im2col"),
         record("dcn_col2im", "bevformer_torch/csrc/dcn_col2im.cu",
                "bevformer_tpu/kernels/msda_pallas.py:318", col2im_rows, "per_step",
-               "no single PyTorch call computes the DCN col2im"),
+               "no single PyTorch call computes the DCN col2im: grid_sampler_2d_backward "
+               "leaves out dmask (grid_sampler_ms, and with grid_sampler_2d and the dmask "
+               "dot grid_sampler_pair_ms)"),
     ] + probe_records(probe_runs, probe_counts)
     # launches: the training run's (all five kernels); the inference run's too
     kernels[0]["inference_launches"] = sl["k1"]
@@ -1069,6 +1270,13 @@ def main() -> int:
     # the yardsticks, per frame: K7 at K1's shapes, dcn_im2col + matmul at K2's
     kernels[0]["k7_ms"] = sum(r["k7_ms"] * r["per_frame"] for r in k1_rows)
     kernels[1]["im2col_matmul_ms"] = sum(r["im2col_matmul_ms"] * r["per_frame"] for r in k2_rows)
+    # K6 on one training step's own inputs too, and its yardstick: ATen's
+    # grid sampler backward (no dmask), and with the forward sampler and the
+    # dmask dot, the two-call composition of the same function
+    k6 = kernels[4]
+    k6["training_step"] = tr["k6"]
+    for key in ("grid_sampler_ms", "grid_sampler_pair_ms"):
+        k6[key] = sum(r[key] * r["per_step"] for r in col2im_rows)
     log(f"[summary] training step median {tr['median_ms']:.1f} ms, peak {tr['peak_gib']:.2f} GiB; "
         f"inference frame median {sl['median_ms']:.1f} ms, peak {sl['peak_gib']:.2f} GiB; "
         f"on {smi}; bounds against {roofline.PEAKS}")

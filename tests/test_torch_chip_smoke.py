@@ -2,11 +2,13 @@
 and prints no result line, here and from a directory that holds nothing
 else of the repository."""
 
+import math
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -60,3 +62,75 @@ def test_training_witness_limits(damped, errs, noisy, refused):
     assert len(fails) == len(refused)
     for msg, want in zip(fails, refused):
         assert msg.startswith(want), (msg, want)
+
+
+def _corner_walk(x_shape, off_y, off_x, stride):
+    """On-image corners of every (pixel, tap) passing -1 <= p < size, one
+    sample at a time."""
+    from bevformer_torch.kernels import dcn
+
+    _, h, w, _ = x_shape
+    py, px = dcn._grid(off_y.shape[1], off_y.shape[2], stride, off_y, off_x)
+    adds = 0
+    for y, x in zip(py.reshape(-1).tolist(), px.reshape(-1).tolist()):
+        if not (-1 <= y < h and -1 <= x < w):
+            continue
+        for yy in (math.floor(y), math.floor(y) + 1):
+            for xx in (math.floor(x), math.floor(x) + 1):
+                adds += 0 <= yy < h and 0 <= xx < w
+    return adds
+
+
+@pytest.mark.parametrize("stride,offsets", [(1, 2.0), (2, 2.0), (1, 0.0), (1, "edge"),
+                                            (2, "edge"), (1, 20.0), (2, 20.0)])
+def test_col2im_dx_adds_counts_the_on_image_corners(stride, offsets):
+    """chip_smoke.py's count of K6's dx adds: at zero offsets each interior
+    (pixel, tap) adds 4 corners; exact edges (-1, H - 1, off the map) and far
+    offsets as a walk over the samples counts them."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from torch_port_helpers import edge_offsets
+
+    rng = np.random.RandomState(stride)
+    b, h, w, c = 2, 8, 16, 32
+    oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+    if offsets == "edge":
+        off_y, off_x = edge_offsets(rng, b, oh, ow, h), edge_offsets(rng, b, oh, ow, w)
+    else:
+        off_y, off_x = (rng.randn(2, b, oh, ow, 9) * offsets).astype(np.float32)
+    off_y, off_x = torch.from_numpy(off_y), torch.from_numpy(off_x)
+    adds = chip_smoke.col2im_dx_adds((b, h, w, c), off_y, off_x, stride)
+    assert adds == _corner_walk((b, h, w, c), off_y, off_x, stride)
+    if offsets == 0.0:
+        # per axis of n pixels, the 3n samples o - 1 + k: -1 and n - 1 (twice)
+        # keep one corner row, n drops out, the 3n - 4 others keep two
+        assert adds == b * (6 * h - 5) * (6 * w - 5)
+
+
+def test_recorded_col2im_records_and_restores():
+    """chip_smoke.py's recorder hands every dcn_col2im call through, keeps
+    its arguments, and puts the wrapper back, also after a raise."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.kernels import dcn
+
+    kernel = dcn.dcn_col2im
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(1, 4, 5, 8).astype(np.float32))
+    off = torch.from_numpy(rng.randn(3, 1, 4, 5, 9).astype(np.float32))
+    dcols = torch.from_numpy(rng.randn(20, 72).astype(np.float32))
+    calls = []
+    launches = kernel.launches
+    with chip_smoke.recorded_col2im(calls):
+        # the wrapper's launch count goes by its module name: the recorder
+        # has one, so that a card's launch does not fail on it
+        assert dcn.dcn_col2im.launches == 0
+        got = dcn.dcn_col2im(x, off[0], off[1], off[2], dcols)
+    assert dcn.dcn_col2im is kernel and kernel.launches == launches
+    assert len(calls) == 1 and calls[0][0] is x and calls[0][4] is dcols and calls[0][5] == 1
+    for a, r in zip(got, kernel(x, off[0], off[1], off[2], dcols)):
+        assert torch.equal(a, r)
+    with pytest.raises(ZeroDivisionError):
+        with chip_smoke.recorded_col2im(calls):
+            1 / 0
+    assert dcn.dcn_col2im is kernel

@@ -14,8 +14,9 @@ output's scale (3xTF32 products keep fp32's accuracy: sums of 9*C products
 in another order). The
 backward kernels: 1e-5 of each gradient's scale (the same corners; sums over
 channels and atomic adds in another order, so dValue and dx are not bitwise
-deterministic from run to run); K5's column bitwise at the shapes of its own
-test (the plain version's operations, unfused).
+deterministic from run to run), K6 also at exact pixel edges and with
+samples far off their pixel; K5's column bitwise at the
+shapes of its own test (the plain version's operations, unfused).
 """
 
 import numpy as np
@@ -26,7 +27,7 @@ from bevformer_torch.kernels import dcn, gather, msda
 # by module name, not as `tests.torch_port_helpers`: pytest puts this
 # directory on sys.path, and another installed `tests` package would shadow
 # the repo's on a machine that has one
-from torch_port_helpers import assert_close, edge_locations, t
+from torch_port_helpers import assert_close, edge_locations, edge_offsets, t
 
 pytestmark = pytest.mark.cuda
 
@@ -401,6 +402,90 @@ def test_dcn_col2im_kernel_matches_plain(cuda_device, stride):
     ref = dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols, stride)
     for what, a, r in zip(("dx", "doff_y", "doff_x", "dmask"), grads, ref):
         assert_close(a, r, 1e-5, f"stride {stride} {what}")
+
+
+COL2IM_CASES = [
+    # name, B, H, W, C, stride, offsets: "edge" (samples exactly on cell
+    # edges, powers-of-two maps), "far" (uniform on +-20 px), or a std in px
+    ("edge_c256", 2, 16, 32, 256, 1, "edge"),
+    ("edge_c512", 1, 8, 16, 512, 1, "edge"),
+    ("edge_c256_stride2", 2, 16, 32, 256, 2, "edge"),
+    ("far_c256", 1, 48, 64, 256, 1, "far"),
+    ("far_c512", 1, 32, 48, 512, 1, "far"),
+    # the mapping's edges: B 1 and B*OH*OW no multiple of the block's 8
+    # pixels, C 32 (one float4 per lane), C 36 and 4 (lanes idle), one row
+    # of output pixels, one column
+    ("ragged_b1", 1, 13, 21, 64, 1, 1.0),
+    ("c32_one_pass", 3, 9, 17, 32, 1, 1.0),
+    ("c36_partial_pass", 2, 10, 11, 36, 1, 1.0),
+    ("c4", 2, 7, 9, 4, 1, 1.0),
+    ("one_row", 1, 1, 40, 64, 1, 1.0),
+    ("one_column", 1, 12, 1, 64, 1, 1.0),
+]
+
+
+def _col2im_inputs(seed, device, b, h, w, c, stride, offsets):
+    rng = np.random.RandomState(seed)
+    oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = rng.randn(b, h, w, c).astype(np.float32)
+    if offsets == "edge":
+        off_y, off_x = edge_offsets(rng, b, oh, ow, h), edge_offsets(rng, b, oh, ow, w)
+    elif offsets == "far":
+        off_y, off_x = (rng.uniform(-20, 20, (2, b, oh, ow, 9)).astype(np.float32))
+    else:
+        off_y, off_x = (rng.randn(2, b, oh, ow, 9) * offsets).astype(np.float32)
+    mask = rng.rand(b, oh, ow, 9).astype(np.float32)
+    dcols = rng.randn(b * oh * ow, 9 * c).astype(np.float32)
+    return [t(a).to(device) for a in (x, off_y, off_x, mask, dcols)]
+
+
+@pytest.mark.parametrize("name,b,h,w,c,stride,offsets", COL2IM_CASES,
+                         ids=[x[0] for x in COL2IM_CASES])
+def test_dcn_col2im_kernel_cases(cuda_device, name, b, h, w, c, stride, offsets):
+    """K6 against the plain version at exact pixel edges (its bounds test
+    -1 <= py < H keeps the slope of a sample at py == -1), with samples far
+    off their pixel, and at the edges of its mapping, at both stage widths
+    (C 256 and 512)."""
+    args = _col2im_inputs(len(name), cuda_device, b, h, w, c, stride, offsets)
+    grads = dcn.dcn_col2im(*args, stride)
+    torch.cuda.synchronize()
+    ref = dcn.dcn_col2im_plain(*args, stride)
+    for what, a, r in zip(("dx", "doff_y", "doff_x", "dmask"), grads, ref):
+        assert_close(a, r, 1e-5, f"{name} {what}")
+
+
+def test_dcn_col2im_kernel_refuses_what_its_c_entry_does_not_take(cuda_device):
+    """The C entry refuses C % 4, x, dcols or dx off a 16-byte boundary (the
+    float4 loads and atomics) and a stride below 1 (which the wrapper's
+    shape checks never pass: it is called directly)."""
+    from bevformer_torch.kernels import build
+
+    before = dcn.dcn_col2im.launches
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        dcn.dcn_col2im(*_col2im_inputs(0, cuda_device, 1, 5, 7, 6, 1, 1.0))
+    args = _col2im_inputs(0, cuda_device, 1, 5, 7, 32, 1, 1.0)
+    for which in (0, 4):  # x, dcols
+        shifted = list(args)
+        shifted[which] = torch.empty(args[which].numel() + 1, device=cuda_device)[1:].view_as(
+            args[which]).copy_(args[which])
+        with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+            dcn.dcn_col2im(*shifted)
+    assert dcn.dcn_col2im.launches == before
+    x, off_y, off_x, mask, dcols = args
+    outs = [torch.zeros_like(x), *(torch.empty_like(off_y) for _ in range(3))]
+    rc = build.library().dcn_col2im(
+        x.data_ptr(), off_y.data_ptr(), off_x.data_ptr(), mask.data_ptr(), dcols.data_ptr(),
+        *(t.data_ptr() for t in outs), 1, 5, 7, 32, 5, 7, 0,
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        build.check_launch("dcn_col2im", rc)
+    dx = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x)  # dx off 16 bytes
+    rc = build.library().dcn_col2im(
+        x.data_ptr(), off_y.data_ptr(), off_x.data_ptr(), mask.data_ptr(), dcols.data_ptr(),
+        dx.data_ptr(), *(t.data_ptr() for t in outs[1:]), 1, 5, 7, 32, 5, 7, 1,
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        build.check_launch("dcn_col2im", rc)
 
 
 @pytest.mark.parametrize("stride", [1, 2])

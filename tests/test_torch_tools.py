@@ -115,6 +115,23 @@ def test_roofline_k5_per_stage(args, bound):
     assert cost.bound_ms == pytest.approx(bound, abs=5e-5)
 
 
+@pytest.mark.parametrize("args,bound", [
+    ((6, 58, 100, 256), 399_504_000 / 3.35e12 * 1e3),
+    ((6, 29, 50, 512), 197_872_800 / 3.35e12 * 1e3),
+], ids=["layer3", "layer4"])
+def test_roofline_k6_per_stage(args, bound):
+    """K6 at R101 stages 3 and 4 (stride 1): x, offsets and mask read and
+    their gradients written, and the column gradient read once; bytes bound
+    it."""
+    b, h, w, c = args
+    cost = roofline.dcn_col2im(*args)
+    x, offsets, taps = b * h * w * c * 4, 3 * b * h * w * 9 * 4, b * h * w * 9
+    assert cost.bytes == 2 * (x + offsets) + taps * c * 4
+    assert cost.flops == taps * c * 24
+    assert cost.bound_by == "bytes"
+    assert cost.bound_ms == pytest.approx(bound)
+
+
 def test_roofline_totals_and_the_gather_bound():
     tsa = roofline.msda_fwd(2, 40000, 8, 32, ((200, 200),), 4)
     dec = roofline.msda_fwd(1, 900, 8, 32, ((200, 200),), 4)

@@ -47,6 +47,16 @@ def edge_locations(rng, b, q, h, shapes, p) -> np.ndarray:
     return loc
 
 
+def edge_offsets(rng, b, oh, ow, size):
+    """Offsets [b, oh, ow, 9] from {-size, -1.5, -1, -0.5, 0, 0.5, 1, size}
+    and a few quarter pixels: the sample positions oy*s - 1 + ky + offset
+    land exactly on -1, integers (H - 1 among them), half and quarter pixels,
+    and off the map; every value is exact in fp32."""
+    vals = np.array([-size, -1.5, -1.0, -0.5, 0.0, 0.5, 1.0, size, -0.25, 0.25, 0.75],
+                    np.float32)
+    return rng.choice(vals, (b, oh, ow, 9))
+
+
 def to_numpy_tree(tree):
     """Flax params (FrozenDict or dict, jax leaves) -> nested dicts of numpy."""
     if hasattr(tree, "items"):
