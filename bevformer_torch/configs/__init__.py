@@ -3,7 +3,9 @@ from bevformer_torch.configs.config import (
     BEVFormerConfig,
     DataConfig,
     OptimConfig,
+    apply_overrides,
     get_config,
 )
 
-__all__ = ["CONFIGS", "BEVFormerConfig", "DataConfig", "OptimConfig", "get_config"]
+__all__ = ["CONFIGS", "BEVFormerConfig", "DataConfig", "OptimConfig", "apply_overrides",
+           "get_config"]

@@ -1,7 +1,7 @@
 """Model configuration: frozen dataclasses and a preset registry.
 
-The fields are the ones the bevformer_base inference and training paths
-read, with the values of the JAX package's presets
+The fields are the ones the bevformer_base inference, training and data
+paths and the CLIs read, with the values of the JAX package's presets
 (`bevformer_tpu/configs/config.py`).
 What bevformer_base fixes is code, not a field: a caffe-style backbone, the
 ego-motion shift, the prev-BEV rotation, the CAN-bus embedding and the
@@ -10,6 +10,7 @@ prev-BEV carry across the frames of a scene (video test mode).
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 from typing import Dict, Tuple
 
@@ -25,9 +26,11 @@ class DataConfig:
     scale: float = 1.0
     # pad-to divisor
     size_divisor: int = 32
-    # per-channel mean/std of caffe-style (BGR) normalisation
+    # per-channel mean/std; to_rgb=False keeps caffe-style BGR order
     mean: Tuple[float, float, float] = (103.530, 116.280, 123.675)
     std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    to_rgb: bool = False
+    use_photometric: bool = True  # train-time PhotoMetricDistortion
     # frames per training sample: queue_length - 1 history frames, then
     # the trained one
     queue_length: int = 4
@@ -65,6 +68,8 @@ class OptimConfig:
     warmup_iters: int = 500
     warmup_ratio: float = 1.0 / 3.0
     min_lr_ratio: float = 1e-3
+    total_epochs: int = 24
+    samples_per_gpu: int = 1
     # the stem and stages 1..frozen_stages of the backbone do not train
     frozen_stages: int = 1
 
@@ -149,3 +154,46 @@ def get_config(name: str, **overrides) -> BEVFormerConfig:
 # projects/configs/bevformer/bevformer_base.py: R101-DCN caffe, 4 FPN
 # levels, 200x200 BEV, 6+6 layers, 900 queries
 register_config(BEVFormerConfig(name="bevformer_base", sca_capacity_ratio=0.25))
+
+
+def apply_overrides(cfg: BEVFormerConfig, options: Dict[str, str]) -> BEVFormerConfig:
+    """`--cfg-options key=val` overrides (port of the JAX package's
+    `apply_overrides`): `data.` and `optim.` descend into those configs, a
+    leading `model.` names a top-level field. Values are Python literals;
+    an unknown key raises KeyError naming the valid fields, a bool field
+    given anything but a bool, or a number field given a string, raises
+    ValueError."""
+    scopes = {"": cfg, "data": cfg.data, "optim": cfg.optim}
+    valid = {k: {f.name for f in dataclasses.fields(v)} for k, v in scopes.items()}
+
+    def checked(scope: str, field: str, key: str, raw: str):
+        if field not in valid[scope]:
+            where = f"{scope} config" if scope else "config"
+            raise KeyError(
+                f"--cfg-options: unknown key {key!r} (no field {field!r} in {where}; "
+                f"valid fields: {', '.join(sorted(valid[scope]))})")
+        try:
+            val = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            val = raw
+        cur = getattr(scopes[scope], field)
+        # a typo such as use_grid_mask=Ture stays a (truthy) string: refuse it
+        if isinstance(cur, bool) and not isinstance(val, bool):
+            raise ValueError(f"--cfg-options: {key}={raw!r} is not a bool (use True or False)")
+        if isinstance(cur, (int, float)) and isinstance(val, str):
+            raise ValueError(f"--cfg-options: {key}={raw!r} is not a number")
+        return val
+
+    updates: Dict[str, object] = {}
+    sub: Dict[str, Dict[str, object]] = {"data": {}, "optim": {}}
+    for key, raw in options.items():
+        head, _, rest = key.partition(".")
+        if rest and head in sub:
+            sub[head][rest] = checked(head, rest, key, raw)
+            continue
+        field = rest if rest and head == "model" else key
+        updates[field] = checked("", field, key, raw)
+    for scope, kw in sub.items():
+        if kw:
+            updates[scope] = dataclasses.replace(scopes[scope], **kw)
+    return cfg.replace(**updates)

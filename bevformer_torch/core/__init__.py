@@ -1,3 +1,3 @@
-from bevformer_torch.core import assigner, boxes, coder, geometry, losses
+from bevformer_torch.core import assigner, boxes, coder, evaluation, geometry, losses
 
-__all__ = ["assigner", "boxes", "coder", "geometry", "losses"]
+__all__ = ["assigner", "boxes", "coder", "evaluation", "geometry", "losses"]

@@ -1,5 +1,6 @@
 """BEV geometry in fp32: reference points, camera projection, the ego-motion
-BEV shift and the prev-BEV rotation.
+BEV shift and the prev-BEV rotation; and, in numpy float64 on the host, the
+quaternion helpers of the data and evaluation paths.
 
 Ports of `bevformer_tpu/core/geometry.py`, which follows the reference's
 `encoder.py:46-149` and `transformer.py:122-156`.
@@ -10,7 +11,32 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
+
+
+def quat_to_rot(q) -> np.ndarray:
+    """Unit quaternion (w, x, y, z) -> 3x3 rotation matrix (float64)."""
+    w, x, y, z = [float(v) for v in q]
+    n = math.sqrt(w * w + x * x + y * y + z * z)
+    if n > 0:
+        w, x, y, z = w / n, x / n, y / n, z / n
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ],
+        dtype=np.float64,
+    )
+
+
+def quat_yaw(q) -> float:
+    """Yaw (rotation about +z) of quaternion (w, x, y, z): the angle of the
+    rotated x axis in the xy plane, pyquaternion's `yaw_pitch_roll[0]` as
+    the reference data converter reads it."""
+    rot = quat_to_rot(q)
+    return float(math.atan2(rot[1, 0], rot[0, 0]))
 
 
 def reference_points_3d(

@@ -27,10 +27,10 @@ def precision(dtype: str):
     TF32 off for cuBLAS matmuls and cuDNN convolutions (PyTorch's default
     lets cuDNN convolve fp32 in TF32, about three decimal digits) and gives
     the caller's settings back afterwards, also when the calls raise. Any
-    other dtype raises: bf16 is later work (ROADMAP.md §1 item 6)."""
+    other dtype raises: bf16 is later work (ROADMAP.md §1 item 5)."""
     if dtype != "float32":
         raise NotImplementedError(
-            f"dtype {dtype!r}: the port computes in float32 only (bf16 is ROADMAP.md §1 item 6)")
+            f"dtype {dtype!r}: the port computes in float32 only (bf16 is ROADMAP.md §1 item 5)")
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

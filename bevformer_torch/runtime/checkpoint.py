@@ -8,11 +8,16 @@
   runs with no JAX checkpoint at hand.
 * `build_model(cfg, state_dict, device)`: the port's model with those
   weights, on `device` (default: the card).
+* `load_reference_pth(path)`: the state dict of a model-zoo `.pth` (or of a
+  checkpoint of the port: the layout is the same).
+* `save_checkpoint` / `restore_checkpoint`: a training run's state in
+  mmcv's checkpoint layout, and back.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import os
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -296,3 +301,36 @@ def build_model(cfg, state_dict: Mapping[str, Any], device=DEFAULT_DEVICE) -> BE
     tensors = {k: torch.as_tensor(np.array(v, np.float32)) for k, v in state_dict.items()}
     model.load_state_dict(tensors, strict=True, assign=True)
     return model.to(device).eval()
+
+
+def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
+    """`["state_dict"]` of a model-zoo-layout checkpoint (mmcv's
+    `{"meta", "state_dict", "optimizer"}`), read with
+    `torch.load(weights_only=True)`, less the BatchNorm `num_batches_tracked`
+    counters where it has them (FrozenBN keeps none). `build_model` then
+    loads it strictly: every other key must be the port's."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v for k, v in ckpt["state_dict"].items()
+            if not k.endswith(".num_batches_tracked")}
+
+
+def save_checkpoint(path: str, trainer, step: int, epoch: int) -> None:
+    """Write `trainer`'s state after `step` steps in mmcv's layout
+    (`meta`, `state_dict` with the reference keys, `optimizer`), with the
+    lr schedule (`scheduler`), `step` and the random generators' states
+    (`rng`) beside them. The file appears whole or not at all."""
+    ckpt = trainer.state_dict()
+    ckpt["meta"] = dict(epoch=epoch, iter=step, config=trainer.cfg.name)
+    ckpt["step"] = step
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)
+
+
+def restore_checkpoint(path: str, trainer) -> Tuple[int, dict]:
+    """Load a `save_checkpoint` file into `trainer` (model, optimizer, lr
+    schedule, random generators); returns (step, meta)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    trainer.load_state_dict(ckpt)
+    return int(ckpt["step"]), ckpt["meta"]

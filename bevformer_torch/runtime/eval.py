@@ -54,8 +54,10 @@ class VideoEvaluator:
         return preds["bev_embed"], dec
 
     def infer_frame(self, sample: Dict) -> Dict[str, np.ndarray]:
-        """sample: images [cams, H, W, 3] (normalised), can_bus [18]
-        (absolute pose packing), lidar2img [cams, 4, 4], scene_token, token."""
+        """sample: images [cams, H, W, 3] (normalised; a float32 tensor on
+        the model's device, as the dataset hands it over, is used as it is,
+        without a copy), can_bus [18] (absolute pose packing), lidar2img
+        [cams, 4, 4], scene_token, token."""
         if sample["scene_token"] != self._scene_token:
             self._has_prev = False
         self._scene_token = sample["scene_token"]

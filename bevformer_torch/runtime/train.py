@@ -10,8 +10,9 @@ last frame trains, in train mode, with the resulting `prev_bev`.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from bevformer_torch.core.losses import bevformer_loss
@@ -40,6 +41,24 @@ class Batch(NamedTuple):
     gt_boxes: torch.Tensor
     gt_labels: torch.Tensor
     num_gt: torch.Tensor
+
+
+def collate(samples: Sequence[dict], device) -> Batch:
+    """Stack `NuScenesTemporalDataset.get_train_sample` records into a
+    `Batch` on `device` (`tools/train.py::collect_batch` of the JAX
+    package)."""
+    def stack(key, dtype):
+        return torch.as_tensor(np.stack([s[key] for s in samples]), dtype=dtype, device=device)
+
+    return Batch(
+        images=torch.stack([torch.as_tensor(s["images"], device=device) for s in samples]),
+        can_bus=stack("can_bus", torch.float32),
+        lidar2img=stack("lidar2img", torch.float32),
+        prev_exists=stack("prev_exists", torch.bool),
+        gt_boxes=stack("gt_boxes", torch.float32),
+        gt_labels=stack("gt_labels", torch.int64),
+        num_gt=stack("num_gt", torch.int64),
+    )
 
 
 def history_bev(model: BEVFormer, batch: Batch) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
@@ -121,7 +140,8 @@ def train_step(model, optimizer, scheduler, params, max_norm: float,
 class Trainer:
     """Model, AdamW, schedule and seed. The seed seeds dropout (torch's
     global generators) and GridMask's own generator; the model trains in
-    train mode."""
+    train mode. `state_dict` / `load_state_dict` carry all of it, so a run
+    restored from one continues as the run that saved it would have."""
 
     def __init__(self, model: BEVFormer, total_steps: int, seed: int = 0):
         self.model = model.train()
@@ -138,3 +158,30 @@ class Trainer:
         with precision(self.cfg.dtype):
             return train_step(self.model, self.optimizer, self.scheduler, self.params,
                               self.cfg.optim.grad_clip_norm, batch)
+
+    def state_dict(self) -> dict:
+        """Model (reference keys), optimizer, lr schedule, and the random
+        generators' states: torch's CPU generator, the card's where the
+        model is on one (dropout), GridMask's."""
+        rng = {"torch_cpu": torch.get_rng_state(),
+               "grid_mask": self.model.grid_mask.generator.get_state()}
+        device = next(self.model.parameters()).device
+        if device.type == "cuda":
+            rng["torch_cuda"] = torch.cuda.get_rng_state(device)
+        return {
+            "state_dict": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "rng": rng,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["state_dict"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        rng = state["rng"]
+        torch.set_rng_state(rng["torch_cpu"])
+        self.model.grid_mask.generator.set_state(rng["grid_mask"])
+        device = next(self.model.parameters()).device
+        if device.type == "cuda" and "torch_cuda" in rng:
+            torch.cuda.set_rng_state(rng["torch_cuda"], device)

@@ -1,4 +1,11 @@
-"""The port's kernel benchmark and probe tools, each the counterpart of the
+"""The port's CLIs and its kernel benchmark and probe tools.
+
+The CLIs are the JAX package's `tools/create_data.py synth`,
+`tools/train.py` and `tools/test.py` (v1): `python3 -m
+bevformer_torch.tools.<create_data|train|test>`, each with a `main(argv)`;
+train and test run on the card unless given `--device cpu`.
+
+The kernel tools are each the counterpart of the
 JAX package's tool of the same name under `tools/`, at bevformer_base's
 full SCA width. Each runs on a CUDA card as
 

@@ -73,7 +73,22 @@ Phases, each printed as it runs:
      caller's TF32 flags on: its outputs equal the flags-off frame's to 1e-6
      of scale, and the flags read on again after it;
   11. profile: one frame that carries prev_bev under torch.profiler, its
-     device busy share and the ops that take the device time.
+     device busy share and the ops that take the device time;
+  12. the CLIs, each as its own process at bevformer_base full size on a
+     synthetic nuScenes-format root in a temporary directory:
+     `bevformer_torch.tools.create_data synth` at its defaults (2 scenes x 8
+     frames x 6 cameras at 1600 x 900, PNG; one train scene, one val scene),
+     `tools.train` for 4 steps with a checkpoint, `tools.train
+     --resume-from` it to 6 (the restored step, lr and random generators'
+     states must be the saved ones), `tools.test` on the last checkpoint
+     over the 8 val frames. Each must exit 0 with finite losses and metrics,
+     launch each kernel of its path as often as the path does (K1-K6 per
+     training step, K1 and K2 per frame), and leave every key of
+     `evaluate_detections` in `metrics_summary.json`. The val split's own
+     ground truth scored as predictions gives mAP 1 and every TP error 0.
+     It prints the step, host and data-wait medians of `train_log.jsonl`,
+     the frame median of `tools.test`, the NDS/mAP of the seeded weights
+     and the phase's wall time; the root is removed.
 
 The line before the last is the kernels' JSON record: for each kernel its
 time, launches, plain version's time, bound (bevformer_torch/tools/
@@ -723,7 +738,7 @@ def check_slice(device, smi):
     import torch
     from bevformer_torch.configs import get_config
     from bevformer_torch.data import SyntheticVideo
-    from bevformer_torch.kernels import dcn, msda
+    from bevformer_torch.kernels import dcn, launch_counts, msda, zero_counts
     from bevformer_torch.runtime import build_model, init_state_dict
 
     cfg = get_config("bevformer_base")
@@ -739,7 +754,7 @@ def check_slice(device, smi):
     torch.cuda.reset_peak_memory_stats(device)
     zero_counts()
     results, preds, secs = run_video(model, video)
-    counts = read_counts()
+    counts = launch_counts()
     k1, k2 = counts["msda_fwd"], counts["dcn_conv_fwd"]
     peak = torch.cuda.max_memory_allocated(device)
     log(f"[slice] launches: K1 {k1} ({k1 / n:g}/frame), K2 {k2} ({k2 / n:g}/frame)")
@@ -899,28 +914,12 @@ def profile_frame(model, video, smi):
 
 # ---------------------------------------------------------------- training
 
-def kernel_counters():
-    from bevformer_torch.kernels import dcn, msda
-
-    return dict(msda_fwd=msda.ms_deform_attn, dcn_conv_fwd=dcn.dcn_conv,
-                msda_bwd=msda.ms_deform_attn_backward, dcn_im2col=dcn.dcn_im2col,
-                dcn_col2im=dcn.dcn_col2im)
-
-
-def read_counts():
-    return {k: fn.launches for k, fn in kernel_counters().items()}
-
-
-def zero_counts():
-    for fn in kernel_counters().values():
-        fn.launches = 0
-
-
 def check_training(device, smi):
     """bevformer_base at full size: TRAIN_STEPS train-mode steps."""
     import torch
     from bevformer_torch.configs import get_config
     from bevformer_torch.data import train_batch
+    from bevformer_torch.kernels import launch_counts, zero_counts
     from bevformer_torch.runtime import Trainer, build_model, init_state_dict
 
     cfg = get_config("bevformer_base")
@@ -941,18 +940,18 @@ def check_training(device, smi):
     zero_counts()
     secs, per_step = [], []
     for step in range(TRAIN_STEPS):
-        start = read_counts()
+        start = launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = trainer.step(batch)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
-        per_step.append({k: v - start[k] for k, v in read_counts().items()})
+        per_step.append({k: v - start[k] for k, v in launch_counts().items()})
         log(f"[train] step {step}: loss {out['total']:.4f} (cls {out['loss_cls']:.4f}, "
             f"bbox {out['loss_bbox']:.4f}), grad_norm {out['grad_norm']:.3f}, "
             f"lr {out['lr']:.4e}, {secs[-1]:.4f} s, launches {per_step[-1]}")
         check(all(math.isfinite(v) for v in out.values()), f"step {step}: not finite: {out}")
-    counts = read_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(device)
     for step, c in enumerate(per_step):
         check(c == TRAIN_PER_STEP, f"step {step} launched {c}, expected {TRAIN_PER_STEP}")
@@ -1108,14 +1107,15 @@ def witness_errors(model, batch, device):
     recompute their gathers in backward, so that they fit the card), and the
     plain path's peak memory."""
     import torch
+    from bevformer_torch.kernels import launch_counts
 
     kernel = train_grads(model, batch)
-    counts = read_counts()
+    counts = launch_counts()
     torch.cuda.reset_peak_memory_stats(device)
     with plain_kernels(recompute=True):
         plain = train_grads(model, batch)
     peak = torch.cuda.max_memory_allocated(device)
-    check(read_counts() == counts, "the plain run launched a kernel")
+    check(launch_counts() == counts, "the plain run launched a kernel")
     with plain_kernels(noise=WITNESS_NOISE, recompute=True):
         noisy = train_grads(model, batch)
     return grad_errors(kernel, plain), grad_errors(noisy, plain), peak
@@ -1181,6 +1181,180 @@ def check_training_witness(device, smi):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- CLIs
+
+CLI_TRAIN_STEPS = 4  # tools.train, then tools.train --resume-from to CLI_RESUME_STEPS
+CLI_RESUME_STEPS = 6
+CLI_TIMEOUT = 600  # seconds per CLI process
+PERFECT_TOL = 1e-9  # |mAP - 1| and every TP error of the ground truth scored against itself
+
+
+def run_cli(args, what):
+    """`python3 -m <args>` from the checkout's root. Returns the JSON lines
+    it printed and its wall seconds; fails on a nonzero exit."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(f"[cli] {what} stdout:\n{proc.stdout[-4000:]}\n[cli] {what} stderr:\n"
+            f"{proc.stderr[-8000:]}")
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    records = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    return records, secs
+
+
+def one(records, key, what):
+    found = [r for r in records if key in r]
+    check(len(found) == 1, f"{what}: {len(found)} lines with {key!r}")
+    return found[0]
+
+
+def perfect_detector(data_root, cfg, device):
+    """The val split's own ground truth, scored as predictions by the port's
+    evaluate_detections: mAP 1 and every TP error 0."""
+    import numpy as np
+    from bevformer_torch.core.evaluation import evaluate_detections
+    from bevformer_torch.data import NuScenesTemporalDataset
+
+    ds = NuScenesTemporalDataset(os.path.join(data_root, "nuscenes_infos_temporal_val.pkl"),
+                                 cfg, load_images=False, data_root=data_root,
+                                 device=device)
+    gt = ds.gt_by_token(range(len(ds)))
+    results = [dict(token=t, boxes_3d=g["boxes"].copy(), labels_3d=g["labels"].copy(),
+                    scores_3d=np.linspace(0.9, 0.5, len(g["boxes"]))) for t, g in gt.items()]
+    m = evaluate_detections(results, gt)
+    n_gt = sum(len(g["boxes"]) for g in gt.values())
+    log(f"[cli] perfect detector on the val split ({len(gt)} frames, {n_gt} GT boxes): "
+        f"mAP {m['mean_ap']!r}, NDS {m['nd_score']!r}, TP errors {m['tp_errors']}")
+    check(n_gt > 0, "the val split has no ground truth")
+    check(abs(m["mean_ap"] - 1.0) <= PERFECT_TOL, f"perfect detector mAP {m['mean_ap']}")
+    for k, v in m["tp_errors"].items():
+        check(abs(v) <= PERFECT_TOL, f"perfect detector {k} {v}")
+    return m
+
+
+def median_of(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def check_cli(smi):
+    """The port's CLIs as a user runs them, each its own process, at
+    bevformer_base full size: create_data synth at its defaults (2 scenes x
+    8 frames x 6 cameras at 1600 x 900: one train scene, one val scene),
+    tools.train for CLI_TRAIN_STEPS steps with a checkpoint, tools.train
+    --resume-from it to CLI_RESUME_STEPS (the restored step, lr and random
+    generators must be the saved ones), tools.test on the last checkpoint
+    over the val frames; each must exit 0 with finite numbers and launch
+    every kernel of its path as often as the path does. Then the perfect
+    detector. The root is removed afterwards."""
+    import shutil
+    import tempfile
+
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.core.evaluation import ERR_NAME_MAPPING
+    from bevformer_torch.tools.train import rng_digests
+
+    t_start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="bevformer_cli_")
+    data, work = os.path.join(root, "data"), os.path.join(root, "work")
+    try:
+        _, create_s = run_cli(["bevformer_torch.tools.create_data", "synth", "--out-dir", data],
+                              "create_data")
+        n_png = len(os.listdir(os.path.join(data, "samples")))
+        log(f"[cli] create_data synth: {n_png} PNG images in {create_s:.1f} s")
+
+        def train(steps, *more):
+            what = f"tools.train to step {steps}"
+            recs, secs = run_cli(["bevformer_torch.tools.train", "bevformer_base", "--data-root",
+                                  data, "--work-dir", work, "--max-iters", str(steps),
+                                  "--log-interval", "1", *more], what)
+            steps_logged = [r for r in recs if "step_ms" in r and "done" not in r]
+            done = one(recs, "done", what)
+            for r in steps_logged:
+                check(all(math.isfinite(r[k]) for k in ("total", "loss_cls", "loss_bbox",
+                                                        "grad_norm")), f"{what}: {r}")
+            ran = done["steps"]
+            want = {k: v * ran for k, v in TRAIN_PER_STEP.items()}
+            check(done["launches"] == want, f"{what}: launches {done['launches']}, want {want}")
+            log(f"[cli] {what}: {secs:.1f} s, peak {done['peak_gib']} GiB, launches "
+                f"{done['launches']}; steps: " + "; ".join(
+                    f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms host "
+                    f"{r['host_ms']:.1f} ms wait {r['data_wait_ms']:.1f} ms" for r in steps_logged))
+            return recs, steps_logged, done
+
+        _, first_steps, first_done = train(CLI_TRAIN_STEPS)
+        ckpt_path = os.path.join(work, "ckpts", f"iter_{CLI_TRAIN_STEPS}.pth")
+        ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        saved = dict(step=ckpt["step"], lr=ckpt["scheduler"]["_last_lr"],
+                     rng=rng_digests(ckpt["rng"]))
+        check(sorted(ckpt) == ["meta", "optimizer", "rng", "scheduler", "state_dict", "step"],
+              f"checkpoint keys {sorted(ckpt)}")
+        del ckpt
+        second, second_steps, second_done = train(CLI_RESUME_STEPS, "--resume-from", ckpt_path)
+        resumed = one(second, "resumed_from", "tools.train --resume-from")
+        restored = {k: resumed[k] for k in saved}
+        log(f"[cli] saved {saved}; restored {restored}")
+        check(restored == saved, f"restored {restored} != saved {saved}")
+        check(saved["step"] == CLI_TRAIN_STEPS, f"saved step {saved['step']}")
+        check("torch_cuda" in saved["rng"], f"saved rng {saved['rng']}")
+        check([r["step"] for r in first_steps + second_steps] == list(range(CLI_RESUME_STEPS)),
+              "the two runs did not log steps 0-5 once each")
+
+        cfg = get_config("bevformer_base")
+        out = os.path.join(work, "results.json")
+        recs, test_s = run_cli(["bevformer_torch.tools.test", "bevformer_base", "--data-root", data,
+                                "--checkpoint", os.path.join(work, "ckpts",
+                                                             f"iter_{CLI_RESUME_STEPS}.pth"),
+                                "--out", out], "tools.test")
+        timing = one(recs, "frame_ms", "tools.test")
+        summary = one(recs, "NDS", "tools.test")
+        frames = timing["frames"]
+        per_frame = dict(msda_fwd=K1_PER_FRAME, dcn_conv_fwd=K2_PER_FRAME, msda_bwd=0,
+                         dcn_im2col=0, dcn_col2im=0)
+        want = {k: v * frames for k, v in per_frame.items()}
+        check(timing["launches"] == want, f"tools.test launches {timing['launches']}, want {want}")
+        keys = ["NDS", "mAP", *ERR_NAME_MAPPING.values()]
+        check(sorted(summary) == sorted(keys), f"tools.test summary keys {sorted(summary)}")
+        check(all(math.isfinite(summary[k]) for k in keys), f"tools.test summary {summary}")
+        with open(os.path.join(work, "metrics_summary.json")) as f:
+            metrics = json.load(f)
+        check(sorted(metrics) == ["label_aps", "label_tp_errors", "mean_ap", "nd_score",
+                                  "tp_errors"], f"metrics_summary.json keys {sorted(metrics)}")
+        check(os.path.exists(os.path.splitext(out)[0] + "_nusc.json"), "no submission json")
+        log(f"[cli] tools.test over {frames} val frames: {test_s:.1f} s, frame ms "
+            f"{[round(x, 1) for x in timing['frame_ms']]} (load "
+            f"{[round(x, 1) for x in timing['load_ms']]}), peak {timing['peak_gib']} GiB, "
+            f"launches {timing['launches']}; {json.dumps(summary)}")
+
+        perfect_detector(data, cfg, "cuda")
+
+        # each run's first step carries its process's warm-up
+        steady = first_steps[1:] + second_steps[1:]
+        res = dict(
+            step_ms=median_of([r["step_ms"] for r in steady]),
+            host_ms=median_of([r["host_ms"] for r in steady]),
+            data_wait_ms=median_of([r["data_wait_ms"] for r in steady]),
+            frame_ms=timing["frame_ms_median"], load_ms=timing["load_ms_median"],
+            train_peak_gib=max(first_done["peak_gib"] or 0, second_done["peak_gib"] or 0),
+            test_peak_gib=timing["peak_gib"], NDS=summary["NDS"], mAP=summary["mAP"],
+        )
+        res["seconds"] = time.perf_counter() - t_start
+        log(f"[cli] medians: tools.train step {res['step_ms']:.1f} ms (steps "
+            f"{[r['step'] for r in steady]}), host {res['host_ms']:.1f} ms, data wait "
+            f"{res['data_wait_ms']:.1f} ms; tools.test frame {res['frame_ms']:.1f} ms (load "
+            f"{res['load_ms']:.1f} ms); peak train {res['train_peak_gib']} / test "
+            f"{res['test_peak_gib']} GiB; seeded weights after {CLI_RESUME_STEPS} steps: NDS "
+            f"{res['NDS']!r} mAP {res['mAP']!r}; phase wall time {res['seconds']:.1f} s; card: {smi}")
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1229,6 +1403,9 @@ def main() -> int:
     sl = check_slice(device, smi)
     check_precision(sl["model"], sl["video"])
     profile_frame(sl["model"], sl["video"], smi)
+    del sl["model"], sl["video"]
+    torch.cuda.empty_cache()
+    cli = check_cli(smi)
 
     def record(name, src, replaces, rows, per, library_note):
         bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
@@ -1280,6 +1457,9 @@ def main() -> int:
     log(f"[summary] training step median {tr['median_ms']:.1f} ms, peak {tr['peak_gib']:.2f} GiB; "
         f"inference frame median {sl['median_ms']:.1f} ms, peak {sl['peak_gib']:.2f} GiB; "
         f"on {smi}; bounds against {roofline.PEAKS}")
+    log(f"[summary] CLIs: tools.train step median {cli['step_ms']:.1f} ms (host "
+        f"{cli['host_ms']:.1f} ms, data wait {cli['data_wait_ms']:.1f} ms), tools.test frame "
+        f"median {cli['frame_ms']:.1f} ms, phase {cli['seconds']:.1f} s")
     log(f"[summary] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -134,3 +134,29 @@ def test_recorded_col2im_records_and_restores():
         with chip_smoke.recorded_col2im(calls):
             1 / 0
     assert dcn.dcn_col2im is kernel
+
+
+def test_perfect_detector_scores_the_ground_truth_as_exact(tmp_path):
+    """chip_smoke.py's phase-12 check of the evaluation: a synthetic root's
+    val ground truth, scored as predictions, gives mAP 1 and TP errors 0."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.data import generate
+
+    generate(str(tmp_path), num_scenes=2, frames_per_scene=2, img_w=64, img_h=32, seed=4)
+    m = chip_smoke.perfect_detector(str(tmp_path), get_config("bevformer_base"), "cpu")
+    assert abs(m["mean_ap"] - 1) <= chip_smoke.PERFECT_TOL
+    assert all(v == 0 for v in m["tp_errors"].values())
+
+
+def test_cli_helpers():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    records = [{"a": 1}, {"done": True, "steps": 2}, {"a": 2, "b": 3}]
+    assert chip_smoke.one(records, "done", "x") == records[1]
+    with pytest.raises(chip_smoke.Failure, match="2 lines with 'a'"):
+        chip_smoke.one(records, "a", "x")
+    assert chip_smoke.median_of([3.0, 1.0, 2.0]) == 2.0
+    assert math.isnan(chip_smoke.median_of([]))

@@ -1,7 +1,8 @@
 """The port stands without JAX: with `jax`, `flax` and `bevformer_tpu`
-blocked, every module of `bevformer_torch` imports and one tiny frame runs
-on the CPU (in a subprocess, so the block cannot leak into other tests).
-No source file of the port, nor `chip_smoke.py`, names them in an import.
+blocked, and cv2, every module of `bevformer_torch` imports and one tiny
+frame runs on the CPU (in a subprocess, so the block cannot leak into other
+tests). No source file of the port, nor `chip_smoke.py`, names them in an
+import, and cv2 is imported only where `data/image_io.py` reads a JPEG.
 """
 
 import ast
@@ -16,7 +17,7 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "bevformer_tpu")
 
 RUN_BLOCKED = f"""
 import sys
-for name in {BLOCKED!r}:
+for name in {BLOCKED + ("cv2",)!r}:
     sys.modules[name] = None
 import importlib, pkgutil
 import bevformer_torch
@@ -67,3 +68,20 @@ def test_port_source_imports_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in BLOCKED, f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_imports_cv2_only_to_read_a_jpeg(path):
+    tree = ast.parse(path.read_text())
+    parent = {child: node for node in ast.walk(tree) for child in ast.iter_child_nodes(node)}
+    where = []
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        if any(n.split(".")[0] == "cv2" for n in names):
+            scope = node
+            while scope in parent and not isinstance(scope, ast.FunctionDef):
+                scope = parent[scope]
+            where.append(getattr(scope, "name", "<module>"))
+    allowed = ["_read_jpeg"] if path == ROOT / "bevformer_torch/data/image_io.py" else []
+    assert where == allowed, f"{path}: imports cv2 in {where}"

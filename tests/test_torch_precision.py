@@ -76,7 +76,7 @@ def test_step_restores_the_callers_flags_after_a_raise(kind, callers_flags):
 @pytest.mark.parametrize("kind", ["eval", "train"])
 def test_step_refuses_a_dtype_it_does_not_compute_in(kind, callers_flags):
     model = _model(dataclasses.replace(CFG, dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
         _step(kind, model)
     assert flags() == callers_flags
 

@@ -107,7 +107,7 @@ def port_config(jcfg, **kw):
     from bevformer_torch.configs import BEVFormerConfig, DataConfig, OptimConfig
 
     fixed = {k: getattr(jcfg, k) for k in PORT_FIXED}
-    assert fixed == PORT_FIXED and not jcfg.data.to_rgb, (fixed, jcfg.data.to_rgb)
+    assert fixed == PORT_FIXED, fixed
 
     def fields(cls, src):
         return {f.name: getattr(src, f.name) for f in dataclasses.fields(cls)}
