@@ -1,11 +1,12 @@
 """Model configuration: frozen dataclasses and a preset registry.
 
-The fields are the ones the bevformer_base inference, training and data
-paths and the CLIs read, with the values of the JAX package's presets
-(`bevformer_tpu/configs/config.py`).
-What bevformer_base fixes is code, not a field: a caffe-style backbone, the
-ego-motion shift, the prev-BEV rotation, the CAN-bus embedding and the
-prev-BEV carry across the frames of a scene (video test mode).
+The fields are the ones the v1 inference, training and data paths and the
+CLIs read, with the values of the JAX package's presets
+(`bevformer_tpu/configs/config.py`): the four v1 model-zoo configs
+bevformer_base, bevformer_small, bevformer_tiny and bevformer_tiny_fp16.
+What the v1 configs share is code, not a field: the ego-motion shift, the
+prev-BEV rotation, the CAN-bus embedding and the prev-BEV carry across the
+frames of a scene (video test mode).
 """
 
 from __future__ import annotations
@@ -81,6 +82,8 @@ class BEVFormerConfig:
     backbone_depth: int = 101
     backbone_out_indices: Tuple[int, ...] = (1, 2, 3)
     backbone_dcn_stages: Tuple[int, ...] = (2, 3)
+    # "caffe": each block's stride in its 1x1 conv1; "pytorch": in its 3x3 conv2
+    backbone_style: str = "caffe"
     neck_in_channels: Tuple[int, ...] = (512, 1024, 2048)
     num_feature_levels: int = 4
     # BEV / transformer
@@ -118,9 +121,9 @@ class BEVFormerConfig:
     bbox_loss_weight: float = 0.25
     # GridMask on the trained frame's images (train mode only)
     use_grid_mask: bool = True
-    # compute dtype of the network, the JAX config's field: "float32" (the
-    # entry points turn TF32 off around the model, `device.precision`); no
-    # other value runs yet
+    # compute dtype of the network, the JAX config's field (`device.precision`):
+    # "float32" (TF32 off) or "bfloat16" (bf16 autocast around fp32 islands
+    # and fp32 parameters); any other value raises at the entry points
     dtype: str = "float32"
     # training max GT boxes per sample (static padding for the matcher)
     max_gt: int = 320
@@ -154,6 +157,54 @@ def get_config(name: str, **overrides) -> BEVFormerConfig:
 # projects/configs/bevformer/bevformer_base.py: R101-DCN caffe, 4 FPN
 # levels, 200x200 BEV, 6+6 layers, 900 queries
 register_config(BEVFormerConfig(name="bevformer_base", sca_capacity_ratio=0.25))
+
+# projects/configs/bevformer/bevformer_small.py: R101-DCN caffe, C5 only,
+# 150x150 BEV, 3 encoder layers, x0.8 input, queue 3
+register_config(
+    BEVFormerConfig(
+        name="bevformer_small",
+        sca_capacity_ratio=0.25,
+        backbone_out_indices=(3,),
+        neck_in_channels=(2048,),
+        num_feature_levels=1,
+        bev_h=150,
+        bev_w=150,
+        encoder_layers=3,
+        data=DataConfig(scale=0.8, queue_length=3),
+    )
+)
+
+# projects/configs/bevformer/bevformer_tiny.py: R50 pytorch style (no DCN),
+# C5 only, 50x50 BEV, 3 encoder layers, x0.5 input, RGB normalisation, dense
+# SCA. rotate_center stays (100, 100), the transformer's default, which the
+# reference and the JAX package leave at every BEV size
+register_config(
+    BEVFormerConfig(
+        name="bevformer_tiny",
+        backbone_depth=50,
+        backbone_out_indices=(3,),
+        backbone_dcn_stages=(),
+        backbone_style="pytorch",
+        neck_in_channels=(2048,),
+        num_feature_levels=1,
+        bev_h=50,
+        bev_w=50,
+        encoder_layers=3,
+        data=DataConfig(
+            scale=0.5,
+            mean=(123.675, 116.28, 103.53),
+            std=(58.395, 57.12, 57.375),
+            to_rgb=True,
+            queue_length=3,
+        ),
+    )
+)
+
+# projects/configs/bevformer_fp16/bevformer_tiny_fp16.py: tiny in mixed
+# precision, here bf16 (fp32's exponent range: no loss scaling)
+register_config(
+    CONFIGS["bevformer_tiny"].replace(name="bevformer_tiny_fp16", dtype="bfloat16")
+)
 
 
 def apply_overrides(cfg: BEVFormerConfig, options: Dict[str, str]) -> BEVFormerConfig:

@@ -14,6 +14,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from bevformer_torch.device import fp32
+
 
 def quat_to_rot(q) -> np.ndarray:
     """Unit quaternion (w, x, y, z) -> 3x3 rotation matrix (float64)."""
@@ -81,15 +83,20 @@ def point_sampling(
     ref_3d [bs, D, Q, 3]; lidar2img [bs, cams, 4, 4]; img_shape (H, W) of
     the padded network input. Returns reference_points_cam
     [bs, cams, Q, D, 2] in [0, 1] image coordinates and bev_mask
-    [bs, cams, Q, D]. Computed in fp32 (the caller keeps TF32 off).
+    [bs, cams, Q, D]. Computed in fp32, autocast off (the caller keeps TF32
+    off).
     """
-    ref = ref_3d.float()
+    with fp32(ref_3d.device):
+        return _point_sampling(ref_3d.float(), pc_range, lidar2img.float(), img_shape, eps)
+
+
+def _point_sampling(ref, pc_range, lidar2img, img_shape, eps):
     x0, y0, z0, x1, y1, z1 = [float(v) for v in pc_range]
     scale = ref.new_tensor([x1 - x0, y1 - y0, z1 - z0])
     offset = ref.new_tensor([x0, y0, z0])
     pts = ref * scale + offset
     pts_h = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
-    cam_pts = torch.einsum("bnij,bdqj->bndqi", lidar2img.float(), pts_h)
+    cam_pts = torch.einsum("bnij,bdqj->bndqi", lidar2img, pts_h)
     z = cam_pts[..., 2:3]
     in_front = z > eps
     xy = cam_pts[..., 0:2] / torch.clamp(z, min=eps)

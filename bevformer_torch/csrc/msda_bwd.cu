@@ -65,6 +65,12 @@
 // - The wrapper picks the tile per shape (kernels/msda.py::k1_tile, as for
 //   K1). The C entry is the one check of tile, alignment, shared memory
 //   and grid.
+// - bf16 (`msda_bwd_bf16`, the gradient of the exact path on a bf16 value,
+//   whose backward is that of val_l.astype(f32)): value and grad_out bf16,
+//   each lane's 4 channels by one 8-byte load widened to fp32 exactly
+//   (grad_out once, into the shared fp32 rows); dLoc and dAttw fp32;
+//   dValue summed by the same 16-byte fp32 vector atomics into an fp32
+//   workspace, which the wrapper rounds to bf16 once.
 
 #include "msda_fwd.cuh"
 
@@ -85,13 +91,13 @@ __device__ __forceinline__ void red4(float* p, float w, float4 g) {
   atomicAdd(reinterpret_cast<float4*>(p), make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
 }
 
-template <int SPLIT>
+template <int SPLIT, typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-msda_bwd_kernel(const float* __restrict__ value,     // [B, K, H, D]
+msda_bwd_kernel(const T* __restrict__ value,         // [B, K, H, D]
                 const float* __restrict__ loc,       // [B, Q, H, L, P, 2]
                 const float* __restrict__ attw,      // [B, Q, H, L, P]
-                const float* __restrict__ grad_out,  // [B, Q, H, D]
-                float* __restrict__ dvalue,          // [B, K, H, D], zeroed
+                const T* __restrict__ grad_out,      // [B, Q, H, D]
+                float* __restrict__ dvalue,          // [B, K, H, D] fp32, zeroed
                 float* __restrict__ dloc,            // [B, Q, H, L, P, 2]
                 float* __restrict__ dattw,           // [B, Q, H, L, P]
                 int K, int Q, int H, int D, int L, int P, int tile, int tiles,
@@ -146,7 +152,7 @@ msda_bwd_kernel(const float* __restrict__ value,     // [B, K, H, D]
   for (int i = threadIdx.x; i < tile * d4; i += kThreads) {
     const int qi = i / d4;
     const int q = q0 + qi;
-    grads[i] = q < Q ? ldg4(grad_out + (((int64_t)b * Q + q) * H + h) * D + 4 * (i - qi * d4))
+    grads[i] = q < Q ? load4(grad_out + (((int64_t)b * Q + q) * H + h) * D + 4 * (i - qi * d4))
                      : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   __syncthreads();
@@ -162,9 +168,9 @@ msda_bwd_kernel(const float* __restrict__ value,     // [B, K, H, D]
   const unsigned group_mask = 0xffu << (lane & 24);
   const int slot = grp / SPLIT;  // this group's query in the pass
   const int part = grp % SPLIT;  // its share of that query's samples
-  const int64_t row = (int64_t)H * D;  // floats between value pixels
+  const int64_t row = (int64_t)H * D;  // elements between value pixels
   const int64_t lane_base = (int64_t)b * K * row + (int64_t)h * D + 4 * l8;
-  const float* vb = value + lane_base;
+  const T* vb = value + lane_base;
   float* dvb = dvalue + lane_base;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int base = warp * kQueriesPerPass; base < tile; base += kWarps * kQueriesPerPass) {
@@ -185,11 +191,11 @@ msda_bwd_kernel(const float* __restrict__ value,     // [B, K, H, D]
       const float a00 = w00 * a, a01 = w01 * a, a10 = w10 * a, a11 = w11 * a;
       float s_attw = 0.f, s_x = 0.f, s_y = 0.f;
       for (int d0 = 0; d0 < D; d0 += 32) {
-        const float* v = vb + d0;
-        const float4 v00 = c.x >= 0 ? ldg4(v + c.x * row) : zero;
-        const float4 v01 = c.y >= 0 ? ldg4(v + c.y * row) : zero;
-        const float4 v10 = c.z >= 0 ? ldg4(v + c.z * row) : zero;
-        const float4 v11 = c.w >= 0 ? ldg4(v + c.w * row) : zero;
+        const T* v = vb + d0;
+        const float4 v00 = c.x >= 0 ? load4(v + c.x * row) : zero;
+        const float4 v01 = c.y >= 0 ? load4(v + c.y * row) : zero;
+        const float4 v10 = c.z >= 0 ? load4(v + c.z * row) : zero;
+        const float4 v11 = c.w >= 0 ? load4(v + c.w * row) : zero;
         const float4 g = gq[d0 / 4];
         const float4 s = make_float4(
             w00 * v00.x + w01 * v01.x + w10 * v10.x + w11 * v11.x,
@@ -232,12 +238,12 @@ msda_bwd_kernel(const float* __restrict__ value,     // [B, K, H, D]
   }
 }
 
-template <int SPLIT>
-int launch_split(const float* value, const float* loc, const float* attw, const float* grad_out,
+template <int SPLIT, typename T>
+int launch_split(const T* value, const float* loc, const float* attw, const T* grad_out,
                  float* dvalue, float* dloc, float* dattw, const Levels& lv, int K, int Q,
                  int H, int D, int L, int P, int tile, int tiles, unsigned blocks, size_t smem,
                  cudaStream_t stream) {
-  auto kernel = msda_bwd_kernel<SPLIT>;
+  auto kernel = msda_bwd_kernel<SPLIT, T>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -248,19 +254,10 @@ int launch_split(const float* value, const float* loc, const float* attw, const 
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// dvalue must be zeroed by the caller (the kernel adds into it). tile:
-// queries per block (the wrapper's kernels/msda.py::k1_tile). The one check
-// of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries, D a multiple
-// of 32, value, grad_out and dvalue on 16-byte boundaries (the float4 loads
-// and vector atomics), a payload that fits shared memory and a grid that
-// fits one dimension; anything else returns cudaErrorInvalidValue, which
-// the wrapper raises.
-extern "C" int msda_bwd(const void* value, const void* loc, const void* attw,
-                        const void* grad_out, void* dvalue, void* dloc,
-                        void* dattw, const void* level_hw, int L, int B, int K,
-                        int Q, int H, int D, int P, int tile, void* stream) {
+template <typename T>
+int launch_msda_bwd(const void* value, const void* loc, const void* attw, const void* grad_out,
+                    void* dvalue, void* dloc, void* dattw, const void* level_hw, int L, int B,
+                    int K, int Q, int H, int D, int P, int tile, void* stream) {
   if (L < 1 || L > kMaxLevels || P < 1 || D < 32 || D % 32 != 0)
     return (int)cudaErrorInvalidValue;
   if (tile < 1 || tile > kMaxTile || (tile & (tile - 1)) != 0) return (int)cudaErrorInvalidValue;
@@ -277,18 +274,44 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* attw,
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   // SPLIT groups per query, as many as give each at least 4 samples
   const int split = lp_n >= 16 ? 4 : lp_n >= 8 ? 2 : 1;
-  const float* v = static_cast<const float*>(value);
+  const T* v = static_cast<const T*>(value);
   const float* lo = static_cast<const float*>(loc);
   const float* a = static_cast<const float*>(attw);
-  const float* g = static_cast<const float*>(grad_out);
+  const T* g = static_cast<const T*>(grad_out);
   float* dv = static_cast<float*>(dvalue);
   float* dl = static_cast<float*>(dloc);
   float* da = static_cast<float*>(dattw);
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned n = (unsigned)blocks;
   switch (split) {
-    case 1: return launch_split<1>(v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    case 2: return launch_split<2>(v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    default: return launch_split<4>(v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    case 1: return launch_split<1, T>(v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    case 2: return launch_split<2, T>(v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    default: return launch_split<4, T>(v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
   }
+}
+
+}  // namespace
+
+// dvalue (fp32) must be zeroed by the caller (the kernel adds into it).
+// tile: queries per block (the wrapper's kernels/msda.py::k1_tile). The
+// one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries, D a
+// multiple of 32, value, grad_out and dvalue on 16-byte boundaries (the
+// float4 loads and vector atomics; bf16 is held to the same), a payload
+// that fits shared memory and a grid that fits one dimension; anything else
+// returns cudaErrorInvalidValue, which the wrapper raises.
+extern "C" int msda_bwd(const void* value, const void* loc, const void* attw,
+                        const void* grad_out, void* dvalue, void* dloc,
+                        void* dattw, const void* level_hw, int L, int B, int K,
+                        int Q, int H, int D, int P, int tile, void* stream) {
+  return launch_msda_bwd<float>(value, loc, attw, grad_out, dvalue, dloc, dattw, level_hw, L,
+                                B, K, Q, H, D, P, tile, stream);
+}
+
+// msda_bwd on a bf16 value and grad_out (dvalue, dloc and dattw fp32)
+extern "C" int msda_bwd_bf16(const void* value, const void* loc, const void* attw,
+                             const void* grad_out, void* dvalue, void* dloc,
+                             void* dattw, const void* level_hw, int L, int B, int K,
+                             int Q, int H, int D, int P, int tile, void* stream) {
+  return launch_msda_bwd<__nv_bfloat16>(value, loc, attw, grad_out, dvalue, dloc, dattw,
+                                        level_hw, L, B, K, Q, H, D, P, tile, stream);
 }

@@ -45,9 +45,17 @@
 //   (csrc/msda_bwd.cu recomputes the same corners): __fmul_rn(loc, size) -
 //   0.5f, which nvcc would otherwise fuse into an FMA.
 //
+// - bf16 (`msda_fwd_bf16`, the counterpart of _kernel_hi with
+//   compute_dtype=bfloat16, computing the exact path's function on a bf16
+//   value): the same body on a bf16 value, each lane's 4 channels by one
+//   8-byte load widened to fp32 exactly, loc and attw fp32, the sums fp32,
+//   the output rounded to bf16 once (nearest even, as the plain version's
+//   cast). The mapping is fp32's: 8 lanes cover a 64-byte row of 32
+//   channels.
+//
 // `msda_fwd` runs the msda (kFull) and `msda_fwd_probe` the cost-split
 // modes of csrc/msda_fwd.cuh on the same body (the counterpart of
-// tools/bench_hi_probe.py's kernel variants).
+// tools/bench_hi_probe.py's kernel variants), both on an fp32 value.
 
 #include "msda_fwd.cuh"
 
@@ -57,12 +65,12 @@ constexpr int kThreads = 256;
 constexpr int kSmemLimit = 227 * 1024;  // shared memory a block may use on sm_90
 constexpr int kMaxTile = 128;           // kernels/msda.py::K1_TILES
 
-template <int MODE, int SPLIT>
+template <int MODE, int SPLIT, typename T>
 __global__ void __launch_bounds__(kThreads)
-msda_fwd_kernel(const float* __restrict__ value,  // [B, K, H, D]
+msda_fwd_kernel(const T* __restrict__ value,      // [B, K, H, D]
                 const float* __restrict__ loc,    // [B, Q, H, L, P, 2]
                 const float* __restrict__ attw,   // [B, Q, H, L, P]
-                float* __restrict__ out,          // [B, Q, H, D]
+                T* __restrict__ out,              // [B, Q, H, D]
                 int K, int Q, int H, int D, int L, int P, int tile, int tiles,
                 Levels lv) {
   extern __shared__ int4 payload[];
@@ -78,11 +86,11 @@ msda_fwd_kernel(const float* __restrict__ value,  // [B, K, H, D]
                                         D, L, P);
 }
 
-template <int MODE, int SPLIT>
-int launch_split(const float* value, const float* loc, const float* attw, float* out,
+template <int MODE, int SPLIT, typename T>
+int launch_split(const T* value, const float* loc, const float* attw, T* out,
                  const Levels& lv, int K, int Q, int H, int D, int L, int P, int tile,
                  int tiles, unsigned blocks, size_t smem, cudaStream_t stream) {
-  auto kernel = msda_fwd_kernel<MODE, SPLIT>;
+  auto kernel = msda_fwd_kernel<MODE, SPLIT, T>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -95,10 +103,10 @@ int launch_split(const float* value, const float* loc, const float* attw, float*
 
 // The one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries,
 // a payload that fits shared memory, a grid that fits one dimension, D a
-// multiple of 32, and value and out on 16-byte boundaries (the float4
-// loads and stores); anything else returns cudaErrorInvalidValue, which the
-// wrapper raises.
-template <int MODE>
+// multiple of 32, and value and out on 16-byte boundaries (as the fp32
+// float4 loads and stores need; bf16 is held to the same); anything else
+// returns cudaErrorInvalidValue, which the wrapper raises.
+template <int MODE, typename T>
 int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* out,
                     const void* level_hw, int L, int B, int K, int Q, int H, int D,
                     int P, int tile, void* stream) {
@@ -114,16 +122,16 @@ int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* 
   const int64_t blocks = (int64_t)B * H * tiles;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int split = split_for(lp_n);
-  const float* v = static_cast<const float*>(value);
+  const T* v = static_cast<const T*>(value);
   const float* lo = static_cast<const float*>(loc);
   const float* a = static_cast<const float*>(attw);
-  float* o = static_cast<float*>(out);
+  T* o = static_cast<T*>(out);
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned n = (unsigned)blocks;
   switch (split) {
-    case 1: return launch_split<MODE, 1>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    case 2: return launch_split<MODE, 2>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    default: return launch_split<MODE, 4>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    case 1: return launch_split<MODE, 1, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    case 2: return launch_split<MODE, 2, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    default: return launch_split<MODE, 4, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
   }
 }
 
@@ -133,8 +141,16 @@ int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* 
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attw,
                         void* out, const void* level_hw, int L, int B, int K,
                         int Q, int H, int D, int P, int tile, void* stream) {
-  return launch_msda_fwd<kFull>(value, loc, attw, out, level_hw, L, B, K, Q, H, D, P, tile,
-                                stream);
+  return launch_msda_fwd<kFull, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D, P,
+                                       tile, stream);
+}
+
+// msda_fwd on a bf16 value, with a bf16 out (loc and attw fp32)
+extern "C" int msda_fwd_bf16(const void* value, const void* loc, const void* attw,
+                             void* out, const void* level_hw, int L, int B, int K,
+                             int Q, int H, int D, int P, int tile, void* stream) {
+  return launch_msda_fwd<kFull, __nv_bfloat16>(value, loc, attw, out, level_hw, L, B, K, Q, H,
+                                               D, P, tile, stream);
 }
 
 extern "C" int msda_fwd_probe(const void* value, const void* loc, const void* attw,
@@ -143,13 +159,13 @@ extern "C" int msda_fwd_probe(const void* value, const void* loc, const void* at
                               void* stream) {
   switch (mode) {
     case kGather:
-      return launch_msda_fwd<kGather>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
+      return launch_msda_fwd<kGather, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
                                       P, tile, stream);
     case kWeights:
-      return launch_msda_fwd<kWeights>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
+      return launch_msda_fwd<kWeights, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
                                        P, tile, stream);
     case kNoop:
-      return launch_msda_fwd<kNoop>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
+      return launch_msda_fwd<kNoop, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
                                     P, tile, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -10,6 +10,10 @@
 //   ACC independent sets of corner accumulators each, summed in the plain
 //   version's order (per level, each corner over the points, then the
 //   corners in turn) and across the groups by __shfl_xor.
+// sum_payload reads an fp32 value (a lane's 4 channels by one 16-byte load)
+// or a bf16 one (one 8-byte load, widened to fp32 exactly) and writes its
+// output in the value's dtype (bf16 rounded to nearest even, once); the sums
+// are fp32 either way.
 //
 // The modes split a kernel's cost (the probes of tools/bench_hi_probe.py
 // and tools/bench_kernel_probe.py time them). Each is a function of the
@@ -26,6 +30,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +64,33 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// 4 bf16 in two 32-bit words (element 0 in the low half of x) as fp32: a
+// bf16 is the top half of the fp32 with the same value
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// 4 consecutive channels at p as fp32
+__device__ __forceinline__ float4 load4(const float* p) { return ldg4(p); }
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+// 4 consecutive channels at p from fp32: one 16-byte store, or one 8-byte
+// store of the values rounded to bf16 (nearest even)
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
+
 __device__ __forceinline__ void add4(float4& acc, float s) {
   acc.x += s;
   acc.y += s;
@@ -81,9 +113,9 @@ __device__ __forceinline__ float4 shfl_xor4(float4 v, int m) {
   return v;
 }
 
-// a 16-byte load of the value at p where `live`, else zeros. The asm is
-// volatile, so the four corner loads of a sample leave in order, all before
-// their first use
+// a load of the 4 channels at p where `live`, else zeros (16 bytes of fp32,
+// or 8 of bf16 widened). The asm is volatile, so the four corner loads of a
+// sample leave in order, all before their first use
 __device__ __forceinline__ float4 ldg4_if(bool live, const float* p) {
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   asm volatile(
@@ -94,16 +126,26 @@ __device__ __forceinline__ float4 ldg4_if(bool live, const float* p) {
   return v;
 }
 
+__device__ __forceinline__ float4 ldg4_if(bool live, const __nv_bfloat16* p) {
+  uint2 u = make_uint2(0u, 0u);
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "@q ld.global.nc.v2.b32 {%0, %1}, [%3];\n\t}"
+      : "+r"(u.x), "+r"(u.y)
+      : "r"((int)live), "l"(p));
+  return widen4(u);
+}
+
 // one sample's terms for this lane's 4 channels, into one accumulator per
 // corner: `v` points at the channels in the sample's pixel 0 of the batch,
-// `row` floats between pixels. The four corner loads go out before any is
+// `row` elements between pixels. The four corner loads go out before any is
 // used. At SPLIT 1 and 2 ptxas gave the four loads of each sample one
 // register set and waited on each in turn unless ldg4_if pins them (K1 in
 // `tools/bench_msda_kernel --tsa` on an H100: 0.232 ms a call, 0.190
 // pinned); at SPLIT 4 it rotates three sets by itself, and pinning cost 4%
 // at SCA (1.314 ms, 1.362 pinned)
-template <int MODE, int SPLIT>
-__device__ __forceinline__ void add_sample(float4 (&s)[4], int4 c, float4 w, const float* v,
+template <int MODE, int SPLIT, typename T>
+__device__ __forceinline__ void add_sample(float4 (&s)[4], int4 c, float4 w, const T* v,
                                            int64_t row) {
   if (MODE == kNoop) {
     add4(s[0], w.x);
@@ -118,10 +160,10 @@ __device__ __forceinline__ void add_sample(float4 (&s)[4], int4 c, float4 w, con
   }
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const bool pin = SPLIT <= 2;
-  const float4 v0 = pin ? ldg4_if(c.x >= 0, v + c.x * row) : c.x >= 0 ? ldg4(v + c.x * row) : zero;
-  const float4 v1 = pin ? ldg4_if(c.y >= 0, v + c.y * row) : c.y >= 0 ? ldg4(v + c.y * row) : zero;
-  const float4 v2 = pin ? ldg4_if(c.z >= 0, v + c.z * row) : c.z >= 0 ? ldg4(v + c.z * row) : zero;
-  const float4 v3 = pin ? ldg4_if(c.w >= 0, v + c.w * row) : c.w >= 0 ? ldg4(v + c.w * row) : zero;
+  const float4 v0 = pin ? ldg4_if(c.x >= 0, v + c.x * row) : c.x >= 0 ? load4(v + c.x * row) : zero;
+  const float4 v1 = pin ? ldg4_if(c.y >= 0, v + c.y * row) : c.y >= 0 ? load4(v + c.y * row) : zero;
+  const float4 v2 = pin ? ldg4_if(c.z >= 0, v + c.z * row) : c.z >= 0 ? load4(v + c.z * row) : zero;
+  const float4 v3 = pin ? ldg4_if(c.w >= 0, v + c.w * row) : c.w >= 0 ? load4(v + c.w * row) : zero;
   const bool unit = MODE == kGather;
   fma4(s[0], unit ? 1.f : w.x, v0);
   fma4(s[1], unit ? 1.f : w.y, v1);
@@ -188,14 +230,15 @@ __device__ __forceinline__ void build_payload(int4* corners, float4* weights,
   }
 }
 
-// phase 2: the outputs of the payload's queries. 8 lanes x 16 bytes per
-// 128-byte row; the warp's four 8-lane groups take SPLIT shares of each of
-// 4 / SPLIT queries, each share into ACC sets of four corner accumulators
-// (sample j of the share into set (j / SPLIT) % ACC, ACC samples in flight)
-template <int MODE, int SPLIT, int ACC, int THREADS>
+// phase 2: the outputs of the payload's queries. 8 lanes x 4 channels per
+// 32-channel row (128 bytes of fp32, 64 of bf16); the warp's four 8-lane
+// groups take SPLIT shares of each of 4 / SPLIT queries, each share into ACC
+// sets of four corner accumulators (sample j of the share into set
+// (j / SPLIT) % ACC, ACC samples in flight)
+template <int MODE, int SPLIT, int ACC, int THREADS, typename T>
 __device__ __forceinline__ void sum_payload(const int4* corners, const float4* weights,
-                                            const float* __restrict__ value,
-                                            float* __restrict__ out, int b, int h, int q0,
+                                            const T* __restrict__ value,
+                                            T* __restrict__ out, int b, int h, int q0,
                                             int tile, int K, int Q, int H, int D, int L,
                                             int P) {
   constexpr int kWarps = THREADS / 32;
@@ -206,15 +249,15 @@ __device__ __forceinline__ void sum_payload(const int4* corners, const float4* w
   const int grp = lane >> 3;
   const int slot = grp / SPLIT;  // this group's query in the pass
   const int part = grp % SPLIT;  // its share of that query's samples
-  const int64_t row = (int64_t)H * D;  // floats between value pixels
-  const float* vb = value + (int64_t)b * K * row + (int64_t)h * D + 4 * (lane & 7);
+  const int64_t row = (int64_t)H * D;  // elements between value pixels
+  const T* vb = value + (int64_t)b * K * row + (int64_t)h * D + 4 * (lane & 7);
   // the loop bounds are the same in every lane: the shuffles need them all
   for (int base = warp * kQueriesPerPass; base < tile; base += kWarps * kQueriesPerPass) {
     const int qi = base + slot;
     const bool active = qi < tile && q0 + qi < Q;
     const int4* ck = corners + qi * lp_n;
     const float4* cw = weights + qi * lp_n;
-    float* op = out + (((int64_t)b * Q + q0 + qi) * H + h) * D + 4 * (lane & 7);
+    T* op = out + (((int64_t)b * Q + q0 + qi) * H + h) * D + 4 * (lane & 7);
     for (int d0 = 0; d0 < D; d0 += 32) {
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 acc = zero;
@@ -252,7 +295,7 @@ __device__ __forceinline__ void sum_payload(const int4* corners, const float4* w
       }
       if (SPLIT >= 2) acc = shfl_xor4(acc, 8);
       if (SPLIT == 4) acc = shfl_xor4(acc, 16);
-      if (active && part == 0) *reinterpret_cast<float4*>(op + d0) = acc;
+      if (active && part == 0) store4(op + d0, acc);
     }
   }
 }

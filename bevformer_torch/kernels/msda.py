@@ -7,13 +7,19 @@ the map), multiply by the attention weight, and sum over (level, point) in
 fp32. The spec is `bevformer_tpu/kernels/msda.py::ms_deform_attn_jnp`.
 
 Layouts are batch-first: value [B, K, H, D], locations [B, Q, H, L, P, 2],
-weights [B, Q, H, L, P] -> output [B, Q, H*D].
+weights [B, Q, H, L, P] -> output [B, Q, H*D]. The value is fp32 or bf16,
+and the output has its dtype (a bf16 value is read as fp32 exactly, the sums
+run in fp32 and the output is rounded to bf16 once: the JAX function on a
+bf16 value); locations and weights are fp32.
 
-`ms_deform_attn` runs the CUDA kernel `csrc/msda_fwd.cu` on a CUDA tensor,
-as a `torch.autograd.Function` whose backward is `ms_deform_attn_backward`
-(the CUDA kernel `csrc/msda_bwd.cu`, on the forward's block mapping and
-tile), and the plain PyTorch version `ms_deform_attn_plain` under ordinary
-autograd on a CPU tensor. The backward's plain version
+`ms_deform_attn` runs the CUDA kernel `csrc/msda_fwd.cu` on a CUDA tensor
+(its C entry `msda_fwd`, or `msda_fwd_bf16` for a bf16 value), as a
+`torch.autograd.Function` whose backward is `ms_deform_attn_backward` (the
+CUDA kernel `csrc/msda_bwd.cu`, on the forward's block mapping and tile;
+`msda_bwd_bf16` for a bf16 value, which sums dValue in an fp32 workspace),
+and the plain PyTorch version `ms_deform_attn_plain` under ordinary autograd
+on a CPU tensor. A bf16 launch counts on `MSDA_FWD_BF16` / `MSDA_BWD_BF16`,
+an fp32 one on the wrapper. The backward's plain version
 `ms_deform_attn_backward_plain` is autograd through
 `ms_deform_attn_plain`.
 
@@ -22,7 +28,8 @@ autograd on a CPU tensor. The backward's plain version
 `msda_pallas.py::_kernel`), forward only. `msda_probe` runs either forward
 kernel in one of the cost-split modes of `csrc/msda_fwd.cuh` (and the
 heads-outer one at another tile), for the probes in `bevformer_torch/tools`;
-`msda_probe_plain` is each mode's plain version.
+`msda_probe_plain` is each mode's plain version. K7 and the probes take an
+fp32 value only.
 """
 
 from __future__ import annotations
@@ -39,6 +46,22 @@ MAX_LEVELS = 8  # csrc/msda_fwd.cuh
 
 Shapes = Sequence[Tuple[int, int]]
 
+FP32_ONLY = (torch.float32,)
+VALUE_DTYPES = (torch.float32, torch.bfloat16)  # K1 and K3/K4
+
+
+class LaunchCount:
+    """The launch count (`.launches`, as each wrapper keeps its own) of a
+    kernel entry that a wrapper reaches beside the one it counts on
+    itself."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+MSDA_FWD_BF16 = LaunchCount()  # ms_deform_attn on a bf16 value
+MSDA_BWD_BF16 = LaunchCount()  # ms_deform_attn_backward on a bf16 value
+
 
 def ms_deform_attn_plain(
     value: torch.Tensor,
@@ -46,8 +69,10 @@ def ms_deform_attn_plain(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
-    """Gather formulation of msda in plain PyTorch (any device)."""
-    return _corner_sum(value, spatial_shapes, sampling_locations, attention_weights)
+    """Gather formulation of msda in plain PyTorch (any device), in fp32
+    whatever the autocast around it."""
+    with torch.autocast(value.device.type, enabled=False):
+        return _corner_sum(value, spatial_shapes, sampling_locations, attention_weights)
 
 
 def _corner_sum(value, spatial_shapes, sampling_locations, attention_weights,
@@ -104,7 +129,7 @@ def _corners(loc_l: torch.Tensor, hh: int, ww: int):
         yield cy.clamp(0, hh - 1) * ww + cx.clamp(0, ww - 1), wgt, valid
 
 
-def _check(value, spatial_shapes, loc, attw):
+def _check(value, spatial_shapes, loc, attw, value_dtypes=FP32_ONLY):
     if value.dim() != 4:
         raise ValueError(f"value must be [B, K, H, D], got {tuple(value.shape)}")
     b, k, h, d = value.shape
@@ -127,10 +152,12 @@ def _check(value, spatial_shapes, loc, attw):
         raise ValueError(f"spatial shapes {spatial_shapes} do not sum to K={k}")
     if d % 32:
         raise ValueError(f"head dim {d} must be a multiple of 32")
+    if value.dtype not in value_dtypes:
+        raise TypeError(f"value must be {' or '.join(map(str, value_dtypes))}, got {value.dtype}")
     for name, t in (("value", value), ("locations", loc), ("weights", attw)):
         if t.device != value.device:
             raise ValueError(f"{name} is on {t.device}, value on {value.device}")
-        if t.dtype != torch.float32:
+        if t is not value and t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -142,23 +169,25 @@ def _level_hw(spatial_shapes: Shapes) -> np.ndarray:
     return np.asarray(spatial_shapes, dtype=np.int32).reshape(-1)
 
 
-def _cuda_args(name, value, spatial_shapes, loc, attw):
+def _cuda_args(name, value, spatial_shapes, loc, attw, value_dtypes=FP32_ONLY):
     """The checked spatial shapes, as ints, of a call that launches a
-    kernel; a tensor on neither the CPU nor a card raises."""
+    kernel; a tensor on neither the CPU nor a card raises, and so does a
+    value of a dtype outside `value_dtypes`."""
     if value.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {value.device}")
     spatial_shapes = tuple((int(hh), int(ww)) for hh, ww in spatial_shapes)
-    _check(value, spatial_shapes, loc, attw)
+    _check(value, spatial_shapes, loc, attw, value_dtypes)
     return spatial_shapes
 
 
 def _launch(entry: str, value, spatial_shapes, loc, attw, *extra: int) -> torch.Tensor:
-    """One launch of a forward entry (`msda_fwd`, `msda_fwd_probe`,
-    `msda_fwd_ho`), whose C arguments are value, loc, attw, out, level_hw,
-    L, B, K, Q, H, D, P, then `extra`, then the stream."""
+    """One launch of a forward entry (`msda_fwd`, `msda_fwd_bf16`,
+    `msda_fwd_probe`, `msda_fwd_ho`), whose C arguments are value, loc,
+    attw, out (value's dtype), level_hw, L, B, K, Q, H, D, P, then `extra`,
+    then the stream."""
     b, k, h, d = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
-    out = torch.empty((b, q, h * d), dtype=torch.float32, device=value.device)
+    out = torch.empty((b, q, h * d), dtype=value.dtype, device=value.device)
     level_hw = _level_hw(spatial_shapes)
     lib = build.library()
     with torch.cuda.device(value.device):
@@ -202,8 +231,10 @@ def k1_tile_for(value, loc) -> int:
 
 
 def _launch_fwd(value, spatial_shapes, loc, attw) -> torch.Tensor:
-    out = _launch("msda_fwd", value, spatial_shapes, loc, attw, k1_tile_for(value, loc))
-    ms_deform_attn.launches += 1
+    bf16 = value.dtype == torch.bfloat16
+    out = _launch("msda_fwd_bf16" if bf16 else "msda_fwd", value, spatial_shapes, loc, attw,
+                  k1_tile_for(value, loc))
+    (MSDA_FWD_BF16 if bf16 else ms_deform_attn).launches += 1
     return out
 
 
@@ -234,14 +265,15 @@ def ms_deform_attn(
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
     """msda forward: the plain version (under ordinary autograd) for a CPU
-    tensor, the CUDA kernel for a CUDA tensor, differentiable through
-    `msda_bwd` (no fallback between the two)."""
+    tensor, the CUDA kernel for a CUDA tensor (fp32 or bf16 value, fp32
+    locations and weights; anything else raises), differentiable through
+    `msda_bwd` (no fallback between the two, nor between the dtypes)."""
     if value.device.type == "cpu":
         return ms_deform_attn_plain(
             value, spatial_shapes, sampling_locations, attention_weights
         )
     spatial_shapes = _cuda_args("ms_deform_attn", value, spatial_shapes,
-                                sampling_locations, attention_weights)
+                                sampling_locations, attention_weights, VALUE_DTYPES)
     return _MSDeformAttn.apply(
         value, sampling_locations, attention_weights, spatial_shapes
     )
@@ -263,44 +295,48 @@ def _check_grad(value, loc, grad_out):
     want = (b, loc.shape[1], h * d)
     if tuple(grad_out.shape) != want:
         raise ValueError(f"grad_out must be {want}, got {tuple(grad_out.shape)}")
-    if grad_out.device != value.device or grad_out.dtype != torch.float32:
-        raise TypeError(f"grad_out must be float32 on {value.device}")
+    if grad_out.device != value.device or grad_out.dtype != value.dtype:
+        raise TypeError(f"grad_out must be {value.dtype} (the value's) on {value.device}")
     if not grad_out.is_contiguous():
         raise ValueError("grad_out must be contiguous")
 
 
 def _launch_bwd(value, spatial_shapes, loc, attw, grad_out, tile: int):
-    """One launch of `msda_bwd` at `tile` queries per block: (dValue, dLoc,
-    dAttw)."""
+    """One launch of `msda_bwd` (`msda_bwd_bf16` for a bf16 value) at `tile`
+    queries per block: (dValue in the value's dtype, dLoc, dAttw). The
+    kernel adds dValue into an fp32 workspace; a bf16 dValue is that sum
+    rounded once."""
     b, k, h, d = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
-    dvalue = torch.zeros_like(value)
+    entry = "msda_bwd_bf16" if value.dtype == torch.bfloat16 else "msda_bwd"
+    dvalue = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     dloc = torch.empty_like(loc)
     dattw = torch.empty_like(attw)
     level_hw = _level_hw(spatial_shapes)
     lib = build.library()
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.msda_bwd(
+        rc = getattr(lib, entry)(
             value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
             grad_out.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
             dattw.data_ptr(), level_hw.ctypes.data, l, b, k, q, h, d, p, tile, stream,
         )
-    build.check_launch("msda_bwd", rc)
-    return dvalue, dloc, dattw
+    build.check_launch(entry, rc)
+    return dvalue.to(value.dtype), dloc, dattw
 
 
 def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
-    """msda backward: grad_out [B, Q, H*D] -> dValue [B, K, H, D], dLoc
-    [B, Q, H, L, P, 2], dAttw [B, Q, H, L, P], all fp32. The plain version
-    for a CPU tensor, the CUDA kernel `msda_bwd` for a CUDA tensor, at K1's
-    tile for the shape."""
+    """msda backward: grad_out [B, Q, H*D] (the value's dtype) -> dValue
+    [B, K, H, D] in the value's dtype, dLoc [B, Q, H, L, P, 2] and dAttw
+    [B, Q, H, L, P] in fp32. The plain version for a CPU tensor, the CUDA
+    kernel `msda_bwd` for a CUDA tensor, at K1's tile for the shape."""
     if value.device.type == "cpu":
         return ms_deform_attn_backward_plain(value, spatial_shapes, loc, attw, grad_out)
-    spatial_shapes = _cuda_args("ms_deform_attn_backward", value, spatial_shapes, loc, attw)
+    spatial_shapes = _cuda_args("ms_deform_attn_backward", value, spatial_shapes, loc, attw,
+                                VALUE_DTYPES)
     _check_grad(value, loc, grad_out)
     grads = _launch_bwd(value, spatial_shapes, loc, attw, grad_out, k1_tile_for(value, loc))
-    ms_deform_attn_backward.launches += 1
+    (MSDA_BWD_BF16 if value.dtype == torch.bfloat16 else ms_deform_attn_backward).launches += 1
     return grads
 
 

@@ -7,7 +7,10 @@ Ports of `bevformer_tpu/models/attention.py` (reference
 output projection before the residual, as the JAX package does. Projections
 are plain `nn.Linear` layers with their output channels in reference order:
 TSA (h, queue, l, p[, 2]), the SCA inner attention (h, l, p[, 2]) with p
-split offset-major over the Z anchors.
+split offset-major over the Z anchors. Under bf16 the value and output
+projections run in bf16 and the msda kernel reads a bf16 value; the offset
+and weight projections (`Fp32Linear`), the softmax and the sampling
+locations stay fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from bevformer_torch.kernels.msda import ms_deform_attn
+from bevformer_torch.models.layers import Fp32Linear
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -39,8 +43,9 @@ def grid_init_bias(num_heads: int, num_levels: int, num_points: int) -> np.ndarr
 
 
 def _normalizer(spatial_shapes: Shapes, like: torch.Tensor) -> torch.Tensor:
-    """[l, 2] of (w, h) per level."""
-    return like.new_tensor([[float(w), float(h)] for h, w in spatial_shapes])
+    """[l, 2] of (w, h) per level, fp32 on `like`'s device."""
+    return torch.tensor([[float(w), float(h)] for h, w in spatial_shapes],
+                        dtype=torch.float32, device=like.device)
 
 
 class MSDeformableAttention3D(nn.Module):
@@ -52,8 +57,8 @@ class MSDeformableAttention3D(nn.Module):
         super().__init__()
         self.embed_dims, self.num_heads = embed_dims, num_heads
         self.num_levels, self.num_points = num_levels, num_points
-        self.sampling_offsets = nn.Linear(embed_dims, num_heads * num_levels * num_points * 2)
-        self.attention_weights = nn.Linear(embed_dims, num_heads * num_levels * num_points)
+        self.sampling_offsets = Fp32Linear(embed_dims, num_heads * num_levels * num_points * 2)
+        self.attention_weights = Fp32Linear(embed_dims, num_heads * num_levels * num_points)
         self.value_proj = nn.Linear(embed_dims, embed_dims)
 
     def forward(
@@ -181,10 +186,10 @@ class TemporalSelfAttention(nn.Module):
         self.num_levels, self.num_points = num_levels, num_points
         self.num_bev_queue = num_bev_queue
         nq = num_bev_queue
-        self.sampling_offsets = nn.Linear(
+        self.sampling_offsets = Fp32Linear(
             embed_dims * nq, nq * num_heads * num_levels * num_points * 2
         )
-        self.attention_weights = nn.Linear(
+        self.attention_weights = Fp32Linear(
             embed_dims * nq, nq * num_heads * num_levels * num_points
         )
         self.value_proj = nn.Linear(embed_dims, embed_dims)
@@ -234,8 +239,8 @@ class CustomMSDeformableAttention(nn.Module):
         super().__init__()
         self.embed_dims, self.num_heads = embed_dims, num_heads
         self.num_levels, self.num_points = num_levels, num_points
-        self.sampling_offsets = nn.Linear(embed_dims, num_heads * num_levels * num_points * 2)
-        self.attention_weights = nn.Linear(embed_dims, num_heads * num_levels * num_points)
+        self.sampling_offsets = Fp32Linear(embed_dims, num_heads * num_levels * num_points * 2)
+        self.attention_weights = Fp32Linear(embed_dims, num_heads * num_levels * num_points)
         self.value_proj = nn.Linear(embed_dims, embed_dims)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
         self.dropout = nn.Dropout(DROPOUT)

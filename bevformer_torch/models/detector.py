@@ -26,6 +26,7 @@ class BEVFormer(nn.Module):
             depth=cfg.backbone_depth,
             out_indices=cfg.backbone_out_indices,
             dcn_stages=cfg.backbone_dcn_stages,
+            style=cfg.backbone_style,
         )
         self.img_neck = FPN(
             in_channels=cfg.neck_in_channels,

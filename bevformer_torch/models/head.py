@@ -14,6 +14,7 @@ import torch.nn as nn
 
 from bevformer_torch.configs import BEVFormerConfig
 from bevformer_torch.models.layers import (
+    Fp32Linear,
     LearnedPositionalEncoding,
     inverse_sigmoid,
     layer_norm,
@@ -29,7 +30,7 @@ def cls_branch(embed_dims: int, num_classes: int, num_reg_fcs: int) -> nn.Sequen
     layers = []
     for _ in range(num_reg_fcs):
         layers += [nn.Linear(embed_dims, embed_dims), layer_norm(embed_dims), nn.ReLU()]
-    out = nn.Linear(embed_dims, num_classes)
+    out = Fp32Linear(embed_dims, num_classes)
     nn.init.constant_(out.bias, bias_init_with_prob(0.01))
     return nn.Sequential(*layers, out)
 
@@ -38,7 +39,7 @@ def reg_branch(embed_dims: int, code_size: int, num_reg_fcs: int) -> nn.Sequenti
     layers = []
     for _ in range(num_reg_fcs):
         layers += [nn.Linear(embed_dims, embed_dims), nn.ReLU()]
-    return nn.Sequential(*layers, nn.Linear(embed_dims, code_size))
+    return nn.Sequential(*layers, Fp32Linear(embed_dims, code_size))
 
 
 class BEVFormerHead(nn.Module):

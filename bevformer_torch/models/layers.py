@@ -16,12 +16,26 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bevformer_torch.device import fp32
+
 # flax.linen.LayerNorm's default epsilon, which the JAX package uses
 LN_EPS = 1e-6
 
 
 def layer_norm(dims: int) -> nn.LayerNorm:
     return nn.LayerNorm(dims, eps=LN_EPS)
+
+
+class Fp32Linear(nn.Linear):
+    """An `nn.Linear` that computes in fp32, on its input cast to fp32,
+    whatever the autocast around it: the Dense layers the JAX package pins
+    to fp32 under bf16 (sampling offsets, attention weights, reference
+    points, the head's last layers). Its parameters and state-dict keys are
+    nn.Linear's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with fp32(x.device):
+            return super().forward(x.float())
 
 
 class FFN(nn.Module):

@@ -1,10 +1,11 @@
-"""Caffe-style ResNet backbone with frozen BatchNorm and DCNv2 (NCHW
-tensors; the detector feeds them in channels-last memory order, which the
-DCN kernel reads without a copy).
+"""ResNet backbone, caffe or pytorch style, with frozen BatchNorm and DCNv2
+(NCHW tensors; the detector feeds them in channels-last memory order, which
+the DCN kernel reads without a copy).
 
 Port of `bevformer_tpu/models/resnet.py` (mmdet ResNet with
-`norm_eval=True`, `bevformer_base.py:45-60`). Submodules carry the reference
-`.pth` names (`conv1`, `bn1`, `layer{i}.{j}.conv2.conv_offset`, ...).
+`norm_eval=True`, `bevformer_base.py:45-60`, `bevformer_tiny.py:41-51`).
+Submodules carry the reference `.pth` names (`conv1`, `bn1`,
+`layer{i}.{j}.conv2.conv_offset`, ...), the same in both styles.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from bevformer_torch.kernels.dcn import dcn_conv
 
 ARCH_SETTINGS = {
     10: (1, 1, 1, 1),  # toy depth for tests
-    50: (3, 4, 6, 3),  # the weight-bridge test: stages of several blocks
+    50: (3, 4, 6, 3),
     101: (3, 4, 23, 3),
 }
 
@@ -54,6 +55,9 @@ class ModulatedDeformConv(nn.Module):
         self.conv_offset = nn.Conv2d(in_channels, 27, 3, stride, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [b, c, h, w]
+        if torch.is_autocast_enabled(x.device.type):
+            raise NotImplementedError(
+                "DCN in bfloat16 needs bf16 versions of K2, K5 and K6 (ROADMAP.md §1 item 5)")
         om = self.conv_offset(x).permute(0, 2, 3, 1)  # [b, oh, ow, 27]
         off_y = om[..., 0:18:2].contiguous()
         off_x = om[..., 1:18:2].contiguous()
@@ -72,19 +76,22 @@ def _conv(cin, cout, k, stride=1, padding=0):
 
 class Bottleneck(nn.Module):
     """Caffe style: the stride sits in the 1x1 conv1, so conv2 (and every
-    DCN) has stride 1."""
+    DCN) has stride 1. Pytorch style: it sits in the 3x3 conv2."""
 
     def __init__(
         self, inplanes: int, planes: int, stride: int = 1,
-        downsample: bool = False, use_dcn: bool = False,
+        downsample: bool = False, use_dcn: bool = False, style: str = "caffe",
     ):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 1, stride)
+        if style not in ("caffe", "pytorch"):
+            raise ValueError(f"backbone style {style!r}: 'caffe' or 'pytorch'")
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.conv1 = _conv(inplanes, planes, 1, s1)
         self.bn1 = FrozenBN(planes)
         if use_dcn:
-            self.conv2 = ModulatedDeformConv(planes, planes)
+            self.conv2 = ModulatedDeformConv(planes, planes, s2)
         else:
-            self.conv2 = _conv(planes, planes, 3, padding=1)
+            self.conv2 = _conv(planes, planes, 3, s2, padding=1)
         self.bn2 = FrozenBN(planes)
         self.conv3 = _conv(planes, planes * 4, 1)
         self.bn3 = FrozenBN(planes * 4)
@@ -111,6 +118,7 @@ class ResNet(nn.Module):
         depth: int = 50,
         out_indices: Tuple[int, ...] = (3,),
         dcn_stages: Tuple[int, ...] = (),
+        style: str = "caffe",
     ):
         super().__init__()
         self.out_indices = tuple(out_indices)
@@ -120,9 +128,9 @@ class ResNet(nn.Module):
         for stage, num_blocks in enumerate(ARCH_SETTINGS[depth]):
             stride = 1 if stage == 0 else 2
             use_dcn = stage in dcn_stages
-            blocks = [Bottleneck(inplanes, planes, stride, True, use_dcn)]
+            blocks = [Bottleneck(inplanes, planes, stride, True, use_dcn, style)]
             blocks += [
-                Bottleneck(planes * 4, planes, 1, False, use_dcn)
+                Bottleneck(planes * 4, planes, 1, False, use_dcn, style)
                 for _ in range(num_blocks - 1)
             ]
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))

@@ -13,9 +13,10 @@ import torch
 import torch.nn as nn
 
 from bevformer_torch.core import geometry
+from bevformer_torch.device import fp32
 from bevformer_torch.models.decoder import DetectionTransformerDecoder
 from bevformer_torch.models.encoder import BEVFormerEncoder
-from bevformer_torch.models.layers import layer_norm
+from bevformer_torch.models.layers import Fp32Linear, layer_norm
 
 
 class PerceptionTransformer(nn.Module):
@@ -31,7 +32,7 @@ class PerceptionTransformer(nn.Module):
         self.rotate_center = tuple(rotate_center)
         self.level_embeds = nn.Parameter(torch.randn(num_feature_levels, e))
         self.cams_embeds = nn.Parameter(torch.randn(num_cams, e))
-        self.reference_points = nn.Linear(e, 3)
+        self.reference_points = Fp32Linear(e, 3)
         self.can_bus_mlp = nn.Sequential(
             nn.Linear(18, e // 2), nn.ReLU(), nn.Linear(e // 2, e), nn.ReLU()
         )
@@ -77,9 +78,12 @@ class PerceptionTransformer(nn.Module):
             can_bus[:, 0], can_bus[:, 1], can_bus[:, -2], grid_length, bev_h, bev_w
         )
         if prev_bev is not None:
-            rotated = geometry.rotate_prev_bev(
-                prev_bev, can_bus[:, -1], bev_h, bev_w, self.rotate_center
-            )
+            # in fp32 (the JAX package rotates an fp32 copy)
+            prev_bev = prev_bev.float()
+            with fp32(prev_bev.device):
+                rotated = geometry.rotate_prev_bev(
+                    prev_bev, can_bus[:, -1], bev_h, bev_w, self.rotate_center
+                )
             prev_bev = torch.where(has_prev.view(bs, 1, 1), rotated, prev_bev)
         queries = queries + self.can_bus_mlp(can_bus)[:, None, :]
         value, spatial_shapes = self.flatten_feats(mlvl_feats, bs)

@@ -43,7 +43,7 @@ class VideoEvaluator:
         whatever the caller's TF32 flags. Returns (bev_embed, decoded
         batch)."""
         c = self.cfg
-        with precision(c.dtype):
+        with precision(c.dtype, self.device.type):
             preds = self.model(images, can_bus, lidar2img, prev_bev, has_prev)
         dec = coder.decode_batch(
             preds,

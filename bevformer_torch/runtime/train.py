@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from bevformer_torch.core.losses import bevformer_loss
-from bevformer_torch.device import precision
+from bevformer_torch.device import fp32, precision
 from bevformer_torch.models import BEVFormer
 from bevformer_torch.runtime.optim import make_optimizer
 
@@ -98,7 +98,8 @@ def history_bev(model: BEVFormer, batch: Batch) -> Tuple[Optional[torch.Tensor],
 
 def loss_fn(model: BEVFormer, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss and the per-layer terms of the last frame, run in the
-    model's current mode (train: dropout and GridMask on)."""
+    model's current mode (train: dropout and GridMask on). The losses are
+    computed in fp32 whatever the autocast around them."""
     c = model.cfg
     prev_bev, has_prev = history_bev(model, batch)
     if prev_bev is None:
@@ -109,12 +110,14 @@ def loss_fn(model: BEVFormer, batch: Batch) -> Tuple[torch.Tensor, Dict[str, tor
         batch.images[:, -1], batch.can_bus[:, -1], batch.lidar2img[:, -1],
         prev_bev, has_prev,
     )
-    losses = bevformer_loss(
-        preds, batch.gt_boxes, batch.gt_labels, batch.num_gt, c.code_weights,
-        num_classes=c.num_classes, cls_loss_weight=c.cls_loss_weight,
-        bbox_loss_weight=c.bbox_loss_weight, focal_alpha=c.focal_alpha,
-        focal_gamma=c.focal_gamma,
-    )
+    # the head's last layers hand the losses fp32 scores and boxes
+    with fp32(batch.images.device):
+        losses = bevformer_loss(
+            preds, batch.gt_boxes, batch.gt_labels, batch.num_gt, c.code_weights,
+            num_classes=c.num_classes, cls_loss_weight=c.cls_loss_weight,
+            bbox_loss_weight=c.bbox_loss_weight, focal_alpha=c.focal_alpha,
+            focal_gamma=c.focal_gamma,
+        )
     return losses["total"], losses
 
 
@@ -155,7 +158,8 @@ class Trainer:
     def step(self, batch: Batch) -> Dict[str, float]:
         """One training step in the config's dtype, whatever the caller's
         TF32 flags."""
-        with precision(self.cfg.dtype):
+        device = next(self.model.parameters()).device
+        with precision(self.cfg.dtype, device.type):
             return train_step(self.model, self.optimizer, self.scheduler, self.params,
                               self.cfg.optim.grad_clip_norm, batch)
 

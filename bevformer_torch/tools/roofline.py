@@ -4,8 +4,9 @@ Plain Python on shapes; it runs anywhere and measures nothing. For each call
 it counts the bytes the function must move and the operations it must do:
 
 - every input byte is read once and every output byte written once, however
-  often the kernel reads it again; for msda the whole value tensor counts
-  as read once (the samples may touch any of it);
+  often the kernel reads it again, each at its dtype's size (msda's value,
+  output, grad_out and dValue in fp32 or bf16); for msda the whole value
+  tensor counts as read once (the samples may touch any of it);
 - operations are fp32 arithmetic, an FMA counted as two: per msda sample
   (batch, query, head, level, point) 14 for the pixel position and the four
   corner weights, and per channel 2 for each of the four corners it sums;
@@ -81,14 +82,23 @@ def total(calls: Sequence[Tuple[Cost, int]]) -> dict:
     return dict(bound_ms=bound, bound_by=top.bound_by)
 
 
-def msda_fwd(b: int, q: int, h: int, d: int, shapes, p: int, mode: str = "full") -> Cost:
-    """One msda forward (K1, K7) or one of its probe modes: value [b, K, h, d],
-    loc [b, q, h, L, p, 2], attw [b, q, h, L, p] -> out [b, q, h*d], fp32.
-    `gather` needs no attw, `weights` and `noop` no value; `weights` adds
-    the four corner weights, `noop` sums attw."""
+def _msda_bytes(b, q, h, d, shapes, p, itemsize):
+    """(samples, value, loc, attw, out bytes) of one msda call: value and
+    out at `itemsize` bytes an element, loc and attw fp32."""
     k = sum(hh * ww for hh, ww in shapes)
     samples = b * q * h * len(shapes) * p
-    value, loc, attw, out = b * k * h * d * F32, samples * 2 * F32, samples * F32, b * q * h * d * F32
+    return (samples, b * k * h * d * itemsize, samples * 2 * F32, samples * F32,
+            b * q * h * d * itemsize)
+
+
+def msda_fwd(b: int, q: int, h: int, d: int, shapes, p: int, mode: str = "full",
+             itemsize: int = F32) -> Cost:
+    """One msda forward (K1, K7) or one of its probe modes: value [b, K, h, d],
+    loc [b, q, h, L, p, 2], attw [b, q, h, L, p] -> out [b, q, h*d]; value
+    and out of `itemsize` bytes an element (4 fp32, 2 bf16), the arithmetic
+    fp32 either way. `gather` needs no attw, `weights` and `noop` no value;
+    `weights` adds the four corner weights, `noop` sums attw."""
+    samples, value, loc, attw, out = _msda_bytes(b, q, h, d, shapes, p, itemsize)
     if mode == "full":
         return Cost(value + loc + attw + out, samples * (SAMPLE_FLOPS + 8 * d))
     if mode == "gather":
@@ -100,14 +110,13 @@ def msda_fwd(b: int, q: int, h: int, d: int, shapes, p: int, mode: str = "full")
     raise ValueError(f"unknown mode {mode!r}")
 
 
-def msda_bwd(b: int, q: int, h: int, d: int, shapes, p: int) -> Cost:
+def msda_bwd(b: int, q: int, h: int, d: int, shapes, p: int, itemsize: int = F32) -> Cost:
     """One msda backward (K3/K4): reads value, loc, attw and grad_out, writes
-    dvalue, dloc and dattw. Per sample and channel: the four corners
-    resampled (8), the dAttw dot (2), the dLoc dots of corner differences
-    (8) and the four dValue adds (8)."""
-    k = sum(hh * ww for hh, ww in shapes)
-    samples = b * q * h * len(shapes) * p
-    value, loc, attw, out = b * k * h * d * F32, samples * 2 * F32, samples * F32, b * q * h * d * F32
+    dvalue, dloc and dattw; value, grad_out and dvalue of `itemsize` bytes
+    an element, loc, attw and their gradients fp32. Per sample and channel:
+    the four corners resampled (8), the dAttw dot (2), the dLoc dots of
+    corner differences (8) and the four dValue adds (8)."""
+    samples, value, loc, attw, out = _msda_bytes(b, q, h, d, shapes, p, itemsize)
     return Cost(2 * (value + loc + attw) + out, samples * (SAMPLE_FLOPS + 26 * d))
 
 

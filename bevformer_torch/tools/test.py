@@ -2,7 +2,7 @@
 
     python3 -m bevformer_torch.tools.test <config> --data-root DATA
         [--checkpoint CKPT] [--out results.json] [--eval bbox|none]
-        [--format-only] [--overlap-test] [--max-samples N]
+        [--format-only] [--overlap-test] [--max-samples N] [--fuse-conv-bn]
         [--cfg-options key=val ...] [--device cuda]
 
 runs video inference (`VideoEvaluator`, the prev-BEV carry reset at each
@@ -16,8 +16,11 @@ and, like `--format-only`, the nuScenes submission (`<out>_nusc.json`, or
 
 `--checkpoint` is a checkpoint of `bevformer_torch.tools.train` or a
 model-zoo `.pth` (the same `state_dict` layout); without one the weights
-are `init_state_dict`'s, seed 0. `--overlap-test` scores only the boxes
-seen by more than one camera (NuScenesEval_custom's overlap_test). A line
+are `init_state_dict`'s, seed 0. `--fuse-conv-bn` folds the backbone's
+frozen BatchNorms into the convs before them (`runtime.fuse.fuse_conv_bn`;
+the same outputs up to fp32 rounding). `--overlap-test` scores only the
+boxes seen by more than one camera (NuScenesEval_custom's overlap_test). A
+line
 {"frames", "frame_ms", "load_ms", ...} reports each frame's time (its
 images' loading and preprocessing, then the model and decode), the peak
 device memory and the kernels' launches.
@@ -49,6 +52,7 @@ from bevformer_torch.kernels import launch_counts
 from bevformer_torch.runtime import (
     VideoEvaluator,
     build_model,
+    fuse_conv_bn,
     init_state_dict,
     load_reference_pth,
 )
@@ -66,6 +70,8 @@ def parse_args(argv):
                    help="only write the nuScenes submission json")
     p.add_argument("--overlap-test", action="store_true",
                    help="score only boxes in camera-overlap regions")
+    p.add_argument("--fuse-conv-bn", action="store_true",
+                   help="fold the backbone's BatchNorms into the convs before them")
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     return p.parse_args(argv)
@@ -93,8 +99,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
     else:
         print("WARNING: seeded random weights (no --checkpoint)", flush=True)
         state_dict = init_state_dict(cfg, seed=0)
-    evaluator = VideoEvaluator(build_model(cfg, state_dict, device))
+    model = build_model(cfg, state_dict, device)
     del state_dict
+    if args.fuse_conv_bn:
+        fuse_conv_bn(model)
+        print("folded conv + BN", flush=True)
+    evaluator = VideoEvaluator(model)
 
     def sync():
         if device.type == "cuda":

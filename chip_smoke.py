@@ -22,7 +22,13 @@ Phases, each printed as it runs:
      shapes, and at SCA's also on y-coherent locations as the kernel tools
      build them (their corners collide in the atomics), with times, the
      corner rows read and the 16-byte atomic adds made per call and their
-     rates; the build's SASS must hold the dValue adds as vector reductions;
+     rates; the build's SASS must hold the dValue adds as vector reductions
+     (those of the bf16 entry too); then bf16 K1 and K3/K4 (msda_fwd_bf16,
+     msda_bwd_bf16: a bf16 value and grad_out, fp32 sums, a bf16 output and
+     dValue) against their plain versions at bevformer_tiny_fp16's three
+     shapes and at bevformer_base's SCA (output and dValue within one bf16
+     ulp at their scale, dLoc and dAttw 1e-3), with times and bounds at
+     bf16's 2-byte value rows;
   6. K5/K6 (dcn_im2col, dcn_col2im) and the DCN backward they make with two
      matrix products, against autograd through the plain DCN at K2's shapes,
      with times of each kernel alone, K5's share of its bound and the share
@@ -88,9 +94,22 @@ Phases, each printed as it runs:
      ground truth scored as predictions gives mAP 1 and every TP error 0.
      It prints the step, host and data-wait medians of `train_log.jsonl`,
      the frame median of `tools.test`, the NDS/mAP of the seeded weights
-     and the phase's wall time; the root is removed.
+     and the phase's wall time. Then `tools.fp16.train bevformer_tiny` for 2
+     steps (bf16: the bf16 K1 and K3/K4 launches per step), and `tools.test
+     bevformer_tiny` on its checkpoint with and without `--fuse-conv-bn`:
+     tiny's K1 launches per frame, the same decoded boxes (scores to 1e-4,
+     matched boxes to 1e-3 of scale). The root is removed;
+  13. the other v1 presets, bevformer_tiny, bevformer_small and
+     bevformer_tiny_fp16 (bf16), each at full size with seeded weights: the
+     4-frame video on the kernel path (launches per frame, frame median,
+     peak memory), held to phase 10's witness against the plain and noisy
+     plain paths (noise of bf16 rounding's size, 2^-8, for tiny_fp16), 4
+     training steps (launches per step, step median, peak memory), and the
+     damped witness on the trained weights (fp32 to 1e-3; bf16 within 10x
+     of its noisy path).
 
-The line before the last is the kernels' JSON record: for each kernel its
+The line before the last is the kernels' JSON record (bf16 K1 and K3/K4
+with the launches of tiny_fp16's training run): for each kernel its
 time, launches, plain version's time, bound (bevformer_torch/tools/
 roofline.py, against the H100 SXM data sheet's peaks) and what bounds it,
 and the time of one PyTorch call that computes the same function, or null
@@ -120,7 +139,7 @@ FRAMES = (3, 1)  # scene lengths
 # history images and one over the trained frame's 6; the backward kernels
 # once per K1 / K2 call of the trained frame
 TRAIN_PER_STEP = dict(msda_fwd=3 * 12 + 18, dcn_conv_fwd=2 * 26, msda_bwd=18,
-                      dcn_im2col=26, dcn_col2im=26)
+                      dcn_im2col=26, dcn_col2im=26, msda_fwd_bf16=0, msda_bwd_bf16=0)
 TRAIN_STEPS = 4
 TRAIN_TOTAL_STEPS = 1000  # length of the lr schedule the steps run on
 
@@ -134,6 +153,13 @@ WITNESS_NOISE = 1e-6  # relative noise on the plain msda and DCN outputs
 WITNESS_FACTOR = 10.0  # kernel vs plain within this multiple of noisy vs plain
 WITNESS_BATCH_SEED = 2  # the training witness's batch (see check_training_witness)
 PROFILE_ROWS = 10
+BF16_FWD_ULPS = 1  # bf16 K1's output and K3/K4's dValue: bf16 ulps at max |plain|
+BF16_AUX_TOL = 1e-3  # bf16 K3/K4's dLoc and dAttw: max abs err over max |plain|
+# the other v1 presets (phase 13) and the relative noise of bf16 rounding's
+# size on the bf16 preset's plain msda outputs (its witness)
+PRESETS = ("bevformer_tiny", "bevformer_small", "bevformer_tiny_fp16")
+PRESET_TRAIN_STEPS = 4
+BF16_WITNESS_NOISE = 2.0 ** -8
 
 
 def log(msg: str) -> None:
@@ -357,6 +383,86 @@ def k34_case(name, value, shapes, loc, attw, g, cost, plain=True):
     for k, e in errs.items():
         check(e <= K34_TOL, f"msda_bwd {name} {k}: {e:.2e} > {K34_TOL}")
     return out
+
+
+def bf16_ulp(scale: float) -> float:
+    """One bf16 ulp at `scale`: 2^(e - 7) for 2^e <= scale < 2^(e + 1)."""
+    return 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+
+
+def ulps(a, ref) -> float:
+    """max |a - ref| in bf16 ulps at max |ref|."""
+    return float((a.float() - ref.float()).abs().max()) / bf16_ulp(float(ref.float().abs().max()))
+
+
+def check_bf16_msda(device, gen):
+    """bf16 K1 (msda_fwd_bf16) and K3/K4 (msda_bwd_bf16) against their plain
+    versions at bevformer_tiny_fp16's three shapes (TSA, dense SCA, decoder;
+    launches per frame and per training step) and at bevformer_base's SCA
+    in bf16 (on no path yet): errors, times, bounds at bf16's 2-byte value
+    and output, and the plain versions' times."""
+    import torch
+    from bevformer_torch.kernels import msda
+    from bevformer_torch.tools import roofline
+
+    levels = ((116, 200), (58, 100), (29, 50), (15, 25))
+    # (name, B, Q, H, D, shapes, P, launches per tiny_fp16 frame = per step's backward)
+    cases = [
+        ("tiny_tsa", 2, 2500, 8, 32, ((50, 50),), 4, 3),
+        ("tiny_sca", 6, 2500, 8, 32, ((15, 25),), 8, 3),
+        ("tiny_decoder", 1, 900, 8, 32, ((50, 50),), 4, 6),
+        ("base_sca", 6, 10112, 8, 32, levels, 8, 0),
+    ]
+    fwd_rows, bwd_rows = [], []
+    for name, b, q, h, d, shapes, p, per in cases:
+        value, loc, attw = msda_inputs(b, q, h, d, shapes, p, gen, device)
+        value = value.bfloat16()
+        g = torch.randn((b, q, h * d), generator=gen, device=device).bfloat16()
+        out = msda.ms_deform_attn(value, shapes, loc, attw)
+        ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
+        torch.cuda.synchronize()
+        check(out.dtype == ref.dtype == torch.bfloat16, f"bf16 K1 {name}: {out.dtype}")
+        fwd_ulps, same = ulps(out, ref), float((out == ref).float().mean())
+        fwd_err = float((out.float() - ref.float()).abs().max())
+        del out, ref
+        ms = time_ms(lambda: msda.ms_deform_attn(value, shapes, loc, attw), 20)
+        plain_ms = time_ms(lambda: msda.ms_deform_attn_plain(value, shapes, loc, attw), 3)
+        cost = roofline.msda_fwd(b, q, h, d, shapes, p, itemsize=2)
+        log(f"[bf16-k1] {name}: value {list(value.shape)} bf16 max abs err {fwd_err:.3e} = "
+            f"{fwd_ulps:.2f} bf16 ulps at max|plain| (tol {BF16_FWD_ULPS}; {same:.2%} bitwise "
+            f"equal) kernel {ms:.4f} ms ({cost.bound_ms / ms:.1%} of its bound "
+            f"{cost.bound_ms:.4f}; tile {msda.k1_tile_for(value, loc)}) plain {plain_ms:.4f} ms")
+        check(fwd_ulps <= BF16_FWD_ULPS, f"bf16 K1 {name}: {fwd_ulps:.2f} ulps")
+        fwd_rows.append(dict(shape=name, max_abs_err=fwd_err, ulps=fwd_ulps, ms=ms,
+                             plain_ms=plain_ms, per_frame=per, share_of_bound=cost.bound_ms / ms,
+                             bitwise_equal_share=same, cost=cost))
+
+        ours = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
+        ref = msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g)
+        torch.cuda.synchronize()
+        check(ours[0].dtype == torch.bfloat16 and ours[1].dtype == ours[2].dtype == torch.float32,
+              f"bf16 K3/K4 {name}: dtypes {[x.dtype for x in ours]}")
+        dv_ulps = ulps(ours[0], ref[0])
+        aux = {k: rel_err(a, r) for k, a, r in zip(("dloc", "dattw"), ours[1:], ref[1:])}
+        err = max(float((ours[0].float() - ref[0].float()).abs().max()),
+                  *(float((a - r).abs().max()) for a, r in zip(ours[1:], ref[1:])))
+        del ours, ref
+        bms = time_ms(lambda: msda.ms_deform_attn_backward(value, shapes, loc, attw, g), 10)
+        bplain_ms = time_ms(
+            lambda: msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g), 2)
+        bcost = roofline.msda_bwd(b, q, h, d, shapes, p, itemsize=2)
+        log(f"[bf16-k3k4] {name}: dvalue {dv_ulps:.2f} bf16 ulps at max|plain| (tol "
+            f"{BF16_FWD_ULPS}), max abs err / max |plain|: {fmt_errors(aux)} (tol "
+            f"{BF16_AUX_TOL:.0e}) kernel {bms:.4f} ms ({bcost.bound_ms / bms:.1%} of its bound "
+            f"{bcost.bound_ms:.4f}) plain {bplain_ms:.4f} ms")
+        check(dv_ulps <= BF16_FWD_ULPS, f"bf16 K3/K4 {name} dvalue: {dv_ulps:.2f} ulps")
+        for k, e in aux.items():
+            check(e <= BF16_AUX_TOL, f"bf16 K3/K4 {name} {k}: {e:.2e} > {BF16_AUX_TOL}")
+        bwd_rows.append(dict(shape=name, max_abs_err=err, dvalue_ulps=dv_ulps, ms=bms,
+                             plain_ms=bplain_ms, per_step=per,
+                             share_of_bound=bcost.bound_ms / bms, cost=bcost, **aux))
+        del value, loc, attw, g
+    return fwd_rows, bwd_rows
 
 
 def check_vector_atomics(lib_path):
@@ -858,6 +964,181 @@ def check_precision(model, video):
         check(e <= FP32_TOL, f"{key}: TF32-on caller vs off {e:.2e} > {FP32_TOL}")
 
 
+# ---------------------------------------------------------------- presets
+
+def path_launches(cfg):
+    """(per frame, per training step) launches of every kernel counter on
+    `cfg`'s paths: per frame TSA and SCA in each encoder layer and the
+    cross-attention of each decoder layer (K1, or its bf16 entry under
+    bf16) and the DCN conv2 of every block of the DCN stages (K2); a
+    training step runs its queue_length - 1 history frames encoder only,
+    with one backbone pass over all their images, then the trained frame,
+    whose K1 and K2 calls each run a backward (K3/K4; K5 and K6)."""
+    from bevformer_torch.kernels import kernel_counters
+    from bevformer_torch.models.resnet import ARCH_SETTINGS
+
+    zero = dict.fromkeys(kernel_counters(), 0)
+    bf16 = cfg.dtype == "bfloat16"
+    k1, k34 = ("msda_fwd_bf16", "msda_bwd_bf16") if bf16 else ("msda_fwd", "msda_bwd")
+    enc, dec = 2 * cfg.encoder_layers, cfg.decoder_layers
+    dcn = sum(ARCH_SETTINGS[cfg.backbone_depth][s] for s in cfg.backbone_dcn_stages)
+    history = cfg.data.queue_length - 1
+    frame = dict(zero, **{k1: enc + dec, "dcn_conv_fwd": dcn})
+    step = dict(zero, **{k1: history * enc + enc + dec, k34: enc + dec,
+                         "dcn_conv_fwd": (2 if history else 1) * dcn, "dcn_im2col": dcn,
+                         "dcn_col2im": dcn})
+    return frame, step
+
+
+def times(per: dict, n: int) -> dict:
+    return {k: v * n for k, v in per.items()}
+
+
+def preset_witness(model, video, noise):
+    """Kernel vs plain and noisy plain vs plain over the video (max over the
+    frames of max abs err / max |plain|), and the decoded results of the
+    kernel and plain runs; the plain runs must launch no kernel."""
+    from bevformer_torch.kernels import launch_counts
+
+    results, preds, _ = run_video(model, video)
+    counts = launch_counts()
+    with plain_kernels():
+        plain_results, plain_preds, plain_secs = run_video(model, video)
+    with plain_kernels(noise=noise):
+        _, noisy_preds, _ = run_video(model, video)
+    check(launch_counts() == counts, "a plain run launched a kernel")
+    return (output_errors(preds, plain_preds), output_errors(noisy_preds, plain_preds),
+            results, plain_results, plain_secs)
+
+
+def frozen_bn_bytes(model, video) -> dict:
+    """MB into and out of the backbone's FrozenBNs in one frame's backbone
+    pass in the config's dtype, by dtype. Under bf16 a FrozenBN takes the
+    bf16 output of its conv and, its statistics being fp32, gives fp32."""
+    import torch
+    from bevformer_torch.device import precision
+    from bevformer_torch.models.resnet import FrozenBN
+
+    seen = {"in": {}, "out": {}}
+
+    def hook(m, inputs, out):
+        for key, t in (("in", inputs[0]), ("out", out)):
+            dt = str(t.dtype).replace("torch.", "")
+            seen[key][dt] = seen[key].get(dt, 0.0) + t.nbytes / 1e6
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, FrozenBN)]
+    try:
+        with torch.no_grad(), precision(model.cfg.dtype, "cuda"):
+            model.extract_feat(video.get_test_sample(0)["images"][None])
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def check_preset(name, device, smi):
+    """One of the other v1 presets at full size with seeded weights: a
+    4-frame video (scenes FRAMES) on the kernel path, with its launches per
+    frame, frame median and peak memory, held to phase 10's witness against
+    the plain path (undamped: within WITNESS_FACTOR of the plain path with
+    noise of the config's rounding size on every msda and DCN output; with
+    the reg branches' outputs x0.1: fp32 to SLICE_TOL, bf16 again within
+    WITNESS_FACTOR of its noisy path); then PRESET_TRAIN_STEPS train-mode
+    steps with their launches per step, step median and peak memory, and
+    the damped witness on the trained weights."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.data import SyntheticVideo, train_batch
+    from bevformer_torch.kernels import launch_counts, zero_counts
+    from bevformer_torch.runtime import Trainer, build_model, init_state_dict
+
+    cfg = get_config(name)
+    bf16 = cfg.dtype == "bfloat16"
+    noise = BF16_WITNESS_NOISE if bf16 else WITNESS_NOISE
+    per_frame, per_step = path_launches(cfg)
+    t0 = time.perf_counter()
+    model = build_model(cfg, init_state_dict(cfg, seed=0), device)
+    video = SyntheticVideo(cfg, scene_lengths=FRAMES, seed=0, device=device)
+    n = len(video)
+    log(f"[preset] {name}: {cfg.dtype}, {cfg.data.num_cams} x {cfg.data.img_size} images, "
+        f"R{cfg.backbone_depth} {cfg.backbone_style} DCN stages {cfg.backbone_dcn_stages}, "
+        f"{cfg.num_feature_levels} level(s), SCA capacity {cfg.sca_capacity_ratio}, "
+        f"{cfg.encoder_layers}+{cfg.decoder_layers} layers, BEV {cfg.bev_h}x{cfg.bev_w}, queue "
+        f"{cfg.data.queue_length}; weights ready in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    _, preds, secs = run_video(model, video)
+    counts = launch_counts()
+    frame_peak = torch.cuda.max_memory_allocated(device)
+    check(counts == times(per_frame, n), f"{name}: video launched {counts}, want "
+                                         f"{times(per_frame, n)}")
+    for i, p in enumerate(preds):
+        for key, v in p.items():
+            check(bool(torch.isfinite(v).all()), f"{name} frame {i}: {key} not finite")
+    check(tuple(preds[0]["all_cls_scores"].shape) ==
+          (cfg.decoder_layers, 1, cfg.num_query, cfg.num_classes), f"{name}: cls shape")
+    check(tuple(preds[0]["bev_embed"].shape) == (1, cfg.bev_h * cfg.bev_w, cfg.embed_dims),
+          f"{name}: bev shape")
+    frame_ms = median_of(secs[1:]) * 1e3
+    bn_mb = frozen_bn_bytes(model, video)
+    log(f"[preset] {name} video: launches per frame {per_frame}; frame seconds "
+        f"{', '.join(f'{x:.4f}' for x in secs)}; median of frames 1-{n - 1}: {frame_ms:.1f} ms; "
+        f"peak memory {frame_peak / 2**30:.2f} GiB; the backbone's FrozenBNs in one frame: "
+        f"inputs {bn_mb['in']} MB, outputs {bn_mb['out']} MB; card: {smi}")
+    del preds
+
+    errs, noise_errs, _, _, plain_secs = preset_witness(model, video, noise)
+    log(f"[preset] {name} witness, undamped: kernel vs plain: {fmt_errors(errs)}; plain x (1 + "
+        f"{noise:.2e} N(0,1)) at every msda and DCN output vs plain: {fmt_errors(noise_errs)} "
+        f"(kernel within {WITNESS_FACTOR:g}x); plain frame seconds "
+        + ", ".join(f"{x:.4f}" for x in plain_secs))
+    for key, e in errs.items():
+        check(e <= WITNESS_FACTOR * max(noise_errs[key], 1e-7),
+              f"{name} {key}: kernel vs plain {e:.2e} > {WITNESS_FACTOR:g} x {noise_errs[key]:.2e}")
+    witness = dict(undamped=errs, undamped_noisy=noise_errs)
+
+    trainer = Trainer(model, total_steps=TRAIN_TOTAL_STEPS, seed=0)
+    batch = train_batch(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    step_secs, step_counts = timed_steps(trainer, batch, PRESET_TRAIN_STEPS, f"[preset] {name}")
+    train_counts = launch_counts()
+    step_peak = torch.cuda.max_memory_allocated(device)
+    for i, c in enumerate(step_counts):
+        check(c == per_step, f"{name} step {i} launched {c}, want {per_step}")
+    step_ms = median_of(step_secs[1:]) * 1e3
+    log(f"[preset] {name} training: launches per step {per_step}; step seconds "
+        f"{', '.join(f'{x:.4f}' for x in step_secs)}; median of steps 1-"
+        f"{PRESET_TRAIN_STEPS - 1}: {step_ms:.1f} ms; peak memory {step_peak / 2**30:.2f} GiB; "
+        f"card: {smi}")
+    del trainer, batch
+
+    damp_box_refinement(model)
+    errs, noise_errs, results, plain_results, _ = preset_witness(model, video, noise)
+    limit = {k: WITNESS_FACTOR * max(noise_errs[k], 1e-7) if bf16 else SLICE_TOL for k in errs}
+    log(f"[preset] {name} witness on the trained weights, reg branch outputs x0.1: kernel vs "
+        f"plain: {fmt_errors(errs)} (limits {fmt_errors(limit)}); noisy plain vs plain: "
+        f"{fmt_errors(noise_errs)}")
+    for key, e in errs.items():
+        check(e <= limit[key], f"{name} {key} damped: kernel vs plain {e:.2e} > {limit[key]:.2e}")
+    if not bf16:
+        for i in range(n):
+            sa = torch.as_tensor(results[i]["scores_3d"]).sort().values
+            sb = torch.as_tensor(plain_results[i]["scores_3d"]).sort().values
+            check(sa.shape == sb.shape and bool(torch.allclose(sa, sb, atol=1e-4)),
+                  f"{name} frame {i}: decoded scores differ")
+    witness.update(damped=errs, damped_noisy=noise_errs)
+    del model, video
+    torch.cuda.empty_cache()
+    return dict(name=name, dtype=cfg.dtype, frame_ms=frame_ms, frame_peak_gib=frame_peak / 2**30,
+                frame_launches=per_frame, step_ms=step_ms, step_peak_gib=step_peak / 2**30,
+                step_launches=per_step, train_counts=train_counts, inference_counts=counts,
+                witness=witness, frozen_bn_mb=bn_mb)
+
+
 KERNEL_NAMES = ("msda_fwd_kernel", "dcn_conv_fwd_kernel", "msda_bwd_kernel",
                 "dcn_im2col_kernel", "dcn_col2im_kernel")
 
@@ -914,6 +1195,29 @@ def profile_frame(model, video, smi):
 
 # ---------------------------------------------------------------- training
 
+def timed_steps(trainer, batch, steps: int, tag: str):
+    """`steps` train steps of `trainer` on `batch`, each timed on the host
+    clock between device syncs with its launches counted, its losses
+    printed and checked finite: (seconds, launches) per step."""
+    import torch
+    from bevformer_torch.kernels import launch_counts
+
+    secs, per_step = [], []
+    for step in range(steps):
+        start = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = trainer.step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        per_step.append({k: v - start[k] for k, v in launch_counts().items()})
+        log(f"{tag} step {step}: loss {out['total']:.4f} (cls {out['loss_cls']:.4f}, "
+            f"bbox {out['loss_bbox']:.4f}), grad_norm {out['grad_norm']:.3f}, "
+            f"lr {out['lr']:.4e}, {secs[-1]:.4f} s, launches {per_step[-1]}")
+        check(all(math.isfinite(v) for v in out.values()), f"{tag} step {step}: not finite: {out}")
+    return secs, per_step
+
+
 def check_training(device, smi):
     """bevformer_base at full size: TRAIN_STEPS train-mode steps."""
     import torch
@@ -938,19 +1242,7 @@ def check_training(device, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     zero_counts()
-    secs, per_step = [], []
-    for step in range(TRAIN_STEPS):
-        start = launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = trainer.step(batch)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t)
-        per_step.append({k: v - start[k] for k, v in launch_counts().items()})
-        log(f"[train] step {step}: loss {out['total']:.4f} (cls {out['loss_cls']:.4f}, "
-            f"bbox {out['loss_bbox']:.4f}), grad_norm {out['grad_norm']:.3f}, "
-            f"lr {out['lr']:.4e}, {secs[-1]:.4f} s, launches {per_step[-1]}")
-        check(all(math.isfinite(v) for v in out.values()), f"step {step}: not finite: {out}")
+    secs, per_step = timed_steps(trainer, batch, TRAIN_STEPS, "[train]")
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(device)
     for step, c in enumerate(per_step):
@@ -1241,6 +1533,97 @@ def median_of(xs):
     return xs[len(xs) // 2] if xs else float("nan")
 
 
+FP16_CLI_STEPS = 2  # tools.fp16.train bevformer_tiny
+FUSE_SCORE_TOL = 1e-4  # tools.test --fuse-conv-bn vs unfolded: decoded scores, max abs
+FUSE_BOX_TOL = 1e-3  # ... and matched boxes, max abs err over max |box|
+
+
+def box_set_errors(ours, ref):
+    """Two runs' decoded boxes of one frame, matched as sets (top-k may
+    order near-ties differently): each box of `ref` to the unused box of
+    `ours` with its label and a score within FUSE_SCORE_TOL that is closest
+    to it. Returns (max score difference of the sorted scores, max abs
+    error of the matched boxes over max |box|, boxes without a match)."""
+    import numpy as np
+
+    if len(ours["scores_3d"]) != len(ref["scores_3d"]):
+        return float("inf"), float("inf"), len(ref["scores_3d"])
+    so, sr = np.sort(ours["scores_3d"]), np.sort(ref["scores_3d"])
+    score_err = float(np.abs(so - sr).max()) if len(sr) else 0.0
+    scale = max(float(np.abs(ref["boxes_3d"]).max()) if len(sr) else 0.0, 1e-6)
+    used = np.zeros(len(so), bool)
+    worst, missing = 0.0, 0
+    for i in np.argsort(-ref["scores_3d"], kind="stable"):
+        cand = np.flatnonzero(~used & (ours["labels_3d"] == ref["labels_3d"][i])
+                              & (np.abs(ours["scores_3d"] - ref["scores_3d"][i]) <= FUSE_SCORE_TOL))
+        if not len(cand):
+            missing += 1
+            continue
+        err = np.abs(ours["boxes_3d"][cand] - ref["boxes_3d"][i]).max(-1)
+        used[cand[np.argmin(err)]] = True
+        worst = max(worst, float(err.min()) / scale)
+    return score_err, worst, missing
+
+
+def check_cli_fp16_and_fuse(data, root, smi):
+    """`tools.fp16.train bevformer_tiny` for FP16_CLI_STEPS steps on the
+    phase's root (bf16: the bf16 K1 and K3/K4 launches per step of
+    bevformer_tiny_fp16), then `tools.test bevformer_tiny` on its checkpoint
+    with and without `--fuse-conv-bn`: the K1 launches per frame of tiny,
+    and the same decoded boxes (scores to FUSE_SCORE_TOL, matched boxes to
+    FUSE_BOX_TOL of scale)."""
+    import numpy as np
+    from bevformer_torch.configs import get_config
+
+    work = os.path.join(root, "work_fp16")
+    what = f"tools.fp16.train bevformer_tiny to step {FP16_CLI_STEPS}"
+    recs, train_s = run_cli(["bevformer_torch.tools.fp16.train", "bevformer_tiny", "--data-root",
+                             data, "--work-dir", work, "--max-iters", str(FP16_CLI_STEPS),
+                             "--log-interval", "1"], what)
+    done = one(recs, "done", what)
+    steps = [r for r in recs if "step_ms" in r and "done" not in r]
+    want = times(path_launches(get_config("bevformer_tiny_fp16"))[1], done["steps"])
+    check(done["launches"] == want, f"{what}: launches {done['launches']}, want {want}")
+    check(all(math.isfinite(r["total"]) for r in steps), f"{what}: {steps}")
+    log(f"[cli] {what}: {train_s:.1f} s, peak {done['peak_gib']} GiB, launches "
+        f"{done['launches']}; steps: " + "; ".join(
+            f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms" for r in steps))
+
+    ckpt = os.path.join(work, "ckpts", f"iter_{FP16_CLI_STEPS}.pth")
+    per_frame = path_launches(get_config("bevformer_tiny"))[0]
+    runs = {}
+    for tag, more in (("unfolded", []), ("folded", ["--fuse-conv-bn"])):
+        out = os.path.join(work, f"{tag}.json")
+        recs, secs = run_cli(["bevformer_torch.tools.test", "bevformer_tiny", "--data-root", data,
+                              "--checkpoint", ckpt, "--out", out, *more], f"tools.test {tag}")
+        timing = one(recs, "frame_ms", f"tools.test {tag}")
+        want = times(per_frame, timing["frames"])
+        check(timing["launches"] == want, f"tools.test {tag}: launches {timing['launches']}, "
+                                          f"want {want}")
+        with open(out) as f:
+            runs[tag] = {r["token"]: {k: np.asarray(v) for k, v in r.items() if k != "token"}
+                         for r in json.load(f)}
+        log(f"[cli] tools.test bevformer_tiny {tag}: {secs:.1f} s, frame median "
+            f"{timing['frame_ms_median']:.1f} ms, peak {timing['peak_gib']} GiB, launches "
+            f"{timing['launches']}")
+        runs[f"{tag}_frame_ms"] = timing["frame_ms_median"]
+    tokens = sorted(k for k in runs["unfolded"])
+    check(tokens == sorted(runs["folded"]), "the folded run scored other frames")
+    errs = [box_set_errors(runs["folded"][t], runs["unfolded"][t]) for t in tokens]
+    score_err = max(e[0] for e in errs)
+    box_err = max(e[1] for e in errs)
+    missing = sum(e[2] for e in errs)
+    log(f"[cli] --fuse-conv-bn vs unfolded over {len(tokens)} frames: decoded scores max abs "
+        f"diff {score_err:.3e} (tol {FUSE_SCORE_TOL:.0e}), matched boxes max abs err / max |box| "
+        f"{box_err:.3e} (tol {FUSE_BOX_TOL:.0e}), boxes without a match {missing}; card: {smi}")
+    check(missing == 0 and score_err <= FUSE_SCORE_TOL and box_err <= FUSE_BOX_TOL,
+          f"--fuse-conv-bn boxes differ: scores {score_err:.2e}, boxes {box_err:.2e}, "
+          f"{missing} unmatched")
+    return dict(fp16_step_ms=median_of([r["step_ms"] for r in steps[1:]]),
+                fp16_peak_gib=done["peak_gib"], fuse_score_err=score_err, fuse_box_err=box_err,
+                fuse_frame_ms=runs["folded_frame_ms"], unfused_frame_ms=runs["unfolded_frame_ms"])
+
+
 def check_cli(smi):
     """The port's CLIs as a user runs them, each its own process, at
     bevformer_base full size: create_data synth at its defaults (2 scenes x
@@ -1314,8 +1697,8 @@ def check_cli(smi):
         timing = one(recs, "frame_ms", "tools.test")
         summary = one(recs, "NDS", "tools.test")
         frames = timing["frames"]
-        per_frame = dict(msda_fwd=K1_PER_FRAME, dcn_conv_fwd=K2_PER_FRAME, msda_bwd=0,
-                         dcn_im2col=0, dcn_col2im=0)
+        per_frame = dict(TRAIN_PER_STEP, msda_fwd=K1_PER_FRAME, dcn_conv_fwd=K2_PER_FRAME,
+                         msda_bwd=0, dcn_im2col=0, dcn_col2im=0)
         want = {k: v * frames for k, v in per_frame.items()}
         check(timing["launches"] == want, f"tools.test launches {timing['launches']}, want {want}")
         keys = ["NDS", "mAP", *ERR_NAME_MAPPING.values()]
@@ -1332,6 +1715,7 @@ def check_cli(smi):
             f"launches {timing['launches']}; {json.dumps(summary)}")
 
         perfect_detector(data, cfg, "cuda")
+        fp16 = check_cli_fp16_and_fuse(data, root, smi)
 
         # each run's first step carries its process's warm-up
         steady = first_steps[1:] + second_steps[1:]
@@ -1343,6 +1727,7 @@ def check_cli(smi):
             train_peak_gib=max(first_done["peak_gib"] or 0, second_done["peak_gib"] or 0),
             test_peak_gib=timing["peak_gib"], NDS=summary["NDS"], mAP=summary["mAP"],
         )
+        res.update(fp16)
         res["seconds"] = time.perf_counter() - t_start
         log(f"[cli] medians: tools.train step {res['step_ms']:.1f} ms (steps "
             f"{[r['step'] for r in steady]}), host {res['host_ms']:.1f} ms, data wait "
@@ -1392,6 +1777,7 @@ def main() -> int:
     k1_rows = check_k1(device, gen)
     k2_rows = check_k2(device, gen)
     k34_rows = check_k34(device, gen)
+    bf16_fwd_rows, bf16_bwd_rows = check_bf16_msda(device, gen)
     im2col_rows, col2im_rows = check_k56(device, gen)
     torch.cuda.empty_cache()
     probe_runs, probe_counts = check_probes()
@@ -1406,12 +1792,14 @@ def main() -> int:
     del sl["model"], sl["video"]
     torch.cuda.empty_cache()
     cli = check_cli(smi)
+    torch.cuda.empty_cache()
+    presets = {name: check_preset(name, device, smi) for name in PRESETS}
 
-    def record(name, src, replaces, rows, per, library_note):
+    def record(name, src, replaces, rows, per, library_note, counts=tr["counts"]):
         bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=tr["counts"][name],
+            launches=counts[name],
             max_abs_err=max(r["max_abs_err"] for r in rows),
             # one frame's (forward kernels) or one training step's (backward
             # kernels) worth of launches at the path's shapes
@@ -1441,6 +1829,18 @@ def main() -> int:
                "leaves out dmask (grid_sampler_ms, and with grid_sampler_2d and the dmask "
                "dot grid_sampler_pair_ms)"),
     ] + probe_records(probe_runs, probe_counts)
+    # bf16 K1 and K3/K4: bevformer_tiny_fp16's training run (phase 13) and
+    # its video; per frame / per step over tiny's shapes, base's SCA beside
+    fp16 = presets["bevformer_tiny_fp16"]
+    kernels += [
+        record("msda_fwd_bf16", "bevformer_torch/csrc/msda_fwd.cu",
+               "bevformer_tpu/kernels/msda_hi.py:243", bf16_fwd_rows, "per_frame", no_msda,
+               counts=fp16["train_counts"]),
+        record("msda_bwd_bf16", "bevformer_torch/csrc/msda_bwd.cu",
+               "bevformer_tpu/kernels/msda_hi.py:744", bf16_bwd_rows, "per_step",
+               "no single PyTorch call computes the msda backward", counts=fp16["train_counts"]),
+    ]
+    kernels[-2]["inference_launches"] = fp16["inference_counts"]["msda_fwd_bf16"]
     # launches: the training run's (all five kernels); the inference run's too
     kernels[0]["inference_launches"] = sl["k1"]
     kernels[1]["inference_launches"] = sl["k2"]
@@ -1460,6 +1860,13 @@ def main() -> int:
     log(f"[summary] CLIs: tools.train step median {cli['step_ms']:.1f} ms (host "
         f"{cli['host_ms']:.1f} ms, data wait {cli['data_wait_ms']:.1f} ms), tools.test frame "
         f"median {cli['frame_ms']:.1f} ms, phase {cli['seconds']:.1f} s")
+    log(f"[summary] CLIs: tools.fp16.train bevformer_tiny step median {cli['fp16_step_ms']:.1f} ms, "
+        f"tools.test bevformer_tiny frame median {cli['unfused_frame_ms']:.1f} ms, with "
+        f"--fuse-conv-bn {cli['fuse_frame_ms']:.1f} ms")
+    for r in presets.values():
+        log(f"[summary] {r['name']} ({r['dtype']}): frame median {r['frame_ms']:.1f} ms, peak "
+            f"{r['frame_peak_gib']:.2f} GiB; training step median {r['step_ms']:.1f} ms, peak "
+            f"{r['step_peak_gib']:.2f} GiB; on {smi}")
     log(f"[summary] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

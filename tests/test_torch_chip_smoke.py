@@ -160,3 +160,49 @@ def test_cli_helpers():
         chip_smoke.one(records, "a", "x")
     assert chip_smoke.median_of([3.0, 1.0, 2.0]) == 2.0
     assert math.isnan(chip_smoke.median_of([]))
+
+
+@pytest.mark.parametrize("name,frame,step", [
+    ("bevformer_base", dict(msda_fwd=18, dcn_conv_fwd=26),
+     dict(msda_fwd=54, dcn_conv_fwd=52, msda_bwd=18, dcn_im2col=26, dcn_col2im=26)),
+    ("bevformer_small", dict(msda_fwd=12, dcn_conv_fwd=26),
+     dict(msda_fwd=24, dcn_conv_fwd=52, msda_bwd=12, dcn_im2col=26, dcn_col2im=26)),
+    ("bevformer_tiny", dict(msda_fwd=12), dict(msda_fwd=24, msda_bwd=12)),
+    ("bevformer_tiny_fp16", dict(msda_fwd_bf16=12), dict(msda_fwd_bf16=24, msda_bwd_bf16=12)),
+])
+def test_path_launches(name, frame, step):
+    """chip_smoke.py's launches per frame and per training step of each v1
+    preset (3 or 6 encoder layers of TSA + SCA, 6 decoder layers; queue 3
+    or 4, the history frames encoder only with one backbone pass; the DCN
+    blocks of R101's stages 3-4), every other counter 0; bevformer_base's
+    are the phases' constants."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.kernels import kernel_counters
+
+    zero = dict.fromkeys(kernel_counters(), 0)
+    assert chip_smoke.path_launches(get_config(name)) == (dict(zero, **frame), dict(zero, **step))
+    if name == "bevformer_base":
+        assert step == {k: v for k, v in chip_smoke.TRAIN_PER_STEP.items() if v}
+        assert frame == dict(msda_fwd=chip_smoke.K1_PER_FRAME, dcn_conv_fwd=chip_smoke.K2_PER_FRAME)
+
+
+def test_box_set_errors():
+    """The --fuse-conv-bn comparison: boxes matched by label and score as
+    sets, whatever their order; a missing match is counted."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    rng = np.random.RandomState(0)
+    ref = dict(boxes_3d=rng.randn(5, 9), scores_3d=np.linspace(0.9, 0.5, 5),
+               labels_3d=np.arange(5) % 3)
+    perm = rng.permutation(5)
+    ours = {k: v[perm].copy() for k, v in ref.items()}
+    ours["boxes_3d"][:, 0] += 1e-5
+    score, box, missing = chip_smoke.box_set_errors(ours, ref)
+    assert score == 0 and missing == 0
+    assert box == pytest.approx(1e-5 / np.abs(ref["boxes_3d"]).max(), rel=1e-3)
+    ours["labels_3d"][0] = 7
+    assert chip_smoke.box_set_errors(ours, ref)[2] == 1
+    assert chip_smoke.box_set_errors({k: v[:4] for k, v in ours.items()}, ref)[0] == float("inf")

@@ -16,8 +16,13 @@ backward kernels: 1e-5 of each gradient's scale (the same corners; sums over
 channels and atomic adds in another order, so dValue and dx are not bitwise
 deterministic from run to run), K6 also at exact pixel edges and with
 samples far off their pixel; K5's column bitwise at the
-shapes of its own test (the plain version's operations, unfused).
+shapes of its own test (the plain version's operations, unfused). bf16 K1
+and K3/K4 (a bf16 value and grad_out, fp32 sums): the bf16 output and dValue
+within one bf16 ulp at their scale (the fp32 sums agree but for their
+order, then each side rounds once), dLoc and dAttw 1e-3 of their scale.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -608,3 +613,145 @@ def test_mini_train_step_kernel_path_matches_plain_path(cuda_device):
         a = torch.cat([g.reshape(-1) for n, g in grads.items() if n.startswith(group)])
         b = torch.cat([g.reshape(-1) for n, g in ref.items() if n.startswith(group)])
         assert float((a - b).norm() / b.norm()) <= 1e-3, group
+
+
+# ---------------------------------------------------------------- bf16 K1, K3/K4
+
+BF16_CASES = [
+    # bevformer_tiny_fp16's three shapes (TSA, dense SCA, decoder) and
+    # bevformer_base's SCA (Q cut)
+    ("tiny_tsa", 2, 2500, 8, 32, ((50, 50),), 4),
+    ("tiny_sca", 6, 2500, 8, 32, ((15, 25),), 8),
+    ("tiny_decoder", 1, 900, 8, 32, ((50, 50),), 4),
+    ("base_sca", 6, 300, 8, 32, ((116, 200), (58, 100), (29, 50), (15, 25)), 8),
+]
+
+
+def _bf16_inputs(b, q, h, d, shapes, p, seed, device):
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, seed, device)
+    return value.bfloat16(), loc, attw
+
+
+def _within_a_bf16_ulp(ours, ref, name):
+    """max |ours - ref| <= one bf16 ulp at max |ref| (2^(e - 7) for
+    2^e <= max |ref| < 2^(e + 1))."""
+    assert ours.dtype == ref.dtype == torch.bfloat16, (name, ours.dtype, ref.dtype)
+    scale = float(ref.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    err = float((ours.float() - ref.float()).abs().max())
+    assert err <= ulp, f"{name}: max abs err {err:.3e} > one bf16 ulp {ulp:.3e} at {scale:.3e}"
+
+
+def _check_bf16_backward(grads, value, shapes, loc, attw, g, name):
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g)
+    _within_a_bf16_ulp(grads[0], ref[0], f"{name} dvalue")
+    for what, a, r in zip(("dloc", "dattw"), grads[1:], ref[1:]):
+        assert a.dtype == torch.float32
+        assert_close(a, r, 1e-3, f"{name} {what}")
+
+
+@pytest.mark.parametrize("name,b,q,h,d,shapes,p", BF16_CASES, ids=[c[0] for c in BF16_CASES])
+def test_bf16_msda_kernel_matches_plain(cuda_device, name, b, q, h, d, shapes, p):
+    value, loc, attw = _bf16_inputs(b, q, h, d, shapes, p, 100 + len(name), cuda_device)
+    before = msda.MSDA_FWD_BF16.launches, msda.ms_deform_attn.launches
+    out = msda.ms_deform_attn(value, shapes, loc, attw)
+    torch.cuda.synchronize()
+    assert (msda.MSDA_FWD_BF16.launches, msda.ms_deform_attn.launches) == (
+        before[0] + 1, before[1])
+    _within_a_bf16_ulp(out, msda.ms_deform_attn_plain(value, shapes, loc, attw), name)
+
+
+@pytest.mark.parametrize("tile", msda.K1_TILES)
+@pytest.mark.parametrize("case", [0, 1, 3], ids=["tsa", "sca", "base_sca"])
+def test_bf16_msda_kernel_every_tile(cuda_device, tile, case):
+    name, b, q, h, d, shapes, p = BF16_CASES[case]
+    value, loc, attw = _bf16_inputs(b, 137, h, d, shapes, p, tile, cuda_device)
+    out = msda._launch("msda_fwd_bf16", value, shapes, loc, attw, tile)
+    torch.cuda.synchronize()
+    _within_a_bf16_ulp(out, msda.ms_deform_attn_plain(value, shapes, loc, attw),
+                       f"{name} tile {tile}")
+
+
+@pytest.mark.parametrize("name,b,q,h,d,shapes,p", BF16_CASES, ids=[c[0] for c in BF16_CASES])
+def test_bf16_msda_backward_kernel_matches_plain(cuda_device, name, b, q, h, d, shapes, p):
+    value, loc, attw = _bf16_inputs(b, q, h, d, shapes, p, 110 + len(name), cuda_device)
+    g = torch.randn((b, q, h * d), device=cuda_device).bfloat16()
+    before = msda.MSDA_BWD_BF16.launches, msda.ms_deform_attn_backward.launches
+    grads = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
+    assert (msda.MSDA_BWD_BF16.launches, msda.ms_deform_attn_backward.launches) == (
+        before[0] + 1, before[1])
+    _check_bf16_backward(grads, value, shapes, loc, attw, g, name)
+
+
+@pytest.mark.parametrize("tile", msda.K1_TILES)
+@pytest.mark.parametrize("case", [0, 1, 3], ids=["tsa", "sca", "base_sca"])
+def test_bf16_msda_backward_kernel_every_tile(cuda_device, tile, case):
+    name, b, q, h, d, shapes, p = BF16_CASES[case]
+    value, loc, attw = _bf16_inputs(b, 137, h, d, shapes, p, 120 + tile, cuda_device)
+    g = torch.randn((b, 137, h * d), device=cuda_device).bfloat16()
+    grads = msda._launch_bwd(value, shapes, loc, attw, g, tile)
+    _check_bf16_backward(grads, value, shapes, loc, attw, g, f"{name} tile {tile}")
+
+
+def test_bf16_msda_autograd_runs_the_bf16_kernels(cuda_device):
+    """A bf16 value through `ms_deform_attn` and autograd: the bf16 forward
+    and backward entries launch once each, no fp32 one does, and the
+    gradients have the inputs' dtypes."""
+    value, loc, attw = _bf16_inputs(2, 40, 8, 32, ((6, 9), (3, 5)), 4, 2, cuda_device)
+    leaves = [x.clone().requires_grad_() for x in (value, loc, attw)]
+    counters = (msda.MSDA_FWD_BF16, msda.MSDA_BWD_BF16, msda.ms_deform_attn,
+                msda.ms_deform_attn_backward)
+    before = [c.launches for c in counters]
+    out = msda.ms_deform_attn(leaves[0], ((6, 9), (3, 5)), leaves[1], leaves[2])
+    assert out.dtype == torch.bfloat16
+    out.float().square().sum().backward()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 0, 0]
+    assert [x.grad.dtype for x in leaves] == [torch.bfloat16, torch.float32, torch.float32]
+
+
+def test_bf16_msda_refuses_mixed_dtypes(cuda_device):
+    """K1 and K3/K4 take a bf16 or fp32 value with fp32 locations and
+    weights, and a grad_out of the value's dtype; K7 and the probes an fp32
+    value only. Anything else raises before a launch: nothing upcasts a bf16
+    value to run the fp32 kernel."""
+    value, loc, attw = _bf16_inputs(1, 5, 8, 32, ((4, 5),), 2, 0, cuda_device)
+    shapes = ((4, 5),)
+    g = torch.randn((1, 5, 256), device=cuda_device)
+    launches = [c.launches for c in (msda.MSDA_FWD_BF16, msda.MSDA_BWD_BF16, msda.ms_deform_attn,
+                                     msda.ms_deform_attn_backward, msda.ms_deform_attn_ho)]
+    for bad in ((value, loc.bfloat16(), attw), (value, loc, attw.bfloat16()),
+                (value.half(), loc, attw), (value.float(), loc, attw.bfloat16())):
+        with pytest.raises(TypeError):
+            msda.ms_deform_attn(bad[0], shapes, bad[1], bad[2])
+    with pytest.raises(TypeError):  # an fp32 grad_out for a bf16 value
+        msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
+    with pytest.raises(TypeError):  # a bf16 grad_out for an fp32 value
+        msda.ms_deform_attn_backward(value.float(), shapes, loc, attw, g.bfloat16())
+    with pytest.raises(TypeError):
+        msda.ms_deform_attn_ho(value, shapes, loc, attw)
+    with pytest.raises(TypeError):
+        msda.msda_probe("hi", "gather", value, shapes, loc, attw)
+    assert launches == [c.launches for c in (msda.MSDA_FWD_BF16, msda.MSDA_BWD_BF16,
+                                              msda.ms_deform_attn, msda.ms_deform_attn_backward,
+                                              msda.ms_deform_attn_ho)]
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_bf16_msda_refuses_misaligned_tensors(cuda_device, offset):
+    """A bf16 value or grad_out off a 16-byte boundary (2 and 8 bytes off)
+    is refused by the C entries, as an fp32 one is."""
+    value, loc, attw = _bf16_inputs(1, 5, 8, 32, ((4, 5),), 2, 0, cuda_device)
+    g = torch.randn((1, 5, 256), device=cuda_device).bfloat16()
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)[offset:]
+        return buf.view_as(x).copy_(x)
+
+    before = msda.MSDA_FWD_BF16.launches, msda.MSDA_BWD_BF16.launches
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        msda.ms_deform_attn(shifted(value), ((4, 5),), loc, attw)
+    for args in ((shifted(value), g), (value, shifted(g))):
+        with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+            msda.ms_deform_attn_backward(args[0], ((4, 5),), loc, attw, args[1])
+    assert (msda.MSDA_FWD_BF16.launches, msda.MSDA_BWD_BF16.launches) == before

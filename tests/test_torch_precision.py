@@ -1,9 +1,10 @@
 """The entry points compute in the config's dtype whatever the caller's TF32
 flags: `VideoEvaluator.step` and `Trainer.step` run the model with TF32 off
-for cuBLAS matmuls and cuDNN convolutions when `dtype == "float32"` (the
+for cuBLAS matmuls and cuDNN convolutions (under `dtype == "float32"`, the
 default, as in the JAX config), and hand the caller's flags back afterwards,
-also when the model raises. Any other dtype raises. CPU, tiny size: the
-flags are read inside the model's forward."""
+also when the model raises. A dtype other than "float32" and "bfloat16"
+raises (bf16 is `tests/test_torch_bf16.py`'s). CPU, tiny size: the flags are
+read inside the model's forward."""
 
 import dataclasses
 
@@ -75,8 +76,8 @@ def test_step_restores_the_callers_flags_after_a_raise(kind, callers_flags):
 
 @pytest.mark.parametrize("kind", ["eval", "train"])
 def test_step_refuses_a_dtype_it_does_not_compute_in(kind, callers_flags):
-    model = _model(dataclasses.replace(CFG, dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
+    model = _model(dataclasses.replace(CFG, dtype="float16"))
+    with pytest.raises(NotImplementedError, match="computes in float32 or bfloat16"):
         _step(kind, model)
     assert flags() == callers_flags
 

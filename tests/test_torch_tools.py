@@ -83,6 +83,29 @@ def test_roofline_k2_stage4_call():
     assert half.tf32_flops == 3 * 2 * (6 * 15 * 25) * 4608 * 512
 
 
+@pytest.mark.parametrize("args", [
+    (2, 2500, 8, 32, ((50, 50),), 4),
+    (6, 2500, 8, 32, ((15, 25),), 8),
+    (1, 900, 8, 32, ((50, 50),), 4),
+    (6, 10112, 8, 32, common.SCA_LEVELS, 8),
+], ids=["tiny_tsa", "tiny_sca", "tiny_decoder", "base_sca"])
+def test_roofline_bf16_msda_counts_value_and_output_at_two_bytes(args):
+    """bf16 K1 and K3/K4: value, output, grad_out and dValue at 2 bytes an
+    element, locations, weights and their gradients at 4; the same
+    operations as fp32 (the arithmetic is fp32)."""
+    b, q, h, d, shapes, p = args
+    k = sum(hh * ww for hh, ww in shapes)
+    samples = b * q * h * len(shapes) * p
+    fwd, bwd = roofline.msda_fwd(*args, itemsize=2), roofline.msda_bwd(*args, itemsize=2)
+    assert fwd.bytes == b * k * h * d * 2 + samples * 3 * 4 + b * q * h * d * 2
+    assert bwd.bytes == 2 * (b * k * h * d * 2 + samples * 3 * 4) + b * q * h * d * 2
+    assert fwd.flops == roofline.msda_fwd(*args).flops == samples * (14 + 8 * d)
+    assert bwd.flops == roofline.msda_bwd(*args).flops
+    assert fwd.bytes < roofline.msda_fwd(*args).bytes
+    for cost in (fwd, bwd):
+        assert cost.bound_ms == pytest.approx(max(cost.bytes / 3.35e12, cost.flops / 67e12) * 1e3)
+
+
 @pytest.mark.parametrize("args,bound", [
     ((2, 40000, 8, 32, ((200, 200),), 4), 0.0917),
     ((6, 10112, 8, 32, common.SCA_LEVELS, 8), 0.2429),

@@ -96,9 +96,8 @@ def dense_state_dict(tree, prefix="") -> dict:
     return sd
 
 
-# JAX config fields whose bevformer_base value the port hard-codes
-PORT_FIXED = dict(backbone_style="caffe", rotate_prev_bev=True, use_shift=True,
-                  use_can_bus=True, video_test_mode=True)
+# JAX config fields whose v1 value the port hard-codes
+PORT_FIXED = dict(rotate_prev_bev=True, use_shift=True, use_can_bus=True, video_test_mode=True)
 
 
 def port_config(jcfg, **kw):
