@@ -1,19 +1,23 @@
 """Model configuration: frozen dataclasses and a preset registry.
 
-The fields are the ones the v1 inference, training and data paths and the
+The fields are the ones the inference, training and data paths and the
 CLIs read, with the values of the JAX package's presets
 (`bevformer_tpu/configs/config.py`): the four v1 model-zoo configs
-bevformer_base, bevformer_small, bevformer_tiny and bevformer_tiny_fp16.
-What the v1 configs share is code, not a field: the ego-motion shift, the
-prev-BEV rotation, the CAN-bus embedding and the prev-BEV carry across the
-frames of a scene (video test mode).
+bevformer_base, bevformer_small, bevformer_tiny and bevformer_tiny_fp16,
+and the four BEVFormerV2 configs bevformerv2-r50-t1, -t1-base, -t2 and
+-t8. What the v1 configs share is code, not a field: the ego-motion shift,
+the prev-BEV rotation and the CAN-bus embedding. V2 has none of them; its
+temporal context is the explicit `frames`, each re-encoded per sample.
+The V2 fields only training reads (`group_detr`'s extra groups,
+`num_mono_levels`' DD3D head, the losses and the train-time augmentation)
+are carried with the JAX values; the V2 training path is not ported yet.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 PC_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
 
@@ -36,6 +40,11 @@ class DataConfig:
     # the trained one
     queue_length: int = 4
     num_cams: int = 6
+    # V2 train-time augmentation (CropResizeFlip's resize ladder and flip,
+    # GlobalRotScaleTrans): t1/t2/t8 use the full recipe, t1-base none
+    v2_resize_ladder: Tuple[int, ...] = (512, 544, 576, 608, 640, 672, 704, 736, 768)
+    v2_rand_flip: bool = True
+    v2_use_grst: bool = True
 
     @property
     def resized_size(self) -> Tuple[int, int]:
@@ -121,6 +130,28 @@ class BEVFormerConfig:
     bbox_loss_weight: float = 0.25
     # GridMask on the trained frame's images (train mode only)
     use_grid_mask: bool = True
+    # v1: carry prev_bev from frame to frame of a scene in VideoEvaluator
+    # (False: every frame starts without history); V2 carries nothing
+    video_test_mode: bool = True
+    # V2 (BEVFormerV2): "v1" | "v2"
+    version: str = "v1"
+    # frame offsets of a sample, 0 the current one; more than one fuses
+    # their BEVs in ResNetFusion (num_fusion blocks, inter_channels wide:
+    # None = len(frames) * embed_dims)
+    frames: Tuple[int, ...] = (0,)
+    num_fusion: int = 3
+    inter_channels: Optional[int] = None
+    # "frozen" (v1 FrozenBN) or "bn" (V2: BatchNorm with running statistics)
+    backbone_norm: str = "frozen"
+    # FPN levels the DD3D mono head reads (training only); the neck builds
+    # max(num_mono_levels, num_feature_levels) levels
+    num_mono_levels: int = 0
+    # GroupDETR: query groups in training; inference reads the first group
+    group_detr: int = 1
+    # V2 training losses: "l1" or "smooth_l1" boxes, the DD3D loss weight
+    bbox_loss: str = "l1"
+    smooth_l1_beta: float = 1.0
+    mono_loss_weight: float = 1.0
     # compute dtype of the network, the JAX config's field (`device.precision`):
     # "float32" (TF32 off) or "bfloat16" (bf16 autocast around fp32 islands
     # and fp32 parameters); any other value raises at the entry points
@@ -204,6 +235,47 @@ register_config(
 # precision, here bf16 (fp32's exponent range: no loss scaling)
 register_config(
     CONFIGS["bevformer_tiny"].replace(name="bevformer_tiny_fp16", dtype="bfloat16")
+)
+
+
+# projects/configs/bevformerv2/bevformerv2-r50-t1-24ep.py: R50 caffe style
+# with trainable BN (frozen_stages=-1), 3 inputs to a 5-level FPN (4 for the
+# BEV, 5 for DD3D), GroupDETR-11, smooth-L1 boxes, one frame. The network
+# input is the (0, 260, 1600, 900) crop of a nuScenes camera: raw_size is the
+# crop's size
+register_config(
+    BEVFormerConfig(
+        name="bevformerv2-r50-t1",
+        version="v2",
+        sca_capacity_ratio=0.25,
+        backbone_depth=50,
+        backbone_dcn_stages=(),
+        backbone_norm="bn",
+        optim=OptimConfig(frozen_stages=-1),
+        num_mono_levels=5,
+        group_detr=11,
+        bbox_loss="smooth_l1",
+        bbox_loss_weight=0.75,
+        video_test_mode=False,
+        data=DataConfig(raw_size=(640, 1600), queue_length=1),
+    )
+)
+
+# bevformerv2-r50-t2 / -t8: BEV fusion over frames (-1, 0) and (-7 .. 0)
+register_config(CONFIGS["bevformerv2-r50-t1"].replace(name="bevformerv2-r50-t2", frames=(-1, 0)))
+register_config(
+    CONFIGS["bevformerv2-r50-t1"].replace(name="bevformerv2-r50-t8", frames=tuple(range(-7, 1)))
+)
+
+# bevformerv2-r50-t1-base-24ep.py: t1 without GroupDETR and without the
+# train-time augmentation (resize 640 only, no flip, no GlobalRotScaleTrans)
+register_config(
+    CONFIGS["bevformerv2-r50-t1"].replace(
+        name="bevformerv2-r50-t1-base",
+        group_detr=1,
+        data=DataConfig(raw_size=(640, 1600), queue_length=1, v2_resize_ladder=(640,),
+                        v2_rand_flip=False, v2_use_grst=False),
+    )
 )
 
 

@@ -1,13 +1,16 @@
-"""BEVFormerHead (v1, one query group): the BEV query embedding, the object
-queries, the learned BEV positional encoding, the transformer and the
-per-layer cls/reg branches. Port of `bevformer_tpu/models/head.py`
-(reference `dense_heads/bevformer_head.py:17-509`).
+"""BEVFormerHead: the BEV query embedding, the object queries, the learned
+BEV positional encoding, the transformer (v1's, or V2's for
+`version="v2"`) and the per-layer cls/reg branches. Port of
+`bevformer_tpu/models/head.py` (reference `dense_heads/bevformer_head.py`).
+With GroupDETR (`group_detr > 1`, V2) the query embedding holds every
+group's queries, and inference reads the first group's
+(`bevformer_head.py:527-528`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -20,6 +23,7 @@ from bevformer_torch.models.layers import (
     layer_norm,
 )
 from bevformer_torch.models.transformer import PerceptionTransformer
+from bevformer_torch.models.transformer_v2 import PerceptionTransformerV2
 
 
 def bias_init_with_prob(prob: float) -> float:
@@ -48,9 +52,9 @@ class BEVFormerHead(nn.Module):
         c = self.cfg = cfg
         e = c.embed_dims
         self.bev_embedding = nn.Embedding(c.bev_h * c.bev_w, e)
-        self.query_embedding = nn.Embedding(c.num_query, e * 2)
+        self.query_embedding = nn.Embedding(c.num_query * c.group_detr, e * 2)
         self.positional_encoding = LearnedPositionalEncoding(e // 2, c.bev_h, c.bev_w)
-        self.transformer = PerceptionTransformer(
+        common = dict(
             embed_dims=e,
             num_feature_levels=c.num_feature_levels,
             num_cams=c.data.num_cams,
@@ -63,9 +67,14 @@ class BEVFormerHead(nn.Module):
             sca_num_points=c.sca_num_points,
             tsa_num_points=c.tsa_num_points,
             sca_capacity_ratio=c.sca_capacity_ratio,
-            rotate_center=c.rotate_center,
             ffn_dropout=c.ffn_dropout,
         )
+        if c.version == "v2":
+            self.transformer = PerceptionTransformerV2(
+                frames=c.frames, num_fusion=c.num_fusion, inter_channels=c.inter_channels,
+                **common)
+        else:
+            self.transformer = PerceptionTransformer(rotate_center=c.rotate_center, **common)
         self.cls_branches = nn.ModuleList(
             cls_branch(e, c.num_classes, c.num_reg_fcs) for _ in range(c.decoder_layers)
         )
@@ -76,38 +85,60 @@ class BEVFormerHead(nn.Module):
     def forward(
         self,
         mlvl_feats: Sequence[torch.Tensor],  # [bs*cams, e, h, w] per level
-        can_bus: torch.Tensor,  # [bs, 18]
+        can_bus: Optional[torch.Tensor],  # [bs, 18] (v1)
         lidar2img: torch.Tensor,  # [bs, cams, 4, 4]
-        prev_bev: Optional[torch.Tensor],  # [bs, HW, e]
-        has_prev: torch.Tensor,  # [bs] bool
+        prev_bev: Optional[torch.Tensor],  # [bs, HW, e] (v1)
+        has_prev: Optional[torch.Tensor],  # [bs] bool (v1)
         only_bev: bool = False,
+        prev_bev_list: Optional[List[Optional[torch.Tensor]]] = None,  # V2: per frame
+        bda_mat: Optional[torch.Tensor] = None,  # V2: [bs, 2, 2] BEV unwarp
     ):
         """Head outputs, or only the BEV features [bs, HW, e] (encoder only,
-        for the history frames of a training sample)."""
+        for the history frames of a training sample (v1) or of a sample
+        (V2)). v1 takes the CAN bus and the prev-BEV carry; V2 takes the
+        other frames' BEVs and the unwarp matrix."""
         c = self.cfg
-        bs = can_bus.shape[0]
+        bs = lidar2img.shape[0]
         bev_pos = self.positional_encoding(bs)
+        v2 = c.version == "v2"
         if only_bev:
+            if v2:
+                return self.transformer.get_bev_features(
+                    mlvl_feats, self.bev_embedding.weight, bev_pos, c.bev_h, c.bev_w,
+                    lidar2img, c.data.img_size, bda_mat,
+                )
             return self.transformer.get_bev_features(
                 mlvl_feats, self.bev_embedding.weight, bev_pos, c.bev_h, c.bev_w,
                 c.grid_length, can_bus, lidar2img, c.data.img_size, prev_bev,
                 has_prev,
             )
-        bev_embed, hs, init_reference, inter_references = self.transformer(
-            mlvl_feats,
-            self.bev_embedding.weight,
-            self.query_embedding.weight,
-            bev_pos,
-            c.bev_h,
-            c.bev_w,
-            c.grid_length,
-            can_bus,
-            lidar2img,
-            c.data.img_size,
-            prev_bev,
-            has_prev,
-            reg_branch_fn=lambda lid, states: self.reg_branches[lid](states),
-        )
+
+        def reg_branch_fn(lid, states):
+            return self.reg_branches[lid](states)
+
+        if v2:
+            # inference reads the first query group (`bevformer_head.py:527-528`)
+            bev_embed, hs, init_reference, inter_references = self.transformer(
+                mlvl_feats, self.bev_embedding.weight, self.query_embedding.weight[:c.num_query],
+                bev_pos, c.bev_h, c.bev_w, lidar2img, c.data.img_size, prev_bev_list,
+                bda_mat, reg_branch_fn,
+            )
+        else:
+            bev_embed, hs, init_reference, inter_references = self.transformer(
+                mlvl_feats,
+                self.bev_embedding.weight,
+                self.query_embedding.weight,
+                bev_pos,
+                c.bev_h,
+                c.bev_w,
+                c.grid_length,
+                can_bus,
+                lidar2img,
+                c.data.img_size,
+                prev_bev,
+                has_prev,
+                reg_branch_fn=reg_branch_fn,
+            )
         # per-layer outputs with the reference de-normalised
         # (`bevformer_head.py:175-203`)
         x0, y0, z0, x1, y1, z1 = c.pc_range

@@ -1,11 +1,14 @@
-"""ResNet backbone, caffe or pytorch style, with frozen BatchNorm and DCNv2
-(NCHW tensors; the detector feeds them in channels-last memory order, which
-the DCN kernel reads without a copy).
+"""ResNet backbone, caffe or pytorch style, with frozen BatchNorm (v1) or
+BatchNorm with running statistics (V2), and DCNv2 (NCHW tensors; the
+detector feeds them in channels-last memory order, which the DCN kernel
+reads without a copy).
 
 Port of `bevformer_tpu/models/resnet.py` (mmdet ResNet with
-`norm_eval=True`, `bevformer_base.py:45-60`, `bevformer_tiny.py:41-51`).
-Submodules carry the reference `.pth` names (`conv1`, `bn1`,
-`layer{i}.{j}.conv2.conv_offset`, ...), the same in both styles.
+`norm_eval=True`, `bevformer_base.py:45-60`, `bevformer_tiny.py:41-51`; V2's
+trainable SyncBN, `bevformerv2-r50-t1-24ep.py:164-180`, is `nn.BatchNorm2d`
+here, which uses its running statistics in eval mode). Submodules carry the
+reference `.pth` names (`conv1`, `bn1`, `layer{i}.{j}.conv2.conv_offset`,
+...), the same in both styles and with both norms.
 """
 
 from __future__ import annotations
@@ -74,6 +77,16 @@ def _conv(cin, cout, k, stride=1, padding=0):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
 
 
+NORMS = {"frozen": FrozenBN, "bn": nn.BatchNorm2d}  # eps 1e-5 both
+
+
+def make_norm(norm: str, features: int) -> nn.Module:
+    """The backbone's norm layer: "frozen" (v1) or "bn" (V2)."""
+    if norm not in NORMS:
+        raise ValueError(f"backbone norm {norm!r}: one of {sorted(NORMS)}")
+    return NORMS[norm](features)
+
+
 class Bottleneck(nn.Module):
     """Caffe style: the stride sits in the 1x1 conv1, so conv2 (and every
     DCN) has stride 1. Pytorch style: it sits in the 3x3 conv2."""
@@ -81,24 +94,25 @@ class Bottleneck(nn.Module):
     def __init__(
         self, inplanes: int, planes: int, stride: int = 1,
         downsample: bool = False, use_dcn: bool = False, style: str = "caffe",
+        norm: str = "frozen",
     ):
         super().__init__()
         if style not in ("caffe", "pytorch"):
             raise ValueError(f"backbone style {style!r}: 'caffe' or 'pytorch'")
         s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
         self.conv1 = _conv(inplanes, planes, 1, s1)
-        self.bn1 = FrozenBN(planes)
+        self.bn1 = make_norm(norm, planes)
         if use_dcn:
             self.conv2 = ModulatedDeformConv(planes, planes, s2)
         else:
             self.conv2 = _conv(planes, planes, 3, s2, padding=1)
-        self.bn2 = FrozenBN(planes)
+        self.bn2 = make_norm(norm, planes)
         self.conv3 = _conv(planes, planes * 4, 1)
-        self.bn3 = FrozenBN(planes * 4)
+        self.bn3 = make_norm(norm, planes * 4)
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
-                _conv(inplanes, planes * 4, 1, stride), FrozenBN(planes * 4)
+                _conv(inplanes, planes * 4, 1, stride), make_norm(norm, planes * 4)
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -119,18 +133,19 @@ class ResNet(nn.Module):
         out_indices: Tuple[int, ...] = (3,),
         dcn_stages: Tuple[int, ...] = (),
         style: str = "caffe",
+        norm: str = "frozen",
     ):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.conv1 = _conv(3, 64, 7, 2, padding=3)
-        self.bn1 = FrozenBN(64)
+        self.bn1 = make_norm(norm, 64)
         inplanes, planes = 64, 64
         for stage, num_blocks in enumerate(ARCH_SETTINGS[depth]):
             stride = 1 if stage == 0 else 2
             use_dcn = stage in dcn_stages
-            blocks = [Bottleneck(inplanes, planes, stride, True, use_dcn, style)]
+            blocks = [Bottleneck(inplanes, planes, stride, True, use_dcn, style, norm)]
             blocks += [
-                Bottleneck(planes * 4, planes, 1, False, use_dcn, style)
+                Bottleneck(planes * 4, planes, 1, False, use_dcn, style, norm)
                 for _ in range(num_blocks - 1)
             ]
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))

@@ -19,6 +19,19 @@ from bevformer_torch.models.encoder import BEVFormerEncoder
 from bevformer_torch.models.layers import Fp32Linear, layer_norm
 
 
+def flatten_feats(mlvl_feats: Sequence[torch.Tensor], bs: int, cams_embeds: torch.Tensor,
+                  level_embeds: torch.Tensor):
+    """[bs*cams, e, h, w] per level -> [bs, cams, K, e] with the camera and
+    level embeddings added, plus the (h, w) of every level."""
+    flat, shapes = [], []
+    for lvl, feat in enumerate(mlvl_feats):
+        n, e, h, w = feat.shape
+        f = feat.flatten(2).transpose(1, 2).reshape(bs, n // bs, h * w, e)
+        flat.append(f + cams_embeds[None, :, None, :] + level_embeds[lvl])
+        shapes.append((h, w))
+    return torch.cat(flat, dim=2), tuple(shapes)
+
+
 class PerceptionTransformer(nn.Module):
     def __init__(self, embed_dims=256, num_feature_levels=4, num_cams=6,
                  encoder_layers=6, decoder_layers=6, num_heads=8,
@@ -45,18 +58,6 @@ class PerceptionTransformer(nn.Module):
         self.decoder = DetectionTransformerDecoder(
             decoder_layers, e, num_heads, feedforward_channels, ffn_dropout
         )
-
-    def flatten_feats(self, mlvl_feats: Sequence[torch.Tensor], bs: int):
-        """[bs*cams, e, h, w] per level -> [bs, cams, K, e] plus the (h, w)
-        of every level."""
-        flat, shapes = [], []
-        for lvl, feat in enumerate(mlvl_feats):
-            n, e, h, w = feat.shape
-            f = feat.flatten(2).transpose(1, 2).reshape(bs, n // bs, h * w, e)
-            f = f + self.cams_embeds[None, :, None, :] + self.level_embeds[lvl]
-            flat.append(f)
-            shapes.append((h, w))
-        return torch.cat(flat, dim=2), tuple(shapes)
 
     def get_bev_features(
         self,
@@ -86,7 +87,8 @@ class PerceptionTransformer(nn.Module):
                 )
             prev_bev = torch.where(has_prev.view(bs, 1, 1), rotated, prev_bev)
         queries = queries + self.can_bus_mlp(can_bus)[:, None, :]
-        value, spatial_shapes = self.flatten_feats(mlvl_feats, bs)
+        value, spatial_shapes = flatten_feats(mlvl_feats, bs, self.cams_embeds,
+                                              self.level_embeds)
         return self.encoder(
             queries, value, bev_pos, prev_bev, has_prev, shift, lidar2img,
             img_shape, spatial_shapes, bev_h, bev_w,

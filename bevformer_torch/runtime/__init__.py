@@ -5,8 +5,9 @@ from bevformer_torch.runtime.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
     state_dict_from_jax,
+    state_dict_from_jax_v2,
 )
-from bevformer_torch.runtime.eval import VideoEvaluator
+from bevformer_torch.runtime.eval import VideoEvaluator, VideoEvaluatorV2
 from bevformer_torch.runtime.fuse import fuse_conv_bn
 from bevformer_torch.runtime.optim import label_params, make_optimizer
 from bevformer_torch.runtime.train import (
@@ -19,7 +20,9 @@ from bevformer_torch.runtime.train import (
 )
 
 __all__ = [
-    "Batch", "Trainer", "VideoEvaluator", "build_model", "collate", "fuse_conv_bn", "history_bev",
+    "Batch", "Trainer", "VideoEvaluator", "VideoEvaluatorV2", "build_model", "collate",
+    "fuse_conv_bn", "history_bev",
     "init_state_dict", "label_params", "load_reference_pth", "loss_fn", "make_optimizer",
-    "restore_checkpoint", "save_checkpoint", "state_dict_from_jax", "train_step",
+    "restore_checkpoint", "save_checkpoint", "state_dict_from_jax", "state_dict_from_jax_v2",
+    "train_step",
 ]

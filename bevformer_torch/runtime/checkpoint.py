@@ -4,10 +4,14 @@
   `bevformer_tpu/runtime/checkpoint.py::export_reference_state_dict`. Its
   input is the JAX params pytree with numpy leaves; it unstacks the scanned
   backbone blocks (`layer{i}_rest`) and encoder layers by indexing.
+* `state_dict_from_jax_v2(variables, cfg)`: the same for a BEVFormerV2
+  (`export_reference_state_dict_v2`, :905): JAX `{'params',
+  'batch_stats'}`, the BatchNorms' running statistics from `batch_stats`,
+  the neck's extra levels and `ResNetFusion`; no DD3D head.
 * `init_state_dict(cfg, seed)`: seeded numpy weights for every key, for
   runs with no JAX checkpoint at hand.
-* `build_model(cfg, state_dict, device)`: the port's model with those
-  weights, on `device` (default: the card).
+* `build_model(cfg, state_dict, device)`: the port's model for the config's
+  version with those weights, on `device` (default: the card).
 * `load_reference_pth(path)`: the state dict of a model-zoo `.pth` (or of a
   checkpoint of the port: the layout is the same).
 * `save_checkpoint` / `restore_checkpoint`: a training run's state in
@@ -25,7 +29,7 @@ import torch.nn as nn
 
 from bevformer_torch.device import DEFAULT as DEFAULT_DEVICE
 from bevformer_torch.device import resolve as resolve_device
-from bevformer_torch.models import BEVFormer
+from bevformer_torch.models import BEVFormer, BEVFormerV2
 from bevformer_torch.models.attention import (
     CustomMSDeformableAttention,
     MSDeformableAttention3D,
@@ -122,17 +126,42 @@ def neck_state_dict(neck: Mapping, num_ins: int, num_outs: int, prefix="") -> St
     return sd
 
 
+def _with_batch_stats(params: Mapping, stats: Mapping) -> dict:
+    """The V2 params tree with each BatchNorm node (`<name>/bn/{scale, bias}`
+    in params, `<name>/bn/{mean, var}` in batch_stats) replaced by one node
+    `<name>/{scale, bias, mean, var}`, as a FrozenBN's params are."""
+    out = {}
+    for k, v in params.items():
+        if not isinstance(v, Mapping):
+            out[k] = v
+        elif set(v) == {"bn"}:
+            out[k] = {**v["bn"], **stats[k]["bn"]}
+        else:
+            out[k] = _with_batch_stats(v, stats.get(k, {}))
+    return out
+
+
+def state_dict_from_jax_v2(variables: Mapping[str, Any], cfg) -> StateDict:
+    """JAX BEVFormerV2 variables (`{'params', 'batch_stats'}`, numpy
+    leaves) -> reference-keyed state dict of the port's `BEVFormerV2`. The
+    DD3D head's params (`fcos3d_bbox_head`, training only) are left out."""
+    return state_dict_from_jax(
+        _with_batch_stats(variables["params"], variables.get("batch_stats", {})), cfg)
+
+
 def state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict:
-    """JAX params (numpy leaves) -> reference-keyed state dict."""
+    """JAX params (numpy leaves) -> reference-keyed state dict. For a V2
+    config the params must hold the running statistics in their BN nodes
+    (`state_dict_from_jax_v2` does that)."""
     p = params["params"] if "params" in params else params
+    v2 = cfg.version == "v2"
     sd: StateDict = {}
-    get, _, linear, norm = _converters(sd, p)
+    get, conv, linear, norm = _converters(sd, p)
     sd.update(backbone_state_dict(
         p["img_backbone"], cfg.backbone_depth, cfg.backbone_dcn_stages, "img_backbone."
     ))
-    sd.update(neck_state_dict(
-        p["img_neck"], len(cfg.neck_in_channels), cfg.num_feature_levels, "img_neck."
-    ))
+    num_outs = max(cfg.num_mono_levels, cfg.num_feature_levels)
+    sd.update(neck_state_dict(p["img_neck"], len(cfg.neck_in_channels), num_outs, "img_neck."))
 
     hd = "pts_bbox_head"
     sd[f"{hd}.bev_embedding.weight"] = get(f"{hd}/bev_embedding")
@@ -156,10 +185,22 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict:
     sd[f"{tr}.level_embeds"] = get(f"{trd}/level_embeds")
     sd[f"{tr}.cams_embeds"] = get(f"{trd}/cams_embeds")
     linear(f"{tr}.reference_points", f"{trd}/reference_points")
-    linear(f"{tr}.can_bus_mlp.0", f"{trd}/can_bus_fc1")
-    linear(f"{tr}.can_bus_mlp.2", f"{trd}/can_bus_fc2")
-    if "can_bus_ln" in p[hd]["transformer"]:
-        norm(f"{tr}.can_bus_mlp.norm", f"{trd}/can_bus_ln")
+    if not v2:
+        linear(f"{tr}.can_bus_mlp.0", f"{trd}/can_bus_fc1")
+        linear(f"{tr}.can_bus_mlp.2", f"{trd}/can_bus_fc2")
+        if "can_bus_ln" in p[hd]["transformer"]:
+            norm(f"{tr}.can_bus_mlp.norm", f"{trd}/can_bus_ln")
+    elif len(cfg.frames) > 1:
+        for i in range(cfg.num_fusion):
+            src, dst = f"{trd}/fusion/block{i}", f"{tr}.fusion.layers.{i}"
+            for n in (1, 2):
+                conv(f"{dst}.conv{n}", f"{src}/conv{n}")
+                norm(f"{dst}.bn{n}", f"{src}/bn{n}", running=True)
+            if "downsample_conv" in _node(p, src):
+                conv(f"{dst}.downsample.0", f"{src}/downsample_conv")
+                norm(f"{dst}.downsample.1", f"{src}/downsample_bn", running=True)
+        linear(f"{tr}.fusion.layer_norm.0", f"{trd}/fusion/out_fc")
+        norm(f"{tr}.fusion.layer_norm.1", f"{trd}/fusion/out_ln")
 
     def norms_ffn(dst, node):
         for i in range(3):
@@ -209,7 +250,7 @@ def init_state_dict(cfg, seed: int = 0) -> StateDict:
     """Seeded random weights for every key of the port's state dict.
 
     Convolutions are He-normal, linears N(0, 1/fan_in), embeddings N(0, 1),
-    frozen BNs near identity with the last BN of each block scaled to ~0.2
+    BNs near identity with the last BN of each bottleneck scaled to ~0.2
     (so the residual stream stays in range over 33 blocks), and LayerNorms
     identity. Unlike the zero init of the JAX package, the offset layers
     (`conv_offset`, `sampling_offsets`) and the attention logits get small
@@ -217,7 +258,7 @@ def init_state_dict(cfg, seed: int = 0) -> StateDict:
     """
     rng = np.random.RandomState(seed)
     with torch.device("meta"):
-        model = BEVFormer(cfg)
+        model = _detector(cfg)
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     sd: StateDict = {}
 
@@ -242,13 +283,15 @@ def init_state_dict(cfg, seed: int = 0) -> StateDict:
 
     for name, mod in model.named_modules():
         pre = f"{name}." if name else ""
-        if isinstance(mod, FrozenBN):
+        if isinstance(mod, (FrozenBN, nn.BatchNorm2d)):
             last = name.endswith("bn3")
             lo, hi = (0.1, 0.3) if last else (0.8, 1.2)
             uniform(pre + "weight", lo, hi)
             uniform(pre + "bias", -0.1, 0.1)
             uniform(pre + "running_mean", -0.1, 0.1)
             uniform(pre + "running_var", 0.8, 1.2)
+            if isinstance(mod, nn.BatchNorm2d):
+                sd[pre + "num_batches_tracked"] = np.zeros((), np.int64)
         elif isinstance(mod, ModulatedDeformConv):
             normal(pre + "weight", np.sqrt(2.0 / fan_in(pre + "weight")))
         elif isinstance(mod, nn.Conv2d):
@@ -291,27 +334,55 @@ def init_state_dict(cfg, seed: int = 0) -> StateDict:
     return sd
 
 
-def build_model(cfg, state_dict: Mapping[str, Any], device=DEFAULT_DEVICE) -> BEVFormer:
-    """The port's model holding `state_dict` (numpy or torch values),
-    evaluated on `device` (the card unless the caller asks for another).
-    Every key must match (strict load)."""
+def _detector(cfg) -> nn.Module:
+    return BEVFormerV2(cfg) if cfg.version == "v2" else BEVFormer(cfg)
+
+
+def build_model(cfg, state_dict: Mapping[str, Any], device=DEFAULT_DEVICE) -> nn.Module:
+    """The port's model for `cfg.version` (`BEVFormer` or `BEVFormerV2`)
+    holding `state_dict` (numpy or torch values), evaluated on `device`
+    (the card unless the caller asks for another). Every key must match
+    (strict load), but for the BatchNorms' `num_batches_tracked` counters,
+    which a state dict may leave out (`load_reference_pth` drops them, and
+    the JAX package has none): they start at 0, and inference never reads
+    them."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = BEVFormer(cfg)
-    tensors = {k: torch.as_tensor(np.array(v, np.float32)) for k, v in state_dict.items()}
+        model = _detector(cfg)
+    want = model.state_dict()
+    # copies: the model must not alias the caller's arrays (fuse_conv_bn
+    # writes into its weights)
+    tensors = {k: v.detach().clone() if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+               for k, v in state_dict.items()}
+    for k, ref in want.items():
+        if k in tensors:
+            tensors[k] = tensors[k].to(ref.dtype)
+        elif k.endswith(".num_batches_tracked"):
+            tensors[k] = torch.zeros((), dtype=ref.dtype)
     model.load_state_dict(tensors, strict=True, assign=True)
     return model.to(device).eval()
+
+
+# the DD3D mono head's keys in a V2 checkpoint: training only, not ported
+MONO_HEAD_PREFIX = "fcos3d_bbox_head."
 
 
 def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     """`["state_dict"]` of a model-zoo-layout checkpoint (mmcv's
     `{"meta", "state_dict", "optimizer"}`), read with
     `torch.load(weights_only=True)`, less the BatchNorm `num_batches_tracked`
-    counters where it has them (FrozenBN keeps none). `build_model` then
-    loads it strictly: every other key must be the port's."""
+    counters where it has them (FrozenBN keeps none) and less a V2
+    checkpoint's DD3D head (`fcos3d_bbox_head.*`, which only training runs;
+    their count is printed). `build_model` then loads it strictly: every
+    other key must be the port's."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return {k: v for k, v in ckpt["state_dict"].items()
-            if not k.endswith(".num_batches_tracked")}
+    sd = {k: v for k, v in ckpt["state_dict"].items()
+          if not k.endswith(".num_batches_tracked")}
+    mono = [k for k in sd if k.startswith(MONO_HEAD_PREFIX)]
+    if mono:
+        print(f"set aside {len(mono)} {MONO_HEAD_PREFIX}* tensors (the DD3D mono head, "
+              "training only)", flush=True)
+    return {k: v for k, v in sd.items() if not k.startswith(MONO_HEAD_PREFIX)}
 
 
 def save_checkpoint(path: str, trainer, step: int, epoch: int) -> None:

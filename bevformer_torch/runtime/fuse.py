@@ -1,8 +1,10 @@
-"""Fold each frozen BatchNorm of the backbone into the conv before it, for
-inference (port of `bevformer_tpu/runtime/fuse.py`, the reference's
-`tools/misc/fuse_conv_bn.py`).
+"""Fold each BatchNorm that follows a conv into the conv, for inference
+(port of `bevformer_tpu/runtime/fuse.py`, the reference's
+`tools/misc/fuse_conv_bn.py`): the v1 backbone's FrozenBNs, and V2's
+`nn.BatchNorm2d`s (the backbone's and `ResNetFusion`'s) with their running
+statistics, which must be in eval mode.
 
-A FrozenBN computes x * mul + add per channel, with
+A BN in eval mode computes x * mul + add per channel, with
 mul = weight / sqrt(running_var + eps) and add = bias - running_mean * mul.
 After a plain conv both fold into it: the conv's weight times mul, and add
 as its bias; the BN goes. After a DCN conv2 the multiply folds into the DCN
@@ -19,8 +21,9 @@ import torch.nn as nn
 
 from bevformer_torch.models.resnet import FrozenBN, ModulatedDeformConv
 
-# (conv, BN) child names: the stem and each block's three convs
-# (`ResNet`, `Bottleneck`) and a block's downsample (`nn.Sequential`)
+# (conv, BN) child names: the stem and each block's convs (`ResNet`,
+# `Bottleneck`, `ResNetFusion`'s `BasicBlock`) and a block's downsample
+# (`nn.Sequential`)
 PAIRS = (("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"), ("0", "1"))
 
 
@@ -37,7 +40,7 @@ class ChannelAdd(nn.Module):
 
 
 @torch.no_grad()
-def _fold(conv: nn.Module, bn: FrozenBN) -> nn.Module:
+def _fold(conv: nn.Module, bn: nn.Module) -> nn.Module:
     """Fold `bn` into `conv` in place; returns what replaces `bn`."""
     mul = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
     add = bn.bias - bn.running_mean * mul
@@ -51,12 +54,17 @@ def _fold(conv: nn.Module, bn: FrozenBN) -> nn.Module:
 
 
 def fuse_conv_bn(model: nn.Module) -> nn.Module:
-    """Fold every FrozenBN that follows a conv (`PAIRS`) into it, in place;
-    returns the model."""
+    """Fold every FrozenBN or BatchNorm2d that follows a conv (`PAIRS`) into
+    it, in place; returns the model. A BatchNorm2d in train mode (batch
+    statistics) raises."""
     for parent in list(model.modules()):
         for conv_name, bn_name in PAIRS:
             conv = getattr(parent, conv_name, None)
             bn = getattr(parent, bn_name, None)
-            if isinstance(bn, FrozenBN) and isinstance(conv, (nn.Conv2d, ModulatedDeformConv)):
+            if isinstance(bn, (FrozenBN, nn.BatchNorm2d)) and isinstance(
+                    conv, (nn.Conv2d, ModulatedDeformConv)):
+                if bn.training and isinstance(bn, nn.BatchNorm2d):
+                    raise ValueError("fuse_conv_bn folds running statistics: put the model "
+                                     "in eval mode first")
                 setattr(parent, bn_name, _fold(conv, bn))
     return model

@@ -147,6 +147,10 @@ class Trainer:
     restored from one continues as the run that saved it would have."""
 
     def __init__(self, model: BEVFormer, total_steps: int, seed: int = 0):
+        if model.cfg.version != "v1":
+            raise NotImplementedError(
+                f"training {model.cfg.name} ({model.cfg.version}): the V2 training path "
+                "(train_v2, DD3D, GroupDETR) is not ported yet (ROADMAP.md §1 item 7)")
         self.model = model.train()
         self.cfg = model.cfg
         torch.manual_seed(seed)

@@ -1,13 +1,16 @@
-"""Evaluation CLI: the v1 path of the JAX package's `tools/test.py`.
+"""Evaluation CLI: the JAX package's `tools/test.py`, v1 and V2.
 
     python3 -m bevformer_torch.tools.test <config> --data-root DATA
         [--checkpoint CKPT] [--out results.json] [--eval bbox|none]
         [--format-only] [--overlap-test] [--max-samples N] [--fuse-conv-bn]
         [--cfg-options key=val ...] [--device cuda]
 
-runs video inference (`VideoEvaluator`, the prev-BEV carry reset at each
-scene) over the val split of DATA (`nuscenes_infos_temporal_val.pkl`), then
-scores it with the nuScenes detection metrics (`core.evaluation`). It
+runs inference over the val split of DATA (`nuscenes_infos_temporal_val.pkl`):
+for a v1 config video inference (`VideoEvaluator`, the prev-BEV carry reset
+at each scene), for a V2 config (`bevformerv2-r50-*`) sample by sample
+(`NuScenesTemporalDatasetV2`'s samples of every offset in `frames`,
+`VideoEvaluatorV2`); then it scores the boxes with the nuScenes detection
+metrics (`core.evaluation`). It
 prints one JSON line {"NDS", "mAP", "mATE", "mASE", "mAOE", "mAVE",
 "mAAE"} and writes the whole metrics dict to `metrics_summary.json` beside
 `--out` (or in the working directory). `--out` also writes the raw results
@@ -15,15 +18,17 @@ and, like `--format-only`, the nuScenes submission (`<out>_nusc.json`, or
 `results_nusc.json`).
 
 `--checkpoint` is a checkpoint of `bevformer_torch.tools.train` or a
-model-zoo `.pth` (the same `state_dict` layout); without one the weights
-are `init_state_dict`'s, seed 0. `--fuse-conv-bn` folds the backbone's
-frozen BatchNorms into the convs before them (`runtime.fuse.fuse_conv_bn`;
-the same outputs up to fp32 rounding). `--overlap-test` scores only the
+model-zoo `.pth` (the same `state_dict` layout; a V2 `.pth`'s DD3D head is
+set aside); without one the weights are `init_state_dict`'s, seed 0.
+`--fuse-conv-bn` folds the BatchNorms into the convs before them
+(`runtime.fuse.fuse_conv_bn`: the frozen BNs of v1, the backbone's and
+ResNetFusion's running statistics of V2; the same outputs up to fp32
+rounding). `--overlap-test` scores only the
 boxes seen by more than one camera (NuScenesEval_custom's overlap_test). A
 line
-{"frames", "frame_ms", "load_ms", ...} reports each frame's time (its
-images' loading and preprocessing, then the model and decode), the peak
-device memory and the kernels' launches.
+{"frames", "frame_ms", "load_ms", ...} reports each frame's (V2: each
+sample's) time (its images' loading and preprocessing, then the model and
+decode), the peak device memory and the kernels' launches.
 
 The run is on the card unless `--device cpu`; with no card it raises.
 """
@@ -46,11 +51,12 @@ from bevformer_torch.core.evaluation import (
     evaluate_detections,
     format_submission,
 )
-from bevformer_torch.data import NuScenesTemporalDataset
+from bevformer_torch.data import NuScenesTemporalDataset, NuScenesTemporalDatasetV2
 from bevformer_torch.device import resolve as resolve_device
 from bevformer_torch.kernels import launch_counts
 from bevformer_torch.runtime import (
     VideoEvaluator,
+    VideoEvaluatorV2,
     build_model,
     fuse_conv_bn,
     init_state_dict,
@@ -71,7 +77,7 @@ def parse_args(argv):
     p.add_argument("--overlap-test", action="store_true",
                    help="score only boxes in camera-overlap regions")
     p.add_argument("--fuse-conv-bn", action="store_true",
-                   help="fold the backbone's BatchNorms into the convs before them")
+                   help="fold the BatchNorms into the convs before them")
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     return p.parse_args(argv)
@@ -88,11 +94,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
     if args.cfg_options:
         cfg = apply_overrides(cfg, dict(kv.split("=", 1) for kv in args.cfg_options))
 
-    ds = NuScenesTemporalDataset(
+    v2 = cfg.version == "v2"
+    ds = (NuScenesTemporalDatasetV2 if v2 else NuScenesTemporalDataset)(
         os.path.join(args.data_root, "nuscenes_infos_temporal_val.pkl"), cfg,
         data_root=args.data_root, device=device,
     )
-    print(f"val dataset: {len(ds)} samples; device {device}", flush=True)
+    print(f"val dataset: {len(ds)} samples ({cfg.version}, frames {cfg.frames}); "
+          f"device {device}", flush=True)
     if args.checkpoint:
         state_dict = load_reference_pth(args.checkpoint)
         print(f"weights from {args.checkpoint}", flush=True)
@@ -104,7 +112,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
     if args.fuse_conv_bn:
         fuse_conv_bn(model)
         print("folded conv + BN", flush=True)
-    evaluator = VideoEvaluator(model)
+    if v2:
+        evaluator = VideoEvaluatorV2(model)
+        get_sample, infer = ds.get_test_sample_v2, evaluator.infer_sample
+    else:
+        evaluator = VideoEvaluator(model)
+        get_sample, infer = ds.get_test_sample, evaluator.infer_frame
 
     def sync():
         if device.type == "cuda":
@@ -117,10 +130,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
     for i in range(n):
         sync()
         t0 = time.perf_counter()
-        sample = ds.get_test_sample(i)
+        sample = get_sample(i)
         sync()
         t1 = time.perf_counter()
-        results.append(evaluator.infer_frame(sample))  # waits for the decode
+        results.append(infer(sample))  # waits for the decode
         t2 = time.perf_counter()
         load_ms.append((t1 - t0) * 1e3)
         frame_ms.append((t2 - t0) * 1e3)

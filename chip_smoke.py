@@ -12,7 +12,9 @@ Phases, each printed as it runs:
      the inference path (TSA, SCA, decoder), with times, the share of
      outputs bitwise equal to the plain version's, its corner-request rate
      (corner rows x 128 B over the time) and, as a yardstick, K7
-     (msda_fwd_ho) at the same shapes;
+     (msda_fwd_ho) at the same shapes; then the same at a BEVFormerV2
+     sample's shapes (SCA over the 4 levels of a 640 x 1600 input), with
+     each shape's bound and share of it;
   4. K2 (dcn_conv_fwd) against its plain version at the stage-3 and stage-4
      shapes, with offsets past +-2 px and off the image, with times, its
      TFLOP/s, the error of both against a float64 product and, as a
@@ -98,7 +100,12 @@ Phases, each printed as it runs:
      steps (bf16: the bf16 K1 and K3/K4 launches per step), and `tools.test
      bevformer_tiny` on its checkpoint with and without `--fuse-conv-bn`:
      tiny's K1 launches per frame, the same decoded boxes (scores to 1e-4,
-     matched boxes to 1e-3 of scale). The root is removed;
+     matched boxes to 1e-3 of scale). Then `tools.test
+     bevformerv2-r50-t1-base` (a `.pth` of seeded weights, the reg
+     branches' outputs x0.1; the V2 crop of the 900-row cameras) over the
+     val frames with and without `--fuse-conv-bn`: 18 K1
+     launches per sample, NDS/mAP (0 at seeded weights: a plumbing check),
+     the same decoded boxes. The root is removed;
   13. the other v1 presets, bevformer_tiny, bevformer_small and
      bevformer_tiny_fp16 (bf16), each at full size with seeded weights: the
      4-frame video on the kernel path (launches per frame, frame median,
@@ -106,10 +113,20 @@ Phases, each printed as it runs:
      plain paths (noise of bf16 rounding's size, 2^-8, for tiny_fp16), 4
      training steps (launches per step, step median, peak memory), and the
      damped witness on the trained weights (fp32 to 1e-3; bf16 within 10x
-     of its noisy path).
+     of its noisy path);
+  14. BEVFormerV2: bevformerv2-r50-t1 and bevformerv2-r50-t8 at full size
+     (6 x 640 x 1600, 200 x 200 BEV, 6 + 6 layers, R50 with BatchNorm, a
+     5-level FPN) with seeded weights, 4 samples each through
+     `VideoEvaluatorV2` (t8: 7 history frames encoded per sample, then
+     ResNetFusion): K1 launches per sample (18 and 102), every BatchNorm
+     in eval mode, the sample median, the ResNetFusion time from CUDA
+     events around it, peak memory, and phase 10's witness against the
+     plain and noisy plain paths (undamped within 10x; reg outputs x0.1 to
+     1e-3, the same decoded scores).
 
 The line before the last is the kernels' JSON record (bf16 K1 and K3/K4
-with the launches of tiny_fp16's training run): for each kernel its
+with the launches of tiny_fp16's training run; K1 also with its launches on
+the V2 presets' samples and its times at V2's shapes): for each kernel its
 time, launches, plain version's time, bound (bevformer_torch/tools/
 roofline.py, against the H100 SXM data sheet's peaks) and what bounds it,
 and the time of one PyTorch call that computes the same function, or null
@@ -209,18 +226,28 @@ def msda_inputs(b, q, h, d, shapes, p, gen, device):
     return value, loc, attw
 
 
-def check_k1(device, gen):
+# K1's shapes on bevformer_base's frame: (name, B, Q, H, D, shapes, P,
+# launches per frame); SCA's Q is the capacity 0.25 of 40000 queries rounded
+# up to 128
+K1_CASES = [
+    ("tsa", 2, 40000, 8, 32, ((200, 200),), 4, 6),
+    ("sca", 6, 10112, 8, 32, ((116, 200), (58, 100), (29, 50), (15, 25)), 8, 6),
+    ("decoder", 1, 900, 8, 32, ((200, 200),), 4, 6),
+]
+# ... and on a BEVFormerV2 sample (6 x 640 x 1600 input: 4 levels of 21250
+# keys), per frame encoded (the decoder's once per sample)
+K1_V2_CASES = [
+    ("tsa", 2, 40000, 8, 32, ((200, 200),), 4, 6),
+    ("sca", 6, 10112, 8, 32, ((80, 200), (40, 100), (20, 50), (10, 25)), 8, 6),
+    ("decoder", 1, 900, 8, 32, ((200, 200),), 4, 6),
+]
+
+
+def check_k1(device, gen, cases=K1_CASES, tag="k1"):
     import torch
     from bevformer_torch.kernels import msda
     from bevformer_torch.tools import roofline
 
-    levels = ((116, 200), (58, 100), (29, 50), (15, 25))
-    # (name, B, Q, H, D, shapes, P, launches per frame)
-    cases = [
-        ("tsa", 2, 40000, 8, 32, ((200, 200),), 4, 6),
-        ("sca", 6, 10112, 8, 32, levels, 8, 6),
-        ("decoder", 1, 900, 8, 32, ((200, 200),), 4, 6),
-    ]
     rows = []
     for name, b, q, h, d, shapes, p, per_frame in cases:
         args = msda_inputs(b, q, h, d, shapes, p, gen, device)
@@ -235,17 +262,18 @@ def check_k1(device, gen):
         plain_ms = time_ms(lambda: msda.ms_deform_attn_plain(args[0], shapes, args[1], args[2]), 3)
         # every corner of every sample is one 128-byte row per 32 channels
         corner_bytes = b * q * h * len(shapes) * p * 4 * (d // 32) * 128
-        log(f"[k1] {name}: value {list(args[0].shape)} loc {list(args[1].shape)} "
+        cost = roofline.msda_fwd(b, q, h, d, shapes, p)
+        log(f"[{tag}] {name}: value {list(args[0].shape)} loc {list(args[1].shape)} "
             f"({outside:.1%} of coords outside [0,1]) max_abs_err {err:.3e} "
             f"(tol {K1_TOL:.0e}; {same:.1%} bitwise equal) kernel {ms:.4f} ms "
             f"(tile {msda.k1_tile_for(args[0], args[1])}; "
-            f"corner requests {corner_bytes / 1e9:.3f} GB, {corner_bytes / ms / 1e9:.2f} TB/s) "
-            f"K7 {k7_ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"corner requests {corner_bytes / 1e9:.3f} GB, {corner_bytes / ms / 1e9:.2f} TB/s; "
+            f"bound {cost.bound_ms:.4f} ms by {cost.bound_by}, {cost.bound_ms / ms:.1%} of it; "
+            f"{per_frame} launches per frame) K7 {k7_ms:.4f} ms plain {plain_ms:.4f} ms")
         check(err <= K1_TOL, f"K1 {name}: max abs error {err} > {K1_TOL}")
         rows.append(dict(shape=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          per_frame=per_frame, k7_ms=k7_ms, bitwise_equal_share=same,
-                         corner_TB_per_s=corner_bytes / ms / 1e9,
-                         cost=roofline.msda_fwd(b, q, h, d, shapes, p)))
+                         corner_TB_per_s=corner_bytes / ms / 1e9, cost=cost))
         del args, out, ref
     return rows
 
@@ -994,18 +1022,20 @@ def times(per: dict, n: int) -> dict:
     return {k: v * n for k, v in per.items()}
 
 
-def preset_witness(model, video, noise):
+def preset_witness(model, video, noise, run=run_video):
     """Kernel vs plain and noisy plain vs plain over the video (max over the
     frames of max abs err / max |plain|), and the decoded results of the
-    kernel and plain runs; the plain runs must launch no kernel."""
+    kernel and plain runs; the plain runs must launch no kernel. `run`
+    (`run_video`, or `run_v2` over V2 samples) returns (results, head
+    outputs, seconds, ...)."""
     from bevformer_torch.kernels import launch_counts
 
-    results, preds, _ = run_video(model, video)
+    results, preds = run(model, video)[:2]
     counts = launch_counts()
     with plain_kernels():
-        plain_results, plain_preds, plain_secs = run_video(model, video)
+        plain_results, plain_preds, plain_secs = run(model, video)[:3]
     with plain_kernels(noise=noise):
-        _, noisy_preds, _ = run_video(model, video)
+        noisy_preds = run(model, video)[1]
     check(launch_counts() == counts, "a plain run launched a kernel")
     return (output_errors(preds, plain_preds), output_errors(noisy_preds, plain_preds),
             results, plain_results, plain_secs)
@@ -1137,6 +1167,159 @@ def check_preset(name, device, smi):
                 frame_launches=per_frame, step_ms=step_ms, step_peak_gib=step_peak / 2**30,
                 step_launches=per_step, train_counts=train_counts, inference_counts=counts,
                 witness=witness, frozen_bn_mb=bn_mb)
+
+
+# ---------------------------------------------------------------- V2
+
+V2_PRESETS = ("bevformerv2-r50-t1", "bevformerv2-r50-t8")
+V2_SAMPLES = 4
+
+
+def v2_per_sample(cfg) -> dict:
+    """Launches per V2 sample: TSA and SCA in every encoder layer of every
+    frame encoded, the decoder's cross-attention once; nothing else."""
+    from bevformer_torch.kernels import kernel_counters
+
+    k1 = len(cfg.frames) * 2 * cfg.encoder_layers + cfg.decoder_layers
+    return dict(dict.fromkeys(kernel_counters(), 0), msda_fwd=k1)
+
+
+def v2_samples(cfg, n: int, device):
+    """`n` samples as `NuScenesTemporalDatasetV2.get_test_sample_v2` serves
+    them: for each offset of `cfg.frames` six noise images (seeded) at the
+    network's input size and the synthetic rigs' lidar2img; no flip, the
+    identity unwarp."""
+    import numpy as np
+    from bevformer_torch.data.synth import _noise_images, rig_lidar2img
+
+    h, w = cfg.data.img_size
+    t = len(cfg.frames)
+    l2i = np.stack([rig_lidar2img(w, h)[: cfg.data.num_cams]] * t).astype(np.float32)
+    return [dict(images=_noise_images(cfg, t, 1000 + i, device), lidar2img=l2i,
+                 flip=np.bool_(False), bda_mat=np.eye(2, dtype=np.float32),
+                 token=f"v2_sample_{i}") for i in range(n)]
+
+
+def run_v2(model, samples):
+    """The samples through `VideoEvaluatorV2`: (results, the current
+    frames' head outputs, each sample's seconds on the host clock between
+    device syncs, each sample's ResNetFusion milliseconds from CUDA events
+    around it, or [] without a fusion)."""
+    import torch
+    from bevformer_torch.runtime import VideoEvaluatorV2
+
+    preds, fusion = [], []
+    hooks = [model.register_forward_hook(lambda m, i, out: preds.append(out))]
+    tr = model.pts_bbox_head.transformer
+    if hasattr(tr, "fusion"):
+        def pre(m, i):
+            fusion.append([torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)])
+            fusion[-1][0].record()
+
+        hooks += [tr.fusion.register_forward_pre_hook(pre),
+                  tr.fusion.register_forward_hook(lambda m, i, o: fusion[-1][1].record())]
+    ev = VideoEvaluatorV2(model)
+    results, secs = [], []
+    try:
+        for s in samples:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results.append(ev.infer_sample(s))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    finally:
+        for h in hooks:
+            h.remove()
+    return results, preds, secs, [a.elapsed_time(b) for a, b in fusion]
+
+
+def check_v2(name, device, smi):
+    """A BEVFormerV2 preset at full size with seeded weights: V2_SAMPLES
+    samples through `VideoEvaluatorV2` on the kernel path (K1 launches per
+    sample, sample median, peak memory, ResNetFusion's time apart), every
+    BatchNorm in eval mode, held to phase 10's witness against the plain
+    path: within WITNESS_FACTOR of the noisy plain path undamped, to
+    SLICE_TOL with the reg branches' outputs x0.1, the same decoded
+    scores."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.kernels import launch_counts, zero_counts
+    from bevformer_torch.runtime import build_model, init_state_dict
+
+    cfg = get_config(name)
+    per_sample = v2_per_sample(cfg)
+    t0 = time.perf_counter()
+    model = build_model(cfg, init_state_dict(cfg, seed=0), device)
+    samples = v2_samples(cfg, V2_SAMPLES, device)
+    n = len(samples)
+    log(f"[v2] {name}: frames {cfg.frames}, {cfg.data.num_cams} x {cfg.data.img_size} images, "
+        f"R{cfg.backbone_depth} {cfg.backbone_style} BN, FPN {len(cfg.neck_in_channels)} -> "
+        f"{max(cfg.num_mono_levels, cfg.num_feature_levels)} levels ({cfg.num_feature_levels} "
+        f"to the BEV), SCA capacity {cfg.sca_capacity_ratio}, {cfg.encoder_layers}+"
+        f"{cfg.decoder_layers} layers, BEV {cfg.bev_h}x{cfg.bev_w}, {cfg.num_query} of "
+        f"{cfg.num_query * cfg.group_detr} queries; weights ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    bn_modes = []
+    bn_hooks = [m.register_forward_hook(lambda m, i, o: bn_modes.append(m.training))
+                for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    _, preds, secs, fusion_ms = run_v2(model, samples)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    for h in bn_hooks:
+        h.remove()
+    check(counts == times(per_sample, n), f"{name}: launched {counts}, want "
+                                          f"{times(per_sample, n)}")
+    check(bn_modes and not any(bn_modes), f"{name}: {sum(bn_modes)} BN calls in train mode")
+    for i, p in enumerate(preds):
+        for key, v in p.items():
+            check(bool(torch.isfinite(v).all()), f"{name} sample {i}: {key} not finite")
+    check(tuple(preds[0]["all_cls_scores"].shape) ==
+          (cfg.decoder_layers, 1, cfg.num_query, cfg.num_classes), f"{name}: cls shape")
+    check(tuple(preds[0]["bev_embed"].shape) == (1, cfg.bev_h * cfg.bev_w, cfg.embed_dims),
+          f"{name}: bev shape")
+    sample_ms = median_of(secs[1:]) * 1e3
+    fusion_median = median_of(fusion_ms[1:]) if fusion_ms else None
+    log(f"[v2] {name}: K1 launches {counts['msda_fwd']} ({counts['msda_fwd'] / n:g} per sample: "
+        f"{len(cfg.frames)} x {2 * cfg.encoder_layers} encoder + {cfg.decoder_layers} decoder); "
+        f"{len(bn_modes)} BN calls, all in eval mode; sample seconds "
+        f"{', '.join(f'{x:.4f}' for x in secs)}; median of samples 1-{n - 1}: {sample_ms:.1f} ms"
+        + (f"; ResNetFusion {', '.join(f'{x:.2f}' for x in fusion_ms)} ms (CUDA events), "
+           f"median {fusion_median:.2f} ms" if fusion_ms else "")
+        + f"; peak memory {peak / 2**30:.2f} GiB; card: {smi}")
+    del preds
+
+    errs, noise_errs, _, _, plain_secs = preset_witness(model, samples, WITNESS_NOISE, run_v2)
+    log(f"[v2] {name} witness, undamped: kernel vs plain: {fmt_errors(errs)}; plain x (1 + "
+        f"{WITNESS_NOISE:.0e} N(0,1)) at every msda output vs plain: {fmt_errors(noise_errs)} "
+        f"(kernel within {WITNESS_FACTOR:g}x); plain sample seconds "
+        + ", ".join(f"{x:.4f}" for x in plain_secs))
+    for key, e in errs.items():
+        check(e <= WITNESS_FACTOR * max(noise_errs[key], 1e-7),
+              f"{name} {key}: kernel vs plain {e:.2e} > {WITNESS_FACTOR:g} x {noise_errs[key]:.2e}")
+    witness = dict(undamped=errs, undamped_noisy=noise_errs)
+    damp_box_refinement(model)
+    errs, noise_errs, results, plain_results, _ = preset_witness(model, samples, WITNESS_NOISE,
+                                                                 run_v2)
+    log(f"[v2] {name} witness, reg branch outputs x0.1: kernel vs plain: {fmt_errors(errs)} "
+        f"(tol {SLICE_TOL:.0e}); noisy plain vs plain: {fmt_errors(noise_errs)}")
+    for key, e in errs.items():
+        check(e <= SLICE_TOL, f"{name} {key} damped: kernel vs plain {e:.2e} > {SLICE_TOL}")
+    for i in range(n):
+        sa = torch.as_tensor(results[i]["scores_3d"]).sort().values
+        sb = torch.as_tensor(plain_results[i]["scores_3d"]).sort().values
+        check(sa.shape == sb.shape and bool(torch.allclose(sa, sb, atol=1e-4)),
+              f"{name} sample {i}: decoded scores differ")
+    witness.update(damped=errs, damped_noisy=noise_errs)
+    del model, samples
+    torch.cuda.empty_cache()
+    return dict(name=name, sample_ms=sample_ms, peak_gib=peak / 2**30,
+                k1_per_sample=per_sample["msda_fwd"], counts=counts, fusion_ms=fusion_median,
+                witness=witness)
 
 
 KERNEL_NAMES = ("msda_fwd_kernel", "dcn_conv_fwd_kernel", "msda_bwd_kernel",
@@ -1590,38 +1773,88 @@ def check_cli_fp16_and_fuse(data, root, smi):
             f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms" for r in steps))
 
     ckpt = os.path.join(work, "ckpts", f"iter_{FP16_CLI_STEPS}.pth")
-    per_frame = path_launches(get_config("bevformer_tiny"))[0]
-    runs = {}
+    fold = fold_comparison("bevformer_tiny", data, ckpt, work,
+                           path_launches(get_config("bevformer_tiny"))[0], smi)
+    return dict(fp16_step_ms=median_of([r["step_ms"] for r in steps[1:]]),
+                fp16_peak_gib=done["peak_gib"], fuse_score_err=fold["score_err"],
+                fuse_box_err=fold["box_err"], fuse_frame_ms=fold["folded_ms"],
+                unfused_frame_ms=fold["unfolded_ms"])
+
+
+def fold_comparison(name, data, ckpt, work, per_frame, smi):
+    """`tools.test <name>` on `ckpt` over the val frames with and without
+    `--fuse-conv-bn`: each run launches every kernel `per_frame` times a
+    frame and gives finite metrics, and the two give the same decoded boxes
+    (scores to FUSE_SCORE_TOL, matched boxes to FUSE_BOX_TOL of scale).
+    Returns each run's frame median and the two errors."""
+    import numpy as np
+
+    runs, res = {}, {}
     for tag, more in (("unfolded", []), ("folded", ["--fuse-conv-bn"])):
-        out = os.path.join(work, f"{tag}.json")
-        recs, secs = run_cli(["bevformer_torch.tools.test", "bevformer_tiny", "--data-root", data,
-                              "--checkpoint", ckpt, "--out", out, *more], f"tools.test {tag}")
-        timing = one(recs, "frame_ms", f"tools.test {tag}")
+        what = f"tools.test {name} {tag}"
+        out = os.path.join(work, f"{name}_{tag}.json")
+        recs, secs = run_cli(["bevformer_torch.tools.test", name, "--data-root", data,
+                              "--checkpoint", ckpt, "--out", out, *more], what)
+        timing = one(recs, "frame_ms", what)
+        summary = one(recs, "NDS", what)
         want = times(per_frame, timing["frames"])
-        check(timing["launches"] == want, f"tools.test {tag}: launches {timing['launches']}, "
-                                          f"want {want}")
+        check(timing["launches"] == want, f"{what}: launches {timing['launches']}, want {want}")
+        check(all(math.isfinite(v) for v in summary.values()), f"{what}: {summary}")
         with open(out) as f:
             runs[tag] = {r["token"]: {k: np.asarray(v) for k, v in r.items() if k != "token"}
                          for r in json.load(f)}
-        log(f"[cli] tools.test bevformer_tiny {tag}: {secs:.1f} s, frame median "
-            f"{timing['frame_ms_median']:.1f} ms, peak {timing['peak_gib']} GiB, launches "
-            f"{timing['launches']}")
-        runs[f"{tag}_frame_ms"] = timing["frame_ms_median"]
-    tokens = sorted(k for k in runs["unfolded"])
-    check(tokens == sorted(runs["folded"]), "the folded run scored other frames")
+        log(f"[cli] {what}: {secs:.1f} s over {timing['frames']} frames, frame ms "
+            f"{[round(x, 1) for x in timing['frame_ms']]} (load "
+            f"{[round(x, 1) for x in timing['load_ms']]}), median {timing['frame_ms_median']:.1f} "
+            f"ms, peak {timing['peak_gib']} GiB, launches {timing['launches']}; NDS "
+            f"{summary['NDS']!r} mAP {summary['mAP']!r}")
+        res[f"{tag}_ms"] = timing["frame_ms_median"]
+    tokens = sorted(runs["unfolded"])
+    check(tokens == sorted(runs["folded"]), f"{name}: the folded run scored other frames")
     errs = [box_set_errors(runs["folded"][t], runs["unfolded"][t]) for t in tokens]
-    score_err = max(e[0] for e in errs)
-    box_err = max(e[1] for e in errs)
+    res.update(score_err=max(e[0] for e in errs), box_err=max(e[1] for e in errs))
     missing = sum(e[2] for e in errs)
-    log(f"[cli] --fuse-conv-bn vs unfolded over {len(tokens)} frames: decoded scores max abs "
-        f"diff {score_err:.3e} (tol {FUSE_SCORE_TOL:.0e}), matched boxes max abs err / max |box| "
-        f"{box_err:.3e} (tol {FUSE_BOX_TOL:.0e}), boxes without a match {missing}; card: {smi}")
-    check(missing == 0 and score_err <= FUSE_SCORE_TOL and box_err <= FUSE_BOX_TOL,
-          f"--fuse-conv-bn boxes differ: scores {score_err:.2e}, boxes {box_err:.2e}, "
-          f"{missing} unmatched")
-    return dict(fp16_step_ms=median_of([r["step_ms"] for r in steps[1:]]),
-                fp16_peak_gib=done["peak_gib"], fuse_score_err=score_err, fuse_box_err=box_err,
-                fuse_frame_ms=runs["folded_frame_ms"], unfused_frame_ms=runs["unfolded_frame_ms"])
+    log(f"[cli] {name} --fuse-conv-bn vs unfolded over {len(tokens)} frames: decoded scores max "
+        f"abs diff {res['score_err']:.3e} (tol {FUSE_SCORE_TOL:.0e}), matched boxes max abs err / "
+        f"max |box| {res['box_err']:.3e} (tol {FUSE_BOX_TOL:.0e}), boxes without a match "
+        f"{missing}; card: {smi}")
+    check(missing == 0 and res["score_err"] <= FUSE_SCORE_TOL and res["box_err"] <= FUSE_BOX_TOL,
+          f"{name} --fuse-conv-bn boxes differ: scores {res['score_err']:.2e}, boxes "
+          f"{res['box_err']:.2e}, {missing} unmatched")
+    return res
+
+
+def damped_v2_checkpoint(name, path):
+    """A model-zoo-layout `.pth` of `name`'s seeded weights (with each BN's
+    num_batches_tracked, as the reference's carry) whose reg branches'
+    output layers are scaled by 0.1, as `damp_box_refinement` does: at
+    undamped random weights the box refinement turns the fold's fp32
+    rounding into moves of 1e-3 in the decoded scores."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.runtime import init_state_dict
+
+    cfg = get_config(name)
+    sd = {k: torch.from_numpy(v) for k, v in init_state_dict(cfg, seed=0).items()}
+    for lid in range(cfg.decoder_layers):
+        sd[f"pts_bbox_head.reg_branches.{lid}.4.weight"] *= 0.1
+    torch.save({"meta": {}, "state_dict": sd}, path)
+
+
+def check_cli_v2(data, root, smi):
+    """`tools.test bevformerv2-r50-t1-base` on the phase's root (V2 crops
+    its 900-row cameras to 640 rows), from a `.pth` of seeded weights with
+    the box refinement damped (`damped_v2_checkpoint`; seeded weights give
+    NDS/mAP 0: a plumbing check), with and without `--fuse-conv-bn`
+    (`fold_comparison`): 18 K1 launches per sample, the same boxes."""
+    from bevformer_torch.configs import get_config
+
+    name = "bevformerv2-r50-t1-base"
+    ckpt = os.path.join(root, "v2_damped.pth")
+    damped_v2_checkpoint(name, ckpt)
+    fold = fold_comparison(name, data, ckpt, root, v2_per_sample(get_config(name)), smi)
+    return dict(v2_sample_ms=fold["unfolded_ms"], v2_fused_sample_ms=fold["folded_ms"],
+                v2_fuse_score_err=fold["score_err"], v2_fuse_box_err=fold["box_err"])
 
 
 def check_cli(smi):
@@ -1716,6 +1949,7 @@ def check_cli(smi):
 
         perfect_detector(data, cfg, "cuda")
         fp16 = check_cli_fp16_and_fuse(data, root, smi)
+        v2 = check_cli_v2(data, root, smi)
 
         # each run's first step carries its process's warm-up
         steady = first_steps[1:] + second_steps[1:]
@@ -1727,7 +1961,7 @@ def check_cli(smi):
             train_peak_gib=max(first_done["peak_gib"] or 0, second_done["peak_gib"] or 0),
             test_peak_gib=timing["peak_gib"], NDS=summary["NDS"], mAP=summary["mAP"],
         )
-        res.update(fp16)
+        res.update(fp16, **v2)
         res["seconds"] = time.perf_counter() - t_start
         log(f"[cli] medians: tools.train step {res['step_ms']:.1f} ms (steps "
             f"{[r['step'] for r in steady]}), host {res['host_ms']:.1f} ms, data wait "
@@ -1775,6 +2009,7 @@ def main() -> int:
 
     gen = torch.Generator(device=device).manual_seed(0)
     k1_rows = check_k1(device, gen)
+    k1_v2_rows = check_k1(device, gen, K1_V2_CASES, "k1-v2")
     k2_rows = check_k2(device, gen)
     k34_rows = check_k34(device, gen)
     bf16_fwd_rows, bf16_bwd_rows = check_bf16_msda(device, gen)
@@ -1794,6 +2029,7 @@ def main() -> int:
     cli = check_cli(smi)
     torch.cuda.empty_cache()
     presets = {name: check_preset(name, device, smi) for name in PRESETS}
+    v2 = {name: check_v2(name, device, smi) for name in V2_PRESETS}
 
     def record(name, src, replaces, rows, per, library_note, counts=tr["counts"]):
         bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
@@ -1841,6 +2077,13 @@ def main() -> int:
                "no single PyTorch call computes the msda backward", counts=fp16["train_counts"]),
     ]
     kernels[-2]["inference_launches"] = fp16["inference_counts"]["msda_fwd_bf16"]
+    # K1 on the V2 presets' samples: launches per preset's run, and at V2's
+    # shapes per frame encoded (the decoder's once per sample)
+    v2_bound = roofline.total([(r.pop("cost"), r["per_frame"]) for r in k1_v2_rows])
+    kernels[0]["v2_launches"] = {name: r["counts"]["msda_fwd"] for name, r in v2.items()}
+    kernels[0]["v2_shapes"] = k1_v2_rows
+    kernels[0]["v2_ms_per_frame"] = sum(r["ms"] * r["per_frame"] for r in k1_v2_rows)
+    kernels[0]["v2_bound_ms_per_frame"] = v2_bound["bound_ms"]
     # launches: the training run's (all five kernels); the inference run's too
     kernels[0]["inference_launches"] = sl["k1"]
     kernels[1]["inference_launches"] = sl["k2"]
@@ -1867,6 +2110,12 @@ def main() -> int:
         log(f"[summary] {r['name']} ({r['dtype']}): frame median {r['frame_ms']:.1f} ms, peak "
             f"{r['frame_peak_gib']:.2f} GiB; training step median {r['step_ms']:.1f} ms, peak "
             f"{r['step_peak_gib']:.2f} GiB; on {smi}")
+    for r in v2.values():
+        fusion = f", ResNetFusion {r['fusion_ms']:.2f} ms of it" if r["fusion_ms"] else ""
+        log(f"[summary] {r['name']} (fp32): sample median {r['sample_ms']:.1f} ms{fusion}, peak "
+            f"{r['peak_gib']:.2f} GiB, {r['k1_per_sample']} K1 launches per sample; on {smi}")
+    log(f"[summary] CLIs: tools.test bevformerv2-r50-t1-base sample median "
+        f"{cli['v2_sample_ms']:.1f} ms, with --fuse-conv-bn {cli['v2_fused_sample_ms']:.1f} ms")
     log(f"[summary] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

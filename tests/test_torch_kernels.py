@@ -125,6 +125,27 @@ def test_msda_kernel_at_the_path_shapes(cuda_device, name, b, q, h, d, shapes, p
     assert float((out - ref).abs().max()) <= 1e-5, name
 
 
+# K1 at a BEVFormerV2 sample's shapes, whole: TSA over the (query, query)
+# queue, SCA over the 4 levels of a 640 x 1600 input at capacity 0.25, the
+# decoder
+K1_V2_CASES = [
+    ("v2_tsa", 2, 40000, 8, 32, ((200, 200),), 4),
+    ("v2_sca", 6, 10112, 8, 32, ((80, 200), (40, 100), (20, 50), (10, 25)), 8),
+    ("v2_decoder", 1, 900, 8, 32, ((200, 200),), 4),
+]
+
+
+@pytest.mark.parametrize("name,b,q,h,d,shapes,p", K1_V2_CASES, ids=[c[0] for c in K1_V2_CASES])
+def test_msda_kernel_at_the_v2_shapes(cuda_device, name, b, q, h, d, shapes, p):
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 60 + len(name), cuda_device)
+    before = msda.ms_deform_attn.launches
+    out = msda.ms_deform_attn(value, shapes, loc, attw)
+    torch.cuda.synchronize()
+    assert msda.ms_deform_attn.launches == before + 1
+    ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
+    assert float((out - ref).abs().max()) <= 1e-5, name
+
+
 @pytest.mark.parametrize("tile", msda.K1_TILES)
 @pytest.mark.parametrize("case", [0, 1, 4], ids=["tsa", "sca", "d64"])
 def test_msda_kernel_every_tile(cuda_device, tile, case):

@@ -97,7 +97,7 @@ def dense_state_dict(tree, prefix="") -> dict:
 
 
 # JAX config fields whose v1 value the port hard-codes
-PORT_FIXED = dict(rotate_prev_bev=True, use_shift=True, use_can_bus=True, video_test_mode=True)
+PORT_FIXED = dict(rotate_prev_bev=True, use_shift=True, use_can_bus=True)
 
 
 def port_config(jcfg, **kw):
