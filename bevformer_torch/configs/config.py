@@ -10,7 +10,9 @@ the prev-BEV rotation and the CAN-bus embedding. V2 has none of them; its
 temporal context is the explicit `frames`, each re-encoded per sample.
 The V2 fields only training reads (`group_detr`'s extra groups,
 `num_mono_levels`' DD3D head, the losses and the train-time augmentation)
-are carried with the JAX values; the V2 training path is not ported yet.
+carry the JAX values. The DD3D head's constants stay in `models/dd3d.py`
+and the per-camera target count in `data/dataset_v2.py`, as in the JAX
+package.
 """
 
 from __future__ import annotations

@@ -125,10 +125,12 @@ def imresize_bilinear(imgs: torch.Tensor, out_w: int, out_h: int) -> torch.Tenso
 
 def preprocess_images(imgs: torch.Tensor, lidar2img: np.ndarray, cfg,
                       rng: Optional[np.random.RandomState] = None,
-                      train: bool = False) -> Tuple[torch.Tensor, np.ndarray]:
+                      train: bool = False,
+                      pad_to: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, np.ndarray]:
     """The per-frame pipeline on [cams, H, W, 3] BGR images (uint8 or
-    float) on any device. Returns ([cams, *img_size, 3] normalised float32
-    on the images' device, the scaled lidar2img [cams, 4, 4] float32)."""
+    float) on any device. Returns ([cams, *pad_to, 3] normalised float32 on
+    the images' device, `pad_to` defaulting to `img_size`, and the scaled
+    lidar2img [cams, 4, 4] float32)."""
     imgs = imgs.to(torch.float32)
     if train and cfg.use_photometric and rng is not None:
         imgs = photometric_distortion(imgs, rng)
@@ -148,7 +150,9 @@ def preprocess_images(imgs: torch.Tensor, lidar2img: np.ndarray, cfg,
         scale_mat[0, 0] = scale_mat[1, 1] = cfg.scale
         lidar2img = np.asarray([scale_mat @ m for m in lidar2img])
 
-    ph, pw = cfg.img_size
+    ph, pw = pad_to or cfg.img_size
     h, w = imgs.shape[1:3]
+    if h > ph or w > pw:
+        raise ValueError(f"images of {h} x {w} do not fit the pad to {ph} x {pw}")
     out = F.pad(imgs, (0, 0, 0, pw - w, 0, ph - h))
     return out.contiguous(), np.asarray(lidar2img, np.float32)

@@ -234,17 +234,32 @@ def can_bus_pose(pos: Sequence[float], yaw: float, speed: float) -> np.ndarray:
     return can_bus
 
 
-def _noise_images(cfg, n: int, seed: int, device) -> torch.Tensor:
-    """[n, cams, H, W, 3]: uniform noise in [0, 255] minus the config's
-    mean, over its std."""
+def _noise_images(cfg, n: int, seed: int, device, size=None) -> torch.Tensor:
+    """[n, cams, H, W, 3] ((H, W) = `size`, default `img_size`): uniform
+    noise in [0, 255] minus the config's mean, over its std."""
     d = cfg.data
-    h, w = d.img_size
+    h, w = size or d.img_size
     gen = torch.Generator(device=device).manual_seed(seed)
     img = torch.rand((n, d.num_cams, h, w, 3), generator=gen, device=device) * 255.0
     return (img - torch.tensor(d.mean, device=device)) / torch.tensor(d.std, device=device)
 
 
 NUM_OBJECTS = 12  # GT boxes per training sample (`generate`'s default)
+
+
+def _gt_boxes(rng: np.random.RandomState, g: int):
+    """`NUM_OBJECTS` GT boxes [g, 9] (gravity-centre z) and labels [g],
+    padded to `g`, and their count (see `train_batch`)."""
+    n = min(NUM_OBJECTS, g)
+    gt_boxes = np.zeros((g, 9), np.float32)
+    gt_labels = np.zeros((g,), np.int64)
+    gt_boxes[:n, 0:2] = rng.uniform(-40, 40, (n, 2))
+    gt_boxes[:n, 2] = rng.uniform(-1.5, 0.5, n)
+    gt_boxes[:n, 3:6] = np.abs(rng.randn(n, 3)) * 0.8 + np.array([1.9, 4.5, 1.7])
+    gt_boxes[:n, 6] = rng.uniform(-np.pi, np.pi, n)
+    gt_boxes[:n, 7:9] = rng.randn(n, 2) * 0.5
+    gt_labels[:n] = rng.randint(0, 10, n)
+    return gt_boxes, gt_labels, n
 
 
 def train_batch(cfg, seed: int = 0, device=DEFAULT_DEVICE,
@@ -290,16 +305,7 @@ def train_batch(cfg, seed: int = 0, device=DEFAULT_DEVICE,
         prev_pos, prev_angle = tmp_pos, tmp_angle
         can_bus[t] = cb
 
-    g = cfg.max_gt
-    n = min(NUM_OBJECTS, g)
-    gt_boxes = np.zeros((g, 9), np.float32)
-    gt_labels = np.zeros((g,), np.int64)
-    gt_boxes[:n, 0:2] = rng.uniform(-40, 40, (n, 2))
-    gt_boxes[:n, 2] = rng.uniform(-1.5, 0.5, n)
-    gt_boxes[:n, 3:6] = np.abs(rng.randn(n, 3)) * 0.8 + np.array([1.9, 4.5, 1.7])
-    gt_boxes[:n, 6] = rng.uniform(-np.pi, np.pi, n)
-    gt_boxes[:n, 7:9] = rng.randn(n, 2) * 0.5
-    gt_labels[:n] = rng.randint(0, 10, n)
+    gt_boxes, gt_labels, n = _gt_boxes(rng, cfg.max_gt)
 
     def dev(a, dtype=None):
         return torch.as_tensor(np.array(a)[None], dtype=dtype, device=device)
@@ -313,6 +319,46 @@ def train_batch(cfg, seed: int = 0, device=DEFAULT_DEVICE,
         gt_labels=dev(gt_labels),
         num_gt=torch.tensor([n], device=device),
     )
+
+
+def train_batch_v2(cfg, seed: int = 0, device=DEFAULT_DEVICE, rung: int = 640):
+    """One seeded BEVFormerV2 training sample (batch 1, `runtime.train_v2.
+    BatchV2`) at the shapes `get_train_sample_v2` gives at the ladder height
+    `rung`: for every offset of `cfg.frames` noise images at the rung's
+    padded size, the six rigs' lidar2img through the V2 crop of a
+    `raw_size` + 260-row camera and the resize; `train_batch`'s GT boxes;
+    no flip, the identity unwarp; and the boxes' DD3D targets in the rigs'
+    cameras (`dataset_v2.mono_targets`). Made on the card unless `device`
+    says otherwise."""
+    from bevformer_torch.data import dataset_v2, pipeline_v2
+    from bevformer_torch.runtime.train_v2 import collate_v2
+
+    device = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    raw_h, raw_w = cfg.data.raw_size
+    ida = pipeline_v2.sample_crop_resize_flip(rng, resize_ladder=(rung,),
+                                              crop=(0, 260, raw_w, raw_h + 260), training=False)
+    ida_3x3 = pipeline_v2.ida_matrix(ida)
+    rigs = [camera_rigs(raw_w, raw_h + 260)[c] for c in CAM_ORDER[: cfg.data.num_cams]]
+    lidar2cam, cam2img = [], []
+    for r in rigs:
+        s2l = np.eye(4)
+        s2l[:3, :3], s2l[:3, 3] = r["rotation"], r["translation"]
+        lidar2cam.append(np.linalg.inv(s2l))
+        k = np.eye(4)
+        k[:3, :3] = ida_3x3 @ r["intrinsic"]
+        cam2img.append(k)
+    l2i = np.stack([k @ l for k, l in zip(cam2img, lidar2cam)]).astype(np.float32)
+    gt_boxes, gt_labels, n = _gt_boxes(rng, cfg.max_gt)
+    t = len(cfg.frames)
+    sample = dict(
+        images=_noise_images(cfg, t, seed, device, dataset_v2.pad_size(cfg.data, ida)),
+        lidar2img=np.broadcast_to(l2i, (t,) + l2i.shape), frame_valid=np.ones((t,), bool),
+        flip=np.bool_(False), bda_mat=np.eye(2, dtype=np.float32), gt_boxes=gt_boxes,
+        gt_labels=gt_labels, num_gt=np.int64(n),
+        **dataset_v2.mono_targets(gt_boxes[:n], gt_labels[:n], np.stack(lidar2cam),
+                                  np.stack(cam2img), ida["resize_dims"], cfg.data.num_cams))
+    return collate_v2([sample], device)
 
 
 class SyntheticVideo:

@@ -2,6 +2,11 @@
 single-level deformable cross-attention over the BEV map -> LN -> FFN -> LN.
 
 Port of `bevformer_tpu/models/decoder.py` (reference `decoder.py:52-129`).
+With GroupDETR in training (V2) the queries hold `num_groups` groups, and
+no group attends to another: the self-attention runs on the groups folded
+into the batch, as the reference does (`modules/group_attention.py:
+149-157`), where the JAX package masks a [G*Q, G*Q] map block-diagonally
+(`decoder.py:93-120`), the same function.
 """
 
 from __future__ import annotations
@@ -32,8 +37,11 @@ class DetrDecoderLayer(nn.Module):
         self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels, ffn_dropout)])
 
     def forward(self, query, bev_value, query_pos, reference_points,
-                bev_spatial_shape: Tuple[int, int]):
-        query = self.norms[0](self.attentions[0](query, query_pos))
+                bev_spatial_shape: Tuple[int, int], num_groups: int = 1):
+        bs, q, e = query.shape
+        groups = (bs * num_groups, q // num_groups, e)  # group-major rows
+        query = self.attentions[0](query.reshape(groups), query_pos.reshape(groups))
+        query = self.norms[0](query.reshape(bs, q, e))
         query = self.attentions[1](
             query, bev_value, query_pos, reference_points, (bev_spatial_shape,)
         )
@@ -59,12 +67,13 @@ class DetectionTransformerDecoder(nn.Module):
 
     def forward(self, query, bev_value, query_pos, reference_points,
                 bev_spatial_shape: Tuple[int, int],
-                reg_branch_fn: Optional[Callable] = None):
+                reg_branch_fn: Optional[Callable] = None, num_groups: int = 1):
         output = query
         states, refs = [], []
         for lid, layer in enumerate(self.layers):
             ref_input = reference_points[..., :2][:, :, None, :]  # [bs,q,1,2]
-            output = layer(output, bev_value, query_pos, ref_input, bev_spatial_shape)
+            output = layer(output, bev_value, query_pos, ref_input, bev_spatial_shape,
+                           num_groups)
             if reg_branch_fn is not None:
                 tmp = reg_branch_fn(lid, output)
                 new_xy = tmp[..., 0:2] + inverse_sigmoid(reference_points[..., 0:2])

@@ -3,14 +3,15 @@ BEV positional encoding, the transformer (v1's, or V2's for
 `version="v2"`) and the per-layer cls/reg branches. Port of
 `bevformer_tpu/models/head.py` (reference `dense_heads/bevformer_head.py`).
 With GroupDETR (`group_detr > 1`, V2) the query embedding holds every
-group's queries, and inference reads the first group's
-(`bevformer_head.py:527-528`).
+group's queries: training (the head in train mode) reads all of them, the
+groups apart in the decoder's self-attention (JAX `head.py:209-230`), and
+inference reads the first group's (`bevformer_head.py:527-528`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -92,20 +93,24 @@ class BEVFormerHead(nn.Module):
         only_bev: bool = False,
         prev_bev_list: Optional[List[Optional[torch.Tensor]]] = None,  # V2: per frame
         bda_mat: Optional[torch.Tensor] = None,  # V2: [bs, 2, 2] BEV unwarp
+        img_shape: Optional[Tuple[int, int]] = None,  # V2: the padded batch's (H, W)
     ):
         """Head outputs, or only the BEV features [bs, HW, e] (encoder only,
         for the history frames of a training sample (v1) or of a sample
         (V2)). v1 takes the CAN bus and the prev-BEV carry; V2 takes the
-        other frames' BEVs and the unwarp matrix."""
+        other frames' BEVs, the unwarp matrix and the images' padded size,
+        which the camera projections are divided by (`img_size` where it is
+        not given: a training resize above 640 rows pads to more)."""
         c = self.cfg
         bs = lidar2img.shape[0]
         bev_pos = self.positional_encoding(bs)
         v2 = c.version == "v2"
+        img_shape = tuple(img_shape) if img_shape is not None else c.data.img_size
         if only_bev:
             if v2:
                 return self.transformer.get_bev_features(
                     mlvl_feats, self.bev_embedding.weight, bev_pos, c.bev_h, c.bev_w,
-                    lidar2img, c.data.img_size, bda_mat,
+                    lidar2img, img_shape, bda_mat,
                 )
             return self.transformer.get_bev_features(
                 mlvl_feats, self.bev_embedding.weight, bev_pos, c.bev_h, c.bev_w,
@@ -117,11 +122,11 @@ class BEVFormerHead(nn.Module):
             return self.reg_branches[lid](states)
 
         if v2:
-            # inference reads the first query group (`bevformer_head.py:527-528`)
+            groups = c.group_detr if self.training else 1
             bev_embed, hs, init_reference, inter_references = self.transformer(
-                mlvl_feats, self.bev_embedding.weight, self.query_embedding.weight[:c.num_query],
-                bev_pos, c.bev_h, c.bev_w, lidar2img, c.data.img_size, prev_bev_list,
-                bda_mat, reg_branch_fn,
+                mlvl_feats, self.bev_embedding.weight,
+                self.query_embedding.weight[:c.num_query * groups], bev_pos, c.bev_h, c.bev_w,
+                lidar2img, img_shape, prev_bev_list, bda_mat, reg_branch_fn, groups,
             )
         else:
             bev_embed, hs, init_reference, inter_references = self.transformer(

@@ -172,7 +172,11 @@ class PerceptionTransformerV2(nn.Module):
     def forward(self, mlvl_feats, bev_queries, object_query_embed, bev_pos, bev_h, bev_w,
                 lidar2img, img_shape, prev_bev_list: Optional[List[Optional[torch.Tensor]]] = None,
                 bda_mat: Optional[torch.Tensor] = None,
-                reg_branch_fn: Optional[Callable] = None):
+                reg_branch_fn: Optional[Callable] = None, num_groups: int = 1):
+        """`object_query_embed` holds `num_groups` GroupDETR groups (more
+        than one in training only). A missing history frame's BEV is filled
+        from its neighbour with the gradient stopped (JAX :300-305); the
+        fusion's BatchNorms follow the module's mode."""
         bev_embed = self.get_bev_features(
             mlvl_feats, bev_queries, bev_pos, bev_h, bev_w, lidar2img, img_shape, bda_mat
         )
@@ -196,5 +200,6 @@ class PerceptionTransformerV2(nn.Module):
         reference_points = self.reference_points(query_pos).sigmoid()
         states, refs = self.decoder(
             query, bev_embed, query_pos, reference_points, (bev_h, bev_w), reg_branch_fn,
+            num_groups,
         )
         return bev_embed, states, reference_points, refs

@@ -7,13 +7,16 @@
 * `state_dict_from_jax_v2(variables, cfg)`: the same for a BEVFormerV2
   (`export_reference_state_dict_v2`, :905): JAX `{'params',
   'batch_stats'}`, the BatchNorms' running statistics from `batch_stats`,
-  the neck's extra levels and `ResNetFusion`; no DD3D head.
+  the neck's extra levels, `ResNetFusion` and the DD3D head
+  (`fcos3d_bbox_head`, :1093-1140; JAX's `box3d_depth` bias, which the
+  reference does not have, is left out).
 * `init_state_dict(cfg, seed)`: seeded numpy weights for every key, for
   runs with no JAX checkpoint at hand.
 * `build_model(cfg, state_dict, device)`: the port's model for the config's
   version with those weights, on `device` (default: the card).
 * `load_reference_pth(path)`: the state dict of a model-zoo `.pth` (or of a
-  checkpoint of the port: the layout is the same).
+  checkpoint of the port: the layout is the same), a V2 one's DD3D head
+  included.
 * `save_checkpoint` / `restore_checkpoint`: a training run's state in
   mmcv's checkpoint layout, and back.
 """
@@ -30,6 +33,7 @@ import torch.nn as nn
 from bevformer_torch.device import DEFAULT as DEFAULT_DEVICE
 from bevformer_torch.device import resolve as resolve_device
 from bevformer_torch.models import BEVFormer, BEVFormerV2
+from bevformer_torch.models import dd3d
 from bevformer_torch.models.attention import (
     CustomMSDeformableAttention,
     MSDeformableAttention3D,
@@ -141,12 +145,61 @@ def _with_batch_stats(params: Mapping, stats: Mapping) -> dict:
     return out
 
 
+def dd3d_state_dict(params: Mapping, stats: Mapping, num_levels: int,
+                    prefix: str = "fcos3d_bbox_head.") -> StateDict:
+    """JAX `NuscenesDD3D` params and batch_stats -> `models.dd3d.
+    NuscenesDD3D` state dict (reference keys, JAX `checkpoint.py:1093-1140`):
+    each tower conv with one BatchNorm per level, the predictors (the
+    FCOS3D ones wrapped at `.0`; `box3d_depth` without bias), the per-level
+    scales and depth offsets as [1] tensors, and the depth constants."""
+    sd: StateDict = {}
+    get, conv, _, _ = _converters(sd, params)
+    f2, f3 = f"{prefix}fcos2d_head", f"{prefix}fcos3d_head"
+
+    def conv_bias(dst, src):
+        conv(dst, src)
+        sd[f"{dst}.bias"] = get(f"{src}/bias")
+
+    for dst, src in ((f"{f2}.cls_tower", "cls_tower"), (f"{f2}.box2d_tower", "box2d_tower"),
+                     (f"{f3}.box3d_tower", "box3d_tower")):
+        for i in range(dd3d.NUM_CONVS):
+            conv(f"{dst}.{i}", f"{src}/conv{i}")
+            for lvl in range(num_levels):
+                bn, node = f"{dst}.{i}.norm.{lvl}", f"{src}/bn{i}_l{lvl}"
+                sd[f"{bn}.weight"] = get(f"{node}/scale")
+                sd[f"{bn}.bias"] = get(f"{node}/bias")
+                sd[f"{bn}.running_mean"] = get(f"{node}/mean", stats)
+                sd[f"{bn}.running_var"] = get(f"{node}/var", stats)
+    for nm in ("cls_logits", "box2d_reg", "centerness"):
+        conv_bias(f"{f2}.{nm}", nm)
+    for nm in ("box3d_quat", "box3d_ctr", "box3d_size", "box3d_conf"):
+        conv_bias(f"{f3}.{nm}.0", nm)
+    conv(f"{f3}.box3d_depth.0", "box3d_depth")
+    for nm in ("attr_logits", "speed"):
+        conv_bias(f"{prefix}{nm}", nm)
+    for lvl in range(num_levels):
+        sd[f"{f2}.scales_box2d_reg.{lvl}.scale"] = get(f"scale_box2d_l{lvl}").reshape(1)
+        for name, src in (("proj_ctr", "proj_ctr"), ("size", "size"), ("conf", "conf"),
+                          ("depth", "depth")):
+            sd[f"{f3}.scales_{name}.{lvl}.scale"] = get(f"scale_{src}_l{lvl}").reshape(1)
+        sd[f"{f3}.offsets_depth.{lvl}.bias"] = get(f"offset_depth_l{lvl}").reshape(1)
+    sd[f"{f3}.mean_depth_per_level"] = np.asarray(dd3d.MEAN_DEPTH_PER_LEVEL[:num_levels],
+                                                  np.float32)
+    sd[f"{f3}.std_depth_per_level"] = np.asarray(dd3d.STD_DEPTH_PER_LEVEL[:num_levels],
+                                                 np.float32)
+    return sd
+
+
 def state_dict_from_jax_v2(variables: Mapping[str, Any], cfg) -> StateDict:
     """JAX BEVFormerV2 variables (`{'params', 'batch_stats'}`, numpy
-    leaves) -> reference-keyed state dict of the port's `BEVFormerV2`. The
-    DD3D head's params (`fcos3d_bbox_head`, training only) are left out."""
-    return state_dict_from_jax(
-        _with_batch_stats(variables["params"], variables.get("batch_stats", {})), cfg)
+    leaves) -> reference-keyed state dict of the port's `BEVFormerV2`, the
+    DD3D head's (`fcos3d_bbox_head`) where the params hold one."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd = state_dict_from_jax(_with_batch_stats(params, stats), cfg)
+    if cfg.num_mono_levels > 0 and "fcos3d_bbox_head" in params:
+        sd.update(dd3d_state_dict(params["fcos3d_bbox_head"], stats["fcos3d_bbox_head"],
+                                  cfg.num_mono_levels))
+    return sd
 
 
 def state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict:
@@ -328,10 +381,40 @@ def init_state_dict(cfg, seed: int = 0) -> StateDict:
     tr = f"{hd}.transformer"
     normal(f"{tr}.level_embeds", 1.0)
     normal(f"{tr}.cams_embeds", 1.0)
+    if cfg.version == "v2" and cfg.num_mono_levels > 0:
+        # DD3D's initialisers (JAX `dd3d.py:225-262`): the focal prior on
+        # the class logits, the per-level scales and depth offsets, the
+        # depth constants
+        m = model.fcos3d_bbox_head
+        const("fcos3d_bbox_head.fcos2d_head.cls_logits.bias", bias_init_with_prob(0.01))
+        for name, sub in m.named_modules():
+            if isinstance(sub, (dd3d.Scale, dd3d.Offset)):
+                key = f"fcos3d_bbox_head.{name}.{'scale' if isinstance(sub, dd3d.Scale) else 'bias'}"
+                sd[key] = dd3d_init_value(name, cfg.num_mono_levels)
+        f3 = "fcos3d_bbox_head.fcos3d_head"
+        n = cfg.num_mono_levels
+        sd[f"{f3}.mean_depth_per_level"] = np.asarray(dd3d.MEAN_DEPTH_PER_LEVEL[:n], np.float32)
+        sd[f"{f3}.std_depth_per_level"] = np.asarray(dd3d.STD_DEPTH_PER_LEVEL[:n], np.float32)
     missing = set(shapes) - set(sd)
     if missing:
         raise AssertionError(f"init_state_dict left keys unset: {sorted(missing)[:10]}")
     return sd
+
+
+def dd3d_init_value(name: str, num_levels: int) -> np.ndarray:
+    """The [1] init of DD3D's per-level scale or offset `name`
+    (`<head>.scales_<kind>.<level>` or `fcos3d_head.offsets_depth.<level>`)
+    as JAX's `NuscenesDD3D` sets it."""
+    kind, lvl = name.split(".")[-2], int(name.split(".")[-1])
+    value = {
+        "scales_box2d_reg": dd3d.STRIDES[lvl] * dd3d.BOX2D_SCALE_INIT,
+        "scales_proj_ctr": dd3d.STRIDES[lvl] * dd3d.PROJ_CTR_SCALE_INIT,
+        "scales_size": 1.0,
+        "scales_conf": 1.0,
+        "scales_depth": dd3d.STD_DEPTH_PER_LEVEL[lvl] * dd3d.DEPTH_SCALE_INIT,
+        "offsets_depth": dd3d.MEAN_DEPTH_PER_LEVEL[lvl],
+    }[kind]
+    return np.full((1,), value, np.float32)
 
 
 def _detector(cfg) -> nn.Module:
@@ -363,26 +446,16 @@ def build_model(cfg, state_dict: Mapping[str, Any], device=DEFAULT_DEVICE) -> nn
     return model.to(device).eval()
 
 
-# the DD3D mono head's keys in a V2 checkpoint: training only, not ported
-MONO_HEAD_PREFIX = "fcos3d_bbox_head."
-
-
 def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     """`["state_dict"]` of a model-zoo-layout checkpoint (mmcv's
     `{"meta", "state_dict", "optimizer"}`), read with
     `torch.load(weights_only=True)`, less the BatchNorm `num_batches_tracked`
-    counters where it has them (FrozenBN keeps none) and less a V2
-    checkpoint's DD3D head (`fcos3d_bbox_head.*`, which only training runs;
-    their count is printed). `build_model` then loads it strictly: every
-    other key must be the port's."""
+    counters where it has them (FrozenBN keeps none). A V2 checkpoint's
+    DD3D head (`fcos3d_bbox_head.*`) is part of it. `build_model` then loads
+    it strictly: every key must be the port's."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = {k: v for k, v in ckpt["state_dict"].items()
-          if not k.endswith(".num_batches_tracked")}
-    mono = [k for k in sd if k.startswith(MONO_HEAD_PREFIX)]
-    if mono:
-        print(f"set aside {len(mono)} {MONO_HEAD_PREFIX}* tensors (the DD3D mono head, "
-              "training only)", flush=True)
-    return {k: v for k, v in sd.items() if not k.startswith(MONO_HEAD_PREFIX)}
+    return {k: v for k, v in ckpt["state_dict"].items()
+            if not k.endswith(".num_batches_tracked")}
 
 
 def save_checkpoint(path: str, trainer, step: int, epoch: int) -> None:

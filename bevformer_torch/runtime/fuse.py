@@ -11,7 +11,9 @@ as its bias; the BN goes. After a DCN conv2 the multiply folds into the DCN
 weight (its output channels), and the add stays behind as a per-channel
 `ChannelAdd`: K2 computes the DCN as it always does. The folded model gives
 the unfolded one's outputs up to fp32 rounding. It is for inference only:
-the folded model no longer has the reference's state-dict keys.
+the folded model no longer has the reference's state-dict keys, and a V2
+model's DD3D head (`fcos3d_bbox_head`, which only training runs; its
+per-level BatchNorms share one conv and do not fold) leaves it.
 """
 
 from __future__ import annotations
@@ -67,4 +69,6 @@ def fuse_conv_bn(model: nn.Module) -> nn.Module:
                     raise ValueError("fuse_conv_bn folds running statistics: put the model "
                                      "in eval mode first")
                 setattr(parent, bn_name, _fold(conv, bn))
+    if hasattr(model, "fcos3d_bbox_head"):
+        del model.fcos3d_bbox_head
     return model

@@ -10,7 +10,11 @@ Groups by the port's state-dict names: the stem (`img_backbone.conv1`) and
 stages 1..`frozen_stages` are frozen with `requires_grad=False`, so no
 backward runs below them and the clip sees trainable gradients only; the
 rest of `img_backbone.*` is the backbone group; everything else is main.
-FrozenBN statistics and affines are buffers and never train.
+FrozenBN statistics and affines (v1) are buffers and never train. V2
+(`frozen_stages=-1`, JAX `label_params(bn_trainable=True)`) freezes
+nothing: its BatchNorms' affines are backbone parameters, the DD3D head
+is main, and weight decay covers every trained parameter, as optax's
+`add_decayed_weights` does.
 """
 
 from __future__ import annotations

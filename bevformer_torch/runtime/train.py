@@ -19,6 +19,7 @@ from bevformer_torch.core.losses import bevformer_loss
 from bevformer_torch.device import fp32, precision
 from bevformer_torch.models import BEVFormer
 from bevformer_torch.runtime.optim import make_optimizer
+from bevformer_torch.runtime.train_v2 import loss_fn_v2
 
 
 class Batch(NamedTuple):
@@ -41,6 +42,10 @@ class Batch(NamedTuple):
     gt_boxes: torch.Tensor
     gt_labels: torch.Tensor
     num_gt: torch.Tensor
+
+    def tensors(self):
+        """Every tensor of the batch (for `record_stream`)."""
+        return list(self)
 
 
 def collate(samples: Sequence[dict], device) -> Batch:
@@ -122,12 +127,12 @@ def loss_fn(model: BEVFormer, batch: Batch) -> Tuple[torch.Tensor, Dict[str, tor
 
 
 def train_step(model, optimizer, scheduler, params, max_norm: float,
-               batch: Batch) -> Dict[str, float]:
-    """Zero grads, forward + backward, global clip, AdamW step, scheduler
-    step. Returns the loss terms, `grad_norm` (before clipping) and the `lr`
-    this step used."""
+               batch, loss=loss_fn) -> Dict[str, float]:
+    """Zero grads, forward + backward (`loss(model, batch)`), global clip,
+    AdamW step, scheduler step. Returns the loss terms, `grad_norm` (before
+    clipping) and the `lr` this step used."""
     optimizer.zero_grad(set_to_none=True)
-    total, losses = loss_fn(model, batch)
+    total, losses = loss(model, batch)
     total.backward()
     # global L2 clip over the trainable gradients; the norm before clipping
     grad_norm = torch.nn.utils.clip_grad_norm_(params, max_norm)
@@ -141,18 +146,19 @@ def train_step(model, optimizer, scheduler, params, max_norm: float,
 
 
 class Trainer:
-    """Model, AdamW, schedule and seed. The seed seeds dropout (torch's
-    global generators) and GridMask's own generator; the model trains in
-    train mode. `state_dict` / `load_state_dict` carry all of it, so a run
-    restored from one continues as the run that saved it would have."""
+    """Model, AdamW, schedule and seed, for a v1 `BEVFormer` (steps on a
+    `Batch`) or a `BEVFormerV2` (steps on a `train_v2.BatchV2`, its loss
+    `train_v2.loss_fn_v2`). The seed seeds dropout (torch's global
+    generators) and GridMask's own generator; the model trains in train
+    mode (V2: BatchNorm on batch statistics, its running statistics
+    updated). `state_dict` / `load_state_dict` carry all of it, the
+    BatchNorms' running statistics with the weights, so a run restored from
+    one continues as the run that saved it would have."""
 
     def __init__(self, model: BEVFormer, total_steps: int, seed: int = 0):
-        if model.cfg.version != "v1":
-            raise NotImplementedError(
-                f"training {model.cfg.name} ({model.cfg.version}): the V2 training path "
-                "(train_v2, DD3D, GroupDETR) is not ported yet (ROADMAP.md §1 item 7)")
         self.model = model.train()
         self.cfg = model.cfg
+        self.loss = loss_fn_v2 if model.cfg.version == "v2" else loss_fn
         torch.manual_seed(seed)
         model.grid_mask.generator.manual_seed(seed)
         self.optimizer, self.scheduler, self.params = make_optimizer(
@@ -165,7 +171,7 @@ class Trainer:
         device = next(self.model.parameters()).device
         with precision(self.cfg.dtype, device.type):
             return train_step(self.model, self.optimizer, self.scheduler, self.params,
-                              self.cfg.optim.grad_clip_norm, batch)
+                              self.cfg.optim.grad_clip_norm, batch, self.loss)
 
     def state_dict(self) -> dict:
         """Model (reference keys), optimizer, lr schedule, and the random

@@ -18,12 +18,12 @@ and, like `--format-only`, the nuScenes submission (`<out>_nusc.json`, or
 `results_nusc.json`).
 
 `--checkpoint` is a checkpoint of `bevformer_torch.tools.train` or a
-model-zoo `.pth` (the same `state_dict` layout; a V2 `.pth`'s DD3D head is
-set aside); without one the weights are `init_state_dict`'s, seed 0.
+model-zoo `.pth` (the same `state_dict` layout, a V2 `.pth`'s DD3D head
+included); without one the weights are `init_state_dict`'s, seed 0.
 `--fuse-conv-bn` folds the BatchNorms into the convs before them
 (`runtime.fuse.fuse_conv_bn`: the frozen BNs of v1, the backbone's and
-ResNetFusion's running statistics of V2; the same outputs up to fp32
-rounding). `--overlap-test` scores only the
+ResNetFusion's running statistics of V2, whose DD3D head, unused in
+inference, leaves the model; the same outputs up to fp32 rounding). `--overlap-test` scores only the
 boxes seen by more than one camera (NuScenesEval_custom's overlap_test). A
 line
 {"frames", "frame_ms", "load_ms", ...} reports each frame's (V2: each

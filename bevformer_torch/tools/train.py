@@ -1,4 +1,4 @@
-"""Training CLI: the v1 path of the JAX package's `tools/train.py`.
+"""Training CLI: the JAX package's `tools/train.py`, v1 and V2.
 
     python3 -m bevformer_torch.tools.train <config> --data-root DATA
         [--work-dir DIR] [--max-iters N] [--resume-from CKPT] [--load-from PTH]
@@ -7,8 +7,15 @@
 
 DATA holds `nuscenes_infos_temporal_train.pkl` (and `_val.pkl` for the
 in-training evaluation), as `bevformer_torch.tools.create_data synth`
-writes them. Each step takes `samples_per_gpu` samples of the
-`GroupShuffleSampler` order; an epoch is len(dataset) // samples_per_gpu
+writes them. Each step takes `samples_per_gpu` samples: for a v1 config
+of the `GroupShuffleSampler` order (`get_train_sample`); for a V2 config
+(`bevformerv2-r50-*`, JAX `_train_v2` :265-391) indices drawn uniformly,
+a sample without ground truth drawn again (`get_train_sample_v2`: the
+frames of `cfg.frames`, the resize ladder, the flip, GlobalRotScaleTrans
+and the DD3D targets). JAX draws them with `jax.random`; the port draws
+each step's indices, and seeds the dataset's augmentation draws, from
+generators of (`--seed`, step), so that a resumed run draws what the
+unbroken run would have. An epoch is len(dataset) // samples_per_gpu
 steps, the run `total_epochs` of them or `--max-iters` steps. A thread
 builds the batches two steps ahead (`BatchPrefetcher`); `train_log.jsonl`
 records, every `--log-interval` steps and at the last, the losses, grad
@@ -38,18 +45,25 @@ import threading
 import time
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from bevformer_torch.configs import apply_overrides, get_config
 from bevformer_torch.core.evaluation import evaluate_detections
-from bevformer_torch.data import GroupShuffleSampler, NuScenesTemporalDataset
+from bevformer_torch.data import (
+    GroupShuffleSampler,
+    NuScenesTemporalDataset,
+    NuScenesTemporalDatasetV2,
+)
 from bevformer_torch.device import resolve as resolve_device
 from bevformer_torch.kernels import launch_counts
 from bevformer_torch.runtime import (
     Trainer,
     VideoEvaluator,
+    VideoEvaluatorV2,
     build_model,
     collate,
+    collate_v2,
     init_state_dict,
     load_reference_pth,
     restore_checkpoint,
@@ -138,7 +152,7 @@ class BatchPrefetcher:
             stream.wait_event(ready)
             # the thread's stream made these tensors: keep their memory
             # from reuse until this stream is done with them
-            for t in batch:
+            for t in batch.tensors():
                 t.record_stream(stream)
         return batch, host_ms, (time.perf_counter() - t0) * 1e3
 
@@ -148,15 +162,18 @@ class BatchPrefetcher:
 
 
 def run_eval(model, cfg, data_root: str, work_dir: str, step: int, device) -> Optional[dict]:
-    """NDS/mAP over the val split (the reference's CustomDistEvalHook),
+    """NDS/mAP over the val split (the reference's CustomDistEvalHook; V2:
+    JAX `_run_eval_v2` :394, sample by sample through `VideoEvaluatorV2`),
     appended to `eval_log.jsonl`; the model goes back to train mode."""
     val_pkl = os.path.join(data_root, "nuscenes_infos_temporal_val.pkl")
     if not os.path.exists(val_pkl):
         print("eval skipped: no val pkl", flush=True)
         return None
-    ds = NuScenesTemporalDataset(val_pkl, cfg, data_root=data_root, device=device)
+    v2 = cfg.version == "v2"
+    ds = (NuScenesTemporalDatasetV2 if v2 else NuScenesTemporalDataset)(
+        val_pkl, cfg, data_root=data_root, device=device)
     try:
-        results = VideoEvaluator(model).run(ds, progress_every=0)
+        results = (VideoEvaluatorV2 if v2 else VideoEvaluator)(model).run(ds, progress_every=0)
     finally:
         model.train()
     m = evaluate_detections(results, ds.gt_by_token(range(len(ds))), verbose=True)
@@ -178,7 +195,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     with open(os.path.join(work_dir, "config.json"), "w") as f:
         json.dump({"config": args.config, "overrides": args.cfg_options}, f)
 
-    ds = NuScenesTemporalDataset(
+    v2 = cfg.version == "v2"
+    ds = (NuScenesTemporalDatasetV2 if v2 else NuScenesTemporalDataset)(
         os.path.join(args.data_root, "nuscenes_infos_temporal_train.pkl"), cfg,
         data_root=args.data_root, seed=args.seed, device=device,
     )
@@ -223,14 +241,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         return int(idx)
 
     def collect_batch(step: int):
+        if v2:
+            # the step's own generators (see the module's docstring)
+            ds.rng = np.random.RandomState([args.seed, step])
+            draw = np.random.default_rng([args.seed, step])
         samples, tries = [], 0
         while len(samples) < bs:
-            s = ds.get_train_sample(next_index(step))  # None: no GT (filter_empty_gt)
+            # None: no GT (filter_empty_gt)
+            s = (ds.get_train_sample_v2(int(draw.integers(len(ds)))) if v2
+                 else ds.get_train_sample(next_index(step)))
             tries += 1
             if s is not None:
                 samples.append(s)
             if tries > 10 * bs + 100:
                 raise RuntimeError("the dataset yielded no sample with ground truth")
+        if v2:
+            return collate_v2(samples, device)
         return collate(samples, device)
 
     log_path = os.path.join(work_dir, "train_log.jsonl")

@@ -14,7 +14,9 @@ Phases, each printed as it runs:
      (corner rows x 128 B over the time) and, as a yardstick, K7
      (msda_fwd_ho) at the same shapes; then the same at a BEVFormerV2
      sample's shapes (SCA over the 4 levels of a 640 x 1600 input), with
-     each shape's bound and share of it;
+     each shape's bound and share of it; then at V2 training's new shapes
+     (`[k1-v2-train]`: the decoder over 900 x 11 GroupDETR queries, SCA
+     over the 768 rung's levels);
   4. K2 (dcn_conv_fwd) against its plain version at the stage-3 and stage-4
      shapes, with offsets past +-2 px and off the image, with times, its
      TFLOP/s, the error of both against a float64 product and, as a
@@ -30,7 +32,7 @@ Phases, each printed as it runs:
      dValue) against their plain versions at bevformer_tiny_fp16's three
      shapes and at bevformer_base's SCA (output and dValue within one bf16
      ulp at their scale, dLoc and dAttw 1e-3), with times and bounds at
-     bf16's 2-byte value rows;
+     bf16's 2-byte value rows; and K3/K4 at V2 training's two new shapes;
   6. K5/K6 (dcn_im2col, dcn_col2im) and the DCN backward they make with two
      matrix products, against autograd through the plain DCN at K2's shapes,
      with times of each kernel alone, K5's share of its bound and the share
@@ -105,7 +107,17 @@ Phases, each printed as it runs:
      branches' outputs x0.1; the V2 crop of the 900-row cameras) over the
      val frames with and without `--fuse-conv-bn`: 18 K1
      launches per sample, NDS/mAP (0 at seeded weights: a plumbing check),
-     the same decoded boxes. The root is removed;
+     the same decoded boxes. Then `tools.train bevformerv2-r50-t1` (the V2
+     crop, a rung of the resize ladder, the flip and GlobalRotScaleTrans
+     per sample, GroupDETR, DD3D) for 4 steps with a checkpoint, resumed to
+     8 (the train split's epoch) with the in-training eval at its end: 18
+     K1 and 18 K3/K4 launches per step, the restored step, lr and
+     generators the saved ones, its step, host and data-wait medians and
+     peak. Then `tools.train bevformerv2-r50-t8` for 3 steps (8 frames of
+     6 images a sample in the data thread; 102 K1 and 18 K3/K4 launches
+     per step): its step, host and data-wait medians; and one frame's
+     photometric distortion timed on the host and on the card. The root is
+     removed;
   13. the other v1 presets, bevformer_tiny, bevformer_small and
      bevformer_tiny_fp16 (bf16), each at full size with seeded weights: the
      4-frame video on the kernel path (launches per frame, frame median,
@@ -122,11 +134,24 @@ Phases, each printed as it runs:
      in eval mode, the sample median, the ResNetFusion time from CUDA
      events around it, peak memory, and phase 10's witness against the
      plain and noisy plain paths (undamped within 10x; reg outputs x0.1 to
-     1e-3, the same decoded scores).
+     1e-3, the same decoded scores);
+  15. BEVFormerV2 training at full size with seeded weights
+     (`Trainer.step` on `train_batch_v2`: GridMask, dropout, BatchNorm on
+     batch statistics, GroupDETR's 11 groups, DD3D over 5 levels):
+     bevformerv2-r50-t1 4 steps at the 640 rung (6 x 640 x 1600), then one
+     at the 768 rung (6 x 768 x 1920) with its peak memory; t8 4 steps
+     (7 history frames without gradient, ResNetFusion's forward and
+     backward from CUDA events). Each step's losses, K1 and K3/K4
+     launches (18 / 18; t8 102 / 18) and cost transfers to the host (1),
+     every parameter and running statistic moved, the step median and the
+     peak; then t1's training witness, as phase 9's, with dropout and
+     GridMask off and BatchNorm in train mode.
 
 The line before the last is the kernels' JSON record (bf16 K1 and K3/K4
 with the launches of tiny_fp16's training run; K1 also with its launches on
-the V2 presets' samples and its times at V2's shapes): for each kernel its
+the V2 presets' samples and its times at V2's shapes; K1 and K3/K4 with
+their launches per V2 training step and times at V2 training's new
+shapes): for each kernel its
 time, launches, plain version's time, bound (bevformer_torch/tools/
 roofline.py, against the H100 SXM data sheet's peaks) and what bounds it,
 and the time of one PyTorch call that computes the same function, or null
@@ -1656,6 +1681,254 @@ def check_training_witness(device, smi):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- V2 training
+
+# (preset, steps at the 640 rung); t1 also takes one step at V2_BIG_RUNG
+V2_TRAIN = (("bevformerv2-r50-t1", 4), ("bevformerv2-r50-t8", 4))
+V2_BIG_RUNG = 768
+V2_GROUPS = GROUPS[:-1] + (("mono", "fcos3d_bbox_head."),) + GROUPS[-1:]
+# K1 and K3/K4 at V2 training's new shapes: the decoder over 900 x 11
+# GroupDETR queries, SCA over the 768 rung's levels (6 x 768 x 1920 input)
+K1_V2_TRAIN_CASES = [
+    ("decoder x11 groups", 1, 9900, 8, 32, ((200, 200),), 4, 6),
+    ("sca 768 rung", 6, 10112, 8, 32, ((96, 240), (48, 120), (24, 60), (12, 30)), 8, 6),
+]
+
+
+def v2_train_per_step(cfg) -> dict:
+    """Launches per V2 training step: K1 in every encoder layer of every
+    frame encoded and in the decoder once; K3/K4 once per K1 call of the
+    current frame; nothing else."""
+    zero = v2_per_sample(cfg)
+    return dict(zero, msda_bwd=2 * cfg.encoder_layers + cfg.decoder_layers)
+
+
+def check_k34_v2(device, gen):
+    """K3/K4 against autograd through the plain msda at V2 training's new
+    shapes (`K1_V2_TRAIN_CASES`)."""
+    import torch
+    from bevformer_torch.tools import roofline
+
+    rows = []
+    for name, b, q, h, d, shapes, p, per_step in K1_V2_TRAIN_CASES:
+        value, loc, attw = msda_inputs(b, q, h, d, shapes, p, gen, device)
+        g = torch.randn((b, q, h * d), generator=gen, device=device)
+        cost = roofline.msda_bwd(b, q, h, d, shapes, p)
+        rows.append(dict(shape=name, per_step=per_step, bound_ms=cost.bound_ms,
+                         bound_by=cost.bound_by,
+                         **k34_case(f"v2-train {name}", value, shapes, loc, attw, g, cost)))
+        del value, loc, attw, g
+    return rows
+
+
+@contextmanager
+def fusion_timer(model):
+    """CUDA events around ResNetFusion's forward and its backward (from
+    the gradient of its output to that of the current frame's BEV, its one
+    input with a gradient); yields a list of [fwd_start, fwd_end,
+    bwd_start, bwd_end] per call (empty without a fusion)."""
+    import torch
+
+    calls = []
+    tr = model.pts_bbox_head.transformer
+    if not hasattr(tr, "fusion"):
+        yield calls
+        return
+    cur = model.cfg.frames.index(0)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def pre(m, inputs):
+        calls.append([event()])
+
+    def post(m, inputs, out):
+        calls[-1].append(event())
+        rec = calls[-1]
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.append(event()))
+            inputs[0][cur].register_hook(lambda g: rec.append(event()))
+
+    hooks = [tr.fusion.register_forward_pre_hook(pre), tr.fusion.register_forward_hook(post)]
+    try:
+        yield calls
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def v2_step_line(out) -> str:
+    mono = sum(v for k, v in out.items() if k.endswith("_mono"))
+    return (f"loss {out['total']:.4f} (cls {out['loss_cls']:.4f}, bbox {out['loss_bbox']:.4f}, "
+            f"mono {mono:.4f}), grad_norm {out['grad_norm']:.3f}, lr {out['lr']:.4e}")
+
+
+def v2_train_steps(trainer, batch, steps, tag):
+    """`steps` V2 train steps, each timed on the host clock between device
+    syncs with its launches and cost transfers counted: (seconds, launches,
+    transfers) per step."""
+    import torch
+    from bevformer_torch.core.assigner import assign_costs
+    from bevformer_torch.kernels import launch_counts
+
+    secs, per_step, transfers = [], [], []
+    for step in range(steps):
+        start, moved = launch_counts(), assign_costs.transfers
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = trainer.step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        per_step.append({k: v - start[k] for k, v in launch_counts().items()})
+        transfers.append(assign_costs.transfers - moved)
+        log(f"{tag} step {step}: {v2_step_line(out)}, {secs[-1]:.4f} s, K1 "
+            f"{per_step[-1]['msda_fwd']}, K3/K4 {per_step[-1]['msda_bwd']}, cost transfers "
+            f"{transfers[-1]}")
+        check(all(math.isfinite(v) for v in out.values()), f"{tag} step {step}: not finite: {out}")
+    return secs, per_step, transfers
+
+
+def train_grads_v2(model, batch):
+    """The V2 loss in the model's mode and its gradients per `V2_GROUPS`
+    group; the BatchNorms' running statistics are put back after it."""
+    import torch
+    from bevformer_torch.runtime import loss_fn_v2
+
+    stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k
+             or k.endswith("num_batches_tracked")}
+    model.zero_grad(set_to_none=True)
+    total, _ = loss_fn_v2(model, batch)
+    total.backward()
+    grads = {}
+    for g, prefix in V2_GROUPS:
+        grads[g] = torch.cat([p.grad.reshape(-1) for n, p in model.named_parameters()
+                              if next(gg for gg, pre in V2_GROUPS if n.startswith(pre)) == g])
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict(stats, strict=False)
+    torch.cuda.empty_cache()
+    return float(total.detach()), grads
+
+
+def v2_training_witness(name, device, smi):
+    """The V2 training witness at full size: dropout and GridMask off,
+    BatchNorm in train mode, every GroupDETR group and DD3D on; loss and
+    per-group gradients of the kernel path against the plain path, held to
+    phase 9's rule (`witness_failures`), undamped and with the reg
+    branches' outputs x0.1."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.data.synth import train_batch_v2
+    from bevformer_torch.kernels import launch_counts
+    from bevformer_torch.runtime import build_model, init_state_dict
+
+    cfg = get_config(name, use_grid_mask=False)
+    model = build_model(cfg, init_state_dict(cfg, seed=0), device).train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.eval()
+    batch = train_batch_v2(cfg, seed=WITNESS_BATCH_SEED, device=device)
+    out = {}
+    for damped in (False, True):
+        if damped:
+            damp_box_refinement(model)
+        kernel = train_grads_v2(model, batch)
+        counts = launch_counts()
+        with plain_kernels(recompute=True):
+            plain = train_grads_v2(model, batch)
+        with plain_kernels(noise=WITNESS_NOISE, recompute=True):
+            noisy = train_grads_v2(model, batch)
+        check(launch_counts() == counts, "the plain run launched a kernel")
+        errs, noise_errs = grad_errors(kernel, plain), grad_errors(noisy, plain)
+        tag = "reg branch outputs x0.1" if damped else "undamped"
+        log(f"[v2-train] {name} witness ({tag}; BN in train mode, dropout and GridMask off): "
+            f"kernel vs plain: {fmt_errors(errs)}; noisy plain vs plain: {fmt_errors(noise_errs)}"
+            f"; card: {smi}")
+        fails = witness_failures(errs, noise_errs, damped=damped)
+        check(not fails, f"{name} training witness: " + "; ".join(fails))
+        out["damped" if damped else "undamped"] = errs
+        out[("damped" if damped else "undamped") + "_noisy"] = noise_errs
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_v2_training(name, steps, device, smi):
+    """A V2 preset at full size with seeded weights: `steps` AdamW steps
+    (`Trainer.step`, train mode: GridMask, dropout, BatchNorm on batch
+    statistics, GroupDETR's groups, DD3D) on a seeded synthetic batch at the
+    640 rung (`train_batch_v2`): K1 and K3/K4 launches and cost transfers
+    per step, finite losses, every parameter and BN running statistic
+    moved, the step median and peak memory, ResNetFusion's forward and
+    backward (t8). t1 also takes one step at the 768 rung (its peak) and the
+    training witness."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.data.synth import train_batch_v2
+    from bevformer_torch.kernels import zero_counts
+    from bevformer_torch.runtime import Trainer, build_model, init_state_dict
+
+    cfg = get_config(name)
+    want = v2_train_per_step(cfg)
+    t0 = time.perf_counter()
+    model = build_model(cfg, init_state_dict(cfg, seed=0), device)
+    trainer = Trainer(model, total_steps=TRAIN_TOTAL_STEPS, seed=0)
+    batch = train_batch_v2(cfg, seed=0, device=device)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    n_mono = int(batch.mono_targets["num_gt"].sum())
+    log(f"[v2-train] {name}: frames {cfg.frames}, {cfg.data.num_cams} x "
+        f"{tuple(batch.images.shape[-3:-1])} images (640 rung), {int(batch.num_gt[0])} GT boxes "
+        f"({n_mono} DD3D targets over the cameras), GroupDETR {cfg.group_detr} x "
+        f"{cfg.num_query} queries, DD3D over {cfg.num_mono_levels} levels, "
+        f"{sum(p.numel() for p in trainer.params)} trainable parameters; ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    with fusion_timer(model) as fusion:
+        secs, per_step, transfers = v2_train_steps(trainer, batch, steps, f"[v2-train] {name}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    for step, c in enumerate(per_step):
+        check(c == want, f"{name} step {step} launched {c}, expected {want}")
+    check(all(n == 1 for n in transfers), f"{name}: cost transfers per step {transfers}")
+    for key, value in model.state_dict().items():
+        if not key.endswith(("num_batches_tracked", "_depth_per_level")):
+            check(not torch.equal(value, before[key]), f"{name}: {key} did not move")
+    median = median_of(secs[1:]) * 1e3
+    res = dict(name=name, step_ms=median, peak_gib=peak / 2**30, per_step=want)
+    fusion_line = ""
+    if fusion:
+        fwd = [c[0].elapsed_time(c[1]) for c in fusion]
+        bwd = [c[2].elapsed_time(c[3]) for c in fusion if len(c) == 4]
+        res.update(fusion_fwd_ms=median_of(fwd[1:]), fusion_bwd_ms=median_of(bwd[1:]))
+        fusion_line = (f"; ResNetFusion forward {', '.join(f'{x:.2f}' for x in fwd)} ms, backward "
+                       f"{', '.join(f'{x:.2f}' for x in bwd)} ms (CUDA events)")
+    log(f"[v2-train] {name}: step seconds {', '.join(f'{x:.4f}' for x in secs)}; median of "
+        f"steps 1-{steps - 1}: {median:.1f} ms; K1 {want['msda_fwd']} and K3/K4 "
+        f"{want['msda_bwd']} launches per step; 1 cost transfer per step; every parameter and "
+        f"running statistic moved; peak memory {peak / 2**30:.2f} GiB{fusion_line}; card: {smi}")
+    if name == "bevformerv2-r50-t1":
+        del batch
+        big = train_batch_v2(cfg, seed=1, device=device, rung=V2_BIG_RUNG)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        secs, per_step, _ = v2_train_steps(trainer, big, 1, f"[v2-train] {name} {V2_BIG_RUNG} rung")
+        check(per_step[0] == want, f"{name} {V2_BIG_RUNG} rung launched {per_step[0]}")
+        res.update(big_step_ms=secs[0] * 1e3,
+                   big_peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+        log(f"[v2-train] {name}: one step at the {V2_BIG_RUNG} rung ({cfg.data.num_cams} x "
+            f"{tuple(big.images.shape[-3:-1])} images) {secs[0] * 1e3:.1f} ms (its first), peak "
+            f"memory {res['big_peak_gib']:.2f} GiB; card: {smi}")
+        del big
+    del trainer, model, before
+    torch.cuda.empty_cache()
+    if name == "bevformerv2-r50-t1":
+        res["witness"] = v2_training_witness(name, device, smi)
+    return res
+
+
 # ---------------------------------------------------------------- CLIs
 
 CLI_TRAIN_STEPS = 4  # tools.train, then tools.train --resume-from to CLI_RESUME_STEPS
@@ -1712,8 +1985,12 @@ def perfect_detector(data_root, cfg, device):
 
 
 def median_of(xs):
-    xs = sorted(xs)
-    return xs[len(xs) // 2] if xs else float("nan")
+    """The median (of an even count, the mean of the middle two); NaN of
+    none."""
+    xs, m = sorted(xs), len(xs) // 2
+    if not xs:
+        return float("nan")
+    return xs[m] if len(xs) % 2 else (xs[m - 1] + xs[m]) / 2
 
 
 FP16_CLI_STEPS = 2  # tools.fp16.train bevformer_tiny
@@ -1857,6 +2134,157 @@ def check_cli_v2(data, root, smi):
                 v2_fuse_score_err=fold["score_err"], v2_fuse_box_err=fold["box_err"])
 
 
+# tools.train bevformerv2-r50-t1 on phase 12's root: CLI_TRAIN_STEPS steps,
+# then resumed to the end of the train split's first epoch (the root's 8
+# train frames at batch 1), where the in-training eval runs
+V2_CLI_RESUME_STEPS = 8
+
+
+def check_cli_v2_train(data, root, smi):
+    """`tools.train bevformerv2-r50-t1` on the phase's root (V2 crops its
+    900-row cameras, draws a rung of the ladder, the flip and
+    GlobalRotScaleTrans per sample): CLI_TRAIN_STEPS steps with a
+    checkpoint, then `--resume-from` it to V2_CLI_RESUME_STEPS with
+    `--eval-interval-epochs 1` (the eval at the epoch's end, through
+    `VideoEvaluatorV2`): finite losses, K1 and K3/K4 launches per step (and
+    the eval's K1 per val sample), the restored step, lr and generators
+    the saved ones, an NDS/mAP line. Returns
+    the step, host and data-wait medians and the peak."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.tools.train import rng_digests
+
+    from bevformer_torch.data.dataset import load_infos
+
+    name = "bevformerv2-r50-t1"
+    work = os.path.join(root, "work_v2")
+    cfg = get_config(name)
+    want = v2_train_per_step(cfg)
+    # the in-training eval's K1 launches: every val sample's
+    n_val = len(load_infos(os.path.join(data, "nuscenes_infos_temporal_val.pkl"))[0])
+    per_eval = times(v2_per_sample(cfg), n_val)
+
+    def train(steps, evals, *more):
+        what = f"tools.train {name} to step {steps}"
+        recs, secs = run_cli(["bevformer_torch.tools.train", name, "--data-root", data,
+                              "--work-dir", work, "--max-iters", str(steps), "--log-interval",
+                              "1", "--eval-interval-epochs", "1", *more], what)
+        logged = [r for r in recs if "step_ms" in r and "done" not in r]
+        done = one(recs, "done", what)
+        for r in logged:
+            check(all(math.isfinite(v) for v in r.values() if isinstance(v, float)), f"{what}: {r}")
+        expect = {k: v * done["steps"] + evals * per_eval[k] for k, v in want.items()}
+        check(done["launches"] == expect, f"{what}: launches {done['launches']}, want {expect}")
+        log(f"[cli] {what}: {secs:.1f} s, peak {done['peak_gib']} GiB, launches "
+            f"{done['launches']}; steps: " + "; ".join(
+                f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms host "
+                f"{r['host_ms']:.1f} ms wait {r['data_wait_ms']:.1f} ms" for r in logged))
+        return recs, logged, done
+
+    _, first, first_done = train(CLI_TRAIN_STEPS, 0)
+    ckpt_path = os.path.join(work, "ckpts", f"iter_{CLI_TRAIN_STEPS}.pth")
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    saved = dict(step=ckpt["step"], lr=ckpt["scheduler"]["_last_lr"], rng=rng_digests(ckpt["rng"]))
+    n_mono = sum(k.startswith("fcos3d_bbox_head.") for k in ckpt["state_dict"])
+    del ckpt
+    recs, second, second_done = train(V2_CLI_RESUME_STEPS, 1, "--resume-from", ckpt_path)
+    resumed = one(recs, "resumed_from", f"tools.train {name} --resume-from")
+    restored = {k: resumed[k] for k in saved}
+    check(restored == saved, f"{name}: restored {restored} != saved {saved}")
+    check([r["step"] for r in first + second] == list(range(V2_CLI_RESUME_STEPS)),
+          f"{name}: the two runs did not log steps 0-{V2_CLI_RESUME_STEPS - 1} once each")
+    ev = one(recs, "NDS", f"tools.train {name} in-training eval")
+    check(ev["step"] == V2_CLI_RESUME_STEPS and math.isfinite(ev["NDS"]), f"{name} eval {ev}")
+    steady = first[1:] + second[1:]
+    res = dict(v2_train_step_ms=median_of([r["step_ms"] for r in steady]),
+               v2_train_host_ms=median_of([r["host_ms"] for r in steady]),
+               v2_train_data_wait_ms=median_of([r["data_wait_ms"] for r in steady]),
+               v2_train_peak_gib=max(first_done["peak_gib"] or 0, second_done["peak_gib"] or 0))
+    log(f"[cli] {name}: checkpoint with {n_mono} fcos3d_bbox_head tensors; saved {saved}, "
+        f"restored the same; in-training eval at step {ev['step']}: NDS {ev['NDS']!r} mAP "
+        f"{ev['mAP']!r}; medians: step {res['v2_train_step_ms']:.1f} ms, host "
+        f"{res['v2_train_host_ms']:.1f} ms, data wait {res['v2_train_data_wait_ms']:.1f} ms; "
+        f"peak {res['v2_train_peak_gib']} GiB; card: {smi}")
+    return res
+
+
+# tools.train bevformerv2-r50-t8 on phase 12's root (8 frames of 6 images
+# a sample): steps 1-2 time its data thread against its step
+V2_T8_CLI_STEPS = 3
+PHOTOMETRIC_REPEATS = 3  # timed calls of the distortion on each device
+
+
+def photometric_times(smi):
+    """One frame's photometric distortion (`pipeline.photometric_distortion`
+    on 6 x 900 x 1600 uint8 images, the CLI root's cameras, taken back to
+    the host as uint8 as `dataset_v2` does) on the host's cores and on the
+    card: the median of PHOTOMETRIC_REPEATS timed calls after one warm-up
+    each, and the largest difference of their outputs."""
+    import numpy as np
+    import torch
+    from bevformer_torch.data.pipeline import photometric_distortion
+
+    imgs = np.random.RandomState(0).randint(0, 256, (6, 900, 1600, 3), np.uint8)
+
+    def run(device):
+        rng = np.random.RandomState(0)
+        t = time.perf_counter()
+        out = photometric_distortion(torch.from_numpy(imgs).to(device).float(), rng)
+        out = out.clamp_(0, 255).to(torch.uint8).cpu().numpy()
+        return time.perf_counter() - t, out
+
+    res, outs = {}, {}
+    for device in ("cpu", "cuda"):
+        run(device)
+        secs = []
+        for _ in range(PHOTOMETRIC_REPEATS):
+            dt, outs[device] = run(device)
+            secs.append(dt)
+        res[device] = median_of(secs) * 1e3
+    diff = int(np.abs(outs["cpu"].astype(np.int16) - outs["cuda"]).max())
+    log(f"[cli] photometric distortion of one frame (6 x 900 x 1600, as uint8 back on the "
+        f"host): host {res['cpu']:.1f} ms ({torch.get_num_threads()} threads), card "
+        f"{res['cuda']:.1f} ms (median of {PHOTOMETRIC_REPEATS}); outputs differ by at most "
+        f"{diff}; card: {smi}")
+    return dict(photometric_host_ms=res["cpu"], photometric_card_ms=res["cuda"])
+
+
+def check_cli_v2_train_t8(data, root, smi):
+    """`tools.train bevformerv2-r50-t8` on the phase's root for
+    V2_T8_CLI_STEPS steps: each sample's 8 frames of 6 PNGs through the
+    photometric distortion, PIL's resize and the flip in the data thread,
+    against t8's step. Finite losses, 102 K1 and 18 K3/K4 launches per
+    step; the medians of steps 1-2 of the step, host and data-wait times,
+    and the peak."""
+    from bevformer_torch.configs import get_config
+
+    name = "bevformerv2-r50-t8"
+    what = f"tools.train {name} to step {V2_T8_CLI_STEPS}"
+    want = v2_train_per_step(get_config(name))
+    recs, secs = run_cli(["bevformer_torch.tools.train", name, "--data-root", data, "--work-dir",
+                          os.path.join(root, "work_v2_t8"), "--max-iters", str(V2_T8_CLI_STEPS),
+                          "--log-interval", "1"], what)
+    logged = [r for r in recs if "step_ms" in r and "done" not in r]
+    done = one(recs, "done", what)
+    for r in logged:
+        check(all(math.isfinite(v) for v in r.values() if isinstance(v, float)), f"{what}: {r}")
+    check([r["step"] for r in logged] == list(range(V2_T8_CLI_STEPS)), f"{what}: logged {logged}")
+    expect = {k: v * done["steps"] for k, v in want.items()}
+    check(done["launches"] == expect, f"{what}: launches {done['launches']}, want {expect}")
+    steady = logged[1:]
+    res = dict(v2_t8_train_step_ms=median_of([r["step_ms"] for r in steady]),
+               v2_t8_train_host_ms=median_of([r["host_ms"] for r in steady]),
+               v2_t8_train_data_wait_ms=median_of([r["data_wait_ms"] for r in steady]),
+               v2_t8_train_peak_gib=done["peak_gib"])
+    log(f"[cli] {what}: {secs:.1f} s, launches {done['launches']}; steps: " + "; ".join(
+        f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms host {r['host_ms']:.1f} "
+        f"ms wait {r['data_wait_ms']:.1f} ms" for r in logged)
+        + f"; medians of steps 1-{V2_T8_CLI_STEPS - 1}: step {res['v2_t8_train_step_ms']:.1f} "
+        f"ms, host {res['v2_t8_train_host_ms']:.1f} ms, data wait "
+        f"{res['v2_t8_train_data_wait_ms']:.1f} ms; peak {done['peak_gib']} GiB; card: {smi}")
+    return res
+
+
 def check_cli(smi):
     """The port's CLIs as a user runs them, each its own process, at
     bevformer_base full size: create_data synth at its defaults (2 scenes x
@@ -1950,6 +2378,9 @@ def check_cli(smi):
         perfect_detector(data, cfg, "cuda")
         fp16 = check_cli_fp16_and_fuse(data, root, smi)
         v2 = check_cli_v2(data, root, smi)
+        v2.update(check_cli_v2_train(data, root, smi))
+        v2.update(check_cli_v2_train_t8(data, root, smi))
+        v2.update(photometric_times(smi))
 
         # each run's first step carries its process's warm-up
         steady = first_steps[1:] + second_steps[1:]
@@ -2010,8 +2441,10 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(0)
     k1_rows = check_k1(device, gen)
     k1_v2_rows = check_k1(device, gen, K1_V2_CASES, "k1-v2")
+    k1_v2_train_rows = check_k1(device, gen, K1_V2_TRAIN_CASES, "k1-v2-train")
     k2_rows = check_k2(device, gen)
     k34_rows = check_k34(device, gen)
+    k34_v2_train_rows = check_k34_v2(device, gen)
     bf16_fwd_rows, bf16_bwd_rows = check_bf16_msda(device, gen)
     im2col_rows, col2im_rows = check_k56(device, gen)
     torch.cuda.empty_cache()
@@ -2030,6 +2463,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     presets = {name: check_preset(name, device, smi) for name in PRESETS}
     v2 = {name: check_v2(name, device, smi) for name in V2_PRESETS}
+    torch.cuda.empty_cache()
+    v2_train = {name: check_v2_training(name, steps, device, smi) for name, steps in V2_TRAIN}
 
     def record(name, src, replaces, rows, per, library_note, counts=tr["counts"]):
         bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
@@ -2084,6 +2519,16 @@ def main() -> int:
     kernels[0]["v2_shapes"] = k1_v2_rows
     kernels[0]["v2_ms_per_frame"] = sum(r["ms"] * r["per_frame"] for r in k1_v2_rows)
     kernels[0]["v2_bound_ms_per_frame"] = v2_bound["bound_ms"]
+    # K1 and K3/K4 at V2 training's new shapes (per call), and their
+    # launches per V2 training step of each preset
+    for r in k1_v2_train_rows:
+        cost = r.pop("cost")
+        r.update(bound_ms=cost.bound_ms, bound_by=cost.bound_by)
+    kernels[0]["v2_train_shapes"] = k1_v2_train_rows
+    kernels[2]["v2_train_shapes"] = k34_v2_train_rows
+    for i, key in ((0, "msda_fwd"), (2, "msda_bwd")):
+        kernels[i]["v2_train_launches_per_step"] = {
+            name: r["per_step"][key] for name, r in v2_train.items()}
     # launches: the training run's (all five kernels); the inference run's too
     kernels[0]["inference_launches"] = sl["k1"]
     kernels[1]["inference_launches"] = sl["k2"]
@@ -2116,6 +2561,22 @@ def main() -> int:
             f"{r['peak_gib']:.2f} GiB, {r['k1_per_sample']} K1 launches per sample; on {smi}")
     log(f"[summary] CLIs: tools.test bevformerv2-r50-t1-base sample median "
         f"{cli['v2_sample_ms']:.1f} ms, with --fuse-conv-bn {cli['v2_fused_sample_ms']:.1f} ms")
+    for r in v2_train.values():
+        extra = (f", one step at the {V2_BIG_RUNG} rung {r['big_step_ms']:.1f} ms with peak "
+                 f"{r['big_peak_gib']:.2f} GiB" if "big_step_ms" in r else "")
+        fusion = (f", ResNetFusion forward {r['fusion_fwd_ms']:.2f} / backward "
+                  f"{r['fusion_bwd_ms']:.2f} ms" if "fusion_fwd_ms" in r else "")
+        log(f"[summary] {r['name']} training (fp32): step median {r['step_ms']:.1f} ms, peak "
+            f"{r['peak_gib']:.2f} GiB at the 640 rung{extra}{fusion}; K1 "
+            f"{r['per_step']['msda_fwd']}, K3/K4 {r['per_step']['msda_bwd']} launches per step; "
+            f"on {smi}")
+    log(f"[summary] CLIs: tools.train bevformerv2-r50-t1 step median "
+        f"{cli['v2_train_step_ms']:.1f} ms (host {cli['v2_train_host_ms']:.1f} ms, data wait "
+        f"{cli['v2_train_data_wait_ms']:.1f} ms), peak {cli['v2_train_peak_gib']} GiB; "
+        f"bevformerv2-r50-t8 step median {cli['v2_t8_train_step_ms']:.1f} ms (host "
+        f"{cli['v2_t8_train_host_ms']:.1f} ms, data wait {cli['v2_t8_train_data_wait_ms']:.1f} "
+        f"ms), peak {cli['v2_t8_train_peak_gib']} GiB; one frame's photometric distortion host "
+        f"{cli['photometric_host_ms']:.1f} / card {cli['photometric_card_ms']:.1f} ms")
     log(f"[summary] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -159,6 +159,7 @@ def test_cli_helpers():
     with pytest.raises(chip_smoke.Failure, match="2 lines with 'a'"):
         chip_smoke.one(records, "a", "x")
     assert chip_smoke.median_of([3.0, 1.0, 2.0]) == 2.0
+    assert chip_smoke.median_of([4.0, 1.0]) == 2.5
     assert math.isnan(chip_smoke.median_of([]))
 
 
@@ -206,3 +207,16 @@ def test_box_set_errors():
     ours["labels_3d"][0] = 7
     assert chip_smoke.box_set_errors(ours, ref)[2] == 1
     assert chip_smoke.box_set_errors({k: v[:4] for k, v in ours.items()}, ref)[0] == float("inf")
+
+
+@pytest.mark.parametrize("name,k1,k34", [("bevformerv2-r50-t1", 18, 18),
+                                         ("bevformerv2-r50-t8", 102, 18)])
+def test_v2_train_per_step(name, k1, k34):
+    """K1 in every encoder layer of the 1 or 8 frames encoded and the
+    decoder; K3/K4 in the current frame's; no other kernel."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.configs import get_config
+
+    per = chip_smoke.v2_train_per_step(get_config(name))
+    assert per == dict(dict.fromkeys(per, 0), msda_fwd=k1, msda_bwd=k34)

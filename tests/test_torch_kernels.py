@@ -146,6 +146,34 @@ def test_msda_kernel_at_the_v2_shapes(cuda_device, name, b, q, h, d, shapes, p):
     assert float((out - ref).abs().max()) <= 1e-5, name
 
 
+# K1 and K3/K4 at BEVFormerV2 training's new shapes, whole: the decoder
+# over 900 x 11 GroupDETR queries, SCA over the 4 levels of the 768 rung's
+# 768 x 1920 input at capacity 0.25
+K1_V2_TRAIN_CASES = [
+    ("v2_decoder_groups", 1, 9900, 8, 32, ((200, 200),), 4),
+    ("v2_sca_768", 6, 10112, 8, 32, ((96, 240), (48, 120), (24, 60), (12, 30)), 8),
+]
+
+
+@pytest.mark.parametrize("name,b,q,h,d,shapes,p", K1_V2_TRAIN_CASES,
+                         ids=[c[0] for c in K1_V2_TRAIN_CASES])
+def test_msda_kernels_at_the_v2_training_shapes(cuda_device, name, b, q, h, d, shapes, p):
+    """K1 to 1e-5 max abs, K3/K4 to 1e-5 of each gradient's scale, each
+    launched once."""
+    value, loc, attw = _msda_inputs(b, q, h, d, shapes, p, 80 + len(name), cuda_device)
+    fwd, bwd = msda.ms_deform_attn.launches, msda.ms_deform_attn_backward.launches
+    out = msda.ms_deform_attn(value, shapes, loc, attw)
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
+    assert float((out - ref).abs().max()) <= 1e-5, name
+    del out, ref
+    g = torch.randn((b, q, h * d), device=cuda_device)
+    grads = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
+    assert msda.ms_deform_attn.launches == fwd + 1
+    assert msda.ms_deform_attn_backward.launches == bwd + 1
+    _check_backward(grads, value, shapes, loc, attw, g, name)
+
+
 @pytest.mark.parametrize("tile", msda.K1_TILES)
 @pytest.mark.parametrize("case", [0, 1, 4], ids=["tsa", "sca", "d64"])
 def test_msda_kernel_every_tile(cuda_device, tile, case):

@@ -20,12 +20,13 @@ away from 0 and 1, carried by `state_dict_from_jax_v2`:
   would change the frame);
 * a reference-layout V2 `.pth` (JAX's `export_reference_state_dict_v2`,
   with a DD3D head's `fcos3d_bbox_head.*` keys) loads through
-  `load_reference_pth` and gives the same frame; any other unexpected or
-  missing key raises;
+  `load_reference_pth`, the DD3D head with the rest, and gives the same
+  frame; any other unexpected or missing key raises;
 * `fuse_conv_bn` keeps the frame to 1e-5 of scale, and its folded weights
   equal JAX's `fuse_conv_bn(variables)`;
-* the V2 call sites hand K1 what its CUDA wrapper accepts; `Trainer`
-  refuses a V2 config.
+* the V2 call sites hand K1 what its CUDA wrapper accepts (training's
+  K1 and K3/K4 too, `tests/test_torch_v2_train.py` holds the training
+  step).
 """
 
 import copy
@@ -42,6 +43,9 @@ from bevformer_tpu.configs import BEVFormerConfig as JaxConfig
 from bevformer_tpu.configs import DataConfig as JaxData
 from bevformer_tpu.configs import get_config as jax_get_config
 from bevformer_tpu.core import coder as jax_coder
+# imported here, not first inside a jit trace (the detector imports it in
+# `setup`), which would stage its module-level constants as tracers
+from bevformer_tpu.models import dd3d as jax_dd3d
 from bevformer_tpu.models.detector_v2 import BEVFormerV2 as JaxBEVFormerV2
 from bevformer_tpu.models.fpn import FPN as JaxFPN
 from bevformer_tpu.models.transformer_v2 import ResNetFusion as JaxResNetFusion
@@ -54,7 +58,6 @@ from bevformer_torch.data.synth import rig_lidar2img
 from bevformer_torch.models.fpn import FPN
 from bevformer_torch.models.transformer_v2 import ResNetFusion, bev_grid_sample
 from bevformer_torch.runtime import (
-    Trainer,
     VideoEvaluatorV2,
     build_model,
     fuse_conv_bn,
@@ -94,6 +97,20 @@ def seed_batch_stats(tree, rng):
             tree[k] = (v + rng.uniform(-0.5, 0.5, v.shape)).astype(np.float32)
         elif k == "var":
             tree[k] = (v * rng.uniform(0.5, 2.0, v.shape)).astype(np.float32)
+
+
+def with_dd3d(variables, jcfg):
+    """The variables with a DD3D head's (`fcos3d_bbox_head`, JAX's init on
+    seeded features), which the port's model holds wherever
+    `num_mono_levels > 0` and inference never runs."""
+    from tests.test_dd3d import _mk_targets
+
+    h, w = jcfg.data.img_size
+    feats = [jnp.zeros((6, h // s, w // s, jcfg.embed_dims)) for s in (8, 16, 32, 64, 128)]
+    head = to_numpy_tree(jax_dd3d.NuscenesDD3D(cfg=jcfg).init(
+        jax.random.PRNGKey(3), feats, jnp.tile(jnp.eye(3), (6, 1, 1)),
+        _mk_targets(np.random.RandomState(0), 6, 2, w, h), train=False))
+    return {c: {**variables[c], "fcos3d_bbox_head": head[c]} for c in ("params", "batch_stats")}
 
 
 class _TracedJaxEvaluatorV2(JaxVideoEvaluatorV2):
@@ -154,9 +171,9 @@ def setup():
     rng = np.random.RandomState(0)
     jmodel = JaxBEVFormerV2(cfg=JCFG2)
     h, w = JCFG2.data.img_size
-    variables = to_numpy_tree(jax.jit(jmodel.init)(
+    variables = with_dd3d(to_numpy_tree(jax.jit(jmodel.init)(
         jax.random.PRNGKey(0), jnp.zeros((1, 6, h, w, 3)),
-        jnp.asarray(rig_lidar2img(w, h), jnp.float32)[None]))
+        jnp.asarray(rig_lidar2img(w, h), jnp.float32)[None])), JCFG2)
     perturb(variables["params"], rng, names=("sampling_offsets", "attention_weights"), std=0.02)
     seed_batch_stats(variables["batch_stats"], rng)
     out = {}
@@ -357,12 +374,16 @@ def _reference_pth(r, head, tmp_path, extra=None, drop=None):
                           for k in sd)
 
 
-def test_reference_pth_loads_and_gives_the_frame(setup, dd3d_head, tmp_path, capsys):
+def test_reference_pth_loads_and_gives_the_frame(setup, dd3d_head, tmp_path):
+    """The DD3D head's keys load with the rest (`build_model` is strict)."""
     r = setup["t2"]
     path, mono = _reference_pth(r, dd3d_head, tmp_path)
     assert mono > 50
-    model = build_model(r["cfg"], load_reference_pth(path), "cpu")
-    assert f"set aside {mono} fcos3d_bbox_head" in capsys.readouterr().out
+    sd = load_reference_pth(path)
+    assert sum(k.startswith("fcos3d_bbox_head.") for k in sd) == mono
+    model = build_model(r["cfg"], sd, "cpu")
+    key = "fcos3d_bbox_head.fcos2d_head.cls_logits.weight"
+    assert torch.equal(model.state_dict()[key], sd[key])
     preds, res = _port_run(model, r["samples"])
     for i in range(2):
         check_frame(preds[i], res[i], r["jtrace"][i], r["jres"][i], f".pth sample {i}")
@@ -432,11 +453,6 @@ def test_call_sites_meet_the_kernel_contract(setup, monkeypatch):
     VideoEvaluatorV2(r["model"]).infer_sample(r["samples"][1])
     c = r["cfg"]
     assert len(calls) == len(c.frames) * 2 * c.encoder_layers + c.decoder_layers
-
-
-def test_trainer_refuses_v2(setup):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(setup["t1"]["model"], total_steps=10)
 
 
 def test_video_test_mode_off_carries_nothing():

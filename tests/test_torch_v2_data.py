@@ -77,13 +77,27 @@ def test_test_sample_equals_jax(root, frames, index):
             assert torch.equal(ours["images"][ti], ours["images"][cur])
 
 
-def test_resize_other_than_identity_raises():
-    params = pipeline_v2.sample_crop_resize_flip(np.random.RandomState(0), resize_ladder=(640,),
-                                                 crop=(0, 260, 64, 800), training=False)
-    imgs = np.zeros((6, 900, 64, 3), np.uint8)
-    eye = np.tile(np.eye(4), (6, 1, 1))
-    with pytest.raises(NotImplementedError, match="identity"):
-        pipeline_v2.crop_resize_flip(imgs, eye, eye, params)
+@pytest.mark.parametrize("rung,flip", [(512, False), (608, True), (672, True), (768, False)])
+def test_crop_resize_flip_equals_jax(rung, flip):
+    """The crop, PIL's resize to a rung of the ladder and the flip give
+    JAX's images bitwise and its camera matrices (float images clipped and
+    truncated to uint8 first)."""
+    from bevformer_tpu.data import pipeline_v2 as jax_pipeline_v2
+
+    rng = np.random.RandomState(rung)
+    crop = (0, 260, 64, 900)
+    params = dict(resize=rung / 640, resize_dims=(int(rung / 640 * 64), rung), crop=crop,
+                  flip=flip)
+    imgs = rng.uniform(-20, 275, (6, 900, 64, 3)).astype(np.float32)
+    cam2img = np.tile(np.eye(4), (6, 1, 1))
+    cam2img[:, :3, :3] = [[50.0, 0, 32], [0, 50, 450], [0, 0, 1]]
+    l2c = rng.randn(6, 4, 4)
+    ours = pipeline_v2.crop_resize_flip(imgs, cam2img, l2c, params)
+    ref = jax_pipeline_v2.crop_resize_flip(list(imgs), cam2img, l2c, params)
+    assert ours[0].dtype == np.uint8 and ours[0].shape == (6, rung, params["resize_dims"][0], 3)
+    np.testing.assert_array_equal(ours[0], np.stack(ref[0]))
+    for a, b in zip(ours[1:], ref[1:]):
+        np.testing.assert_array_equal(a, b)
 
 
 def _run_test(root, out, *more, monkeypatch=None):
