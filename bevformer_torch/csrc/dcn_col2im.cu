@@ -45,9 +45,21 @@
 // - The C entry takes C a multiple of 4 and x, dcols and dx on 16-byte
 //   boundaries (the float4 loads and atomics); the model's caller, the DCN
 //   backward, has C a multiple of 32.
+//
+// bf16 (`dcn_col2im_bf16`, the counterpart of dcn_pallas._bwd at
+// compute_dtype=bfloat16: the backward of the sampling of a bf16 x): the
+// same body on a bf16 x, read 4 channels a lane by one 8-byte load of each
+// corner, widened to fp32 exactly. dcols stays fp32: it is the fp32 product
+// g W^T of the DCN backward (kernels/dcn.py::_DCNConv), as the JAX
+// backward's dsampled is. dx is summed in an fp32 workspace with the same
+// vector atomics (bf16 atomics would round every partial sum), which the
+// wrapper rounds to bf16 once; d offsets and dmask are fp32. x on 8-byte
+// boundaries, dcols and dx on 16.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dcn_vec4.cuh"
 
 namespace {
 
@@ -58,17 +70,18 @@ constexpr int BM = 8;            // output pixels per block
 constexpr int ROWS = BM * TAPS;  // (pixel, tap) rows per block
 
 struct Tables {
-  int4 idx[ROWS];   // float4 offset of each corner's channel 0 in x, -1 outside
+  int4 idx[ROWS];   // element offset of each corner's channel 0 in x and dx, -1 outside
   float4 w[ROWS];   // bilinear weight of each corner
   float4 tym[ROWS];  // ty, tx, mask, and 1 where the sample counts (else 0)
 };
 
-__device__ __forceinline__ float4 corner(const float4* __restrict__ x, int idx, int c) {
-  return idx >= 0 ? __ldg(x + idx + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+template <typename T>
+__device__ __forceinline__ float4 corner(const T* __restrict__ x, int idx, int c) {
+  return idx >= 0 ? ldg4(x + idx + c) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-__device__ __forceinline__ void red4(float4* p, float w, float4 g) {
-  atomicAdd(p, make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
+__device__ __forceinline__ void red4(float* p, float w, float4 g) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -77,13 +90,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// T: float (dcn_col2im) or __nv_bfloat16 (dcn_col2im_bf16), x's
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-dcn_col2im_kernel(const float4* __restrict__ x,      // [B, H, W, C]
+dcn_col2im_kernel(const T* __restrict__ x,           // [B, H, W, C]
                   const float* __restrict__ off_y,   // [B, OH, OW, 9]
                   const float* __restrict__ off_x,   // [B, OH, OW, 9]
                   const float* __restrict__ mask,    // [B, OH, OW, 9]
-                  const float4* __restrict__ dcols,  // [B*OH*OW, 9*C]
-                  float4* __restrict__ dx,           // [B, H, W, C], zeroed
+                  const float* __restrict__ dcols,   // [B*OH*OW, 9*C]
+                  float* __restrict__ dx,            // [B, H, W, C], zeroed
                   float* __restrict__ doff_y,        // [B, OH, OW, 9]
                   float* __restrict__ doff_x,        // [B, OH, OW, 9]
                   float* __restrict__ dmask,         // [B, OH, OW, 9]
@@ -92,7 +107,6 @@ dcn_col2im_kernel(const float4* __restrict__ x,      // [B, H, W, C]
   const int M = B * OH * OW;
   const int m0 = blockIdx.x * BM;
   const int rows = min(BM, M - m0) * TAPS;
-  const int c4 = C / 4;  // float4s per row of x and per tap of a column row
 
   // phase 1: the tables, one (pixel, tap) per thread at a time
   for (int e = threadIdx.x; e < rows; e += THREADS) {
@@ -119,10 +133,10 @@ dcn_col2im_kernel(const float4* __restrict__ x,      // [B, H, W, C]
       const float ty = py - fy;
       const float tx = px - fx;
       const int p00 = (b * H + y0) * W + x0;  // pixel of corner (0, 0)
-      if (y0 >= 0 && x0 >= 0) { idx.x = p00 * c4; w.x = (1.f - ty) * (1.f - tx); }
-      if (y0 >= 0 && x0 + 1 < W) { idx.y = (p00 + 1) * c4; w.y = (1.f - ty) * tx; }
-      if (y0 + 1 < H && x0 >= 0) { idx.z = (p00 + W) * c4; w.z = ty * (1.f - tx); }
-      if (y0 + 1 < H && x0 + 1 < W) { idx.w = (p00 + W + 1) * c4; w.w = ty * tx; }
+      if (y0 >= 0 && x0 >= 0) { idx.x = p00 * C; w.x = (1.f - ty) * (1.f - tx); }
+      if (y0 >= 0 && x0 + 1 < W) { idx.y = (p00 + 1) * C; w.y = (1.f - ty) * tx; }
+      if (y0 + 1 < H && x0 >= 0) { idx.z = (p00 + W) * C; w.z = ty * (1.f - tx); }
+      if (y0 + 1 < H && x0 + 1 < W) { idx.w = (p00 + W + 1) * C; w.w = ty * tx; }
       tym = make_float4(ty, tx, tym.z, 1.f);
     }
     s.idx[e] = idx;
@@ -144,11 +158,11 @@ dcn_col2im_kernel(const float4* __restrict__ x,      // [B, H, W, C]
     const int4 idx = s.idx[e];
     const float4 w = s.w[e];
     const float ty = tym.x, tx = tym.y, mk = tym.z;
-    const float4* grow = dcols + mt * c4;
+    const float* grow = dcols + mt * C;
     float s_m = 0.f, s_y = 0.f, s_x = 0.f;
 #pragma unroll 2
-    for (int c = lane; c < c4; c += 32) {
-      const float4 g = __ldcs(grow + c);
+    for (int c = 4 * lane; c < C; c += 4 * 32) {
+      const float4 g = __ldcs(reinterpret_cast<const float4*>(grow + c));
       const float4 v00 = corner(x, idx.x, c);
       const float4 v01 = corner(x, idx.y, c);
       const float4 v10 = corner(x, idx.z, c);
@@ -181,28 +195,47 @@ dcn_col2im_kernel(const float4* __restrict__ x,      // [B, H, W, C]
   }
 }
 
+// dx (fp32) must be zeroed by the caller (the kernel adds into it). The one
+// check of the arguments: C a multiple of 4, stride at least 1, x on a
+// 4-element (16-byte fp32, 8-byte bf16) boundary, dcols and dx on 16-byte
+// ones; anything else returns cudaErrorInvalidValue, which the wrapper
+// raises.
+template <typename T>
+int launch_col2im(const void* x, const void* off_y, const void* off_x, const void* mask,
+                  const void* dcols, void* dx, void* doff_y, void* doff_x, void* dmask, int B,
+                  int H, int W, int C, int OH, int OW, int stride, void* stream) {
+  if (C < 4 || C % 4 != 0 || stride < 1) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)x % (4 * sizeof(T)) != 0 || ((uintptr_t)dcols | (uintptr_t)dx) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t pixels = (int64_t)B * OH * OW;
+  if (pixels == 0) return (int)cudaSuccess;
+  const unsigned blocks = (unsigned)((pixels + BM - 1) / BM);
+  dcn_col2im_kernel<T><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(off_y),
+      static_cast<const float*>(off_x), static_cast<const float*>(mask),
+      static_cast<const float*>(dcols), static_cast<float*>(dx),
+      static_cast<float*>(doff_y), static_cast<float*>(doff_x),
+      static_cast<float*>(dmask), B, H, W, C, OH, OW, stride);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dx must be zeroed by the caller (the kernel adds into it). The one check
-// of the arguments: C a multiple of 4, stride at least 1, x, dcols and dx on
-// 16-byte boundaries; anything else returns cudaErrorInvalidValue, which
-// the wrapper raises.
 extern "C" int dcn_col2im(const void* x, const void* off_y, const void* off_x,
                           const void* mask, const void* dcols, void* dx,
                           void* doff_y, void* doff_x, void* dmask, int B,
                           int H, int W, int C, int OH, int OW, int stride,
                           void* stream) {
-  if (C < 4 || C % 4 != 0 || stride < 1) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)x | (uintptr_t)dcols | (uintptr_t)dx) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int64_t pixels = (int64_t)B * OH * OW;
-  if (pixels == 0) return (int)cudaSuccess;
-  const unsigned blocks = (unsigned)((pixels + BM - 1) / BM);
-  dcn_col2im_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const float4*>(x), static_cast<const float*>(off_y),
-      static_cast<const float*>(off_x), static_cast<const float*>(mask),
-      static_cast<const float4*>(dcols), static_cast<float4*>(dx),
-      static_cast<float*>(doff_y), static_cast<float*>(doff_x),
-      static_cast<float*>(dmask), B, H, W, C, OH, OW, stride);
-  return (int)cudaGetLastError();
+  return launch_col2im<float>(x, off_y, off_x, mask, dcols, dx, doff_y, doff_x, dmask, B, H, W,
+                              C, OH, OW, stride, stream);
+}
+
+// dcn_col2im on a bf16 x (dcols, the dx workspace, d offsets and dmask fp32)
+extern "C" int dcn_col2im_bf16(const void* x, const void* off_y, const void* off_x,
+                               const void* mask, const void* dcols, void* dx,
+                               void* doff_y, void* doff_x, void* dmask, int B,
+                               int H, int W, int C, int OH, int OW, int stride,
+                               void* stream) {
+  return launch_col2im<__nv_bfloat16>(x, off_y, off_x, mask, dcols, dx, doff_y, doff_x, dmask,
+                                      B, H, W, C, OH, OW, stride, stream);
 }

@@ -44,9 +44,20 @@
 // - The C entry takes C a multiple of 4 and x and cols on 16-byte
 //   boundaries (the float4 loads and stores); the model's caller, the DCN
 //   backward, has C a multiple of 32.
+//
+// bf16 (`dcn_im2col_bf16`, the counterpart of _kernel at
+// compute_dtype=bfloat16, which writes a bf16 column): the same body on a
+// bf16 x and a bf16 column. A lane still takes 4 channels, by one 8-byte
+// load of each corner (widened to fp32 exactly) and one 8-byte streaming
+// store; the arithmetic is the fp32 one, and each column value is rounded
+// to bf16 once (nearest even), as the plain version's fp32 column is by
+// its .to(bfloat16). The bytes halve: 160 MB of column at stage 3. x and
+// cols on 8-byte boundaries.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dcn_vec4.cuh"
 
 namespace {
 
@@ -57,13 +68,14 @@ constexpr int BM = 8;               // output pixels per block
 constexpr int ROWS = BM * TAPS;     // (pixel, tap) rows per block
 
 struct Tables {
-  int4 idx[ROWS];   // float4 offset of each corner's channel 0 in x, -1 outside
+  int4 idx[ROWS];   // element offset of each corner's channel 0 in x, -1 outside
   float4 w[ROWS];   // bilinear weight of each corner
   float mask[ROWS];
 };
 
-__device__ __forceinline__ float4 corner(const float4* __restrict__ x, int idx, int c) {
-  return idx >= 0 ? __ldg(x + idx + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+template <typename T>
+__device__ __forceinline__ float4 corner(const T* __restrict__ x, int idx, int c) {
+  return idx >= 0 ? ldg4(x + idx + c) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // acc + w * v, channel by channel, rounded after each operation
@@ -72,18 +84,19 @@ __device__ __forceinline__ float4 add_term(float4 acc, float w, float4 v) {
                      __fadd_rn(acc.z, __fmul_rn(v.z, w)), __fadd_rn(acc.w, __fmul_rn(v.w, w)));
 }
 
+// T: float (dcn_im2col) or __nv_bfloat16 (dcn_im2col_bf16), x's and cols'
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-dcn_im2col_kernel(const float4* __restrict__ x,     // [B, H, W, C]
+dcn_im2col_kernel(const T* __restrict__ x,          // [B, H, W, C]
                   const float* __restrict__ off_y,  // [B, OH, OW, 9]
                   const float* __restrict__ off_x,  // [B, OH, OW, 9]
                   const float* __restrict__ mask,   // [B, OH, OW, 9]
-                  float4* __restrict__ cols,        // [B*OH*OW, 9*C]
+                  T* __restrict__ cols,             // [B*OH*OW, 9*C]
                   int B, int H, int W, int C, int OH, int OW, int stride) {
   __shared__ Tables s;
   const int M = B * OH * OW;
   const int m0 = blockIdx.x * BM;
   const int rows = min(BM, M - m0) * TAPS;
-  const int c4 = C / 4;  // float4s per row of x and per tap of a column row
 
   // phase 1: the tables, one (pixel, tap) per thread at a time
   for (int e = threadIdx.x; e < rows; e += THREADS) {
@@ -108,10 +121,10 @@ dcn_im2col_kernel(const float4* __restrict__ x,     // [B, H, W, C]
       const float ty = py - fy;
       const float tx = px - fx;
       const int p00 = (b * H + y0) * W + x0;  // pixel of corner (0, 0)
-      if (y0 >= 0 && x0 >= 0) { idx.x = p00 * c4; w.x = __fmul_rn(1.f - ty, 1.f - tx); }
-      if (y0 >= 0 && x0 + 1 < W) { idx.y = (p00 + 1) * c4; w.y = __fmul_rn(1.f - ty, tx); }
-      if (y0 + 1 < H && x0 >= 0) { idx.z = (p00 + W) * c4; w.z = __fmul_rn(ty, 1.f - tx); }
-      if (y0 + 1 < H && x0 + 1 < W) { idx.w = (p00 + W + 1) * c4; w.w = __fmul_rn(ty, tx); }
+      if (y0 >= 0 && x0 >= 0) { idx.x = p00 * C; w.x = __fmul_rn(1.f - ty, 1.f - tx); }
+      if (y0 >= 0 && x0 + 1 < W) { idx.y = (p00 + 1) * C; w.y = __fmul_rn(1.f - ty, tx); }
+      if (y0 + 1 < H && x0 >= 0) { idx.z = (p00 + W) * C; w.z = __fmul_rn(ty, 1.f - tx); }
+      if (y0 + 1 < H && x0 + 1 < W) { idx.w = (p00 + W + 1) * C; w.w = __fmul_rn(ty, tx); }
     }
     s.idx[e] = idx;
     s.w[e] = w;
@@ -122,14 +135,14 @@ dcn_im2col_kernel(const float4* __restrict__ x,     // [B, H, W, C]
   // phase 2: one warp per row; row e of the block is row m0 * 9 + e of cols
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float4* out = cols + (int64_t)m0 * TAPS * c4;
+  T* out = cols + (int64_t)m0 * TAPS * C;
   for (int e = warp; e < rows; e += WARPS) {
     const int4 idx = s.idx[e];
     const float4 w = s.w[e];
     const float mk = s.mask[e];
-    float4* orow = out + (int64_t)e * c4;
+    T* orow = out + (int64_t)e * C;
 #pragma unroll 2
-    for (int c = lane; c < c4; c += 32) {
+    for (int c = 4 * lane; c < C; c += 4 * 32) {
       const float4 v00 = corner(x, idx.x, c);
       const float4 v01 = corner(x, idx.y, c);
       const float4 v10 = corner(x, idx.z, c);
@@ -139,28 +152,43 @@ dcn_im2col_kernel(const float4* __restrict__ x,     // [B, H, W, C]
       if (idx.y >= 0) acc = add_term(acc, w.y, v01);
       if (idx.z >= 0) acc = add_term(acc, w.z, v10);
       if (idx.w >= 0) acc = add_term(acc, w.w, v11);
-      __stcs(orow + c, make_float4(__fmul_rn(acc.x, mk), __fmul_rn(acc.y, mk),
-                                   __fmul_rn(acc.z, mk), __fmul_rn(acc.w, mk)));
+      stcs4(orow + c, make_float4(__fmul_rn(acc.x, mk), __fmul_rn(acc.y, mk),
+                                  __fmul_rn(acc.z, mk), __fmul_rn(acc.w, mk)));
     }
   }
 }
 
-}  // namespace
-
 // The one check of the arguments: C a multiple of 4, stride at least 1, x
-// and cols on 16-byte boundaries; anything else returns
-// cudaErrorInvalidValue, which the wrapper raises.
-extern "C" int dcn_im2col(const void* x, const void* off_y, const void* off_x,
-                          const void* mask, void* cols, int B, int H, int W,
-                          int C, int OH, int OW, int stride, void* stream) {
+// and cols on 4-element (16-byte fp32, 8-byte bf16) boundaries; anything
+// else returns cudaErrorInvalidValue, which the wrapper raises.
+template <typename T>
+int launch_im2col(const void* x, const void* off_y, const void* off_x, const void* mask,
+                  void* cols, int B, int H, int W, int C, int OH, int OW, int stride,
+                  void* stream) {
   if (C < 4 || C % 4 != 0 || stride < 1) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)x | (uintptr_t)cols) % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)x | (uintptr_t)cols) % (4 * sizeof(T)) != 0) return (int)cudaErrorInvalidValue;
   const int64_t pixels = (int64_t)B * OH * OW;
   if (pixels == 0) return (int)cudaSuccess;
   const unsigned blocks = (unsigned)((pixels + BM - 1) / BM);
-  dcn_im2col_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const float4*>(x), static_cast<const float*>(off_y),
+  dcn_im2col_kernel<T><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(off_y),
       static_cast<const float*>(off_x), static_cast<const float*>(mask),
-      static_cast<float4*>(cols), B, H, W, C, OH, OW, stride);
+      static_cast<T*>(cols), B, H, W, C, OH, OW, stride);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int dcn_im2col(const void* x, const void* off_y, const void* off_x,
+                          const void* mask, void* cols, int B, int H, int W,
+                          int C, int OH, int OW, int stride, void* stream) {
+  return launch_im2col<float>(x, off_y, off_x, mask, cols, B, H, W, C, OH, OW, stride, stream);
+}
+
+// dcn_im2col on a bf16 x, with a bf16 column (offsets and mask fp32)
+extern "C" int dcn_im2col_bf16(const void* x, const void* off_y, const void* off_x,
+                               const void* mask, void* cols, int B, int H, int W,
+                               int C, int OH, int OW, int stride, void* stream) {
+  return launch_im2col<__nv_bfloat16>(x, off_y, off_x, mask, cols, B, H, W, C, OH, OW, stride,
+                                      stream);
 }

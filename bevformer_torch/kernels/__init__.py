@@ -27,13 +27,15 @@ from bevformer_torch.kernels.msda import (
 def kernel_counters() -> dict:
     """The wrappers of the model's paths' kernels, each of which counts its
     launches in `.launches`, by counter name (K1 msda_fwd, K2 dcn_conv_fwd,
-    K3/K4 msda_bwd, K5 dcn_im2col, K6 dcn_col2im), and the counts of K1's
-    and K3/K4's bf16 entries (msda_fwd_bf16, msda_bwd_bf16)."""
+    K3/K4 msda_bwd, K5 dcn_im2col, K6 dcn_col2im), and the counts of their
+    bf16 entries (msda_fwd_bf16, msda_bwd_bf16, dcn_conv_fwd_bf16,
+    dcn_im2col_bf16, dcn_col2im_bf16)."""
     # read through the modules: a wrapper counts under its module's name
     return dict(msda_fwd=msda.ms_deform_attn, dcn_conv_fwd=dcn.dcn_conv,
                 msda_bwd=msda.ms_deform_attn_backward, dcn_im2col=dcn.dcn_im2col,
                 dcn_col2im=dcn.dcn_col2im, msda_fwd_bf16=msda.MSDA_FWD_BF16,
-                msda_bwd_bf16=msda.MSDA_BWD_BF16)
+                msda_bwd_bf16=msda.MSDA_BWD_BF16, dcn_conv_fwd_bf16=dcn.DCN_CONV_FWD_BF16,
+                dcn_im2col_bf16=dcn.DCN_IM2COL_BF16, dcn_col2im_bf16=dcn.DCN_COL2IM_BF16)
 
 
 def launch_counts() -> dict:

@@ -58,6 +58,10 @@ SIGNATURES = {
     # W, C, OH, OW, Cout, stride, stream
     "dcn_conv_fwd": [_P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dcn_conv_fwd's arguments; x and out bf16, the weight fp32, its
+    # scratch the bf16 weight in tile order
+    "dcn_conv_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # value, loc, attw, grad_out, dvalue (zeroed), dloc, dattw, level_hw,
     # L, B, K, Q, H, D, P, queries per block, stream
     "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -67,10 +71,15 @@ SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, off_y, off_x, mask, cols, B, H, W, C, OH, OW, stride, stream
     "dcn_im2col": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dcn_im2col's arguments; x and cols bf16
+    "dcn_im2col_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, off_y, off_x, mask, dcols, dx (zeroed), doff_y, doff_x, dmask,
     # B, H, W, C, OH, OW, stride, stream
     "dcn_col2im": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _P],
+    # dcn_col2im's arguments; x bf16, dcols and dx (zeroed) fp32
+    "dcn_col2im_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

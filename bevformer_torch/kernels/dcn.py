@@ -10,14 +10,24 @@ by the (already sigmoided) mask, and contract the [9*C] column with
 clip on the offsets.
 
 Layouts are channels-last: x [B, H, W, C], offsets and mask [B, OH, OW, 9]
--> output [B, OH, OW, Cout].
+-> output [B, OH, OW, Cout]. x is fp32 or bf16; offsets, mask and the
+weight are fp32. On a bf16 x (the JAX kernels at compute_dtype=bfloat16)
+the samples are taken in fp32, the column is rounded once to bf16, the
+weight too, the product sums in fp32 and the output is rounded once to
+bf16; the backward's column gradient is the fp32 product of the output
+gradient with that bf16 weight, dx is summed in fp32 and rounded once to
+bf16, and d offsets, dmask and dWeight are fp32 (the parameter's dtype).
 
 `dcn_conv` runs the CUDA kernel `csrc/dcn_conv_fwd.cu` on a CUDA tensor, as
 a `torch.autograd.Function` whose backward runs `dcn_im2col`
 (`csrc/dcn_im2col.cu`), two matrix products and `dcn_col2im`
 (`csrc/dcn_col2im.cu`), and the plain PyTorch version `dcn_conv_plain` under
 ordinary autograd on a CPU tensor. Each of the two backward kernels has its
-plain version beside it (`dcn_im2col_plain`, `dcn_col2im_plain`).
+plain version beside it (`dcn_im2col_plain`, `dcn_col2im_plain`). Each
+kernel has a bf16 entry (`dcn_conv_fwd_bf16`, `dcn_im2col_bf16`,
+`dcn_col2im_bf16`), which a bf16 x reaches; a bf16 launch counts on
+`DCN_CONV_FWD_BF16` / `DCN_IM2COL_BF16` / `DCN_COL2IM_BF16`, an fp32 one on
+the wrapper.
 """
 
 from __future__ import annotations
@@ -25,9 +35,16 @@ from __future__ import annotations
 import torch
 
 from bevformer_torch.kernels import build
+from bevformer_torch.kernels.msda import FP32_ONLY, LaunchCount
 
 K_TILE = 32  # csrc/dcn_conv_fwd.cu: a K tile never spans two taps
 N_BLOCK = 256  # csrc/dcn_conv_fwd.cu: output channels per block
+
+X_DTYPES = (torch.float32, torch.bfloat16)  # x of K2, K5 and K6
+
+DCN_CONV_FWD_BF16 = LaunchCount()  # dcn_conv on a bf16 x
+DCN_IM2COL_BF16 = LaunchCount()  # dcn_im2col on a bf16 x
+DCN_COL2IM_BF16 = LaunchCount()  # dcn_col2im on a bf16 x
 
 
 def bilinear_gather(img: torch.Tensor, py: torch.Tensor, px: torch.Tensor):
@@ -58,29 +75,53 @@ def bilinear_gather(img: torch.Tensor, py: torch.Tensor, px: torch.Tensor):
     return out
 
 
-def dcn_conv_plain(x, off_y, off_x, mask, weight, stride: int = 1):
-    """Gather formulation of the modulated deformable conv (any device)."""
-    b, _, _, c = x.shape
+class _RoundBF16(torch.autograd.Function):
+    """`t` rounded to bf16 (nearest even), kept in fp32. Its gradient
+    passes unrounded: the kernels' backward takes the fp32 gradient of the
+    rounded values."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def _samples(x, off_y, off_x, mask, stride):
+    """The modulated samples [B, OH, OW, 9, C] in fp32."""
     oh, ow = off_y.shape[1], off_y.shape[2]
     py, px = _grid(oh, ow, stride, off_y, off_x)
-    sampled = bilinear_gather(x.float(), py, px) * mask[..., None]
-    return torch.einsum(
-        "bhwi,io->bhwo", sampled.reshape(b, oh, ow, 9 * c), weight.float()
-    )
+    return bilinear_gather(x.float(), py, px) * mask[..., None]
 
 
-def _check_tensor(name, t, device):
+def dcn_conv_plain(x, off_y, off_x, mask, weight, stride: int = 1):
+    """Gather formulation of the modulated deformable conv (any device), in
+    x's dtype whatever the autocast around it."""
+    b, _, _, c = x.shape
+    oh, ow = off_y.shape[1], off_y.shape[2]
+    with torch.autocast(x.device.type, enabled=False):
+        sampled = _samples(x, off_y, off_x, mask, stride).reshape(b, oh, ow, 9 * c)
+        if x.dtype == torch.bfloat16:
+            out = torch.einsum("bhwi,io->bhwo", _RoundBF16.apply(sampled),
+                               _RoundBF16.apply(weight.float()))
+            return out.to(torch.bfloat16)
+        return torch.einsum("bhwi,io->bhwo", sampled, weight.float())
+
+
+def _check_tensor(name, t, device, dtypes=FP32_ONLY):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.numel() >= 2**31:
         raise ValueError(f"{name} has {t.numel()} elements (limit 2^31)")
 
 
-def _check_sampling(x, off_y, off_x, mask, stride):
+def _check_sampling(x, off_y, off_x, mask, stride, x_dtypes=X_DTYPES):
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -94,14 +135,15 @@ def _check_sampling(x, off_y, off_x, mask, stride):
     for name, t in (("off_x", off_x), ("mask", mask)):
         if t.shape != off_y.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(off_y.shape)}")
-    for name, t in (("x", x), ("off_y", off_y), ("off_x", off_x), ("mask", mask)):
+    _check_tensor("x", x, x.device, x_dtypes)
+    for name, t in (("off_y", off_y), ("off_x", off_x), ("mask", mask)):
         _check_tensor(name, t, x.device)
     if b * oh * ow * 9 * c >= 2**31:
         raise ValueError("the column has 2^31 elements or more")
 
 
-def _check(x, off_y, off_x, mask, weight, stride):
-    _check_sampling(x, off_y, off_x, mask, stride)
+def _check(x, off_y, off_x, mask, weight, stride, x_dtypes=X_DTYPES):
+    _check_sampling(x, off_y, off_x, mask, stride, x_dtypes)
     b, _, _, c = x.shape
     oh, ow = off_y.shape[1], off_y.shape[2]
     if weight.dim() != 2 or weight.shape[0] != 9 * c:
@@ -117,20 +159,23 @@ def _launch_fwd(x, off_y, off_x, mask, weight, stride) -> torch.Tensor:
     b, h, w, c = x.shape
     oh, ow = off_y.shape[1], off_y.shape[2]
     cout = weight.shape[1]
-    out = torch.empty((b, oh, ow, cout), dtype=torch.float32, device=x.device)
-    # the kernel's copy of the weight, split into TF32 halves in its tile order
-    split = torch.empty(2 * -(-cout // N_BLOCK) * N_BLOCK * 9 * c, dtype=torch.float32,
-                        device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
+    # the kernel's copy of the weight in its tile order: split into TF32
+    # halves (fp32), or rounded to bf16
+    prep = torch.empty((1 if bf16 else 2) * -(-cout // N_BLOCK) * N_BLOCK * 9 * c,
+                       dtype=x.dtype, device=x.device)
+    entry = "dcn_conv_fwd_bf16" if bf16 else "dcn_conv_fwd"
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dcn_conv_fwd(
+        rc = getattr(lib, entry)(
             x.data_ptr(), off_y.data_ptr(), off_x.data_ptr(),
-            mask.data_ptr(), weight.data_ptr(), split.data_ptr(), out.data_ptr(),
+            mask.data_ptr(), weight.data_ptr(), prep.data_ptr(), out.data_ptr(),
             b, h, w, c, oh, ow, cout, stride, stream,
         )
-    build.check_launch("dcn_conv_fwd", rc)
-    dcn_conv.launches += 1
+    build.check_launch(entry, rc)
+    (DCN_CONV_FWD_BF16 if bf16 else dcn_conv).launches += 1
     return out
 
 
@@ -138,7 +183,10 @@ class _DCNConv(torch.autograd.Function):
     """K2 forward. The backward follows the JAX `_conv_bwd`: it recomputes
     the im2col (`dcn_im2col`), takes dWeight = cols^T g and dCols = g W^T
     as plain matrix products, and scatters dCols back through the sampling
-    (`dcn_col2im`). Only the inputs are saved, never the 9x column."""
+    (`dcn_col2im`). Only the inputs are saved, never the 9x column. On a
+    bf16 x both products run in fp32 with autocast off, on the bf16 column
+    and the bf16-rounded weight widened exactly, so dWeight and dCols are
+    fp32 whatever the caller's autocast."""
 
     @staticmethod
     def forward(ctx, x, off_y, off_x, mask, weight, stride):
@@ -151,18 +199,28 @@ class _DCNConv(torch.autograd.Function):
         x, off_y, off_x, mask, weight = ctx.saved_tensors
         # autograd may hand over a strided view (the NCHW permute upstream)
         g = grad_out.contiguous().view(-1, weight.shape[1])
-        cols = dcn_im2col(x, off_y, off_x, mask, ctx.stride)
-        dweight = cols.t() @ g
-        del cols
-        dcols = g @ weight.t()
+        if x.dtype == torch.bfloat16:
+            with torch.autocast(x.device.type, enabled=False):
+                g = g.float()
+                cols = dcn_im2col(x, off_y, off_x, mask, ctx.stride)
+                dweight = cols.float().t() @ g
+                del cols
+                dcols = g @ weight.to(torch.bfloat16).float().t()
+        else:
+            cols = dcn_im2col(x, off_y, off_x, mask, ctx.stride)
+            dweight = cols.t() @ g
+            del cols
+            dcols = g @ weight.t()
         dx, doff_y, doff_x, dmask = dcn_col2im(x, off_y, off_x, mask, dcols, ctx.stride)
         return dx, doff_y, doff_x, dmask, dweight, None
 
 
 def dcn_conv(x, off_y, off_x, mask, weight, stride: int = 1) -> torch.Tensor:
     """DCNv2 conv: the plain version (under ordinary autograd) for a CPU
-    tensor, the CUDA kernel for a CUDA tensor, differentiable through
-    `dcn_im2col` and `dcn_col2im` (no fallback between the two)."""
+    tensor, the CUDA kernel for a CUDA tensor (fp32 or bf16 x, fp32
+    offsets, mask and weight; anything else raises), differentiable through
+    `dcn_im2col` and `dcn_col2im` (no fallback between the two, nor between
+    the dtypes)."""
     if x.device.type == "cpu":
         return dcn_conv_plain(x, off_y, off_x, mask, weight, stride)
     if x.device.type != "cuda":
@@ -187,21 +245,25 @@ def _grid(oh: int, ow: int, stride: int, off_y, off_x):
 
 
 def dcn_im2col_plain(x, off_y, off_x, mask, stride: int = 1) -> torch.Tensor:
-    """The modulated column [B*OH*OW, 9C], rows tap-major (any device)."""
+    """The modulated column [B*OH*OW, 9C], rows tap-major, in x's dtype (a
+    bf16 column is the fp32 one rounded once) (any device)."""
     b, _, _, c = x.shape
     oh, ow = off_y.shape[1], off_y.shape[2]
-    py, px = _grid(oh, ow, stride, off_y, off_x)
-    sampled = bilinear_gather(x.float(), py, px) * mask[..., None]
-    return sampled.reshape(b * oh * ow, 9 * c)
+    return _samples(x, off_y, off_x, mask, stride).reshape(b * oh * ow, 9 * c).to(x.dtype)
 
 
 def dcn_col2im_plain(x, off_y, off_x, mask, dcols, stride: int = 1):
-    """(dx, d off_y, d off_x, dmask) of the column for a column gradient
-    `dcols` [B*OH*OW, 9C], by autograd through `dcn_im2col_plain`."""
+    """(dx, d off_y, d off_x, dmask) of the column for an fp32 column
+    gradient `dcols` [B*OH*OW, 9C], by autograd through the fp32 column of
+    `dcn_im2col_plain`: dx in x's dtype (summed in fp32, rounded once), the
+    rest fp32."""
+    b, _, _, c = x.shape
+    oh, ow = off_y.shape[1], off_y.shape[2]
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (x, off_y, off_x, mask)]
-        cols = dcn_im2col_plain(*leaves, stride)
-        return torch.autograd.grad(cols, leaves, dcols)
+        leaves = [t.detach().float().requires_grad_() for t in (x, off_y, off_x, mask)]
+        cols = _samples(*leaves, stride).reshape(b * oh * ow, 9 * c)
+        dx, doff_y, doff_x, dmask = torch.autograd.grad(cols, leaves, dcols)
+    return dx.to(x.dtype), doff_y, doff_x, dmask
 
 
 def dcn_conv_backward_plain(x, off_y, off_x, mask, weight, grad_out, stride: int = 1):
@@ -214,8 +276,9 @@ def dcn_conv_backward_plain(x, off_y, off_x, mask, weight, grad_out, stride: int
 
 
 def dcn_im2col(x, off_y, off_x, mask, stride: int = 1) -> torch.Tensor:
-    """The modulated column [B*OH*OW, 9C]: the plain version for a CPU
-    tensor, the CUDA kernel `dcn_im2col` for a CUDA tensor."""
+    """The modulated column [B*OH*OW, 9C] in x's dtype: the plain version
+    for a CPU tensor, the CUDA kernel `dcn_im2col` (`dcn_im2col_bf16` for a
+    bf16 x) for a CUDA tensor."""
     if x.device.type == "cpu":
         return dcn_im2col_plain(x, off_y, off_x, mask, stride)
     if x.device.type != "cuda":
@@ -223,16 +286,18 @@ def dcn_im2col(x, off_y, off_x, mask, stride: int = 1) -> torch.Tensor:
     b, h, w, c = x.shape
     _check_sampling(x, off_y, off_x, mask, stride)
     oh, ow = off_y.shape[1], off_y.shape[2]
-    cols = torch.empty((b * oh * ow, 9 * c), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    entry = "dcn_im2col_bf16" if bf16 else "dcn_im2col"
+    cols = torch.empty((b * oh * ow, 9 * c), dtype=x.dtype, device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dcn_im2col(
+        rc = getattr(lib, entry)(
             x.data_ptr(), off_y.data_ptr(), off_x.data_ptr(), mask.data_ptr(),
             cols.data_ptr(), b, h, w, c, oh, ow, stride, stream,
         )
-    build.check_launch("dcn_im2col", rc)
-    dcn_im2col.launches += 1
+    build.check_launch(entry, rc)
+    (DCN_IM2COL_BF16 if bf16 else dcn_im2col).launches += 1
     return cols
 
 
@@ -240,9 +305,11 @@ dcn_im2col.launches = 0
 
 
 def dcn_col2im(x, off_y, off_x, mask, dcols, stride: int = 1):
-    """The sampling backward: (dx [B, H, W, C], d off_y, d off_x, dmask
-    [B, OH, OW, 9]) for a column gradient `dcols` [B*OH*OW, 9C]. The plain
-    version for a CPU tensor, the CUDA kernel `dcn_col2im` for a CUDA
+    """The sampling backward: (dx [B, H, W, C] in x's dtype, d off_y, d
+    off_x, dmask [B, OH, OW, 9]) for an fp32 column gradient `dcols`
+    [B*OH*OW, 9C]. The plain version for a CPU tensor, the CUDA kernel
+    `dcn_col2im` (`dcn_col2im_bf16` for a bf16 x, whose dx the kernel sums
+    in an fp32 workspace that is rounded to bf16 once) for a CUDA
     tensor."""
     if x.device.type == "cpu":
         return dcn_col2im_plain(x, off_y, off_x, mask, dcols, stride)
@@ -254,22 +321,24 @@ def dcn_col2im(x, off_y, off_x, mask, dcols, stride: int = 1):
     _check_tensor("dcols", dcols, x.device)
     if tuple(dcols.shape) != (b * oh * ow, 9 * c):
         raise ValueError(f"dcols must be {(b * oh * ow, 9 * c)}, got {tuple(dcols.shape)}")
-    dx = torch.zeros_like(x)
+    bf16 = x.dtype == torch.bfloat16
+    entry = "dcn_col2im_bf16" if bf16 else "dcn_col2im"
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     doff_y = torch.empty_like(off_y)
     doff_x = torch.empty_like(off_x)
     dmask = torch.empty_like(mask)
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dcn_col2im(
+        rc = getattr(lib, entry)(
             x.data_ptr(), off_y.data_ptr(), off_x.data_ptr(), mask.data_ptr(),
             dcols.data_ptr(), dx.data_ptr(), doff_y.data_ptr(),
             doff_x.data_ptr(), dmask.data_ptr(), b, h, w, c, oh, ow, stride,
             stream,
         )
-    build.check_launch("dcn_col2im", rc)
-    dcn_col2im.launches += 1
-    return dx, doff_y, doff_x, dmask
+    build.check_launch(entry, rc)
+    (DCN_COL2IM_BF16 if bf16 else dcn_col2im).launches += 1
+    return dx.to(x.dtype), doff_y, doff_x, dmask
 
 
 dcn_col2im.launches = 0

@@ -29,7 +29,10 @@ ARCH_SETTINGS = {
 
 
 class FrozenBN(nn.Module):
-    """BatchNorm with statistics and affine parameters frozen (buffers)."""
+    """BatchNorm with statistics and affine parameters frozen (buffers). The
+    folded multiply and add are cast to the input's dtype, as the JAX
+    package's are, so a bf16 conv output stays bf16 (fp32 buffers would
+    promote it back to fp32)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -42,13 +45,20 @@ class FrozenBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
         add = self.bias - self.running_mean * mul
-        return x * mul[:, None, None] + add[:, None, None]
+        return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
 
 
 class ModulatedDeformConv(nn.Module):
     """DCNv2 3x3: a regular 3x3 conv predicts 18 offsets ((y, x) per tap) and
     9 mask logits; the sampling and the contraction with `weight` run in
-    `kernels.dcn.dcn_conv`."""
+    `kernels.dcn.dcn_conv`.
+
+    Under bf16 autocast (the JAX package's bf16 mode, `resnet.py:113-128`)
+    the offset conv runs in bf16 and its output is widened to fp32 before
+    the split and the sigmoid; x goes in as bf16 and the output is bf16.
+    The weight goes in as the fp32 parameter in its [9C, Cout] layout:
+    `dcn_conv` rounds it to bf16 once for the product (the kernel's prep
+    pass, or the plain version), so its gradient comes back fp32."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
         super().__init__()
@@ -58,10 +68,7 @@ class ModulatedDeformConv(nn.Module):
         self.conv_offset = nn.Conv2d(in_channels, 27, 3, stride, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [b, c, h, w]
-        if torch.is_autocast_enabled(x.device.type):
-            raise NotImplementedError(
-                "DCN in bfloat16 needs bf16 versions of K2, K5 and K6 (ROADMAP.md §1 item 5)")
-        om = self.conv_offset(x).permute(0, 2, 3, 1)  # [b, oh, ow, 27]
+        om = self.conv_offset(x).float().permute(0, 2, 3, 1)  # [b, oh, ow, 27]
         off_y = om[..., 0:18:2].contiguous()
         off_x = om[..., 1:18:2].contiguous()
         mask = om[..., 18:].sigmoid().contiguous()
@@ -69,6 +76,8 @@ class ModulatedDeformConv(nn.Module):
         # [cout, c, 3, 3] -> [9c, cout], rows (ky, kx, c)
         w = self.weight.permute(2, 3, 1, 0).reshape(9 * c, -1).contiguous()
         x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+        if torch.is_autocast_enabled(x.device.type):
+            x_nhwc = x_nhwc.to(torch.get_autocast_dtype(x.device.type))
         out = dcn_conv(x_nhwc, off_y, off_x, mask, w, self.stride)
         return out.permute(0, 3, 1, 2)
 

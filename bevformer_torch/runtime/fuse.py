@@ -30,15 +30,16 @@ PAIRS = (("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"), ("0", "1"))
 
 
 class ChannelAdd(nn.Module):
-    """x + bias per channel of an NCHW tensor: what is left of a FrozenBN
-    after its multiply folded into the DCN weight before it."""
+    """x + bias per channel of an NCHW tensor, in x's dtype (as FrozenBN):
+    what is left of a FrozenBN after its multiply folded into the DCN
+    weight before it."""
 
     def __init__(self, bias: torch.Tensor):
         super().__init__()
         self.register_buffer("bias", bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.bias[:, None, None]
+        return x + self.bias.to(x.dtype)[:, None, None]
 
 
 @torch.no_grad()

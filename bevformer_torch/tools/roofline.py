@@ -5,8 +5,9 @@ it counts the bytes the function must move and the operations it must do:
 
 - every input byte is read once and every output byte written once, however
   often the kernel reads it again, each at its dtype's size (msda's value,
-  output, grad_out and dValue in fp32 or bf16); for msda the whole value
-  tensor counts as read once (the samples may touch any of it);
+  output, grad_out and dValue, and the DCN's x, output, column and dx, in
+  fp32 or bf16); for msda the whole value tensor counts as read once (the
+  samples may touch any of it);
 - operations are fp32 arithmetic, an FMA counted as two: per msda sample
   (batch, query, head, level, point) 14 for the pixel position and the four
   corner weights, and per channel 2 for each of the four corners it sums;
@@ -20,6 +21,8 @@ accuracy:
   products per fp32 multiply-add (3xTF32: big*big' + big*small' +
   small*big', the least that keeps fp32's accuracy; one TF32 product misses
   the port's 1e-4 tolerance at K = 9*256), against 495 TFLOP/s dense TF32;
+  on a bf16 x one bf16 product per multiply-add, against 989 TFLOP/s dense
+  bf16;
 - everything else (sampling, msda, the backward kernels) on the fp32 SIMT
   units, against 67 TFLOP/s.
 
@@ -39,10 +42,12 @@ from typing import Sequence, Tuple
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 PEAKS = ("H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s fp32 (SIMT), "
-         "495 TFLOP/s TF32 tensor cores (dense), 700 W")
+         "495 TFLOP/s TF32 and 989 TFLOP/s bf16 tensor cores (dense), 700 W")
 
 F32 = 4
+BF16 = 2
 SAMPLE_FLOPS = 14  # pixel position and four corner weights of one msda sample
 TF32_PRODUCTS = 3  # TF32 tensor-core products per fp32-accurate multiply-add
 
@@ -52,6 +57,7 @@ class Cost:
     bytes: float
     flops: float  # fp32 operations on the SIMT units
     tf32_flops: float = 0.0  # TF32 tensor-core operations, as issued
+    bf16_flops: float = 0.0  # bf16 tensor-core operations
 
     @property
     def bytes_ms(self) -> float:
@@ -59,7 +65,8 @@ class Cost:
 
     @property
     def flops_ms(self) -> float:
-        return max(self.flops / FP32_FLOPS, self.tf32_flops / TF32_FLOPS) * 1e3
+        return max(self.flops / FP32_FLOPS, self.tf32_flops / TF32_FLOPS,
+                   self.bf16_flops / BF16_FLOPS) * 1e3
 
     @property
     def bound_ms(self) -> float:
@@ -71,7 +78,8 @@ class Cost:
 
     def as_dict(self) -> dict:
         return dict(bytes=self.bytes, flops=self.flops, tf32_flops=self.tf32_flops,
-                    bound_ms=self.bound_ms, bound_by=self.bound_by)
+                    bf16_flops=self.bf16_flops, bound_ms=self.bound_ms,
+                    bound_by=self.bound_by)
 
 
 def total(calls: Sequence[Tuple[Cost, int]]) -> dict:
@@ -120,34 +128,40 @@ def msda_bwd(b: int, q: int, h: int, d: int, shapes, p: int, itemsize: int = F32
     return Cost(2 * (value + loc + attw) + out, samples * (SAMPLE_FLOPS + 26 * d))
 
 
-def _dcn_sizes(b, h, w, c, stride):
+def _dcn_sizes(b, h, w, c, stride, itemsize):
     oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
     taps = b * oh * ow * 9
-    # x, and off_y, off_x and mask [b, oh, ow, 9]
-    return b * oh * ow, taps, b * h * w * c * F32, 3 * taps * F32
+    # x at `itemsize` bytes an element, and off_y, off_x and mask [b, oh, ow, 9]
+    return b * oh * ow, taps, b * h * w * c * itemsize, 3 * taps * F32
 
 
-def dcn_conv(b: int, h: int, w: int, c: int, cout: int, stride: int = 1) -> Cost:
+def dcn_conv(b: int, h: int, w: int, c: int, cout: int, stride: int = 1,
+             itemsize: int = F32) -> Cost:
     """One DCNv2 forward (K2): x [b, h, w, c], offsets and mask, weight
-    [9c, cout] -> out [b, oh, ow, cout]; sampling (8 per tap and channel) on
-    the SIMT units and the contraction (2 * cout per tap and channel) on the
-    tensor cores, three TF32 products each."""
-    pixels, taps, x, offsets = _dcn_sizes(b, h, w, c, stride)
-    return Cost(x + offsets + 9 * c * cout * F32 + pixels * cout * F32,
-                taps * c * 8, TF32_PRODUCTS * taps * c * 2 * cout)
+    [9c, cout] (fp32) -> out [b, oh, ow, cout]; x and out of `itemsize`
+    bytes an element; sampling (8 per tap and channel) on the SIMT units and
+    the contraction (2 * cout per tap and channel) on the tensor cores,
+    three TF32 products each in fp32, one bf16 product on a bf16 x."""
+    pixels, taps, x, offsets = _dcn_sizes(b, h, w, c, stride, itemsize)
+    contraction = taps * c * 2 * cout
+    return Cost(x + offsets + 9 * c * cout * F32 + pixels * cout * itemsize, taps * c * 8,
+                TF32_PRODUCTS * contraction if itemsize == F32 else 0.0,
+                contraction if itemsize == BF16 else 0.0)
 
 
-def dcn_im2col(b: int, h: int, w: int, c: int, stride: int = 1) -> Cost:
-    """One modulated im2col (K5): x and offsets -> cols [b*oh*ow, 9c]."""
-    _, taps, x, offsets = _dcn_sizes(b, h, w, c, stride)
-    return Cost(x + offsets + taps * c * F32, taps * c * 8)
+def dcn_im2col(b: int, h: int, w: int, c: int, stride: int = 1, itemsize: int = F32) -> Cost:
+    """One modulated im2col (K5): x and offsets -> cols [b*oh*ow, 9c], x and
+    cols of `itemsize` bytes an element."""
+    _, taps, x, offsets = _dcn_sizes(b, h, w, c, stride, itemsize)
+    return Cost(x + offsets + taps * c * itemsize, taps * c * 8)
 
 
-def dcn_col2im(b: int, h: int, w: int, c: int, stride: int = 1) -> Cost:
-    """One DCN col2im (K6): x, offsets and dcols [b*oh*ow, 9c] -> dx, d
-    offsets, dmask. Per tap and channel: dx's four corner adds (8), the
-    resample for dmask (8) and the offset slopes (8)."""
-    _, taps, x, offsets = _dcn_sizes(b, h, w, c, stride)
+def dcn_col2im(b: int, h: int, w: int, c: int, stride: int = 1, itemsize: int = F32) -> Cost:
+    """One DCN col2im (K6): x, offsets and dcols [b*oh*ow, 9c] (fp32) -> dx,
+    d offsets, dmask; x and dx of `itemsize` bytes an element. Per tap and
+    channel: dx's four corner adds (8), the resample for dmask (8) and the
+    offset slopes (8)."""
+    _, taps, x, offsets = _dcn_sizes(b, h, w, c, stride, itemsize)
     return Cost(2 * (x + offsets) + taps * c * F32, taps * c * 24)
 
 

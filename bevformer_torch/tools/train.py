@@ -104,7 +104,8 @@ class BatchPrefetcher:
 
     `get()` returns (batch, host_ms, wait_ms): host_ms is the thread's wall
     time for the batch, wait_ms the time the trainer blocked for it (0
-    when loading hides behind the step)."""
+    when loading hides behind the step). It raises, rather than waiting
+    for ever, once the thread has ended with nothing left to hand over."""
 
     def __init__(self, fn: Callable, start_step: int, total_steps: int, device: torch.device,
                  depth: int = 2):
@@ -144,7 +145,15 @@ class BatchPrefetcher:
 
     def get(self):
         t0 = time.perf_counter()
-        batch, ready, host_ms, err = self._q.get()
+        while True:
+            try:
+                batch, ready, host_ms, err = self._q.get(timeout=1.0)
+                break
+            except queue.Empty:
+                # the thread puts before it ends: an empty queue after its
+                # end stays empty
+                if not self._thread.is_alive() and self._q.empty():
+                    raise RuntimeError("the batch thread ended without a batch for this step")
         if err is not None:
             raise err
         if ready is not None:

@@ -41,6 +41,14 @@ Phases, each printed as it runs:
      and, as a yardstick, ATen's grid_sampler_2d_backward on the same
      sampling (dx and the position gradient; with grid_sampler_2d and a
      channel dot for dmask, the two-call composition of K6's function);
+     then bf16 K2, K5 and K6 (dcn_conv_fwd_bf16, dcn_im2col_bf16,
+     dcn_col2im_bf16: a bf16 x, fp32 sums, a bf16 output, column and dx)
+     against their plain versions at bevformer_base's and bevformer_small's
+     DCN stages (output, column and dx within one bf16 ulp at their scale,
+     d offsets, dmask and dWeight 1e-3; the whole bf16 DCN gradient against
+     autograd through the plain conv), with times, bounds at bf16's 2-byte
+     tensors, and the yardsticks (K5 bf16 + a bf16 cuBLAS product; ATen's
+     grid_sampler_2d_backward on bf16);
   7. probes: the kernel benchmark and probe tools (bevformer_torch/tools),
      each through its `main` at bevformer_base's full SCA width (and TSA's
      for K1's cost split): K7 (msda_fwd_ho) against K1 and the plain msda on
@@ -116,8 +124,11 @@ Phases, each printed as it runs:
      peak. Then `tools.train bevformerv2-r50-t8` for 3 steps (8 frames of
      6 images a sample in the data thread; 102 K1 and 18 K3/K4 launches
      per step): its step, host and data-wait medians; and one frame's
-     photometric distortion timed on the host and on the card. The root is
-     removed;
+     photometric distortion timed on the host and on the card. Then
+     `tools.train bevformer_base --cfg-options dtype=bfloat16` for 2 steps
+     and `tools.test bevformer_base --cfg-options dtype=bfloat16` on its
+     checkpoint over 4 val frames: the bf16 K1-K6 launches per step and per
+     frame. The root is removed;
   13. the other v1 presets, bevformer_tiny, bevformer_small and
      bevformer_tiny_fp16 (bf16), each at full size with seeded weights: the
      4-frame video on the kernel path (launches per frame, frame median,
@@ -145,10 +156,17 @@ Phases, each printed as it runs:
      launches (18 / 18; t8 102 / 18) and cost transfers to the host (1),
      every parameter and running statistic moved, the step median and the
      peak; then t1's training witness, as phase 9's, with dropout and
-     GridMask off and BatchNorm in train mode.
+     GridMask off and BatchNorm in train mode;
+  16. bevformer_base and bevformer_small at dtype=bfloat16 (bf16 K1, K2,
+     K3/K4, K5 and K6), each as phase 13 runs a preset: the 4-frame video
+     (bf16 launches per frame: base 18 K1, 26 K2), 4 training steps (base
+     54 K1, 52 K2, 18 K3/K4, 26 K5, 26 K6), frame and step medians, peaks,
+     the witness against the plain and noisy plain paths under phase 13's
+     bf16 rule.
 
 The line before the last is the kernels' JSON record (bf16 K1 and K3/K4
-with the launches of tiny_fp16's training run; K1 also with its launches on
+with the launches of tiny_fp16's training run; bf16 K2, K5 and K6 with those
+of bevformer_base's bf16 training run; K1 also with its launches on
 the V2 presets' samples and its times at V2's shapes; K1 and K3/K4 with
 their launches per V2 training step and times at V2 training's new
 shapes): for each kernel its
@@ -181,7 +199,8 @@ FRAMES = (3, 1)  # scene lengths
 # history images and one over the trained frame's 6; the backward kernels
 # once per K1 / K2 call of the trained frame
 TRAIN_PER_STEP = dict(msda_fwd=3 * 12 + 18, dcn_conv_fwd=2 * 26, msda_bwd=18,
-                      dcn_im2col=26, dcn_col2im=26, msda_fwd_bf16=0, msda_bwd_bf16=0)
+                      dcn_im2col=26, dcn_col2im=26, msda_fwd_bf16=0, msda_bwd_bf16=0,
+                      dcn_conv_fwd_bf16=0, dcn_im2col_bf16=0, dcn_col2im_bf16=0)
 TRAIN_STEPS = 4
 TRAIN_TOTAL_STEPS = 1000  # length of the lr schedule the steps run on
 
@@ -195,11 +214,19 @@ WITNESS_NOISE = 1e-6  # relative noise on the plain msda and DCN outputs
 WITNESS_FACTOR = 10.0  # kernel vs plain within this multiple of noisy vs plain
 WITNESS_BATCH_SEED = 2  # the training witness's batch (see check_training_witness)
 PROFILE_ROWS = 10
-BF16_FWD_ULPS = 1  # bf16 K1's output and K3/K4's dValue: bf16 ulps at max |plain|
-BF16_AUX_TOL = 1e-3  # bf16 K3/K4's dLoc and dAttw: max abs err over max |plain|
+# bf16 K1's output, K3/K4's dValue, K2's output, K5's column and K6's dx:
+# bf16 ulps at max |plain|
+BF16_FWD_ULPS = 1
+# bf16 K3/K4's dLoc and dAttw, K6's d offsets and dmask, the bf16 DCN's
+# fp32 gradients: max abs err over max |plain|
+BF16_AUX_TOL = 1e-3
 # the other v1 presets (phase 13) and the relative noise of bf16 rounding's
 # size on the bf16 preset's plain msda outputs (its witness)
 PRESETS = ("bevformer_tiny", "bevformer_small", "bevformer_tiny_fp16")
+# the DCN presets at dtype=bfloat16 (phase 16): bf16 K1, K2, K3/K4, K5, K6
+BF16_DCN_PRESETS = ("bevformer_base", "bevformer_small")
+BF16_CLI_STEPS = 2  # tools.train bevformer_base --cfg-options dtype=bfloat16
+BF16_CLI_FRAMES = 4  # tools.test bevformer_base --cfg-options dtype=bfloat16 --max-samples
 PRESET_TRAIN_STEPS = 4
 BF16_WITNESS_NOISE = 2.0 ** -8
 
@@ -669,6 +696,138 @@ def k6_case(name, x, off_y, off_x, mask, weight, g, dcols):
     return out
 
 
+# bf16 K2, K5 and K6 at the DCN stages of bevformer_base and bevformer_small
+# in bf16: (name, B, H, W, C, Cout, launches per base frame = per base
+# step's backward; small's rows count 0 in the kernels' line)
+BF16_DCN_CASES = [
+    ("base_layer3", 6, 58, 100, 256, 256, 23), ("base_layer4", 6, 29, 50, 512, 512, 3),
+    ("small_layer3", 6, 46, 80, 256, 256, 0), ("small_layer4", 6, 23, 40, 512, 512, 0),
+]
+
+
+def check_bf16_dcn(device, gen):
+    """bf16 K2 (dcn_conv_fwd_bf16), K5 (dcn_im2col_bf16) and K6
+    (dcn_col2im_bf16) against their plain versions at the DCN stages of
+    bevformer_base and bevformer_small, offsets N(0, 3) px: K2's output,
+    K5's column and K6's dx within BF16_FWD_ULPS bf16 ulps at their scale,
+    K6's d offsets and dmask within BF16_AUX_TOL; the whole bf16 DCN
+    gradient (`_DCNConv`: K5, two fp32 products, K6) against autograd
+    through the plain conv. Times, bounds at bf16's 2-byte x, output,
+    column and dx, the plain versions' times, and the yardsticks: K5 bf16
+    + one bf16 cuBLAS product for K2, ATen's grid_sampler_2d_backward on
+    bf16 for K6."""
+    import torch
+    from bevformer_torch.kernels import dcn
+    from bevformer_torch.tools import roofline
+
+    k2_rows, k5_rows, k6_rows = [], [], []
+    for name, b, h, w, c, cout, per in BF16_DCN_CASES:
+        x = torch.randn((b, h, w, c), generator=gen, device=device).bfloat16()
+        off_y = torch.randn((b, h, w, 9), generator=gen, device=device) * 3
+        off_x = torch.randn((b, h, w, 9), generator=gen, device=device) * 3
+        mask = torch.rand((b, h, w, 9), generator=gen, device=device)
+        weight = torch.randn((9 * c, cout), generator=gen, device=device) / (9 * c) ** 0.5
+        g = torch.randn((b, h, w, cout), generator=gen, device=device).bfloat16()
+        dcols = torch.randn((b * h * w, 9 * c), generator=gen, device=device)
+        args = (x, off_y, off_x, mask, weight, 1)
+
+        # K2
+        out, ref = dcn.dcn_conv(*args), dcn.dcn_conv_plain(*args)
+        torch.cuda.synchronize()
+        check(out.dtype == ref.dtype == torch.bfloat16, f"bf16 K2 {name}: {out.dtype}")
+        k2_ulps, k2_err = ulps(out, ref), float((out.float() - ref.float()).abs().max())
+        exact = (dcn.dcn_im2col_plain(x, off_y, off_x, mask).double()
+                 @ weight.bfloat16().double()).view(out.shape)
+        vs_exact = [ulps(o, exact) for o in (out, ref)]
+        same = float((out == ref).float().mean())
+        del out, ref, exact
+        ms = time_ms(lambda: dcn.dcn_conv(*args), 10)
+        plain_ms = time_ms(lambda: dcn.dcn_conv_plain(*args), 3)
+        wb = weight.bfloat16()
+        two_call_ms = time_ms(lambda: dcn.dcn_im2col(x, off_y, off_x, mask) @ wb, 10)
+        cost = roofline.dcn_conv(b, h, w, c, cout, itemsize=2)
+        log(f"[bf16-k2] {name}: x {list(x.shape)} bf16 weight {list(weight.shape)} max abs err "
+            f"{k2_err:.3e} = {k2_ulps:.2f} bf16 ulps at max|plain| (tol {BF16_FWD_ULPS}; "
+            f"{same:.2%} bitwise equal; against the float64 product of the bf16 column and "
+            f"weight: kernel {vs_exact[0]:.2f}, plain {vs_exact[1]:.2f} ulps) kernel {ms:.4f} ms "
+            f"({cost.bound_ms / ms:.1%} of its bound {cost.bound_ms:.4f}, "
+            f"{cost.bf16_flops / ms / 1e9:.1f} TFLOP/s) dcn_im2col_bf16 + bf16 matmul "
+            f"{two_call_ms:.4f} ms plain {plain_ms:.4f} ms")
+        check(k2_ulps <= BF16_FWD_ULPS, f"bf16 K2 {name}: {k2_ulps:.2f} ulps")
+        k2_rows.append(dict(shape=name, max_abs_err=k2_err, ulps=k2_ulps, ms=ms, plain_ms=plain_ms,
+                            per_frame=per, share_of_bound=cost.bound_ms / ms,
+                            bitwise_equal_share=same, im2col_matmul_ms=two_call_ms,
+                            ulps_vs_float64=vs_exact[0], plain_ulps_vs_float64=vs_exact[1],
+                            cost=cost))
+
+        # K5
+        cols, ref = dcn.dcn_im2col(x, off_y, off_x, mask), dcn.dcn_im2col_plain(x, off_y, off_x,
+                                                                               mask)
+        torch.cuda.synchronize()
+        check(cols.dtype == torch.bfloat16, f"bf16 K5 {name}: {cols.dtype}")
+        k5_ulps, k5_err = ulps(cols, ref), float((cols.float() - ref.float()).abs().max())
+        same = float((cols == ref).float().mean())
+        del cols, ref
+        ms = time_ms(lambda: dcn.dcn_im2col(x, off_y, off_x, mask), 10)
+        plain_ms = time_ms(lambda: dcn.dcn_im2col_plain(x, off_y, off_x, mask), 3)
+        cost = roofline.dcn_im2col(b, h, w, c, itemsize=2)
+        log(f"[bf16-k5] {name}: column {k5_ulps:.2f} bf16 ulps at max|plain| (tol "
+            f"{BF16_FWD_ULPS}; {same:.4%} bitwise equal) kernel {ms:.4f} ms "
+            f"({cost.bound_ms / ms:.1%} of its bound {cost.bound_ms:.4f}) plain {plain_ms:.4f} ms")
+        check(k5_ulps <= BF16_FWD_ULPS, f"bf16 K5 {name}: {k5_ulps:.2f} ulps")
+        k5_rows.append(dict(shape=name, max_abs_err=k5_err, ulps=k5_ulps, ms=ms,
+                            plain_ms=plain_ms, per_step=per, share_of_bound=cost.bound_ms / ms,
+                            bitwise_equal_share=same, cost=cost))
+
+        # K6 alone, then the whole gradient through _DCNConv
+        ours = dcn.dcn_col2im(x, off_y, off_x, mask, dcols)
+        ref = dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols)
+        torch.cuda.synchronize()
+        check(ours[0].dtype == torch.bfloat16 and all(t.dtype == torch.float32 for t in ours[1:]),
+              f"bf16 K6 {name}: dtypes {[t.dtype for t in ours]}")
+        errs = {"dx ulps": ulps(ours[0], ref[0])}
+        errs.update({k: rel_err(a, r) for k, a, r in zip(("doff_y", "doff_x", "dmask"), ours[1:],
+                                                           ref[1:])})
+        k6_err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(ours, ref))
+        del ours, ref
+        leaves = [t.detach().requires_grad_() for t in (x, off_y, off_x, mask, weight)]
+        grads = torch.autograd.grad(dcn.dcn_conv(*leaves, 1), leaves, g)
+        ref = dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g)
+        torch.cuda.synchronize()
+        check([t.dtype for t in grads] == [torch.bfloat16] + [torch.float32] * 4,
+              f"bf16 DCN gradient {name}: dtypes {[t.dtype for t in grads]}")
+        errs["gradient dx ulps"] = ulps(grads[0], ref[0])
+        errs.update({f"gradient {k}": rel_err(a, r) for k, a, r in zip(
+            ("doff_y", "doff_x", "dmask", "dweight"), grads[1:], ref[1:])})
+        del grads, ref, leaves
+        ms = time_ms(lambda: dcn.dcn_col2im(x, off_y, off_x, mask, dcols), 10)
+        plain_ms = time_ms(lambda: dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols), 3)
+        cost = roofline.dcn_col2im(b, h, w, c, itemsize=2)
+        # the yardstick on bf16 (its grid bf16 too: ATen takes one dtype)
+        py, px = dcn._grid(h, w, 1, off_y, off_x)
+        grid = torch.stack([px * (2 / (w - 1)) - 1, py * (2 / (h - 1)) - 1],
+                           -1).view(b, h, w * 9, 2).bfloat16()
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        gout = (dcols.view(b, h, w, 9, c) * mask[..., None]).permute(0, 4, 1, 2, 3).reshape(
+            b, c, h, w * 9).bfloat16()
+        gs_ms = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gout, xn, grid, 0, 0, True, [True, True]), 10)
+        del grid, xn, gout
+        log(f"[bf16-k6] {name}: {fmt_errors(errs)} (dx tol {BF16_FWD_ULPS} ulps, the rest "
+            f"{BF16_AUX_TOL:.0e}) kernel {ms:.4f} ms ({cost.bound_ms / ms:.1%} of its bound "
+            f"{cost.bound_ms:.4f}); yardstick aten grid_sampler_2d_backward (bf16) {gs_ms:.4f} ms; "
+            f"plain {plain_ms:.4f} ms")
+        for k, e in errs.items():
+            check(e <= (BF16_FWD_ULPS if "ulps" in k else BF16_AUX_TOL),
+                  f"bf16 K6 {name} {k}: {e:.3e}")
+        k6_rows.append(dict(shape=name, max_abs_err=k6_err, ms=ms, plain_ms=plain_ms,
+                            per_step=per, share_of_bound=cost.bound_ms / ms,
+                            grid_sampler_ms=gs_ms, cost=cost, **errs))
+        del x, off_y, off_x, mask, weight, g, dcols, args
+        torch.cuda.empty_cache()
+    return k2_rows, k5_rows, k6_rows
+
+
 # ---------------------------------------------------------------- probes
 
 PROBE_REPS = 5  # timed launches per case (the tools' default is 20)
@@ -1022,8 +1181,8 @@ def check_precision(model, video):
 def path_launches(cfg):
     """(per frame, per training step) launches of every kernel counter on
     `cfg`'s paths: per frame TSA and SCA in each encoder layer and the
-    cross-attention of each decoder layer (K1, or its bf16 entry under
-    bf16) and the DCN conv2 of every block of the DCN stages (K2); a
+    cross-attention of each decoder layer (K1) and the DCN conv2 of every
+    block of the DCN stages (K2), each kernel's bf16 entry under bf16; a
     training step runs its queue_length - 1 history frames encoder only,
     with one backbone pass over all their images, then the trained frame,
     whose K1 and K2 calls each run a backward (K3/K4; K5 and K6)."""
@@ -1031,15 +1190,15 @@ def path_launches(cfg):
     from bevformer_torch.models.resnet import ARCH_SETTINGS
 
     zero = dict.fromkeys(kernel_counters(), 0)
-    bf16 = cfg.dtype == "bfloat16"
-    k1, k34 = ("msda_fwd_bf16", "msda_bwd_bf16") if bf16 else ("msda_fwd", "msda_bwd")
+    sfx = "_bf16" if cfg.dtype == "bfloat16" else ""
+    k1, k34, k2, k5, k6 = (name + sfx for name in ("msda_fwd", "msda_bwd", "dcn_conv_fwd",
+                                                     "dcn_im2col", "dcn_col2im"))
     enc, dec = 2 * cfg.encoder_layers, cfg.decoder_layers
     dcn = sum(ARCH_SETTINGS[cfg.backbone_depth][s] for s in cfg.backbone_dcn_stages)
     history = cfg.data.queue_length - 1
-    frame = dict(zero, **{k1: enc + dec, "dcn_conv_fwd": dcn})
+    frame = dict(zero, **{k1: enc + dec, k2: dcn})
     step = dict(zero, **{k1: history * enc + enc + dec, k34: enc + dec,
-                         "dcn_conv_fwd": (2 if history else 1) * dcn, "dcn_im2col": dcn,
-                         "dcn_col2im": dcn})
+                         k2: (2 if history else 1) * dcn, k5: dcn, k6: dcn})
     return frame, step
 
 
@@ -1091,8 +1250,9 @@ def frozen_bn_bytes(model, video) -> dict:
     return seen
 
 
-def check_preset(name, device, smi):
-    """One of the other v1 presets at full size with seeded weights: a
+def check_preset(name, device, smi, dtype=None):
+    """One of the v1 presets at full size with seeded weights, in its
+    config's dtype or `dtype` (`--cfg-options dtype=...`): a
     4-frame video (scenes FRAMES) on the kernel path, with its launches per
     frame, frame median and peak memory, held to phase 10's witness against
     the plain path (undamped: within WITNESS_FACTOR of the plain path with
@@ -1108,6 +1268,8 @@ def check_preset(name, device, smi):
     from bevformer_torch.runtime import Trainer, build_model, init_state_dict
 
     cfg = get_config(name)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
     bf16 = cfg.dtype == "bfloat16"
     noise = BF16_WITNESS_NOISE if bf16 else WITNESS_NOISE
     per_frame, per_step = path_launches(cfg)
@@ -2058,6 +2220,50 @@ def check_cli_fp16_and_fuse(data, root, smi):
                 unfused_frame_ms=fold["unfolded_ms"])
 
 
+def check_cli_base_bf16(data, root, smi):
+    """`tools.train bevformer_base --cfg-options dtype=bfloat16` for
+    BF16_CLI_STEPS steps on the phase's root, then `tools.test
+    bevformer_base --cfg-options dtype=bfloat16` on its checkpoint over
+    BF16_CLI_FRAMES val frames: the bf16 K1-K6 launches per step and per
+    frame, finite losses and metrics."""
+    from bevformer_torch.configs import get_config
+
+    cfg = get_config("bevformer_base").replace(dtype="bfloat16")
+    per_frame, per_step = path_launches(cfg)
+    work = os.path.join(root, "work_bf16")
+    what = f"tools.train bevformer_base dtype=bfloat16 to step {BF16_CLI_STEPS}"
+    recs, train_s = run_cli(["bevformer_torch.tools.train", "bevformer_base", "--data-root", data,
+                             "--work-dir", work, "--max-iters", str(BF16_CLI_STEPS),
+                             "--log-interval", "1", "--cfg-options", "dtype=bfloat16"], what)
+    done = one(recs, "done", what)
+    steps = [r for r in recs if "step_ms" in r and "done" not in r]
+    want = times(per_step, done["steps"])
+    check(done["launches"] == want, f"{what}: launches {done['launches']}, want {want}")
+    check(all(math.isfinite(r["total"]) for r in steps), f"{what}: {steps}")
+    log(f"[cli] {what}: {train_s:.1f} s, peak {done['peak_gib']} GiB, launches "
+        f"{done['launches']}; steps: " + "; ".join(
+            f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms" for r in steps))
+
+    what = f"tools.test bevformer_base dtype=bfloat16 over {BF16_CLI_FRAMES} frames"
+    recs, test_s = run_cli(["bevformer_torch.tools.test", "bevformer_base", "--data-root", data,
+                            "--checkpoint", os.path.join(work, "ckpts",
+                                                         f"iter_{BF16_CLI_STEPS}.pth"),
+                            "--out", os.path.join(work, "results.json"), "--max-samples",
+                            str(BF16_CLI_FRAMES), "--cfg-options", "dtype=bfloat16"], what)
+    timing = one(recs, "frame_ms", what)
+    summary = one(recs, "NDS", what)
+    want = times(per_frame, timing["frames"])
+    check(timing["frames"] == BF16_CLI_FRAMES, f"{what}: {timing['frames']} frames")
+    check(timing["launches"] == want, f"{what}: launches {timing['launches']}, want {want}")
+    check(all(math.isfinite(v) for v in summary.values()), f"{what}: {summary}")
+    log(f"[cli] {what}: {test_s:.1f} s, frame ms {[round(x, 1) for x in timing['frame_ms']]}, "
+        f"peak {timing['peak_gib']} GiB, launches {timing['launches']}; {json.dumps(summary)}; "
+        f"card: {smi}")
+    return dict(bf16_step_ms=median_of([r["step_ms"] for r in steps[1:]]),
+                bf16_train_peak_gib=done["peak_gib"], bf16_frame_ms=timing["frame_ms_median"],
+                bf16_test_peak_gib=timing["peak_gib"])
+
+
 def fold_comparison(name, data, ckpt, work, per_frame, smi):
     """`tools.test <name>` on `ckpt` over the val frames with and without
     `--fuse-conv-bn`: each run launches every kernel `per_frame` times a
@@ -2377,6 +2583,7 @@ def check_cli(smi):
 
         perfect_detector(data, cfg, "cuda")
         fp16 = check_cli_fp16_and_fuse(data, root, smi)
+        fp16.update(check_cli_base_bf16(data, root, smi))
         v2 = check_cli_v2(data, root, smi)
         v2.update(check_cli_v2_train(data, root, smi))
         v2.update(check_cli_v2_train_t8(data, root, smi))
@@ -2447,6 +2654,7 @@ def main() -> int:
     k34_v2_train_rows = check_k34_v2(device, gen)
     bf16_fwd_rows, bf16_bwd_rows = check_bf16_msda(device, gen)
     im2col_rows, col2im_rows = check_k56(device, gen)
+    bf16_k2_rows, bf16_k5_rows, bf16_k6_rows = check_bf16_dcn(device, gen)
     torch.cuda.empty_cache()
     probe_runs, probe_counts = check_probes()
     torch.cuda.empty_cache()
@@ -2465,6 +2673,9 @@ def main() -> int:
     v2 = {name: check_v2(name, device, smi) for name in V2_PRESETS}
     torch.cuda.empty_cache()
     v2_train = {name: check_v2_training(name, steps, device, smi) for name, steps in V2_TRAIN}
+    torch.cuda.empty_cache()
+    bf16_dcn = {name: check_preset(name, device, smi, dtype="bfloat16")
+                for name in BF16_DCN_PRESETS}
 
     def record(name, src, replaces, rows, per, library_note, counts=tr["counts"]):
         bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
@@ -2512,6 +2723,29 @@ def main() -> int:
                "no single PyTorch call computes the msda backward", counts=fp16["train_counts"]),
     ]
     kernels[-2]["inference_launches"] = fp16["inference_counts"]["msda_fwd_bf16"]
+    # bf16 K2, K5 and K6: bevformer_base's bf16 training run (phase 16) and
+    # its video; per frame / per step over base's shapes, small's beside
+    base16 = bf16_dcn["bevformer_base"]
+    kernels += [
+        record("dcn_conv_fwd_bf16", "bevformer_torch/csrc/dcn_conv_fwd.cu",
+               "bevformer_tpu/kernels/dcn_pallas.py:329", bf16_k2_rows, "per_frame", no_dcn,
+               counts=base16["train_counts"]),
+        record("dcn_im2col_bf16", "bevformer_torch/csrc/dcn_im2col.cu",
+               "bevformer_tpu/kernels/dcn_pallas.py:112", bf16_k5_rows, "per_step",
+               "no single PyTorch call computes a modulated deformable im2col",
+               counts=base16["train_counts"]),
+        record("dcn_col2im_bf16", "bevformer_torch/csrc/dcn_col2im.cu",
+               "bevformer_tpu/kernels/msda_pallas.py:318", bf16_k6_rows, "per_step",
+               "no single PyTorch call computes the DCN col2im: grid_sampler_2d_backward "
+               "(bf16) leaves out dmask (grid_sampler_ms)", counts=base16["train_counts"]),
+    ]
+    kernels[-3]["inference_launches"] = base16["inference_counts"]["dcn_conv_fwd_bf16"]
+    kernels[-3]["im2col_matmul_ms"] = sum(r["im2col_matmul_ms"] * r["per_frame"]
+                                          for r in bf16_k2_rows)
+    kernels[-1]["grid_sampler_ms"] = sum(r["grid_sampler_ms"] * r["per_step"] for r in bf16_k6_rows)
+    for k in kernels[-3:]:
+        k["launches_per_preset"] = {name: r["train_counts"][k["name"]] for name, r in
+                                    bf16_dcn.items()}
     # K1 on the V2 presets' samples: launches per preset's run, and at V2's
     # shapes per frame encoded (the decoder's once per sample)
     v2_bound = roofline.total([(r.pop("cost"), r["per_frame"]) for r in k1_v2_rows])
@@ -2548,10 +2782,13 @@ def main() -> int:
     log(f"[summary] CLIs: tools.train step median {cli['step_ms']:.1f} ms (host "
         f"{cli['host_ms']:.1f} ms, data wait {cli['data_wait_ms']:.1f} ms), tools.test frame "
         f"median {cli['frame_ms']:.1f} ms, phase {cli['seconds']:.1f} s")
+    log(f"[summary] CLIs: tools.train bevformer_base dtype=bfloat16 step median "
+        f"{cli['bf16_step_ms']:.1f} ms, peak {cli['bf16_train_peak_gib']} GiB; tools.test frame "
+        f"median {cli['bf16_frame_ms']:.1f} ms, peak {cli['bf16_test_peak_gib']} GiB")
     log(f"[summary] CLIs: tools.fp16.train bevformer_tiny step median {cli['fp16_step_ms']:.1f} ms, "
         f"tools.test bevformer_tiny frame median {cli['unfused_frame_ms']:.1f} ms, with "
         f"--fuse-conv-bn {cli['fuse_frame_ms']:.1f} ms")
-    for r in presets.values():
+    for r in [*presets.values(), *bf16_dcn.values()]:
         log(f"[summary] {r['name']} ({r['dtype']}): frame median {r['frame_ms']:.1f} ms, peak "
             f"{r['frame_peak_gib']:.2f} GiB; training step median {r['step_ms']:.1f} ms, peak "
             f"{r['step_peak_gib']:.2f} GiB; on {smi}")

@@ -29,16 +29,18 @@ def test_caffe_dcn_backbone_and_fpn_match_jax():
     jres = JaxResNet(depth=10, out_indices=(1, 2, 3), dcn_stages=(2, 3),
                      dcn_impl="off", style="caffe")
     jfpn = JaxFPN(in_channels=IN_CHANNELS, out_channels=64, num_outs=4)
-    bb = to_numpy_tree(jres.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])
+    # jitted, as the JAX package runs its models: op by op, each operation
+    # of the R10 and FPN compiles on its own
+    bb = to_numpy_tree(jax.jit(jres.init)(jax.random.PRNGKey(0), jnp.asarray(x))["params"])
     # scale the block outputs down as the port's seeded init does, and give
     # the DCN offset convs weights: offsets of ~1 px on these features
     for name, node in bb.items():
         if name.startswith("layer"):
             node["bn3"]["scale"] = node["bn3"]["scale"] * 0.2
     perturb(bb, rng, names=("conv_offset",), std=1e-3)
-    feats = jres.apply({"params": bb}, jnp.asarray(x))
-    neck = to_numpy_tree(jfpn.init(jax.random.PRNGKey(1), feats)["params"])
-    ref = jfpn.apply({"params": neck}, feats)
+    feats = jax.jit(jres.apply)({"params": bb}, jnp.asarray(x))
+    neck = to_numpy_tree(jax.jit(jfpn.init)(jax.random.PRNGKey(1), feats)["params"])
+    ref = jax.jit(jfpn.apply)({"params": neck}, feats)
 
     res = ResNet(depth=10, out_indices=(1, 2, 3), dcn_stages=(2, 3))
     res.load_state_dict({k: t(v) for k, v in backbone_state_dict(bb, 10, (2, 3)).items()})

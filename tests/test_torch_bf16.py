@@ -35,7 +35,7 @@ from bevformer_tpu.models import BEVFormer as JaxBEVFormer
 from bevformer_torch.core import geometry
 from bevformer_torch.data import SyntheticVideo, train_batch
 from bevformer_torch.device import precision
-from bevformer_torch.kernels import msda
+from bevformer_torch.kernels import dcn, msda
 from bevformer_torch.models import attention
 from bevformer_torch.runtime import (
     VideoEvaluator,
@@ -100,9 +100,11 @@ def _port_step(model, batch, labels):
     return {k: float(v.detach()) for k, v in losses.items()}, grads
 
 
-@pytest.fixture(scope="module")
-def runs():
-    jcfg32, jcfg16 = mini("bevformer_tiny"), mini("bevformer_tiny_fp16")
+def bf16_runs(jcfg32, jcfg16) -> dict:
+    """The JAX package's fp32 and bf16 models (`jcfg32`, `jcfg16`) and the
+    port's bf16 one on the same weights: the frames of a 3-frame video with
+    a scene reset, the loss terms and the trainable gradients of an
+    eval-mode training step."""
     cfg = port_config(jcfg16)
     assert (jcfg16.dtype, cfg.dtype) == ("bfloat16", "bfloat16")
     video = SyntheticVideo(cfg, scene_lengths=(2, 1), seed=5, device="cpu")
@@ -115,8 +117,10 @@ def runs():
         jmodel = JaxBEVFormer(cfg=jcfg)
         jev = _TracedJaxEvaluator(jmodel, params)
         jev.run(_NumpyFrames(video), progress_every=0)
-        (_, (losses, _)), grads = jax.jit(jax.value_and_grad(
-            lambda p: jax_deterministic_loss(jmodel, p, jb), has_aux=True))(params)
+        # blocked on at once: JAX's matcher calls back into JAX from a host
+        # callback, which can deadlock with JAX work dispatched meanwhile
+        (_, (losses, _)), grads = jax.block_until_ready(jax.jit(jax.value_and_grad(
+            lambda p: jax_deterministic_loss(jmodel, p, jb), has_aux=True))(params))
         out[tag] = dict(
             frames=[{k: np.asarray(t[k], np.float32) for k in OUTPUTS} for t in jev.trace],
             losses={k: float(v) for k, v in losses.items()},
@@ -133,14 +137,18 @@ def runs():
     return out
 
 
+@pytest.fixture(scope="module")
+def runs():
+    return bf16_runs(mini("bevformer_tiny"), mini("bevformer_tiny_fp16"))
+
+
 def _within_jax_gap(name, ours, gap):
     print(f"{name}: rel_err(port bf16, JAX bf16) {ours:.3e}, "
           f"rel_err(JAX bf16, JAX fp32) {gap:.3e}, ratio {ours / max(gap, 1e-30):.2f}")
     assert ours <= FACTOR * gap, f"{name}: {ours:.3e} > {FACTOR:g} x {gap:.3e}"
 
 
-@pytest.mark.parametrize("key", OUTPUTS)
-def test_bf16_frames_within_jaxs_own_bf16_gap(runs, key):
+def check_frames(runs, key):
     ours = max(_max_rel(p[key], j[key])
                for p, j in zip(runs["port16"]["frames"], runs["jax16"]["frames"]))
     gap = max(_max_rel(a[key], b[key])
@@ -148,7 +156,7 @@ def test_bf16_frames_within_jaxs_own_bf16_gap(runs, key):
     _within_jax_gap(key, ours, gap)
 
 
-def test_bf16_loss_terms_within_jaxs_own_bf16_gap(runs):
+def check_loss_terms(runs):
     ours, j16, j32 = (runs[k]["losses"] for k in ("port16", "jax16", "jax32"))
     assert set(ours) == set(j16)
     keys = sorted(j16)
@@ -156,10 +164,23 @@ def test_bf16_loss_terms_within_jaxs_own_bf16_gap(runs):
                     _l2_rel([j16[k] for k in keys], [j32[k] for k in keys]))
 
 
-@pytest.mark.parametrize("group", [g for g, _ in GROUPS])
-def test_bf16_gradients_within_jaxs_own_bf16_gap(runs, group):
+def check_gradients(runs, group):
     ours, j16, j32 = (_grouped(runs[k]["grads"])[group] for k in ("port16", "jax16", "jax32"))
     _within_jax_gap(f"{group} gradient", _l2_rel(ours, j16), _l2_rel(j16, j32))
+
+
+@pytest.mark.parametrize("key", OUTPUTS)
+def test_bf16_frames_within_jaxs_own_bf16_gap(runs, key):
+    check_frames(runs, key)
+
+
+def test_bf16_loss_terms_within_jaxs_own_bf16_gap(runs):
+    check_loss_terms(runs)
+
+
+@pytest.mark.parametrize("group", [g for g, _ in GROUPS])
+def test_bf16_gradients_within_jaxs_own_bf16_gap(runs, group):
+    check_gradients(runs, group)
 
 
 # ---------------------------------------------------------------- fp32 islands
@@ -294,13 +315,29 @@ def test_bf16_call_sites_meet_the_kernel_contract(monkeypatch):
 
 
 def test_dcn_refuses_bf16():
-    """bf16 with DCN stages needs bf16 K2/K5/K6, which the port does not
-    have yet: the frame raises rather than running them in fp32."""
+    """bf16 with DCN stages runs the bf16 DCN (a bf16 x; the bf16 K2, K5
+    and K6 on the card), and a bf16 DCN frame gives finite outputs; the
+    wrappers refuse bf16 wherever their kernels take fp32: the offsets,
+    the mask, the weight and the column gradient."""
     cfg = port_config(mini("bevformer_small")).replace(dtype="bfloat16")
     model = build_model(cfg, init_state_dict(cfg, seed=0), "cpu")
     sample = SyntheticVideo(cfg, (1,), seed=0, device="cpu").get_test_sample(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        VideoEvaluator(model).infer_frame(sample)
+    out = VideoEvaluator(model).infer_frame(sample)
+    assert np.isfinite(np.asarray(out["scores_3d"])).all()
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(1, 4, 5, 32).astype(np.float32)).bfloat16()
+    off_y, off_x = (torch.from_numpy(rng.randn(1, 4, 5, 9).astype(np.float32)) for _ in "yx")
+    mask = torch.rand(1, 4, 5, 9)
+    weight = torch.randn(9 * 32, 16)
+    dcn._check(x, off_y, off_x, mask, weight, 1)
+    for bad in range(4):
+        args = [x, off_y, off_x, mask, weight]
+        args[1 + bad] = args[1 + bad].bfloat16()
+        with pytest.raises(TypeError, match="must be torch.float32"):
+            dcn._check(*args, 1)
+    with pytest.raises(TypeError, match="dcols must be torch.float32"):
+        dcn._check_tensor("dcols", torch.zeros(20, 9 * 32, dtype=torch.bfloat16), x.device)
 
 
 # ---------------------------------------------------------------- tools.fp16.train

@@ -189,6 +189,29 @@ def test_path_launches(name, frame, step):
         assert frame == dict(msda_fwd=chip_smoke.K1_PER_FRAME, dcn_conv_fwd=chip_smoke.K2_PER_FRAME)
 
 
+@pytest.mark.parametrize("name,frame,step", [
+    ("bevformer_base", dict(msda_fwd_bf16=18, dcn_conv_fwd_bf16=26),
+     dict(msda_fwd_bf16=54, dcn_conv_fwd_bf16=52, msda_bwd_bf16=18, dcn_im2col_bf16=26,
+          dcn_col2im_bf16=26)),
+    ("bevformer_small", dict(msda_fwd_bf16=12, dcn_conv_fwd_bf16=26),
+     dict(msda_fwd_bf16=24, dcn_conv_fwd_bf16=52, msda_bwd_bf16=12, dcn_im2col_bf16=26,
+          dcn_col2im_bf16=26)),
+])
+def test_path_launches_bf16(name, frame, step):
+    """At dtype=bfloat16 (phase 16, and phase 12's bf16 CLIs) every launch
+    of base's and small's paths counts on the bf16 entries of K1-K6, and
+    the fp32 counters stay 0."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.kernels import kernel_counters
+
+    zero = dict.fromkeys(kernel_counters(), 0)
+    cfg = get_config(name).replace(dtype="bfloat16")
+    assert chip_smoke.path_launches(cfg) == (dict(zero, **frame), dict(zero, **step))
+    assert name in chip_smoke.BF16_DCN_PRESETS
+
+
 def test_box_set_errors():
     """The --fuse-conv-bn comparison: boxes matched by label and score as
     sets, whatever their order; a missing match is counted."""

@@ -16,6 +16,7 @@ layers) and 160 x 96 images.
 import json
 import math
 import os
+import time
 
 import pytest
 import torch
@@ -163,6 +164,21 @@ def test_prefetcher_order_errors_and_close():
     # closed while its thread waits on a full queue
     prefetch = train_cli.BatchPrefetcher(lambda s: (torch.zeros(1),), 0, 10**6, cpu, depth=1)
     prefetch.get()
+    prefetch.close()
+    assert not prefetch._thread.is_alive()
+
+
+def test_prefetcher_get_raises_once_its_thread_has_ended():
+    """A `get` past the thread's last step raises within seconds: nothing
+    waits on an empty queue for ever."""
+    cpu = torch.device("cpu")
+    prefetch = train_cli.BatchPrefetcher(lambda s: (torch.zeros(1),), 0, 2, cpu)
+    prefetch.get()
+    prefetch.get()
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="ended without a batch"):
+        prefetch.get()
+    assert time.perf_counter() - t0 < 10
     prefetch.close()
     assert not prefetch._thread.is_alive()
 

@@ -20,9 +20,12 @@ shapes of its own test (the plain version's operations, unfused). bf16 K1
 and K3/K4 (a bf16 value and grad_out, fp32 sums): the bf16 output and dValue
 within one bf16 ulp at their scale (the fp32 sums agree but for their
 order, then each side rounds once), dLoc and dAttw 1e-3 of their scale.
+bf16 K2, K5 and K6 (a bf16 x, fp32 offsets, mask, weight and column
+gradient): K2's output and K6's dx within one bf16 ulp at their scale, K5's
+column bitwise, K6's d offsets and dmask 1e-5, and the whole bf16 DCN
+gradient against autograd through the plain conv (dx one ulp, the fp32
+gradients 1e-4: the column gradient's fp32 products in another order).
 """
-
-import math
 
 import numpy as np
 import pytest
@@ -32,7 +35,7 @@ from bevformer_torch.kernels import dcn, gather, msda
 # by module name, not as `tests.torch_port_helpers`: pytest puts this
 # directory on sys.path, and another installed `tests` package would shadow
 # the repo's on a machine that has one
-from torch_port_helpers import assert_close, edge_locations, edge_offsets, t
+from torch_port_helpers import assert_close, bf16_ulps, edge_locations, edge_offsets, t
 
 pytestmark = pytest.mark.cuda
 
@@ -682,13 +685,10 @@ def _bf16_inputs(b, q, h, d, shapes, p, seed, device):
 
 
 def _within_a_bf16_ulp(ours, ref, name):
-    """max |ours - ref| <= one bf16 ulp at max |ref| (2^(e - 7) for
-    2^e <= max |ref| < 2^(e + 1))."""
+    """max |ours - ref| <= one bf16 ulp at max |ref|."""
     assert ours.dtype == ref.dtype == torch.bfloat16, (name, ours.dtype, ref.dtype)
-    scale = float(ref.float().abs().max())
-    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
-    err = float((ours.float() - ref.float()).abs().max())
-    assert err <= ulp, f"{name}: max abs err {err:.3e} > one bf16 ulp {ulp:.3e} at {scale:.3e}"
+    err = bf16_ulps(ours, ref)
+    assert err <= 1, f"{name}: {err:.2f} bf16 ulps at max |ref|"
 
 
 def _check_bf16_backward(grads, value, shapes, loc, attw, g, name):
@@ -804,3 +804,113 @@ def test_bf16_msda_refuses_misaligned_tensors(cuda_device, offset):
         with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
             msda.ms_deform_attn_backward(args[0], ((4, 5),), loc, attw, args[1])
     assert (msda.MSDA_FWD_BF16.launches, msda.MSDA_BWD_BF16.launches) == before
+
+
+# ---------------------------------------------------------------- bf16 DCN
+
+def _bf16_dcn_inputs(seed, device, b=3, h=13, w=21, c=64, cout=96, stride=1):
+    """_dcn_inputs with a bf16 x (the weight stays fp32)."""
+    x, off_y, off_x, mask, weight = _dcn_inputs(seed, device, b, h, w, c, cout, stride)
+    return [x.bfloat16(), off_y, off_x, mask, weight]
+
+
+BF16_DCN_CASES = [("small", 3, 13, 21, 64, 96, 1), ("stride2", 2, 11, 13, 64, 96, 2)] + [
+    c for c in DCN_CASES if c[0] != "c512_cout512_s2"]
+
+
+@pytest.mark.parametrize("name,b,h,w,c,cout,stride", BF16_DCN_CASES,
+                         ids=[x[0] for x in BF16_DCN_CASES])
+def test_bf16_dcn_kernel_matches_plain(cuda_device, name, b, h, w, c, cout, stride):
+    """bf16 K2 (dcn_conv_fwd_bf16): a bf16 output within one bf16 ulp at
+    its scale of the plain version's (the same bf16 column and weight, fp32
+    sums in another order, each side rounding once), ragged M and Cout
+    included; it counts on DCN_CONV_FWD_BF16, not on the fp32 wrapper."""
+    args = _bf16_dcn_inputs(13 + len(name), cuda_device, b, h, w, c, cout, stride)
+    before = dcn.DCN_CONV_FWD_BF16.launches, dcn.dcn_conv.launches
+    out = dcn.dcn_conv(*args, stride)
+    torch.cuda.synchronize()
+    assert (dcn.DCN_CONV_FWD_BF16.launches, dcn.dcn_conv.launches) == (before[0] + 1, before[1])
+    assert out.dtype == torch.bfloat16
+    _within_a_bf16_ulp(out, dcn.dcn_conv_plain(*args, stride), name)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_dcn_im2col_kernel_matches_plain(cuda_device, stride):
+    """bf16 K5 (dcn_im2col_bf16): the bf16 column bitwise (the plain
+    version's fp32 operations, unfused, rounded once)."""
+    x, off_y, off_x, mask, _ = _bf16_dcn_inputs(5, cuda_device, stride=stride)
+    before = dcn.DCN_IM2COL_BF16.launches
+    cols = dcn.dcn_im2col(x, off_y, off_x, mask, stride)
+    torch.cuda.synchronize()
+    assert dcn.DCN_IM2COL_BF16.launches == before + 1 and cols.dtype == torch.bfloat16
+    assert torch.equal(cols, dcn.dcn_im2col_plain(x, off_y, off_x, mask, stride))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_dcn_col2im_kernel_matches_plain(cuda_device, stride):
+    """bf16 K6 (dcn_col2im_bf16) on an fp32 column gradient: dx bf16 within
+    one bf16 ulp at its scale (fp32 atomic sums, rounded once), d offsets
+    and dmask fp32 to 1e-5 of their scale."""
+    x, off_y, off_x, mask, _ = _bf16_dcn_inputs(6, cuda_device, stride=stride)
+    dcols = torch.randn((off_y.shape[0] * off_y.shape[1] * off_y.shape[2], 9 * x.shape[3]),
+                        device=cuda_device)
+    before = dcn.DCN_COL2IM_BF16.launches
+    grads = dcn.dcn_col2im(x, off_y, off_x, mask, dcols, stride)
+    torch.cuda.synchronize()
+    assert dcn.DCN_COL2IM_BF16.launches == before + 1
+    ref = dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols, stride)
+    assert grads[0].dtype == torch.bfloat16
+    _within_a_bf16_ulp(grads[0], ref[0], f"stride {stride} dx")
+    for what, a, r in zip(("doff_y", "doff_x", "dmask"), grads[1:], ref[1:]):
+        assert a.dtype == torch.float32
+        assert_close(a, r, 1e-5, f"stride {stride} {what}")
+
+
+def test_bf16_dcn_gradient_matches_autograd_through_plain(cuda_device):
+    """The bf16 `_DCNConv` (K2, then K5, two fp32 products and K6) against
+    autograd through the plain bf16 conv, inside bf16 autocast (the
+    backward's dtypes do not follow the caller's): dx bf16 within one bf16
+    ulp, d offsets, dmask and dWeight fp32 to 1e-4 of their scale (the
+    column gradient's fp32 products in another order)."""
+    args = _bf16_dcn_inputs(8, cuda_device, c=256, cout=256)
+    g = torch.randn(args[0].shape[:3] + (256,), device=cuda_device).bfloat16()
+    leaves = [a.detach().requires_grad_() for a in args]
+    before = [c.launches for c in (dcn.DCN_CONV_FWD_BF16, dcn.DCN_IM2COL_BF16,
+                                   dcn.DCN_COL2IM_BF16)]
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = dcn.dcn_conv(*leaves, 1)
+        grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert [c.launches for c in (dcn.DCN_CONV_FWD_BF16, dcn.DCN_IM2COL_BF16,
+                                 dcn.DCN_COL2IM_BF16)] == [n + 1 for n in before]
+    ref = dcn.dcn_conv_backward_plain(*args, g)
+    assert [x.dtype for x in grads] == [torch.bfloat16] + [torch.float32] * 4
+    _within_a_bf16_ulp(grads[0], ref[0], "dx")
+    for what, a, r in zip(("doff_y", "doff_x", "dmask", "dweight"), grads[1:], ref[1:]):
+        assert_close(a, r, 1e-4, what)
+
+
+def test_bf16_dcn_refuses_what_its_kernels_do_not_take(cuda_device):
+    """bf16 offsets, mask or weight, a bf16 column gradient, a float16 x
+    and an x off its 8-byte boundary raise; nothing launches."""
+    x, off_y, off_x, mask, weight = _bf16_dcn_inputs(9, cuda_device, c=32, cout=32)
+    counts = [c.launches for c in (dcn.DCN_CONV_FWD_BF16, dcn.DCN_IM2COL_BF16,
+                                   dcn.DCN_COL2IM_BF16)]
+    for i in range(1, 5):
+        args = [x, off_y, off_x, mask, weight]
+        args[i] = args[i].bfloat16()
+        with pytest.raises(TypeError):
+            dcn.dcn_conv(*args, 1)
+    with pytest.raises(TypeError):
+        dcn.dcn_conv(x.half(), off_y, off_x, mask, weight, 1)
+    dcols = torch.zeros((x.shape[0] * x.shape[1] * x.shape[2], 9 * 32), device=cuda_device)
+    with pytest.raises(TypeError):
+        dcn.dcn_col2im(x, off_y, off_x, mask, dcols.bfloat16())
+    buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)[2:]
+    shifted = buf.view_as(x).copy_(x)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        dcn.dcn_im2col(shifted, off_y, off_x, mask)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        dcn.dcn_col2im(shifted, off_y, off_x, mask, dcols)
+    assert counts == [c.launches for c in (dcn.DCN_CONV_FWD_BF16, dcn.DCN_IM2COL_BF16,
+                                           dcn.DCN_COL2IM_BF16)]

@@ -79,10 +79,12 @@ def test_assignment_and_loss_match_jax(num_gt):
 
     for lid in range(3):
         ours = assigner.hungarian_match(t(cls[lid]), t(box[lid]), t(gt), t(labels), t(ngt))
-        ref = jax_assigner.hungarian_match(
+        # one jitted call, blocked on: JAX's matcher calls back into JAX from
+        # a host callback, which can deadlock with JAX work dispatched meanwhile
+        ref = jax.block_until_ready(jax.jit(
+            lambda *a: jax_assigner.hungarian_match(*a, impl="scipy"))(
             jnp.asarray(cls[lid]), jnp.asarray(box[lid]), jnp.asarray(gt),
-            jnp.asarray(labels), jnp.asarray(ngt), impl="scipy",
-        )
+            jnp.asarray(labels), jnp.asarray(ngt)))
         np.testing.assert_array_equal(ours.numpy(), np.asarray(ref), err_msg=f"layer {lid}")
         assert int((ours >= 0).sum()) == sum(num_gt)
 
@@ -93,9 +95,9 @@ def test_assignment_and_loss_match_jax(num_gt):
         )
         return out["total"], out
 
-    (_, ref_terms), ref_grads = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
-        jnp.asarray(cls), jnp.asarray(box)
-    )
+    (_, ref_terms), ref_grads = jax.block_until_ready(jax.jit(
+        jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
+        jnp.asarray(cls), jnp.asarray(box)))
     c, bx = t(cls).requires_grad_(), t(box).requires_grad_()
     terms = losses.bevformer_loss(
         {"all_cls_scores": c, "all_bbox_preds": bx}, t(gt), t(labels), t(ngt), CODE_WEIGHTS,

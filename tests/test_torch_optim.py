@@ -159,7 +159,10 @@ def test_grad_norm_matches_optax_global_norm():
     batch = train_batch(cfg, seed=6, device="cpu")
     jb = jax_batch(batch)
     jmodel, params = jax_params(jcfg, jb, seed=3)
-    jgrads = jax.jit(jax.grad(lambda p: jax_deterministic_loss(jmodel, p, jb)[0]))(params)
+    # blocked on at once: JAX's matcher calls back into JAX from a host
+    # callback, which can deadlock with JAX work dispatched meanwhile
+    jgrads = jax.block_until_ready(
+        jax.jit(jax.grad(lambda p: jax_deterministic_loss(jmodel, p, jb)[0]))(params))
     labels = jax_optim.label_params(jgrads, jcfg.optim.frozen_stages)
     trained = jax.tree.map(lambda g, lab: g if lab != "frozen" else jnp.zeros_like(g),
                            jgrads, labels)

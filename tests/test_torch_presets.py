@@ -102,8 +102,10 @@ def preset_runs(name: str) -> dict:
 
     jev = _TracedJaxEvaluator(jmodel, params)
     jres = jev.run(_NumpyFrames(video), progress_every=0)
-    (_, (jlosses, jpreds)), jgrads = jax.jit(jax.value_and_grad(
-        lambda p: jax_deterministic_loss(jmodel, p, jb), has_aux=True))(params)
+    # blocked on at once: JAX's matcher calls back into JAX from a host
+    # callback, which can deadlock with JAX work dispatched meanwhile
+    (_, (jlosses, jpreds)), jgrads = jax.block_until_ready(jax.jit(jax.value_and_grad(
+        lambda p: jax_deterministic_loss(jmodel, p, jb), has_aux=True))(params))
 
     model = build_model(cfg, state_dict_from_jax(params, jcfg), "cpu")
     preds = []
@@ -165,9 +167,10 @@ def check_train_step(runs):
         a = hungarian_match(ours["all_cls_scores"][lid].detach(),
                             ours["all_bbox_preds"][lid].detach(),
                             batch.gt_boxes, batch.gt_labels, batch.num_gt)
-        b = jax_match(jnp.asarray(ref["all_cls_scores"][lid]),
-                      jnp.asarray(ref["all_bbox_preds"][lid]),
-                      jb.gt_boxes, jb.gt_labels, jb.num_gt)
+        # one jitted call, blocked on (see preset_runs)
+        b = jax.block_until_ready(jax.jit(jax_match)(
+            jnp.asarray(ref["all_cls_scores"][lid]), jnp.asarray(ref["all_bbox_preds"][lid]),
+            jb.gt_boxes, jb.gt_labels, jb.num_gt))
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"layer {lid}")
     assert set(runs["losses"]) == set(runs["jlosses"])
     for key, v in runs["jlosses"].items():

@@ -109,9 +109,11 @@ def runs():
     batch = train_batch(cfg, seed=6, device="cpu", scene_break_at=1)
     jb = jax_batch(batch)
     jmodel, params = jax_params(JCFG, jb, seed=3)
-    (_, (jlosses, jpreds)), jgrads = jax.jit(jax.value_and_grad(
+    # blocked on at once: JAX's matcher calls back into JAX from a host
+    # callback, which can deadlock with JAX work dispatched meanwhile
+    (_, (jlosses, jpreds)), jgrads = jax.block_until_ready(jax.jit(jax.value_and_grad(
         lambda p: jax_deterministic_loss(jmodel, p, jb), has_aux=True
-    ))(params)
+    ))(params))
 
     model = build_model(cfg, state_dict_from_jax(params, JCFG), "cpu")
     labels = label_params(model, cfg.optim.frozen_stages)
@@ -141,9 +143,10 @@ def test_assignments_match_jax(runs):
         a = hungarian_match(ours["all_cls_scores"][lid].detach(),
                             ours["all_bbox_preds"][lid].detach(),
                             batch.gt_boxes, batch.gt_labels, batch.num_gt)
-        b = jax_match(jnp.asarray(ref["all_cls_scores"][lid]),
-                      jnp.asarray(ref["all_bbox_preds"][lid]),
-                      jb.gt_boxes, jb.gt_labels, jb.num_gt)
+        # one jitted call, blocked on (see the fixture)
+        b = jax.block_until_ready(jax.jit(jax_match)(
+            jnp.asarray(ref["all_cls_scores"][lid]), jnp.asarray(ref["all_bbox_preds"][lid]),
+            jb.gt_boxes, jb.gt_labels, jb.num_gt))
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"layer {lid}")
         assert int((a >= 0).sum()) == int(batch.num_gt.sum())
 

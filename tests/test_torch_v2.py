@@ -107,9 +107,12 @@ def with_dd3d(variables, jcfg):
 
     h, w = jcfg.data.img_size
     feats = [jnp.zeros((6, h // s, w // s, jcfg.embed_dims)) for s in (8, 16, 32, 64, 128)]
-    head = to_numpy_tree(jax_dd3d.NuscenesDD3D(cfg=jcfg).init(
+    # jitted, as the JAX package inits its models (op by op, each operation
+    # of the head compiles on its own)
+    head = to_numpy_tree(jax.jit(lambda key, fs, ik, tg: jax_dd3d.NuscenesDD3D(cfg=jcfg).init(
+        key, fs, ik, tg, train=False))(
         jax.random.PRNGKey(3), feats, jnp.tile(jnp.eye(3), (6, 1, 1)),
-        _mk_targets(np.random.RandomState(0), 6, 2, w, h), train=False))
+        _mk_targets(np.random.RandomState(0), 6, 2, w, h)))
     return {c: {**variables[c], "fcos3d_bbox_head": head[c]} for c in ("params", "batch_stats")}
 
 

@@ -224,8 +224,10 @@ def runs():
                                             jax.random.PRNGKey(5))
 
             p0 = jax.tree.map(jnp.asarray, variables["params"])
-            (_, (jlosses, new_stats)), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-                p0, _jax_batch(b))
+            # blocked on at once: JAX's matcher calls back into JAX from a host
+            # callback, which can deadlock with JAX work dispatched meanwhile
+            (_, (jlosses, new_stats)), jgrads = jax.block_until_ready(
+                jax.jit(jax.value_and_grad(loss, has_aux=True))(p0, _jax_batch(b)))
             cfg = port_config(jcfg)
             model = _deterministic(build_model(cfg, state_dict_from_jax_v2(variables, jcfg), "cpu"))
 
@@ -258,8 +260,9 @@ def runs():
         sd.update({n: p.grad.numpy() for n, p in model.named_parameters()})
         grads = jax.tree.map(jnp.asarray, convert_reference_state_dict_v2(sd, r["jcfg"])["params"])
         tx, _ = jax_optim.make_optimizer(r["jcfg"].optim, r["p0"], 100, bn_trainable=True)
-        updates, _ = jax.jit(tx.update)(grads, tx.init(r["p0"]), r["p0"])
-        stepped = jax.tree.map(lambda p, u: np.asarray(p + u), r["p0"], updates)
+        # jitted init, numpy add: one compile each, not one per parameter shape
+        updates, _ = jax.jit(tx.update)(grads, jax.jit(tx.init)(r["p0"]), r["p0"])
+        stepped = jax.tree.map(lambda p, u: np.asarray(p) + np.asarray(u), r["p0"], updates)
         r["optax_stepped"] = state_dict_from_jax_v2(
             {"params": stepped, "batch_stats": r["variables"]["batch_stats"]}, r["jcfg"])
     return out
@@ -438,8 +441,11 @@ def _dd3d_pair(seed=0, n=6, h=16, w=32, g=5):
     inv_k = np.tile(np.linalg.inv([[f, 0, w * 4], [0, f, h * 4], [0, 0, 1]])[None], (n, 1, 1))
     inv_k = inv_k.astype(np.float32)
     jhead = jax_dd3d.NuscenesDD3D(cfg=jcfg)
-    v = to_numpy_tree(jhead.init(jax.random.PRNGKey(1), [jnp.asarray(x) for x in feats],
-                                 jnp.asarray(inv_k), targets, train=False))
+    # jitted, as the JAX package inits its models: op by op, the init
+    # compiles each of its operations on its own
+    init = jax.jit(lambda key, fs, ik, tg: jhead.init(key, fs, ik, tg, train=False))
+    v = to_numpy_tree(init(jax.random.PRNGKey(1), [jnp.asarray(x) for x in feats],
+                           jnp.asarray(inv_k), targets))
     perturb(v["params"], rng, names=("box3d_quat", "box3d_ctr", "box3d_size"), std=0.05)
     seed_batch_stats(v["batch_stats"], rng)
     head = dd3d.NuscenesDD3D(jcfg.embed_dims, jcfg.num_classes, 5)
@@ -456,8 +462,9 @@ def _dd3d_pair(seed=0, n=6, h=16, w=32, g=5):
 @pytest.mark.parametrize("train", [True, False], ids=["train_bn", "eval_bn"])
 def test_dd3d_losses_match_jax(train):
     jhead, v, head, feats, inv_k, targets, tt = _dd3d_pair()
-    ref = jhead.apply(v, [jnp.asarray(x) for x in feats], jnp.asarray(inv_k), targets,
-                      train=train, mutable=["batch_stats"] if train else False)
+    ref = jax.jit(lambda v, fs, ik, tg: jhead.apply(
+        v, fs, ik, tg, train=train, mutable=["batch_stats"] if train else False))(
+        v, [jnp.asarray(x) for x in feats], jnp.asarray(inv_k), targets)
     ref = ref[0] if train else ref
     head.train(train)
     ours = head([t(x).permute(0, 3, 1, 2) for x in feats], t(inv_k), tt)
@@ -544,9 +551,11 @@ def test_group_detr_loss_matches_jax(bbox_loss):
     ngt = np.array([5], np.int32)
     kw = dict(group_detr=g, bbox_loss=bbox_loss, bbox_loss_weight=0.75)
     cw = (1.0,) * 8 + (0.2, 0.2)
-    ref = jax_losses.bevformer_loss({k: jnp.asarray(v) for k, v in preds.items()},
-                                    jnp.asarray(gt), jnp.asarray(labels), jnp.asarray(ngt), cw,
-                                    num_query=q, **kw)
+    # one jitted call, blocked on (see the `runs` fixture)
+    ref = jax.block_until_ready(jax.jit(lambda p, g, lab, n: jax_losses.bevformer_loss(
+        p, g, lab, n, cw, num_query=q, **kw))(
+        {k: jnp.asarray(v) for k, v in preds.items()}, jnp.asarray(gt), jnp.asarray(labels),
+        jnp.asarray(ngt)))
     from bevformer_torch.core.assigner import assign_costs
 
     moved = assign_costs.transfers

@@ -8,6 +8,7 @@ several pytest workers side by side.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -28,6 +29,15 @@ def assert_close(ours, ref, tol, name=""):
     scale = max(float(np.abs(b).max()), 1e-6)
     err = float(np.abs(a - b).max())
     assert err <= tol * scale, f"{name}: max abs err {err:.3e} > {tol:.0e} x {scale:.3e}"
+
+
+def bf16_ulps(ours, ref) -> float:
+    """max |ours - ref| in bf16 ulps at max |ref| (one ulp is 2^(e - 7) for
+    2^e <= max |ref| < 2^(e + 1)); tensors or arrays of any float dtype."""
+    a = ours.detach().float().cpu().numpy() if hasattr(ours, "detach") else ours
+    b = ref.detach().float().cpu().numpy() if hasattr(ref, "detach") else ref
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max()) / 2.0 ** (math.floor(math.log2(np.abs(b).max())) - 7)
 
 
 def edge_locations(rng, b, q, h, shapes, p) -> np.ndarray:
