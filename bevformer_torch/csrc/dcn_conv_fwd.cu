@@ -65,26 +65,67 @@
 //
 // bf16 (`dcn_conv_fwd_bf16`, the counterpart of _kernel_conv_rc at
 // compute_dtype=bfloat16: a bf16 x, the sampled column rounded to bf16 in
-// smp_ref, a bf16 product with fp32 sums, the output rounded to bf16). One
-// bf16 product per multiply-add, m64n64k16 (.f32.bf16.bf16), where fp32
-// needs three TF32 ones: a stage-3 call's 41 GFLOP are 42 us at the card's
-// 989 TFLOP/s dense bf16. The column is the plain version's bitwise
-// (kernels/dcn.py::dcn_conv_plain): each corner times its bilinear weight,
-// summed in the order (0,0), (0,1), (1,0), (1,1), times the mask, with no
-// FMA, rounded once to bf16 as it is written to shared memory. A prep
-// kernel rounds the fp32 weight [9C, Cout] once to bf16 into the same tile
-// order as the fp32 path's (core matrices of 8 columns x 8 k, 16 bytes of k
-// a row, K-major, so the descriptor's transpose bit stays 0; 512 bytes to
-// the n-neighbour, 128 to the k-neighbour). The K tile stays 32 deep (two
-// k16 steps), summed into fresh accumulators and added to the fp32 ones by
-// round-to-nearest adds, as above. Sampling maps a thread to one pixel and 4
-// channels of the column tile (64 pixels x 8 groups = the 512 threads): 4
-// corner loads of 8 bytes each a tile, where lane = channel took 16 of 2
-// bytes (measured on an H100 80GB HBM3 at 700 W, stage 3: 0.717 ms a call
-// with lane = channel, 0.395 with this mapping). Still a simple kernel,
-// sampling in lockstep with its wgmmas: one block of 512 threads (96
-// registers) an SM, 62 KB of shared memory; the output is stored element by
-// element.
+// smp_ref, a bf16 product with fp32 sums, the output rounded to bf16). The
+// column is the plain version's bitwise (kernels/dcn.py::dcn_conv_plain):
+// each corner times its bilinear weight, summed in the order (0,0), (0,1),
+// (1,0), (1,1), times the mask, with no FMA, rounded once to bf16. A prep
+// kernel rounds the fp32 weight [9C, Cout] once to bf16, per 256-column
+// block and K tile into one contiguous chunk in wgmma's K-major core
+// matrices.
+//
+// What bounds it on this card: the sampling. A stage-3 call of
+// bevformer_base is 41 GFLOP, 42 us at the card's 989 TFLOP/s dense bf16,
+// but its column is 80 M values, each from four 2-byte corner reads (641
+// MB gathered from the L2 in 16-byte pieces) and ~12 fp32 operations. The
+// first bf16 kernel sampled in lockstep with its wgmmas (512 threads an
+// SM, 64 x 256 tiles, 32-deep K tiles) and took 0.400 ms a stage-3 call
+// and 0.458-0.462 a stage-4 one (chip_smoke.py, NVIDIA H100 80GB HBM3,
+// 700.00 W): the tensor cores sat idle while it sampled.
+//
+// What the design does about it:
+// - Persistent and warp-specialised: one block of 384 threads an SM. Warps
+//   4-11 only sample; warps 0-3, one warpgroup, only issue wgmma
+//   (m64n256k16, A and B from shared memory through descriptors). They
+//   meet in a ring of 4 stages in shared memory (40 KB each: a 64 x 64
+//   column tile and the 256 x 64 weight tile), each with a full and an
+//   empty mbarrier; nothing in the main loop waits on __syncthreads.
+// - The grid: ceil(Cout / 256) column blocks, each over G = SMs / blocks
+//   of them (at least 64 pixels each) contiguous pixel ranges, so that
+//   base's 34800 stage-3 pixels are 263-264 per SM, not whole tiles
+//   unevenly spread; each block walks its range in 64-pixel tiles. A
+//   sampling warp whose pixels all lie past its block's range (a range's
+//   last tile) skips their loads and stores: those rows feed no output.
+// - The sampling warps: each owns 8 pixels of a tile, and a lane takes 2
+//   of them at 8 channels, so a warp's corner load reads 4 pixels' whole
+//   128-byte rows, and its store is one 16-byte row of the column tile in
+//   the 128-byte swizzle (conflict-free). The next K tile's 8 corner loads
+//   are in flight while this one's are combined; the corner tables
+//   (offsets, weights, mask) are built once per (pixel, tap) from offsets
+//   fetched a tap ahead. One lane of warp 4 brings each weight tile in by
+//   one 1-D bulk copy (cp.async.bulk) that completes on the stage's full
+//   barrier; the warps' shared-memory writes reach the wgmmas through
+//   fence.proxy.async.
+// - The consumer keeps one wgmma group in flight and releases a stage as
+//   soon as its group has retired; one fp32 accumulator over the whole K
+//   (tests/test_torch_dcn_bf16_mma.py: its truncating sums drift 8e-6 of
+//   scale at K = 4608, a thousandth of a bf16 ulp); the output is rounded
+//   once and stored through shared memory in 16-byte rows while the
+//   sampling warps fill the next tile's stages.
+// - Why 64-pixel tiles and one consumer warpgroup: ptxas allocates every
+//   warp within the launch's registers (C7602 at 512 threads: 128 a thread,
+//   too few for the 128 accumulators of an m64n256 wgmma), so setmaxnreg
+//   has nothing to move, and at 384 threads each warp has 168. Two
+//   consumer warpgroups (128 x 256 tiles, half the weight traffic) leave
+//   one sampling warpgroup, which was slower in this kernel's trials.
+// Measured (chip_smoke.py phase 6, NVIDIA H100 80GB HBM3, 700.00 W, offsets
+// N(0, 3) px): 0.199 ms a base stage-3 call, 0.221 a stage-4 one (21% and
+// 19% of the bound; K5 bf16 + one bf16 cuBLAS product 0.202 and 0.135);
+// small's 0.124 and 0.151. The sampling warps' instruction stream (8 warps
+// on 4 schedulers: 13.5 instructions a column value, the ring's barriers
+// and bookkeeping) bounds it, not the tensor cores: so the corner tables
+// hold byte offsets (one add a load), and a pixel's place is divided out
+// once a tile, not once a tap. A stage-4 call samples each pixel twice,
+// once per column block.
 // The JAX kernel also rounds its bilinear x-weights to bf16 (it samples by
 // a one-hot matmul); here they stay fp32, as in the plain version.
 
@@ -394,139 +435,286 @@ dcn_conv_fwd_kernel(const float* __restrict__ x,      // [B, H, W, C]
 
 // ---------------------------------------------------------------- bf16
 
-constexpr int A16_STRIDE = BK + 8;  // bf16: 32-bit A-fragment loads hit 32 banks per warp
-constexpr int CORE16 = 64;          // bf16 of one 8 x 8 core matrix
-constexpr uint32_t CORE16_N_BYTES = (BK / 8) * 128;  // descriptor: to the next core matrix along n
+namespace bf16 {
 
-struct Smem16 {
-  __nv_bfloat16 b[2][B_TILE];           // weight tiles, core-matrix order (first: 128-byte aligned)
-  __nv_bfloat16 a[2][BM][A16_STRIDE];   // sampled column tiles [pixel][k]
-  int idx[TAPS][4][BM];                 // corner element offset into x, -1 if outside
-  float w[TAPS][4][BM];                 // bilinear weight of each corner
-  float mask[TAPS][BM];
+constexpr int TM = 64;       // pixels a tile: one m64 wgmma
+constexpr int TN = 256;      // output channels a tile (= BN, the prep's column block)
+constexpr int TK = 64;       // K tile: 64 channels of one tap (32 at an odd C's tail)
+constexpr int STAGES = 4;    // ring depth
+constexpr int P_WARPS = 8;   // sampling warps, after the consumer warpgroup
+constexpr int THREADS = 128 + 32 * P_WARPS;
+constexpr int P_PIX = TM / P_WARPS;  // pixels a sampling warp owns: 2 rows of 4
+constexpr int EP_STRIDE = 64 + 8;    // epilogue staging row (bf16): conflict-free 4-byte writes
+
+// one ring stage: the prepared weight tile in wgmma's K-major core
+// matrices (8 rows x 16 bytes, 128 bytes apart along k, D * 16 bytes apart
+// along n, D the stage's depth), and the sampled column tile, 64 rows of
+// 128 bytes in the 128-byte swizzle (sw128_desc)
+struct alignas(1024) Stage {
+  __nv_bfloat16 b[TN * TK];
+  __nv_bfloat16 a[TM * TK];
 };
 
-// d [64 x 64] = a [64 x 16] (registers) * b [16 x 64] (descriptor, K-major)
-// + (accumulate ? d : 0)
-__device__ __forceinline__ void wgmma_64x64x16_bf16(float (&d)[32], const uint32_t (&a)[4],
-                                                    uint64_t b, int accumulate) {
+// a sampling warp's corners for its 8 pixels at one tap
+struct CornerTab {
+  int4 off[P_PIX];  // byte offset into x of corners (0,0), (0,1), (1,0), (1,1), unsigned
+  float4 w[P_PIX];  // their bilinear weights
+  float mk[P_PIX];  // the mask
+};
+
+struct Smem {
+  Stage st[STAGES];
+  __nv_bfloat16 ep[4][16][EP_STRIDE];  // a consumer warp's 16 rows x 64 columns
+  CornerTab tab[P_WARPS][2];           // a sampling warp's tables of the two taps in flight
+  uint64_t full[STAGES];   // the sampling warps, and the weight copy's bytes
+  uint64_t empty[STAGES];  // the consumer warpgroup
+};
+constexpr int SMEM_BYTES = (int)sizeof(Smem) + 1024;  // and the alignment of its base
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the barrier's phase of this parity has completed; a pipeline that
+// waits ~2^34 cycles (seconds) is broken and traps: the launch fails, and
+// the wrapper raises, where it would hang
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// one 1-D bulk copy global -> shared, completing its bytes on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// shared-memory matrix descriptor of a K-major tile in the 128-byte
+// swizzle: rows of 128 bytes (64 bf16), 8-row atoms 1024 bytes apart, the
+// 16-byte chunk c of row r at c ^ (r % 8); the tile on a 1024-byte boundary
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d [64 x 256] = a [64 x 16] * b [16 x 256] + (accumulate ? d : 0), both
+// operands K-major in shared memory (descriptors)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// weight [K, Cout] fp32 -> bf16 (nearest even), per (256-column block nb,
-// K tile kt) one B_TILE chunk at (nb * K/BK + kt) * B_TILE, core matrix
-// (ng, kg) at (ng * 4 + kg) * CORE16, element (column r, k q) of it at
-// r * 8 + q; zeros past Cout
-__global__ void dcn_weight_prep_bf16_kernel(const float* __restrict__ weight,
-                                            __nv_bfloat16* __restrict__ prep, int K, int Cout,
-                                            int64_t total) {
+// weight [K, Cout] fp32 -> bf16 (nearest even), per 256-column block nb
+// and K tile (k0, depth D: 64 channels of one tap, or 32 at an odd tail)
+// one contiguous chunk of 256 x D at (nb * K + k0) * 256, core matrix
+// (column group ng, k group kg) at (ng * D/8 + kg) * 64, element (column
+// r, k q) of it at r * 8 + q; zeros past Cout
+__global__ void weight_prep_kernel(const float* __restrict__ weight,
+                                   __nv_bfloat16* __restrict__ prep, int C, int Cout,
+                                   int64_t total) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  const int q = (int)(i & 7);
-  const int r = (int)((i >> 3) & 7);
-  const int kg = (int)((i >> 6) & 3);
-  const int ng = (int)((i >> 8) & 31);
-  const int64_t tile = i >> 13;  // nb * (K / BK) + kt
-  const int kt = (int)(tile % (K / BK));
-  const int nb = (int)(tile / (K / BK));
-  const int n = nb * BN + ng * 8 + r;
-  const int k = kt * BK + kg * 8 + q;
+  const int K = TAPS * C;
+  const int nb = (int)(i / ((int64_t)K * TN));
+  const int rem = (int)(i % ((int64_t)K * TN));
+  const int kk = rem / TN;  // a k inside this element's chunk
+  const int c0 = (kk % C) / TK * TK;
+  const int k0 = kk / C * C + c0;
+  const int D = min(TK, C - c0);
+  const int within = rem - k0 * TN;
+  const int ng = within / (D * 8);
+  const int kg = within % (D * 8) / 64;
+  const int n = nb * TN + ng * 8 + (within % 64) / 8;
+  const int k = k0 + kg * 8 + within % 8;
   prep[i] = __float2bfloat16_rn(n < Cout ? weight[(int64_t)k * Cout + n] : 0.f);
 }
 
-// this thread's corners of one column tile: pixel mi, 4 channels from
-// channel c of tap t (one 8-byte load a corner)
-__device__ __forceinline__ void load_corners16(uint2 (&v)[4], const Smem16& s,
-                                               const __nv_bfloat16* __restrict__ x, int t, int c,
-                                               int mi) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int id = s.idx[t][j][mi];
-    v[j] = id >= 0 ? __ldg(reinterpret_cast<const uint2*>(x + id + c)) : make_uint2(0u, 0u);
-  }
+// 8 bf16 of x: one 16-byte load, or two 8-byte ones for an x on an 8-byte
+// boundary
+template <bool X16>
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p) {
+  if (X16) return __ldg(reinterpret_cast<const uint4*>(p));
+  const uint2 lo = __ldg(reinterpret_cast<const uint2*>(p));
+  const uint2 hi = __ldg(reinterpret_cast<const uint2*>(p) + 1);
+  return make_uint4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// the 4 column values in the plain version's arithmetic, each rounded once,
-// into the tile at (mi, cq .. cq+3)
-__device__ __forceinline__ void store_column16(__nv_bfloat16 (*as)[A16_STRIDE],
-                                               const uint2 (&v)[4], const Smem16& s, int t,
-                                               int mi, int cq) {
-  float a[4] = {0.f, 0.f, 0.f, 0.f};
+// 8 column values in the plain version's arithmetic: each corner times its
+// weight, summed in corner order with no FMA, times the mask, rounded once
+__device__ __forceinline__ uint4 combine8(const uint4 (&v)[4], float4 w, float mk) {
+  const float wj[4] = {w.x, w.y, w.z, w.w};
+  float a[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) a[e] = 0.f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    if (s.idx[t][j][mi] < 0) continue;
-    const float w = s.w[t][j][mi];
-    // a bf16 is the top half of the fp32 of the same value
-    const float f[4] = {__uint_as_float(v[j].x << 16), __uint_as_float(v[j].x & 0xffff0000u),
-                        __uint_as_float(v[j].y << 16), __uint_as_float(v[j].y & 0xffff0000u)};
+    const uint32_t u[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) a[e] = __fadd_rn(a[e], __fmul_rn(f[e], w));
-  }
-  const float mk = s.mask[t][mi];
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(__fmul_rn(a[0], mk), __fmul_rn(a[1], mk));
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(__fmul_rn(a[2], mk), __fmul_rn(a[3], mk));
-  *reinterpret_cast<uint2*>(&as[mi][cq]) =
-      make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-dcn_conv_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,  // [B, H, W, C]
-                         const float* __restrict__ off_y,      // [B, OH, OW, 9]
-                         const float* __restrict__ off_x,      // [B, OH, OW, 9]
-                         const float* __restrict__ mask,       // [B, OH, OW, 9]
-                         const __nv_bfloat16* __restrict__ wprep,  // prepared weight
-                         __nv_bfloat16* __restrict__ out,      // [B, OH, OW, Cout]
-                         int B, int H, int W, int C, int OH, int OW, int Cout, int stride) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem16& s = *reinterpret_cast<Smem16*>(smem_raw);
-
-  const int M = B * OH * OW;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int KT = TAPS * C / BK;
-  const __nv_bfloat16* gw = wprep + (int64_t)blockIdx.y * KT * B_TILE;
-  auto load_weight_tile = [&](int kt, int buf) {
-#pragma unroll
-    for (int i = 0; i < B_TILE / 8 / THREADS; ++i) {
-      const int e = (tid + i * THREADS) * 8;
-      cp_async16(&s.b[buf][e], gw + (int64_t)kt * B_TILE + e);
+    for (int e = 0; e < 4; ++e) {
+      // a bf16 is the top half of the fp32 of the same value
+      a[2 * e] = __fadd_rn(a[2 * e], __fmul_rn(__uint_as_float(u[e] << 16), wj[j]));
+      a[2 * e + 1] = __fadd_rn(a[2 * e + 1], __fmul_rn(__uint_as_float(u[e] & 0xffff0000u), wj[j]));
     }
-  };
+  }
+  uint32_t r[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(__fmul_rn(a[2 * e], mk),
+                                                   __fmul_rn(a[2 * e + 1], mk));
+    r[e] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
 
-  // weight tile 0 travels while the corner tables are built
-  load_weight_tile(0, 0);
-  cp_async_commit();
+// The sampling warps' walk. A sampling warp owns 8 pixels of each tile,
+// two rows of 4: lane (q, cg) = (lane / 8, lane % 8) takes pixels q and 4 +
+// q at the 8 channels cg of the K tile's 64 (the lanes past a 32-deep
+// tile's 4 idle), so each corner load of a warp reads 4 pixels' whole
+// 128-byte rows. The next K tile's 8 corner loads are in flight while this
+// one's are combined and stored, across taps and tiles too; the two taps
+// in flight keep their corner tables in tab[0] and tab[1].
+struct Cursor {
+  int m0, t, c0;
+  int taps;  // taps begun: tab[taps & 1] is this tap's table
 
-  for (int e = tid; e < TAPS * BM; e += THREADS) {
-    const int t = e / BM;
-    const int mi = e % BM;
-    const int m = m0 + mi;
-    int idx[4] = {-1, -1, -1, -1};
+  // to the next K tile; true if it starts a tap
+  __device__ __forceinline__ bool next(int C) {
+    c0 += TK;
+    if (c0 < C) return false;
+    c0 = 0;
+    if (++t == TAPS) {
+      t = 0;
+      m0 += TM;
+    }
+    ++taps;
+    return true;
+  }
+};
+
+template <bool X16>
+struct Producer {
+  Smem& s;
+  const __nv_bfloat16* __restrict__ x;
+  const float* __restrict__ off_y;
+  const float* __restrict__ off_x;
+  const float* __restrict__ mask;
+  const __nv_bfloat16* __restrict__ wblock;  // this column block's prepared weight
+  int me, H, W, C, OH, OW, stride, pw, lane;
+  CornerTab* tab;  // this warp's two tables
+  Cursor ld, st;   // the K tile loaded last, the next one to store
+  int stage = 0;
+  uint32_t phase = 0;
+  // this lane's pixel's offsets and mask at the tap after the load
+  // cursor's, fetched a tap ahead of corners(), which uses them
+  float py_next = 0.f, px_next = 0.f, mk_next = 0.f;
+  // and its image and place, for the tile at pix_m0
+  int pix_m0 = -1, pix_b = 0, pix_oy = 0, pix_ox = 0;
+
+  __device__ __forceinline__ void fetch(int m0, int t) {
+    const int m = m0 + pw * P_PIX + lane;
+    if (lane < P_PIX && m < me) {
+      const int64_t e = (int64_t)m * TAPS + t;
+      py_next = off_y[e];
+      px_next = off_x[e];
+      mk_next = mask[e];
+    }
+  }
+
+  // lane p < 8: pixel p's corners at the load cursor's tap into tab[i],
+  // from what fetch() brought in; then the next tap's fetch. A corner
+  // outside the image, or of a pixel outside the block's range, reads its
+  // image's first pixel at weight 0: the loads need no predicate, and the
+  // product with a finite x adds 0, as the plain version's does
+  __device__ __forceinline__ void corners(int i) {
+    const int m = ld.m0 + pw * P_PIX + lane;
+    const int t = ld.t;
+    int o[4] = {0, 0, 0, 0};
     float wt[4] = {0.f, 0.f, 0.f, 0.f};
     float mk = 0.f;
-    if (m < M) {
-      const int b = m / (OH * OW);
-      const int r = m % (OH * OW);
-      const int oy = r / OW;
-      const int ox = r % OW;
-      const int64_t o = (int64_t)m * TAPS + t;
-      const float py = (float)(oy * stride - 1 + t / 3) + off_y[o];
-      const float px = (float)(ox * stride - 1 + t % 3) + off_x[o];
-      mk = mask[o];
+    if (lane < P_PIX && m < me) {
+      if (pix_m0 != ld.m0) {
+        pix_m0 = ld.m0;
+        pix_b = m / (OH * OW);
+        pix_oy = m % (OH * OW) / OW;
+        pix_ox = m % OW;
+      }
+      const int b = pix_b, oy = pix_oy, ox = pix_ox;
+      const float py = (float)(oy * stride - 1 + t / 3) + py_next;
+      const float px = (float)(ox * stride - 1 + t % 3) + px_next;
+      mk = mk_next;
+      o[0] = o[1] = o[2] = o[3] = (int)(2u * (uint32_t)(b * H * W * C));
       // every corner is outside unless -1 < py < H and -1 < px < W (NaN fails)
       if (py > -1.f && px > -1.f && py < (float)H && px < (float)W) {
         const float fy = floorf(py);
@@ -542,94 +730,233 @@ dcn_conv_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,  // [B, H, W, C]
           const int yy = y0 + (j >> 1);
           const int xx = x0 + (j & 1);
           if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-            idx[j] = ((b * H + yy) * W + xx) * C;
+            o[j] = (int)(2u * (uint32_t)(((b * H + yy) * W + xx) * C));
             wt[j] = cw[j];
           }
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s.idx[t][j][mi] = idx[j];
-      s.w[t][j][mi] = wt[j];
+    if (t + 1 < TAPS) {
+      fetch(ld.m0, t + 1);
+    } else {
+      fetch(ld.m0 + TM, 0);
     }
-    s.mask[t][mi] = mk;
+    __syncwarp();  // the warp is done with the tap this table held
+    if (lane < P_PIX) {
+      tab[i].off[lane] = make_int4(o[0], o[1], o[2], o[3]);
+      tab[i].w[lane] = make_float4(wt[0], wt[1], wt[2], wt[3]);
+      tab[i].mk[lane] = mk;
+    }
+    __syncwarp();
   }
-  __syncthreads();
 
-  // sampling: thread tid takes pixel tid / 8 and channels 4 (tid % 8) .. +3
-  // of each column tile
-  const int smi = tid >> 3;
-  const int scq = (tid & 7) * 4;
-  uint2 v[4];
-  load_corners16(v, s, x, 0, scq, smi);
-  store_column16(s.a[0], v, s, 0, smi, scq);
-
-  const int wg = warp >> 2;  // warpgroup: columns wg*WG_N ..
-  const int wr = warp & 3;   // warp in it: rows wr*16 ..
-  const int g = lane >> 2;   // fragment row group
-  const int tg = lane & 3;   // fragment thread in group
-  float acc[32];             // fp32 sums over the K tiles done
-  float part[32];            // the wgmmas' sum over this K tile
+  // the load cursor's 8 corner loads
+  __device__ __forceinline__ void load(uint4 (&v)[2][4]) const {
+    const CornerTab& tb = tab[ld.taps & 1];
+    const int cg = lane & 7;
+    // past a 32-deep tile, or the warp's pixels all past the block's range
+    if (cg * 8 >= C - ld.c0 || ld.m0 + pw * P_PIX >= me) return;
+    const char* xc = reinterpret_cast<const char*>(x + ld.c0 + cg * 8);
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = part[i] = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int4 o = tb.off[4 * h + (lane >> 3)];
+      const uint32_t oj[4] = {(uint32_t)o.x, (uint32_t)o.y, (uint32_t)o.z, (uint32_t)o.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[h][j] = load8<X16>(reinterpret_cast<const __nv_bfloat16*>(xc + oj[j]));
+    }
+  }
 
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    // as in dcn_conv_fwd_kernel: tile kt landed and written, tile kt-1 done
-    cp_async_wait_all();
+  // the store cursor's K tile, whose loads are v: claim the stage, bring in
+  // its weight tile, write the warp's 8 rows of the column tile and hand
+  // the stage to the consumers
+  __device__ __forceinline__ void store(const uint4 (&v)[2][4]) {
+    const int D = min(TK, C - st.c0);
+    Stage& sg = s.st[stage];
+    mbar_wait(&s.empty[stage], phase ^ 1);
+    if (pw == 0 && lane == 0) {
+      const uint32_t bytes = TN * D * (uint32_t)sizeof(__nv_bfloat16);
+      mbar_arrive_expect_tx(&s.full[stage], bytes);
+      bulk_copy(sg.b, wblock + (int64_t)(st.t * C + st.c0) * TN, bytes, &s.full[stage]);
+    }
+    const CornerTab& tb = tab[st.taps & 1];
+    const int cg = lane & 7;
+    // rows past the block's range feed only outputs that are not stored: a
+    // warp whose 8 pixels all lie there leaves its rows as they are
+    if (cg * 8 < D && st.m0 + pw * P_PIX < me) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int px = 4 * h + (lane >> 3);
+        const uint4 r = combine8(v[h], tb.w[px], tb.mk[px]);
+        // row pw * 8 + px of the column tile, its 16 bytes cg in the
+        // 128-byte swizzle: at 16 (cg ^ row % 8)
+        const int row = pw * P_PIX + px;
+        *reinterpret_cast<uint4*>(&sg.a[row * TK + (cg ^ (row & 7)) * 8]) = r;
+      }
+    }
+    // the writes, seen by the wgmmas' (async proxy) reads
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    const bool more = kt + 1 < KT;
-    const int k1 = (kt + 1) * BK;
-    const int t1 = k1 / C;
-    if (more) {
-      load_weight_tile(kt + 1, cur ^ 1);
-      load_corners16(v, s, x, t1, k1 % C + scq, smi);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.full[stage]);
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
     }
-    cp_async_commit();
-
-    const __nv_bfloat16(*as)[A16_STRIDE] = s.a[cur];
-    // this warpgroup's 64 columns: 8 core-matrix rows of CORE16_N_BYTES each
-    const __nv_bfloat16* bt = &s.b[cur][wg * (WG_N / 8) * (BK / 8) * CORE16];
-    // A fragments (mma.m16n8k16's layout): rows r, r+8; k 2tg, 2tg+1 and
-    // 2tg+8, 2tg+9 of each k16 step, two bf16 a register, the lower k low
-    const int r = wr * 16 + g;
-    uint32_t af[BK / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      const int c = ks * 16 + 2 * tg;
-      af[ks][0] = *reinterpret_cast<const uint32_t*>(&as[r][c]);
-      af[ks][1] = *reinterpret_cast<const uint32_t*>(&as[r + 8][c]);
-      af[ks][2] = *reinterpret_cast<const uint32_t*>(&as[r][c + 8]);
-      af[ks][3] = *reinterpret_cast<const uint32_t*>(&as[r + 8][c + 8]);
-      wgmma_fence();
-      // k16 step ks reads core matrices 2*ks, 2*ks+1 along k
-      wgmma_64x64x16_bf16(part, af[ks], smem_desc(bt + ks * 2 * CORE16, 128, CORE16_N_BYTES),
-                          ks > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += part[i];
-    if (more) store_column16(s.a[cur ^ 1], v, s, t1, smi, scq);
   }
 
-  // acc[4j .. 4j+3]: rows g and g+8 of the warp's 16, columns 8j + 2tg, +1
-  // of the warpgroup's 64; each rounded to bf16 once
+  // the next K tile's loads into nxt, then the store cursor's K tile (cur)
+  // out; false after the last
+  __device__ __forceinline__ bool step(const uint4 (&cur)[2][4], uint4 (&nxt)[2][4]) {
+    if (ld.m0 < me) {
+      const bool tap = ld.next(C);
+      if (ld.m0 < me) {
+        if (tap) corners(ld.taps & 1);
+        load(nxt);
+      }
+    }
+    store(cur);
+    st.next(C);
+    return st.m0 < me;
+  }
+
+  __device__ __forceinline__ void run(int mb) {
+    if (mb >= me) return;
+    ld = st = Cursor{mb, 0, 0, 0};
+    fetch(mb, 0);
+    corners(0);
+    uint4 va[2][4], vb[2][4];
+    load(va);
+    while (step(va, vb) && step(vb, va)) {
+    }
+  }
+};
+
+// The consumer warpgroup: each tile's 64 pixels x 256 channels, one fp32
+// sum over the whole K in the wgmma accumulators, rounded once to bf16 and
+// stored through shared memory in 16-byte rows
+__device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* __restrict__ out, int n0, int mb,
+                                        int me, int C, int Cout, int warp, int lane) {
+  const int g = lane >> 2;   // accumulator row group
+  const int tg = lane & 3;   // and column pair
+  __nv_bfloat16(*ep)[EP_STRIDE] = s.ep[warp];
+  float acc[128];  // the first wgmma of each tile ignores their values
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int m0 = mb; m0 < me; m0 += TM) {
+    int kt = 0;
+    for (int t = 0; t < TAPS; ++t) {
+      for (int c0 = 0; c0 < C; c0 += TK, ++kt) {
+        const int D = min(TK, C - c0);
+        Stage& st = s.st[stage];
+        mbar_wait(&s.full[stage], phase);
+        __syncwarp();  // converged for the .aligned wgmma instructions
+        const uint64_t da = sw128_desc(st.a);
+        // B's core matrices: 128 bytes on along k, D * 16 along n
+        const uint64_t db = smem_desc(st.b, 128, D * 16);
+        wgmma_fence();
+        // k16 step ks: A 32 bytes on in its swizzled rows, B two core
+        // matrices (256 bytes) on (descriptor addresses count 16 bytes)
+        wgmma_m64n256k16(acc, da, db, kt > 0);
+        wgmma_m64n256k16(acc, da + 2, db + 16, 1);
+        if (D == TK) {
+          wgmma_m64n256k16(acc, da + 4, db + 32, 1);
+          wgmma_m64n256k16(acc, da + 6, db + 48, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the last K tile's group has read its stage
+        if (kt > 0 && threadIdx.x == 0) mbar_arrive(&s.empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    wgmma_wait<0>();
+    if (threadIdx.x == 0) mbar_arrive(&s.empty[prev]);
+    // acc[4j .. 4j+3]: rows g and g+8 of the warp's 16, columns 8j + 2tg,
+    // +1 of the 256; per 64 columns through the warp's staging rows
+    const int r0 = m0 + warp * 16;
+    const bool vec = Cout % 8 == 0;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int m = m0 + wr * 16 + g + half * 8;
-    if (m >= M) continue;
-    __nv_bfloat16* orow = out + (int64_t)m * Cout;
+    for (int q = 0; q < 4; ++q) {
+      __syncwarp();
 #pragma unroll
-    for (int j = 0; j < WG_N / 8; ++j) {
-      const int n = n0 + wg * WG_N + 8 * j + 2 * tg;
-      if (n < Cout) orow[n] = __float2bfloat16_rn(acc[4 * j + 2 * half]);
-      if (n + 1 < Cout) orow[n + 1] = __float2bfloat16_rn(acc[4 * j + 2 * half + 1]);
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = q * 8 + jj;
+        *reinterpret_cast<__nv_bfloat162*>(&ep[g][8 * jj + 2 * tg]) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(&ep[g + 8][8 * jj + 2 * tg]) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i * 4 + (lane >> 3);
+        const int m = r0 + r;
+        const int n = n0 + q * 64 + (lane & 7) * 8;
+        if (m >= me || n >= Cout) continue;
+        const uint4 v = *reinterpret_cast<const uint4*>(&ep[r][(lane & 7) * 8]);
+        __nv_bfloat16* o = out + (int64_t)m * Cout + n;
+        if (vec && n + 8 <= Cout) {
+          *reinterpret_cast<uint4*>(o) = v;
+        } else {
+          const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (n + e < Cout)
+              o[e] = __ushort_as_bfloat16((unsigned short)(u[e / 2] >> (16 * (e & 1))));
+        }
+      }
     }
   }
 }
+
+// Persistent: block (g, nb) owns pixels [g*M/G, (g+1)*M/G) and output
+// channels nb*256 .. +255, in tiles of 64 pixels. Warps 0-3 multiply,
+// warps 4-11 sample.
+template <bool X16>
+__global__ void __launch_bounds__(THREADS, 1)
+dcn_conv_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,      // [B, H, W, C]
+                         const float* __restrict__ off_y,          // [B, OH, OW, 9]
+                         const float* __restrict__ off_x,          // [B, OH, OW, 9]
+                         const float* __restrict__ mask,           // [B, OH, OW, 9]
+                         const __nv_bfloat16* __restrict__ wprep,  // prepared weight
+                         __nv_bfloat16* __restrict__ out,          // [B, OH, OW, Cout]
+                         int B, int H, int W, int C, int OH, int OW, int Cout, int stride,
+                         int G) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzled tiles want 1024-byte boundaries (SMEM_BYTES leaves room);
+  // offset from the shared array itself, so that the compiler keeps every
+  // access in the shared space (LDS/STS, not generic loads and stores)
+  Smem& s = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int M = B * OH * OW;
+  const int g = blockIdx.x % G;
+  const int nb = blockIdx.x / G;
+  const int mb = (int)((int64_t)g * M / G);
+  const int me = (int)((int64_t)(g + 1) * M / G);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&s.full[i], P_WARPS + 1);
+      mbar_init(&s.empty[i], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the two roles part here for the rest of the kernel (the warpgroup,
+  // provably uniform across the warp)
+  if (__shfl_sync(0xffffffffu, warp, 0) >= 4) {
+    Producer<X16>{s, x, off_y, off_x, mask, wprep + (int64_t)nb * TAPS * C * TN, me, H, W, C, OH,
+                  OW, stride, warp - 4, lane, s.tab[warp - 4]}
+        .run(mb);
+  } else {
+    consume(s, out, nb * TN, mb, me, C, Cout, warp, lane);
+  }
+}
+
+}  // namespace bf16
 
 }  // namespace
 
@@ -667,7 +994,9 @@ extern "C" int dcn_conv_fwd(const void* x, const void* off_y, const void* off_x,
 // dcn_conv_fwd on a bf16 x, with a bf16 out; weight stays the fp32
 // parameter [9C, Cout], which the prep kernel rounds to bf16 once into
 // wprep: scratch of ceil(Cout / 256) * 256 * 9C bf16. The same check of
-// the arguments, and x on an 8-byte boundary.
+// the arguments, and x on an 8-byte boundary (16-byte corner loads on a
+// 16-byte one). One block an SM: ceil(Cout / 256) column blocks, each
+// over G blocks of contiguous pixel ranges.
 extern "C" int dcn_conv_fwd_bf16(const void* x, const void* off_y, const void* off_x,
                                  const void* mask, const void* weight, void* wprep, void* out,
                                  int B, int H, int W, int C, int OH, int OW,
@@ -675,21 +1004,28 @@ extern "C" int dcn_conv_fwd_bf16(const void* x, const void* off_y, const void* o
   if (C % BK != 0 || stride < 1 || (uintptr_t)x % 8 != 0) return (int)cudaErrorInvalidValue;
   if (B * OH * OW == 0 || Cout == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  const int K = TAPS * C;
-  const int64_t total = (int64_t)((Cout + BN - 1) / BN) * BN * K;
+  const int nblk = (Cout + bf16::TN - 1) / bf16::TN;
+  const int64_t total = (int64_t)nblk * bf16::TN * TAPS * C;
   __nv_bfloat16* prep = static_cast<__nv_bfloat16*>(wprep);
-  dcn_weight_prep_bf16_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(weight), prep, K, Cout, total);
+  bf16::weight_prep_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(weight), prep, C, Cout, total);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(dcn_conv_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)sizeof(Smem16));
-  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
   const int M = B * OH * OW;
-  const dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
-  dcn_conv_fwd_bf16_kernel<<<grid, THREADS, sizeof(Smem16), st>>>(
+  // pixel ranges of at least 64 (one m64 wgmma) where M is small
+  const int G = max(1, min(sms / nblk, (M + 63) / 64));
+  auto kernel = (uintptr_t)x % 16 == 0 ? bf16::dcn_conv_fwd_bf16_kernel<true>
+                                        : bf16::dcn_conv_fwd_bf16_kernel<false>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bf16::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<G * nblk, bf16::THREADS, bf16::SMEM_BYTES, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(off_y),
       static_cast<const float*>(off_x), static_cast<const float*>(mask), prep,
-      static_cast<__nv_bfloat16*>(out), B, H, W, C, OH, OW, Cout, stride);
+      static_cast<__nv_bfloat16*>(out), B, H, W, C, OH, OW, Cout, stride, G);
   return (int)cudaGetLastError();
 }

@@ -48,7 +48,11 @@ Phases, each printed as it runs:
      d offsets, dmask and dWeight 1e-3; the whole bf16 DCN gradient against
      autograd through the plain conv), with times, bounds at bf16's 2-byte
      tensors, and the yardsticks (K5 bf16 + a bf16 cuBLAS product; ATen's
-     grid_sampler_2d_backward on bf16);
+     grid_sampler_2d_backward on bf16); bf16 K2's column (its output for
+     the identity weight) bitwise the plain one, its persistent grid
+     (blocks, tiles per SM), and bf16 K2 at ragged shapes (M no multiple
+     of 64, Cout 40 and 320, C 32 and 96, stride 2, x on an 8-byte
+     boundary) within one bf16 ulp;
   7. probes: the kernel benchmark and probe tools (bevformer_torch/tools),
      each through its `main` at bevformer_base's full SCA width (and TSA's
      for K1's cost split): K7 (msda_fwd_ho) against K1 and the plain msda on
@@ -705,11 +709,59 @@ BF16_DCN_CASES = [
 ]
 
 
+# bf16 K2 where a persistent schedule, a 32-deep tail or a bulk copy could
+# go wrong: (name, B, H, W, C, Cout, stride, x's offset in elements from a
+# 16-byte boundary)
+BF16_K2_RAGGED = [
+    ("m143", 1, 11, 13, 64, 256, 1, 0),  # M = 143 over 3 blocks
+    ("m34933", 1, 181, 193, 64, 256, 1, 0),  # 264-265 pixels a block: 4 tiles of 64, 8-9 more
+    ("cout40", 2, 23, 40, 256, 40, 1, 0),  # one column block, 40 of its 256 stored
+    ("cout320", 2, 23, 40, 256, 320, 1, 0),  # a second column block, 64 of it stored
+    ("c32", 2, 29, 50, 32, 256, 1, 0),  # every K tile 32 deep
+    ("c96", 2, 29, 50, 96, 256, 1, 0),  # a 64- and a 32-deep K tile a tap
+    ("stride2", 6, 58, 100, 256, 256, 2, 0),  # base's stage-3 input at stride 2
+    ("x8", 1, 13, 21, 32, 96, 1, 4),  # x on an 8-byte boundary: 8-byte corner loads
+]
+
+
+BF16_K2_TILE = 64  # csrc/dcn_conv_fwd.cu: bf16::TM, pixels a tile
+
+
+def bf16_k2_schedule(b, h, w, cout, stride=1) -> dict:
+    """bf16 K2's persistent grid (`dcn_conv_fwd_bf16`'s C entry): ceil(Cout
+    / 256) column blocks, each over G blocks of contiguous pixel ranges,
+    one block an SM; each block walks its range in 64-pixel tiles."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    m = b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
+    nblk = -(-cout // 256)
+    g = max(1, min(sms // nblk, -(-m // BF16_K2_TILE)))
+    pixels = -(-m // g)
+    return dict(sms=sms, blocks=g * nblk, pixels_per_block=pixels,
+                tiles_per_sm=-(-pixels // BF16_K2_TILE) * -(-g * nblk // sms))
+
+
+def bf16_column_bitwise(dcn, x, off_y, off_x, mask, stride=1) -> bool:
+    """bf16 K2 with the identity weight [9C, 9C] returns its bf16 column:
+    one product of 1 in each output's sum. True if that is the plain
+    column, bitwise."""
+    import torch
+
+    eye = torch.eye(9 * x.shape[3], device=x.device)
+    col = dcn.dcn_conv(x, off_y, off_x, mask, eye, stride)
+    same = torch.equal(col.view(-1, eye.shape[0]),
+                       dcn.dcn_im2col_plain(x, off_y, off_x, mask, stride))
+    del col, eye
+    return same
+
+
 def check_bf16_dcn(device, gen):
     """bf16 K2 (dcn_conv_fwd_bf16), K5 (dcn_im2col_bf16) and K6
     (dcn_col2im_bf16) against their plain versions at the DCN stages of
     bevformer_base and bevformer_small, offsets N(0, 3) px: K2's output,
     K5's column and K6's dx within BF16_FWD_ULPS bf16 ulps at their scale,
+    K2's own column bitwise (bf16_column_bitwise),
     K6's d offsets and dmask within BF16_AUX_TOL; the whole bf16 DCN
     gradient (`_DCNConv`: K5, two fp32 products, K6) against autograd
     through the plain conv. Times, bounds at bf16's 2-byte x, output,
@@ -741,6 +793,8 @@ def check_bf16_dcn(device, gen):
         vs_exact = [ulps(o, exact) for o in (out, ref)]
         same = float((out == ref).float().mean())
         del out, ref, exact
+        column = bf16_column_bitwise(dcn, x, off_y, off_x, mask)
+        sched = bf16_k2_schedule(b, h, w, cout)
         ms = time_ms(lambda: dcn.dcn_conv(*args), 10)
         plain_ms = time_ms(lambda: dcn.dcn_conv_plain(*args), 3)
         wb = weight.bfloat16()
@@ -749,16 +803,20 @@ def check_bf16_dcn(device, gen):
         log(f"[bf16-k2] {name}: x {list(x.shape)} bf16 weight {list(weight.shape)} max abs err "
             f"{k2_err:.3e} = {k2_ulps:.2f} bf16 ulps at max|plain| (tol {BF16_FWD_ULPS}; "
             f"{same:.2%} bitwise equal; against the float64 product of the bf16 column and "
-            f"weight: kernel {vs_exact[0]:.2f}, plain {vs_exact[1]:.2f} ulps) kernel {ms:.4f} ms "
+            f"weight: kernel {vs_exact[0]:.2f}, plain {vs_exact[1]:.2f} ulps; its column "
+            f"{'bitwise' if column else 'NOT bitwise'} the plain one) kernel {ms:.4f} ms "
             f"({cost.bound_ms / ms:.1%} of its bound {cost.bound_ms:.4f}, "
-            f"{cost.bf16_flops / ms / 1e9:.1f} TFLOP/s) dcn_im2col_bf16 + bf16 matmul "
-            f"{two_call_ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"{cost.bf16_flops / ms / 1e9:.1f} TFLOP/s; {sched['blocks']} blocks on "
+            f"{sched['sms']} SMs, <= {sched['pixels_per_block']} pixels = "
+            f"{sched['tiles_per_sm']} {BF16_K2_TILE}-pixel tiles per SM) dcn_im2col_bf16 + bf16 "
+            f"matmul {two_call_ms:.4f} ms plain {plain_ms:.4f} ms")
         check(k2_ulps <= BF16_FWD_ULPS, f"bf16 K2 {name}: {k2_ulps:.2f} ulps")
+        check(column, f"bf16 K2 {name}: the column is not the plain one bitwise")
         k2_rows.append(dict(shape=name, max_abs_err=k2_err, ulps=k2_ulps, ms=ms, plain_ms=plain_ms,
                             per_frame=per, share_of_bound=cost.bound_ms / ms,
                             bitwise_equal_share=same, im2col_matmul_ms=two_call_ms,
                             ulps_vs_float64=vs_exact[0], plain_ulps_vs_float64=vs_exact[1],
-                            cost=cost))
+                            column_bitwise=column, cost=cost, **sched))
 
         # K5
         cols, ref = dcn.dcn_im2col(x, off_y, off_x, mask), dcn.dcn_im2col_plain(x, off_y, off_x,
@@ -826,6 +884,40 @@ def check_bf16_dcn(device, gen):
         del x, off_y, off_x, mask, weight, g, dcols, args
         torch.cuda.empty_cache()
     return k2_rows, k5_rows, k6_rows
+
+
+def check_bf16_k2_ragged(device, gen):
+    """bf16 K2 at BF16_K2_RAGGED against its plain version, offsets N(0, 3)
+    px: the output within BF16_FWD_ULPS bf16 ulps at its scale and the
+    column (identity weight) bitwise."""
+    import torch
+    from bevformer_torch.kernels import dcn
+
+    rows = []
+    for name, b, h, w, c, cout, stride, shift in BF16_K2_RAGGED:
+        oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+        flat = torch.randn((b * h * w * c + shift,), generator=gen, device=device).bfloat16()
+        x = flat[shift:].view(b, h, w, c)
+        off_y = torch.randn((b, oh, ow, 9), generator=gen, device=device) * 3
+        off_x = torch.randn((b, oh, ow, 9), generator=gen, device=device) * 3
+        mask = torch.rand((b, oh, ow, 9), generator=gen, device=device)
+        weight = torch.randn((9 * c, cout), generator=gen, device=device) / (9 * c) ** 0.5
+        args = (x, off_y, off_x, mask, weight, stride)
+        out, ref = dcn.dcn_conv(*args), dcn.dcn_conv_plain(*args)
+        torch.cuda.synchronize()
+        err = ulps(out, ref)
+        column = bf16_column_bitwise(dcn, x, off_y, off_x, mask, stride)
+        sched = bf16_k2_schedule(b, h, w, cout, stride)
+        log(f"[bf16-k2] ragged {name}: x {list(x.shape)} at byte {x.data_ptr() % 16} of 16, "
+            f"stride {stride}, Cout {cout}: {err:.2f} bf16 ulps at max|plain| (tol "
+            f"{BF16_FWD_ULPS}; {float((out == ref).float().mean()):.2%} bitwise equal; its column "
+            f"{'bitwise' if column else 'NOT bitwise'} the plain one; {sched['blocks']} blocks, "
+            f"<= {sched['pixels_per_block']} pixels a block)")
+        check(err <= BF16_FWD_ULPS, f"bf16 K2 ragged {name}: {err:.2f} ulps")
+        check(column, f"bf16 K2 ragged {name}: the column is not the plain one bitwise")
+        rows.append(dict(shape=name, ulps=err, column_bitwise=column, **sched))
+        del flat, x, off_y, off_x, mask, weight, args, out, ref
+    return rows
 
 
 # ---------------------------------------------------------------- probes
@@ -2655,6 +2747,7 @@ def main() -> int:
     bf16_fwd_rows, bf16_bwd_rows = check_bf16_msda(device, gen)
     im2col_rows, col2im_rows = check_k56(device, gen)
     bf16_k2_rows, bf16_k5_rows, bf16_k6_rows = check_bf16_dcn(device, gen)
+    bf16_k2_ragged = check_bf16_k2_ragged(device, gen)
     torch.cuda.empty_cache()
     probe_runs, probe_counts = check_probes()
     torch.cuda.empty_cache()
@@ -2740,6 +2833,7 @@ def main() -> int:
                "(bf16) leaves out dmask (grid_sampler_ms)", counts=base16["train_counts"]),
     ]
     kernels[-3]["inference_launches"] = base16["inference_counts"]["dcn_conv_fwd_bf16"]
+    kernels[-3]["ragged"] = bf16_k2_ragged
     kernels[-3]["im2col_matmul_ms"] = sum(r["im2col_matmul_ms"] * r["per_frame"]
                                           for r in bf16_k2_rows)
     kernels[-1]["grid_sampler_ms"] = sum(r["grid_sampler_ms"] * r["per_step"] for r in bf16_k6_rows)
