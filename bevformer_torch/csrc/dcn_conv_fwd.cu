@@ -76,7 +76,7 @@
 // What bounds it on this card: the sampling. A stage-3 call of
 // bevformer_base is 41 GFLOP, 42 us at the card's 989 TFLOP/s dense bf16,
 // but its column is 80 M values, each from four 2-byte corner reads (641
-// MB gathered from the L2 in 16-byte pieces) and ~12 fp32 operations. The
+// MB gathered from the L2 in 8-byte pieces) and ~12 fp32 operations. The
 // first bf16 kernel sampled in lockstep with its wgmmas (512 threads an
 // SM, 64 x 256 tiles, 32-deep K tiles) and took 0.400 ms a stage-3 call
 // and 0.458-0.462 a stage-4 one (chip_smoke.py, NVIDIA H100 80GB HBM3,
@@ -96,15 +96,16 @@
 //   sampling warp whose pixels all lie past its block's range (a range's
 //   last tile) skips their loads and stores: those rows feed no output.
 // - The sampling warps: each owns 8 pixels of a tile, and a lane takes 2
-//   of them at 8 channels, so a warp's corner load reads 4 pixels' whole
-//   128-byte rows, and its store is one 16-byte row of the column tile in
-//   the 128-byte swizzle (conflict-free). The next K tile's 8 corner loads
-//   are in flight while this one's are combined; the corner tables
-//   (offsets, weights, mask) are built once per (pixel, tap) from offsets
-//   fetched a tap ahead. One lane of warp 4 brings each weight tile in by
-//   one 1-D bulk copy (cp.async.bulk) that completes on the stage's full
-//   barrier; the warps' shared-memory writes reach the wgmmas through
-//   fence.proxy.async.
+//   of them at 8 channels, each corner in two 8-byte loads (x need only
+//   lie on an 8-byte boundary), so a warp's corner loads read 4 pixels'
+//   whole 128-byte rows, and its store is one 16-byte row of the column
+//   tile in the 128-byte swizzle (conflict-free). The next K tile's 16
+//   corner loads are in flight while this one's are combined; the corner
+//   tables (offsets, weights, mask) are built once per (pixel, tap) from
+//   offsets fetched a tap ahead. One lane of warp 4 brings each weight
+//   tile in by one 1-D bulk copy (cp.async.bulk) that completes on the
+//   stage's full barrier; the warps' shared-memory writes reach the wgmmas
+//   through fence.proxy.async.
 // - The consumer keeps one wgmma group in flight and releases a stage as
 //   soon as its group has retired; one fp32 accumulator over the whole K
 //   (tests/test_torch_dcn_bf16_mma.py: its truncating sums drift 8e-6 of
@@ -117,15 +118,20 @@
 //   has nothing to move, and at 384 threads each warp has 168. Two
 //   consumer warpgroups (128 x 256 tiles, half the weight traffic) leave
 //   one sampling warpgroup, which was slower in this kernel's trials.
-// Measured (chip_smoke.py phase 6, NVIDIA H100 80GB HBM3, 700.00 W, offsets
-// N(0, 3) px): 0.199 ms a base stage-3 call, 0.221 a stage-4 one (21% and
-// 19% of the bound; K5 bf16 + one bf16 cuBLAS product 0.202 and 0.135);
-// small's 0.124 and 0.151. The sampling warps' instruction stream (8 warps
-// on 4 schedulers: 13.5 instructions a column value, the ring's barriers
-// and bookkeeping) bounds it, not the tensor cores: so the corner tables
+// Measured (tools/bench_dcn_variants.py, NVIDIA H100 80GB HBM3, 700.00 W,
+// offsets N(0, 3) px): 0.196-0.197 ms a base stage-3 call, 0.216 a stage-4
+// one (21% and 19% of the bound; K5 bf16 + one bf16 cuBLAS product, the
+// yardstick, in PERF.md section 6); small's 0.121 and 0.145-0.146. The
+// sampling warps' instruction stream (8 warps on 4 schedulers: the corner
+// loads and their sums, the ring's barriers and bookkeeping) bounds it,
+// not the tensor cores: so the corner tables
 // hold byte offsets (one add a load), and a pixel's place is divided out
 // once a tile, not once a tap. A stage-4 call samples each pixel twice,
-// once per column block.
+// once per column block. Measured beside it in one run and not kept: one
+// 16-byte load a corner (2.3-3.2% faster, a second instantiation for a
+// 16-byte x), the proxy fence taken once by the consumer after its
+// full-barrier wait (0.8-1.6% faster; the fence stays with the writers,
+// as CUTLASS places it, since the reader-side order is not documented).
 // The JAX kernel also rounds its bilinear x-weights to bf16 (it samples by
 // a one-hot matmul); here they stay fp32, as in the plain version.
 
@@ -601,11 +607,8 @@ __global__ void weight_prep_kernel(const float* __restrict__ weight,
   prep[i] = __float2bfloat16_rn(n < Cout ? weight[(int64_t)k * Cout + n] : 0.f);
 }
 
-// 8 bf16 of x: one 16-byte load, or two 8-byte ones for an x on an 8-byte
-// boundary
-template <bool X16>
+// 8 bf16 of x in two 8-byte loads (x need only lie on an 8-byte boundary)
 __device__ __forceinline__ uint4 load8(const __nv_bfloat16* p) {
-  if (X16) return __ldg(reinterpret_cast<const uint4*>(p));
   const uint2 lo = __ldg(reinterpret_cast<const uint2*>(p));
   const uint2 hi = __ldg(reinterpret_cast<const uint2*>(p) + 1);
   return make_uint4(lo.x, lo.y, hi.x, hi.y);
@@ -663,7 +666,6 @@ struct Cursor {
   }
 };
 
-template <bool X16>
 struct Producer {
   Smem& s;
   const __nv_bfloat16* __restrict__ x;
@@ -763,7 +765,7 @@ struct Producer {
       const uint32_t oj[4] = {(uint32_t)o.x, (uint32_t)o.y, (uint32_t)o.z, (uint32_t)o.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        v[h][j] = load8<X16>(reinterpret_cast<const __nv_bfloat16*>(xc + oj[j]));
+        v[h][j] = load8(reinterpret_cast<const __nv_bfloat16*>(xc + oj[j]));
     }
   }
 
@@ -915,7 +917,6 @@ __device__ __forceinline__ void consume(Smem& s, __nv_bfloat16* __restrict__ out
 // Persistent: block (g, nb) owns pixels [g*M/G, (g+1)*M/G) and output
 // channels nb*256 .. +255, in tiles of 64 pixels. Warps 0-3 multiply,
 // warps 4-11 sample.
-template <bool X16>
 __global__ void __launch_bounds__(THREADS, 1)
 dcn_conv_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,      // [B, H, W, C]
                          const float* __restrict__ off_y,          // [B, OH, OW, 9]
@@ -948,8 +949,8 @@ dcn_conv_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,      // [B, H, W, 
   // the two roles part here for the rest of the kernel (the warpgroup,
   // provably uniform across the warp)
   if (__shfl_sync(0xffffffffu, warp, 0) >= 4) {
-    Producer<X16>{s, x, off_y, off_x, mask, wprep + (int64_t)nb * TAPS * C * TN, me, H, W, C, OH,
-                  OW, stride, warp - 4, lane, s.tab[warp - 4]}
+    Producer{s, x, off_y, off_x, mask, wprep + (int64_t)nb * TAPS * C * TN, me, H, W, C, OH, OW,
+             stride, warp - 4, lane, s.tab[warp - 4]}
         .run(mb);
   } else {
     consume(s, out, nb * TN, mb, me, C, Cout, warp, lane);
@@ -991,12 +992,15 @@ extern "C" int dcn_conv_fwd(const void* x, const void* off_y, const void* off_x,
   return (int)cudaGetLastError();
 }
 
+// the grid of the last dcn_conv_fwd_bf16 launch (dcn_conv_fwd_bf16_grid)
+static int bf16_last_grid[5];
+
 // dcn_conv_fwd on a bf16 x, with a bf16 out; weight stays the fp32
 // parameter [9C, Cout], which the prep kernel rounds to bf16 once into
 // wprep: scratch of ceil(Cout / 256) * 256 * 9C bf16. The same check of
-// the arguments, and x on an 8-byte boundary (16-byte corner loads on a
-// 16-byte one). One block an SM: ceil(Cout / 256) column blocks, each
-// over G blocks of contiguous pixel ranges.
+// the arguments, and x on an 8-byte boundary. One block an SM:
+// ceil(Cout / 256) column blocks, each over G blocks of contiguous pixel
+// ranges.
 extern "C" int dcn_conv_fwd_bf16(const void* x, const void* off_y, const void* off_x,
                                  const void* mask, const void* weight, void* wprep, void* out,
                                  int B, int H, int W, int C, int OH, int OW,
@@ -1016,16 +1020,30 @@ extern "C" int dcn_conv_fwd_bf16(const void* x, const void* off_y, const void* o
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
   const int M = B * OH * OW;
-  // pixel ranges of at least 64 (one m64 wgmma) where M is small
-  const int G = max(1, min(sms / nblk, (M + 63) / 64));
-  auto kernel = (uintptr_t)x % 16 == 0 ? bf16::dcn_conv_fwd_bf16_kernel<true>
-                                        : bf16::dcn_conv_fwd_bf16_kernel<false>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bf16::SMEM_BYTES);
+  // pixel ranges of at least one tile where M is small
+  const int G = max(1, min(sms / nblk, (M + bf16::TM - 1) / bf16::TM));
+  e = cudaFuncSetAttribute(bf16::dcn_conv_fwd_bf16_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bf16::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<G * nblk, bf16::THREADS, bf16::SMEM_BYTES, st>>>(
+  bf16::dcn_conv_fwd_bf16_kernel<<<G * nblk, bf16::THREADS, bf16::SMEM_BYTES, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(off_y),
       static_cast<const float*>(off_x), static_cast<const float*>(mask), prep,
       static_cast<__nv_bfloat16*>(out), B, H, W, C, OH, OW, Cout, stride, G);
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // the longest range (ceil(M / G) pixels) and its tiles, times the blocks
+  // an SM takes in turn
+  const int pixels = (M + G - 1) / G;
+  const int tiles = (pixels + bf16::TM - 1) / bf16::TM * ((G * nblk + sms - 1) / sms);
+  const int grid[5] = {sms, G * nblk, pixels, bf16::TM, tiles};
+  for (int i = 0; i < 5; ++i) bf16_last_grid[i] = grid[i];
+  return (int)cudaSuccess;
+}
+
+// the grid the last dcn_conv_fwd_bf16 launch used, into out[5]: the SMs,
+// the blocks, the most pixels a block walks, the pixels a tile and the
+// most tiles an SM walks (zeros before the first launch)
+extern "C" int dcn_conv_fwd_bf16_grid(void* out) {
+  for (int i = 0; i < 5; ++i) static_cast<int*>(out)[i] = bf16_last_grid[i];
+  return (int)cudaSuccess;
 }

@@ -62,6 +62,8 @@ SIGNATURES = {
     # scratch the bf16 weight in tile order
     "dcn_conv_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # int32 [5]: the last dcn_conv_fwd_bf16 launch's grid
+    "dcn_conv_fwd_bf16_grid": [_P],
     # value, loc, attw, grad_out, dvalue (zeroed), dloc, dattw, level_hw,
     # L, B, K, Q, H, D, P, queries per block, stream
     "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -32,6 +32,8 @@ the wrapper.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from bevformer_torch.kernels import build
@@ -177,6 +179,15 @@ def _launch_fwd(x, off_y, off_x, mask, weight, stride) -> torch.Tensor:
     build.check_launch(entry, rc)
     (DCN_CONV_FWD_BF16 if bf16 else dcn_conv).launches += 1
     return out
+
+
+def bf16_conv_grid() -> dict:
+    """The persistent grid of the last `dcn_conv_fwd_bf16` launch, as its C
+    entry recorded it: the card's SMs, the blocks, the most pixels a block
+    walks, the pixels a tile and the most tiles an SM walks."""
+    grid = (ctypes.c_int * 5)()
+    build.check_launch("dcn_conv_fwd_bf16_grid", build.library().dcn_conv_fwd_bf16_grid(grid))
+    return dict(zip(("sms", "blocks", "pixels_per_block", "tile_pixels", "tiles_per_sm"), grid))
 
 
 class _DCNConv(torch.autograd.Function):

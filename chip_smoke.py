@@ -49,8 +49,8 @@ Phases, each printed as it runs:
      autograd through the plain conv), with times, bounds at bf16's 2-byte
      tensors, and the yardsticks (K5 bf16 + a bf16 cuBLAS product; ATen's
      grid_sampler_2d_backward on bf16); bf16 K2's column (its output for
-     the identity weight) bitwise the plain one, its persistent grid
-     (blocks, tiles per SM), and bf16 K2 at ragged shapes (M no multiple
+     the identity weight) bitwise the plain one, its persistent grid as
+     the launch records it (blocks, tiles per SM), and bf16 K2 at ragged shapes (M no multiple
      of 64, Cout 40 and 320, C 32 and 96, stride 2, x on an 8-byte
      boundary) within one bf16 ulp;
   7. probes: the kernel benchmark and probe tools (bevformer_torch/tools),
@@ -720,26 +720,8 @@ BF16_K2_RAGGED = [
     ("c32", 2, 29, 50, 32, 256, 1, 0),  # every K tile 32 deep
     ("c96", 2, 29, 50, 96, 256, 1, 0),  # a 64- and a 32-deep K tile a tap
     ("stride2", 6, 58, 100, 256, 256, 2, 0),  # base's stage-3 input at stride 2
-    ("x8", 1, 13, 21, 32, 96, 1, 4),  # x on an 8-byte boundary: 8-byte corner loads
+    ("x8", 1, 13, 21, 32, 96, 1, 4),  # x on an 8-byte boundary, the least the kernel takes
 ]
-
-
-BF16_K2_TILE = 64  # csrc/dcn_conv_fwd.cu: bf16::TM, pixels a tile
-
-
-def bf16_k2_schedule(b, h, w, cout, stride=1) -> dict:
-    """bf16 K2's persistent grid (`dcn_conv_fwd_bf16`'s C entry): ceil(Cout
-    / 256) column blocks, each over G blocks of contiguous pixel ranges,
-    one block an SM; each block walks its range in 64-pixel tiles."""
-    import torch
-
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    m = b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
-    nblk = -(-cout // 256)
-    g = max(1, min(sms // nblk, -(-m // BF16_K2_TILE)))
-    pixels = -(-m // g)
-    return dict(sms=sms, blocks=g * nblk, pixels_per_block=pixels,
-                tiles_per_sm=-(-pixels // BF16_K2_TILE) * -(-g * nblk // sms))
 
 
 def bf16_column_bitwise(dcn, x, off_y, off_x, mask, stride=1) -> bool:
@@ -785,6 +767,7 @@ def check_bf16_dcn(device, gen):
 
         # K2
         out, ref = dcn.dcn_conv(*args), dcn.dcn_conv_plain(*args)
+        sched = dcn.bf16_conv_grid()  # the launch's own record of its grid
         torch.cuda.synchronize()
         check(out.dtype == ref.dtype == torch.bfloat16, f"bf16 K2 {name}: {out.dtype}")
         k2_ulps, k2_err = ulps(out, ref), float((out.float() - ref.float()).abs().max())
@@ -794,7 +777,6 @@ def check_bf16_dcn(device, gen):
         same = float((out == ref).float().mean())
         del out, ref, exact
         column = bf16_column_bitwise(dcn, x, off_y, off_x, mask)
-        sched = bf16_k2_schedule(b, h, w, cout)
         ms = time_ms(lambda: dcn.dcn_conv(*args), 10)
         plain_ms = time_ms(lambda: dcn.dcn_conv_plain(*args), 3)
         wb = weight.bfloat16()
@@ -808,8 +790,9 @@ def check_bf16_dcn(device, gen):
             f"({cost.bound_ms / ms:.1%} of its bound {cost.bound_ms:.4f}, "
             f"{cost.bf16_flops / ms / 1e9:.1f} TFLOP/s; {sched['blocks']} blocks on "
             f"{sched['sms']} SMs, <= {sched['pixels_per_block']} pixels = "
-            f"{sched['tiles_per_sm']} {BF16_K2_TILE}-pixel tiles per SM) dcn_im2col_bf16 + bf16 "
-            f"matmul {two_call_ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"{sched['tiles_per_sm']} {sched['tile_pixels']}-pixel tiles per SM) dcn_im2col_bf16 "
+            f"+ bf16 matmul {two_call_ms:.4f} ms plain {plain_ms:.4f} ms")
+        check(0 < sched["blocks"] <= sched["sms"], f"bf16 K2 {name}: not persistent: {sched}")
         check(k2_ulps <= BF16_FWD_ULPS, f"bf16 K2 {name}: {k2_ulps:.2f} ulps")
         check(column, f"bf16 K2 {name}: the column is not the plain one bitwise")
         k2_rows.append(dict(shape=name, max_abs_err=k2_err, ulps=k2_ulps, ms=ms, plain_ms=plain_ms,
@@ -904,10 +887,10 @@ def check_bf16_k2_ragged(device, gen):
         weight = torch.randn((9 * c, cout), generator=gen, device=device) / (9 * c) ** 0.5
         args = (x, off_y, off_x, mask, weight, stride)
         out, ref = dcn.dcn_conv(*args), dcn.dcn_conv_plain(*args)
+        sched = dcn.bf16_conv_grid()
         torch.cuda.synchronize()
         err = ulps(out, ref)
         column = bf16_column_bitwise(dcn, x, off_y, off_x, mask, stride)
-        sched = bf16_k2_schedule(b, h, w, cout, stride)
         log(f"[bf16-k2] ragged {name}: x {list(x.shape)} at byte {x.data_ptr() % 16} of 16, "
             f"stride {stride}, Cout {cout}: {err:.2f} bf16 ulps at max|plain| (tol "
             f"{BF16_FWD_ULPS}; {float((out == ref).float().mean()):.2%} bitwise equal; its column "

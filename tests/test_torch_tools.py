@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from bevformer_torch.tools import (
+    bench_dcn_variants,
     bench_dma_gather,
     bench_hi_probe,
     bench_kernel_probe,
@@ -24,7 +25,7 @@ from bevformer_torch.tools import (
 )
 
 TOOLS = [bench_msda_kernel, bench_kernel_probe3, bench_kernel_probe, bench_hi_probe,
-         bench_msda_decompose, bench_dma_gather, witness_seeds]
+         bench_msda_decompose, bench_dma_gather, witness_seeds, bench_dcn_variants]
 
 
 def _no_card():
@@ -208,6 +209,17 @@ def test_tool_main_raises_without_a_card(tool):
     _no_card()
     with pytest.raises(RuntimeError, match="CUDA"):
         tool.main([])
+
+
+@pytest.mark.parametrize("name", sorted(bench_dcn_variants.VARIANTS))
+def test_dcn_variant_edits_fit_the_kernel_source(name):
+    """Each variant of bf16 K2's source changes the kernel as it stands, and
+    an edit that does not match it once raises rather than building the
+    unchanged kernel under the variant's name."""
+    text = bench_dcn_variants.SOURCE.read_text()
+    assert bench_dcn_variants.variant_source(name, text) != text
+    with pytest.raises(ValueError, match="matches 0 times"):
+        bench_dcn_variants.variant_source(name, "")
 
 
 def test_tool_cases_parse():
