@@ -130,6 +130,10 @@ class BEVFormerConfig:
     focal_alpha: float = 0.25
     cls_loss_weight: float = 2.0
     bbox_loss_weight: float = 0.25
+    # recompute each backbone block after a stage's first, and each encoder
+    # layer, in backward (torch.utils.checkpoint) instead of keeping their
+    # activations: the same step on less memory
+    use_remat: bool = False
     # GridMask on the trained frame's images (train mode only)
     use_grid_mask: bool = True
     # v1: carry prev_bev from frame to frame of a scene in VideoEvaluator

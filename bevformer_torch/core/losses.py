@@ -8,6 +8,12 @@ by the positive count, and L1 (V2: smooth-L1) on the 10-dim code with
 `code_weights`, NaN-guarded; with GroupDETR each layer's terms are the
 mean over its groups. The costs of all the matches go to the host in one
 transfer (`assigner.assign_costs`).
+
+In a data-parallel step each rank computes the loss of its own samples,
+and every normaliser is the mean over the ranks of the local counts
+(`rank_mean_normalisers`, the reference's `reduce_mean`,
+`bevformer_head.py:362-373`): with DDP's mean of the ranks' gradients, the
+step is that of the global batch's loss, which JAX computes whole.
 """
 
 from __future__ import annotations
@@ -15,10 +21,23 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from bevformer_torch.core.assigner import assign_costs, match_cost
 from bevformer_torch.core.boxes import normalize_bbox
+
+
+def rank_mean_normalisers(sums: torch.Tensor, minimum) -> torch.Tensor:
+    """Loss normalisers from this rank's sums: each summed over the ranks,
+    clamped at `minimum` (a number, or one per sum; as JAX clamps the
+    global count) and divided by the world size; without a process group, the sums clamped. Every rank
+    calls it in the same order (one collective)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return sums.clamp(min=minimum)
+    total = sums.detach().clone()
+    dist.all_reduce(total)
+    return total.clamp(min=minimum) / dist.get_world_size()
 
 
 def sigmoid_focal_loss(
@@ -53,6 +72,7 @@ def single_layer_loss(
     gt_labels: torch.Tensor,  # [B, G]
     assigned: torch.Tensor,  # [B, Q] the matched gt per query, -1 = background
     code_weights: torch.Tensor,  # [10]
+    num_pos: torch.Tensor,  # the positive count the terms are divided by
     *,
     num_classes: int = 10,
     cls_loss_weight: float = 2.0,
@@ -71,7 +91,6 @@ def single_layer_loss(
     )
     # classification: avg_factor = positive count (`bevformer_head.py:362-373`,
     # bg_cls_weight = 0 for focal)
-    num_pos = pos.sum().float().clamp(min=1.0)
     loss_cls = (
         sigmoid_focal_loss(
             cls_scores.reshape(-1, c), labels.reshape(-1),
@@ -126,6 +145,7 @@ def bevformer_loss(
                                     gt_boxes, gt_labels, num_gt, **weights)
                          for lid, sl in slices])
     assigned = assign_costs(costs, num_gt)  # [layers x groups, B, Q]
+    num_pos = rank_mean_normalisers((assigned >= 0).flatten(1).sum(1).float(), 1.0)
     losses: Dict[str, torch.Tensor] = {}
     total = 0.0
     for lid in range(num_layers):
@@ -134,7 +154,8 @@ def bevformer_loss(
             sl = slices[lid * group_detr + gi][1]
             lc, lb = single_layer_loss(
                 all_cls[lid][:, sl], all_box[lid][:, sl], gt_boxes, gt_labels,
-                assigned[lid * group_detr + gi], cw, num_classes=num_classes,
+                assigned[lid * group_detr + gi], cw, num_pos[lid * group_detr + gi],
+                num_classes=num_classes,
                 cls_loss_weight=cls_loss_weight, bbox_loss_weight=bbox_loss_weight,
                 focal_alpha=focal_alpha, focal_gamma=focal_gamma, bbox_loss=bbox_loss,
                 smooth_l1_beta=smooth_l1_beta,

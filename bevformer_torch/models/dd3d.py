@@ -30,7 +30,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bevformer_torch.core.losses import smooth_l1
+from bevformer_torch.core.losses import rank_mean_normalisers, smooth_l1
+from bevformer_torch.models.layers import SyncBatchNorm2d
 
 INF = 1e8
 MAX_NUM_ATTRIBUTES = 3
@@ -164,7 +165,7 @@ class LevelNormConv(nn.Conv2d):
 
     def __init__(self, channels: int, num_levels: int):
         super().__init__(channels, channels, 3, padding=1, bias=False)
-        self.norm = nn.ModuleList(nn.BatchNorm2d(channels) for _ in range(num_levels))
+        self.norm = nn.ModuleList(SyncBatchNorm2d(channels) for _ in range(num_levels))
 
     def forward_levels(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         return [F.relu(self.norm[li](self._conv_forward(x, self.weight, None)))
@@ -374,7 +375,22 @@ class NuscenesDD3D(nn.Module):
         t = assign_targets(locations, level_of_loc, size_range, targets, nc)
         pos = t["pos"]
         posf = pos.float()
-        num_pos = posf.sum().clamp(min=1.0)
+
+        # centerness targets from the 2D regression targets (`fcos2d.py:21-28`)
+        reg_t = t["box2d_reg_targets"]
+        lr, tb = reg_t[..., [0, 2]], reg_t[..., [1, 3]]
+        ctr_t = ((lr.min(-1).values / lr.max(-1).values.clamp(min=1e-12))
+                 * (tb.min(-1).values / tb.max(-1).values.clamp(min=1e-12))).clamp(min=0.0).sqrt()
+        ctr_t = ctr_t * posf
+        flat_pos = posf.reshape(-1)
+        attr_t = t["attributes"].reshape(-1)
+        attr_valid = flat_pos * (attr_t != MAX_NUM_ATTRIBUTES).float()
+        speed_t = t["speeds"].reshape(-1)
+        speed_w = ctr_t.reshape(-1) * flat_pos * torch.isfinite(speed_t).float()
+        # every normaliser, the rank mean of the local sums (one collective)
+        num_pos, loss_denom, attr_denom, speed_denom = rank_mean_normalisers(
+            torch.stack([posf.sum(), ctr_t.sum(), attr_valid.sum(), speed_w.sum()]),
+            torch.tensor([1.0, 1e-6, 1e-6, 1e-6], device=dev))
 
         # classification focal loss (`fcos2d.py:197-215`)
         onehot = F.one_hot(t["labels"], nc + 1)[..., :nc].float()
@@ -384,13 +400,6 @@ class NuscenesDD3D(nn.Module):
         img_valid = targets["img_valid"].float()[:, None, None]
         loss_cls = (bce_with_logits(logits_f, onehot) * focal_w * img_valid).sum() / num_pos
 
-        # centerness targets from the 2D regression targets (`fcos2d.py:21-28`)
-        reg_t = t["box2d_reg_targets"]
-        lr, tb = reg_t[..., [0, 2]], reg_t[..., [1, 3]]
-        ctr_t = ((lr.min(-1).values / lr.max(-1).values.clamp(min=1e-12))
-                 * (tb.min(-1).values / tb.max(-1).values.clamp(min=1e-12))).clamp(min=0.0).sqrt()
-        ctr_t = ctr_t * posf
-        loss_denom = ctr_t.sum().clamp(min=1e-6)
         loss_box2d = (giou_loss(box2d_f, reg_t) * ctr_t).sum() / loss_denom
         loss_centerness = (bce_with_logits(ctrness_f, ctr_t) * posf).sum() / num_pos
 
@@ -444,17 +453,11 @@ class NuscenesDD3D(nn.Module):
                        / loss_denom)
 
         # attribute and speed losses (`nuscenes_dd3d.py:204-279`)
-        flat_pos = posf.reshape(-1)
-        attr_t = t["attributes"].reshape(-1)
-        attr_valid = flat_pos * (attr_t != MAX_NUM_ATTRIBUTES).float()
         attr_ce = -F.log_softmax(attr_f.reshape(-1, MAX_NUM_ATTRIBUTES), -1).gather(
             1, attr_t.clamp(max=MAX_NUM_ATTRIBUTES - 1)[:, None])[:, 0]
-        loss_attr = ATTR_LOSS_WEIGHT * (attr_ce * attr_valid).sum() / attr_valid.sum().clamp(
-            min=1e-6)
-        speed_t = t["speeds"].reshape(-1)
-        speed_w = ctr_flat * flat_pos * torch.isfinite(speed_t).float()
+        loss_attr = ATTR_LOSS_WEIGHT * (attr_ce * attr_valid).sum() / attr_denom
         sp_l1 = smooth_l1(speed_f.reshape(-1) - torch.nan_to_num(speed_t), 0.05)
-        loss_speed = SPEED_LOSS_WEIGHT * (sp_l1 * speed_w).sum() / speed_w.sum().clamp(min=1e-6)
+        loss_speed = SPEED_LOSS_WEIGHT * (sp_l1 * speed_w).sum() / speed_denom
 
         return {
             "loss_cls": loss_cls,

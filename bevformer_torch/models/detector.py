@@ -27,6 +27,7 @@ class BEVFormer(nn.Module):
             out_indices=cfg.backbone_out_indices,
             dcn_stages=cfg.backbone_dcn_stages,
             style=cfg.backbone_style,
+            use_remat=cfg.use_remat,
         )
         self.img_neck = FPN(
             in_channels=cfg.neck_in_channels,

@@ -34,6 +34,7 @@ class BEVFormerV2(nn.Module):
             out_indices=cfg.backbone_out_indices,
             dcn_stages=cfg.backbone_dcn_stages,
             style=cfg.backbone_style,
+            use_remat=cfg.use_remat,
             norm=cfg.backbone_norm,
         )
         # the neck builds the mono head's levels too; the BEV reads the

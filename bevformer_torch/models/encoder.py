@@ -2,7 +2,9 @@
 
 Port of `bevformer_tpu/models/encoder.py` (reference `encoder.py:24-406`).
 The reference points, the camera projection and the SCA routing are
-computed once per frame; the layers run in a Python loop.
+computed once per frame; the layers run in a Python loop. With
+`use_remat`, each layer is recomputed in backward (`layers.remat`), as
+JAX's `nn.remat` of its scanned layer (`encoder.py:273-274`).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from bevformer_torch.models.attention import (
     TemporalSelfAttention,
     sca_capacity_routing,
 )
-from bevformer_torch.models.layers import FFN, layer_norm
+from bevformer_torch.models.layers import FFN, layer_norm, remat
 
 
 class BEVFormerLayer(nn.Module):
@@ -57,8 +59,9 @@ class BEVFormerEncoder(nn.Module):
                  num_points_in_pillar=4,
                  pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
                  sca_num_points=8, tsa_num_points=4, sca_capacity_ratio=0.0,
-                 ffn_dropout=0.1):
+                 ffn_dropout=0.1, use_remat=False):
         super().__init__()
+        self.use_remat = use_remat
         self.num_points_in_pillar = num_points_in_pillar
         self.pc_range = tuple(pc_range)
         self.sca_capacity_ratio = sca_capacity_ratio
@@ -107,6 +110,7 @@ class BEVFormerEncoder(nn.Module):
         # history, fixed over the layers; (layer input, layer input) without
         hasq = has_prev.view(bs, 1, 1)
         output = bev_query
+        recompute = self.use_remat and torch.is_grad_enabled()
         for layer in self.layers:
             if prev_bev is not None:
                 slot0 = torch.where(hasq, prev_bev, output)
@@ -114,9 +118,7 @@ class BEVFormerEncoder(nn.Module):
             else:
                 slot0 = slot1 = output
             value_queue = torch.stack([slot0, slot1], dim=1)
-            output = layer(
-                output, value, bev_pos, value_queue, hybrid_ref_2d,
-                reference_points_cam, bev_mask, spatial_shapes, bev_h, bev_w,
-                routing,
-            )
+            args = (output, value, bev_pos, value_queue, hybrid_ref_2d,
+                    reference_points_cam, bev_mask, spatial_shapes, bev_h, bev_w, routing)
+            output = remat(layer, *args) if recompute else layer(*args)
         return output

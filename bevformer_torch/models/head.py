@@ -69,6 +69,7 @@ class BEVFormerHead(nn.Module):
             tsa_num_points=c.tsa_num_points,
             sca_capacity_ratio=c.sca_capacity_ratio,
             ffn_dropout=c.ffn_dropout,
+            use_remat=c.use_remat,
         )
         if c.version == "v2":
             self.transformer = PerceptionTransformerV2(

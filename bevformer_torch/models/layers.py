@@ -1,5 +1,7 @@
 """Shared building blocks: the FFN with residual, the decoder's multi-head
-self-attention, the learned BEV positional encoding and `inverse_sigmoid`.
+self-attention, the learned BEV positional encoding, `inverse_sigmoid`,
+the BatchNorm synced over ranks and the recomputation of a block in
+backward (`remat`).
 
 Submodule and parameter names follow the reference `.pth` keys, so a
 reference state dict loads with `load_state_dict`. Dropout sits where the
@@ -9,12 +11,15 @@ train/eval mode.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from bevformer_torch.device import fp32
 
@@ -126,3 +131,105 @@ class LearnedPositionalEncoding(nn.Module):
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x = x.clamp(0.0, 1.0)
     return torch.log(x.clamp(min=eps) / (1.0 - x).clamp(min=eps))
+
+
+class _SyncBatchNormFn(torch.autograd.Function):
+    """Train-mode BatchNorm over the batch of every rank. Forward all-reduces
+    each rank's count, per-channel mean and sum of squared deviations (one
+    float64 row a rank: summing rows of zeros but one's own is exact) and
+    combines them (Chan's formula, which keeps the variance of a channel
+    whose mean dwarfs its spread); backward all-reduces the per-channel
+    sums of dy and dy * x_hat. The affine gradients are this rank's own:
+    DDP averages them with the rest."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps, momentum):
+        world, rank = dist.get_world_size(), dist.get_rank()
+        c = x.shape[1]
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        n = xf.numel() // c
+        rows = torch.zeros((world, 2 * c + 1), dtype=torch.float64, device=x.device)
+        rows[rank] = torch.cat([mean.double(), var.double() * n, rows.new_tensor([n])])
+        dist.all_reduce(rows)
+        counts = rows[:, 2 * c:]  # [world, 1]
+        total = counts.sum()
+        g_mean = (rows[:, :c] * counts).sum(0) / total
+        m2 = (rows[:, c:2 * c] + counts * (rows[:, :c] - g_mean) ** 2).sum(0)
+        g_var = m2 / total
+        if running_mean is not None:
+            running_mean.mul_(1 - momentum).add_(g_mean.float(), alpha=momentum)
+            unbiased = m2 / max(float(total) - 1, 1.0)
+            running_var.mul_(1 - momentum).add_(unbiased.float(), alpha=momentum)
+        g_mean, invstd = g_mean.float(), torch.rsqrt(g_var + eps).float()
+        x_hat = (xf - g_mean[:, None, None]) * invstd[:, None, None]
+        ctx.save_for_backward(xf, weight, g_mean, invstd)
+        ctx.total, ctx.dtype = float(total), x.dtype
+        return (x_hat * weight[:, None, None] + bias[:, None, None]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xf, weight, mean, invstd = ctx.saved_tensors
+        dy = dy.float()
+        x_hat = (xf - mean[:, None, None]) * invstd[:, None, None]
+        sum_dy = dy.sum((0, 2, 3))
+        sum_dy_xhat = (dy * x_hat).sum((0, 2, 3))
+        sums = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(sums)
+        c = sum_dy.shape[0]
+        g_dy, g_dy_xhat = sums[:c] / ctx.total, sums[c:] / ctx.total
+        dx = (weight * invstd)[:, None, None] * (
+            dy - g_dy[:, None, None] - x_hat * g_dy_xhat[:, None, None])
+        return dx.to(ctx.dtype), sum_dy_xhat, sum_dy, None, None, None, None
+
+
+class SyncBatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train-mode batch statistics are those of the
+    batch over every rank of the process group, as JAX's are over the
+    whole `dp`-sharded batch (the reference's SyncBN). Its parameters,
+    buffers and state-dict keys are nn.BatchNorm2d's, and so is its running
+    variance (torch's unbiased one, over the global count). In eval mode,
+    or with one rank or none, it is nn.BatchNorm2d itself."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            return super().forward(x)
+        momentum = 0.0 if self.momentum is None else self.momentum
+        tracking = self.track_running_stats
+        if tracking:
+            self.num_batches_tracked.add_(1)
+            if self.momentum is None:
+                momentum = 1.0 / float(self.num_batches_tracked)
+        return _SyncBatchNormFn.apply(
+            x, self.weight, self.bias, self.running_mean if tracking else None,
+            self.running_var if tracking else None, self.eps, momentum)
+
+
+@contextlib.contextmanager
+def _running_stats_kept(norms):
+    """The BatchNorms in `norms` leave the block with the running statistics
+    and counters they entered it with (the block runs them as it would)."""
+    kept = [(m, [b.clone() for b in (m.running_mean, m.running_var, m.num_batches_tracked)])
+            for m in norms]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for m, (mean, var, count) in kept:
+                m.running_mean.copy_(mean)
+                m.running_var.copy_(var)
+                m.num_batches_tracked.copy_(count)
+
+
+def remat(module: nn.Module, *args):
+    """`module(*args)`, its activations recomputed in backward instead of
+    kept (`torch.utils.checkpoint`, non-reentrant; Flax's `nn.remat`). The
+    random generators' states are replayed, so dropout draws the same masks.
+    A train-mode BatchNorm inside updates its running statistics once: the
+    recomputation gives them back as it found them, as Flax drops the
+    recomputed mutation."""
+    norms = [m for m in module.modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm) and m.track_running_stats]
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _running_stats_kept(norms)))

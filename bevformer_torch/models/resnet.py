@@ -5,10 +5,14 @@ reads without a copy).
 
 Port of `bevformer_tpu/models/resnet.py` (mmdet ResNet with
 `norm_eval=True`, `bevformer_base.py:45-60`, `bevformer_tiny.py:41-51`; V2's
-trainable SyncBN, `bevformerv2-r50-t1-24ep.py:164-180`, is `nn.BatchNorm2d`
-here, which uses its running statistics in eval mode). Submodules carry the
-reference `.pth` names (`conv1`, `bn1`, `layer{i}.{j}.conv2.conv_offset`,
-...), the same in both styles and with both norms.
+trainable SyncBN, `bevformerv2-r50-t1-24ep.py:164-180`, is
+`layers.SyncBatchNorm2d` here: nn.BatchNorm2d, with running statistics in
+eval mode, whose batch statistics span every rank in train mode).
+Submodules carry the reference `.pth` names (`conv1`, `bn1`,
+`layer{i}.{j}.conv2.conv_offset`, ...), the same in both styles and with
+both norms. With `use_remat`, every block after the first of each stage is
+recomputed in backward (`layers.remat`), as JAX's `nn.remat` of its
+scanned blocks (`resnet.py:440-452`).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bevformer_torch.kernels.dcn import dcn_conv
+from bevformer_torch.models.layers import SyncBatchNorm2d, remat
 
 ARCH_SETTINGS = {
     10: (1, 1, 1, 1),  # toy depth for tests
@@ -86,7 +91,7 @@ def _conv(cin, cout, k, stride=1, padding=0):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
 
 
-NORMS = {"frozen": FrozenBN, "bn": nn.BatchNorm2d}  # eps 1e-5 both
+NORMS = {"frozen": FrozenBN, "bn": SyncBatchNorm2d}  # eps 1e-5 both
 
 
 def make_norm(norm: str, features: int) -> nn.Module:
@@ -143,9 +148,11 @@ class ResNet(nn.Module):
         dcn_stages: Tuple[int, ...] = (),
         style: str = "caffe",
         norm: str = "frozen",
+        use_remat: bool = False,
     ):
         super().__init__()
         self.out_indices = tuple(out_indices)
+        self.use_remat = use_remat
         self.conv1 = _conv(3, 64, 7, 2, padding=3)
         self.bn1 = make_norm(norm, 64)
         inplanes, planes = 64, 64
@@ -165,8 +172,14 @@ class ResNet(nn.Module):
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.max_pool2d(out, 3, stride=2, padding=1)
         outputs = []
+        recompute = self.use_remat and torch.is_grad_enabled()
         for stage in range(self.num_stages):
-            out = getattr(self, f"layer{stage + 1}")(out)
+            layer = getattr(self, f"layer{stage + 1}")
+            if recompute:
+                for i, block in enumerate(layer):
+                    out = remat(block, out) if i > 0 else block(out)
+            else:
+                out = layer(out)
             if stage in self.out_indices:
                 outputs.append(out)
         return outputs

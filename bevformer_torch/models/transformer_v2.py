@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from bevformer_torch.device import fp32
 from bevformer_torch.models.decoder import DetectionTransformerDecoder
 from bevformer_torch.models.encoder import BEVFormerEncoder
-from bevformer_torch.models.layers import Fp32Linear, layer_norm
+from bevformer_torch.models.layers import Fp32Linear, SyncBatchNorm2d, layer_norm
 from bevformer_torch.models.transformer import flatten_feats
 
 
@@ -68,10 +68,10 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv1 = _conv3x3(cin, cout)
-        self.bn1 = nn.BatchNorm2d(cout)
+        self.bn1 = SyncBatchNorm2d(cout)
         self.conv2 = _conv3x3(cout, cout)
-        self.bn2 = nn.BatchNorm2d(cout)
-        self.downsample = (nn.Sequential(_conv3x3(cin, cout), nn.BatchNorm2d(cout))
+        self.bn2 = SyncBatchNorm2d(cout)
+        self.downsample = (nn.Sequential(_conv3x3(cin, cout), SyncBatchNorm2d(cout))
                            if cin != cout else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -111,7 +111,7 @@ class PerceptionTransformerV2(nn.Module):
                  pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
                  sca_num_points=8, tsa_num_points=4, sca_capacity_ratio=0.0,
                  ffn_dropout=0.1, frames: Tuple[int, ...] = (0,), num_fusion=3,
-                 inter_channels: Optional[int] = None):
+                 inter_channels: Optional[int] = None, use_remat=False):
         super().__init__()
         e = embed_dims
         self.embed_dims = e
@@ -122,7 +122,7 @@ class PerceptionTransformerV2(nn.Module):
         self.encoder = BEVFormerEncoder(
             encoder_layers, e, num_heads, feedforward_channels, num_cams,
             num_feature_levels, num_points_in_pillar, pc_range,
-            sca_num_points, tsa_num_points, sca_capacity_ratio, ffn_dropout,
+            sca_num_points, tsa_num_points, sca_capacity_ratio, ffn_dropout, use_remat,
         )
         self.decoder = DetectionTransformerDecoder(
             decoder_layers, e, num_heads, feedforward_channels, ffn_dropout

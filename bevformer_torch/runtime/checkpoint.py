@@ -43,6 +43,7 @@ from bevformer_torch.models.attention import (
 from bevformer_torch.models.head import bias_init_with_prob
 from bevformer_torch.models.layers import _PackedProjection
 from bevformer_torch.models.resnet import ARCH_SETTINGS, FrozenBN, ModulatedDeformConv
+from bevformer_torch.runtime import distributed
 
 StateDict = Dict[str, np.ndarray]
 
@@ -462,14 +463,19 @@ def save_checkpoint(path: str, trainer, step: int, epoch: int) -> None:
     """Write `trainer`'s state after `step` steps in mmcv's layout
     (`meta`, `state_dict` with the reference keys, `optimizer`), with the
     lr schedule (`scheduler`), `step` and the random generators' states
-    (`rng`) beside them. The file appears whole or not at all."""
+    (`rng`, and every rank's `rng_by_rank` under a process group) beside
+    them. The file appears whole or not at all. Under a process group every
+    rank calls it, rank 0 writes, and every rank returns once the file is
+    there."""
     ckpt = trainer.state_dict()
-    ckpt["meta"] = dict(epoch=epoch, iter=step, config=trainer.cfg.name)
-    ckpt["step"] = step
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = f"{path}.tmp"
-    torch.save(ckpt, tmp)
-    os.replace(tmp, path)
+    if distributed.rank() == 0:
+        ckpt["meta"] = dict(epoch=epoch, iter=step, config=trainer.cfg.name)
+        ckpt["step"] = step
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = f"{path}.tmp"
+        torch.save(ckpt, tmp)
+        os.replace(tmp, path)
+    distributed.barrier()
 
 
 def restore_checkpoint(path: str, trainer) -> Tuple[int, dict]:

@@ -9,11 +9,16 @@ scene reset, the CAN-bus deltas between consecutive frames and the
 `BEVFormerV2.forward_test`/`simple_test`, `detectors/bevformerV2.py:226-266`):
 no state across samples; each sample encodes its history frames
 (`bev_only`), then runs its current frame with their BEVs.
+
+Over ranks, each rank runs a contiguous segment of the split
+(`data.ContiguousVideoSampler`; a v1 segment starts without history, as
+JAX's `evaluator.run(ds, indices=range(lo, hi))` does) and
+`gather_results` gathers the segments' results in the split's order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,6 +26,9 @@ import torch
 from bevformer_torch.core import coder
 from bevformer_torch.device import precision
 from bevformer_torch.models import BEVFormer, BEVFormerV2
+from bevformer_torch.runtime.distributed import allgather_results, world_size
+
+RESULT_WIDTH = 11  # a gathered box: 9 box values, score, label
 
 
 def decoded_result(token: str, dec: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -166,3 +174,22 @@ class VideoEvaluatorV2:
             if progress_every and len(results) % progress_every == 0:
                 print(f"eval {len(results)} samples", flush=True)
         return results
+
+
+def gather_results(results: List[Dict], tokens: Sequence[str]) -> List[Dict]:
+    """Every rank's `results` (the decoded boxes of its segment, in order)
+    on every rank, as one list in rank order, keyed by `tokens` (the whole
+    split's, in order); `results` itself with one rank. The boxes, scores
+    and labels go over as float32 rows (JAX `tools/test.py:214-233`)."""
+    if world_size() == 1:
+        return results
+    packed = [np.concatenate([np.asarray(r["boxes_3d"], np.float32).reshape(-1, 9),
+                              np.asarray(r["scores_3d"], np.float32).reshape(-1, 1),
+                              np.asarray(r["labels_3d"], np.float32).reshape(-1, 1)], axis=1)
+              for r in results]
+    gathered = allgather_results(packed, width=RESULT_WIDTH)
+    if len(gathered) != len(tokens):
+        raise RuntimeError(f"gathered {len(gathered)} results for {len(tokens)} samples")
+    return [dict(token=tok, boxes_3d=a[:, :9], scores_3d=a[:, 9],
+                 labels_3d=a[:, 10].astype(np.int64))
+            for tok, a in zip(tokens, gathered)]

@@ -6,6 +6,12 @@ Port of `bevformer_tpu/runtime/train.py` (reference
 with the model in eval mode (no dropout, no GridMask; the reference switches
 to eval, `bevformer.py:161`), their backbone batched over the frames; the
 last frame trains, in train mode, with the resulting `prev_bev`.
+
+Under a process group (`runtime.distributed`) each rank steps its own
+samples through `runtime.parallel.data_parallel` (DDP): the clip then sees
+the gradients averaged over the ranks, the global norm JAX's
+`optax.global_norm` takes, and the loss terms returned are their means over
+the ranks, the global batch's.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ import torch
 from bevformer_torch.core.losses import bevformer_loss
 from bevformer_torch.device import fp32, precision
 from bevformer_torch.models import BEVFormer
+from bevformer_torch.runtime import distributed
 from bevformer_torch.runtime.optim import make_optimizer
+from bevformer_torch.runtime.parallel import data_parallel
 from bevformer_torch.runtime.train_v2 import loss_fn_v2
 
 
@@ -129,71 +137,108 @@ def loss_fn(model: BEVFormer, batch: Batch) -> Tuple[torch.Tensor, Dict[str, tor
 def train_step(model, optimizer, scheduler, params, max_norm: float,
                batch, loss=loss_fn) -> Dict[str, float]:
     """Zero grads, forward + backward (`loss(model, batch)`), global clip,
-    AdamW step, scheduler step. Returns the loss terms, `grad_norm` (before
-    clipping) and the `lr` this step used."""
+    AdamW step, scheduler step. Returns the loss terms (their means over
+    the ranks under a process group), `grad_norm` (before clipping) and the
+    `lr` this step used."""
     optimizer.zero_grad(set_to_none=True)
     total, losses = loss(model, batch)
     total.backward()
-    # global L2 clip over the trainable gradients; the norm before clipping
+    # global L2 clip over the trainable gradients (after DDP's all-reduce);
+    # the norm before clipping
     grad_norm = torch.nn.utils.clip_grad_norm_(params, max_norm)
     lr = optimizer.param_groups[0]["lr"]
     optimizer.step()
     scheduler.step()
-    out = {k: float(v.detach()) for k, v in losses.items()}
+    keys = list(losses)
+    terms = distributed.mean_over_ranks(torch.stack([losses[k].detach() for k in keys]))
+    out = dict(zip(keys, terms.tolist()))
     out["grad_norm"] = float(grad_norm)
     out["lr"] = lr
     return out
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s dropout and GridMask draws: `seed` itself
+    on rank 0 (a one-process run draws as it always has), another stream
+    of (seed, rank) on every other rank."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+
+
+def _run(module, batch):
+    return module(batch)
 
 
 class Trainer:
     """Model, AdamW, schedule and seed, for a v1 `BEVFormer` (steps on a
     `Batch`) or a `BEVFormerV2` (steps on a `train_v2.BatchV2`, its loss
     `train_v2.loss_fn_v2`). The seed seeds dropout (torch's global
-    generators) and GridMask's own generator; the model trains in train
-    mode (V2: BatchNorm on batch statistics, its running statistics
-    updated). `state_dict` / `load_state_dict` carry all of it, the
+    generators) and GridMask's own generator, from (seed, rank) under a
+    process group (`rank_seed`), so that the ranks draw different masks;
+    the model trains in train mode (V2: BatchNorm on batch statistics, over
+    every rank, its running statistics updated). Each step runs on
+    `runtime.parallel.data_parallel(model, loss)`, which is DDP under a
+    process group. `state_dict` / `load_state_dict` carry all of it, the
     BatchNorms' running statistics with the weights, so a run restored from
-    one continues as the run that saved it would have."""
+    one continues as the run that saved it would have; under a process
+    group `state_dict` holds every rank's generators and every rank must
+    call it (a collective), and `load_state_dict` gives each rank its own."""
 
     def __init__(self, model: BEVFormer, total_steps: int, seed: int = 0):
         self.model = model.train()
         self.cfg = model.cfg
         self.loss = loss_fn_v2 if model.cfg.version == "v2" else loss_fn
+        seed = rank_seed(seed, distributed.rank())
         torch.manual_seed(seed)
         model.grid_mask.generator.manual_seed(seed)
         self.optimizer, self.scheduler, self.params = make_optimizer(
             model, self.cfg.optim, total_steps
         )
+        self.parallel = data_parallel(model, self.loss)
 
     def step(self, batch: Batch) -> Dict[str, float]:
         """One training step in the config's dtype, whatever the caller's
         TF32 flags."""
         device = next(self.model.parameters()).device
         with precision(self.cfg.dtype, device.type):
-            return train_step(self.model, self.optimizer, self.scheduler, self.params,
-                              self.cfg.optim.grad_clip_norm, batch, self.loss)
+            return train_step(self.parallel, self.optimizer, self.scheduler, self.params,
+                              self.cfg.optim.grad_clip_norm, batch, _run)
 
-    def state_dict(self) -> dict:
-        """Model (reference keys), optimizer, lr schedule, and the random
-        generators' states: torch's CPU generator, the card's where the
-        model is on one (dropout), GridMask's."""
+    def _rng_state(self) -> dict:
         rng = {"torch_cpu": torch.get_rng_state(),
                "grid_mask": self.model.grid_mask.generator.get_state()}
         device = next(self.model.parameters()).device
         if device.type == "cuda":
             rng["torch_cuda"] = torch.cuda.get_rng_state(device)
-        return {
+        return rng
+
+    def state_dict(self) -> dict:
+        """Model (reference keys), optimizer, lr schedule, and the random
+        generators' states: torch's CPU generator, the card's where the
+        model is on one (dropout), GridMask's; under a process group also
+        every rank's (`rng_by_rank`)."""
+        rng = self._rng_state()
+        state = {
             "state_dict": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "scheduler": self.scheduler.state_dict(),
             "rng": rng,
         }
+        if distributed.world_size() > 1:
+            state["rng_by_rank"] = distributed.all_gather_object(rng)
+        return state
 
     def load_state_dict(self, state: dict) -> None:
+        world = distributed.world_size()
+        saved = len(state.get("rng_by_rank", [state["rng"]]))
+        if saved != world:
+            raise ValueError(f"the state was saved by {saved} rank(s) and is loaded on {world}: "
+                             "resume at the same world size (or load the weights alone)")
         self.model.load_state_dict(state["state_dict"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
-        rng = state["rng"]
+        rng = state["rng_by_rank"][distributed.rank()] if world > 1 else state["rng"]
         torch.set_rng_state(rng["torch_cpu"])
         self.model.grid_mask.generator.set_state(rng["grid_mask"])
         device = next(self.model.parameters()).device

@@ -3,7 +3,7 @@
     python3 -m bevformer_torch.tools.test <config> --data-root DATA
         [--checkpoint CKPT] [--out results.json] [--eval bbox|none]
         [--format-only] [--overlap-test] [--max-samples N] [--fuse-conv-bn]
-        [--cfg-options key=val ...] [--device cuda]
+        [--cfg-options key=val ...] [--device cuda] [--dist-backend nccl|gloo]
 
 runs inference over the val split of DATA (`nuscenes_infos_temporal_val.pkl`):
 for a v1 config video inference (`VideoEvaluator`, the prev-BEV carry reset
@@ -30,6 +30,14 @@ line
 sample's) time (its images' loading and preprocessing, then the model and
 decode), the peak device memory and the kernels' launches.
 
+Over ranks (`torchrun --nproc-per-node N`, `bevformer_torch/tools/
+dist_test.sh`; JAX `tools/test.py:116-117`, :201-233), each rank runs a
+contiguous segment of the samples (`ContiguousVideoSampler`; a v1 segment
+starts without history, so N ranks give the one-process boxes where the
+segments start at scene starts); the results are gathered in order
+(`runtime.eval.gather_results`) and rank 0 writes and scores them and
+prints the JSON lines (its own timing), while the other ranks return None.
+
 The run is on the card unless `--device cpu`; with no card it raises.
 """
 
@@ -51,9 +59,14 @@ from bevformer_torch.core.evaluation import (
     evaluate_detections,
     format_submission,
 )
-from bevformer_torch.data import NuScenesTemporalDataset, NuScenesTemporalDatasetV2
-from bevformer_torch.device import resolve as resolve_device
+from bevformer_torch.data import (
+    ContiguousVideoSampler,
+    NuScenesTemporalDataset,
+    NuScenesTemporalDatasetV2,
+)
 from bevformer_torch.kernels import launch_counts
+from bevformer_torch.runtime import distributed
+from bevformer_torch.runtime.eval import gather_results
 from bevformer_torch.runtime import (
     VideoEvaluator,
     VideoEvaluatorV2,
@@ -80,6 +93,9 @@ def parse_args(argv):
                    help="fold the BatchNorms into the convs before them")
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="the process group's backend (default: nccl on the card, gloo on "
+                   "the CPU; gloo for several ranks on one card)")
     return p.parse_args(argv)
 
 
@@ -89,7 +105,20 @@ def median(xs):
 
 def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = distributed.maybe_initialize(args.device, args.dist_backend)
+    try:
+        return evaluate(args, device)
+    finally:
+        distributed.shutdown()
+
+
+def evaluate(args, device: torch.device) -> Optional[dict]:
+    lead = distributed.rank() == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
     cfg = get_config(args.config)
     if args.cfg_options:
         cfg = apply_overrides(cfg, dict(kv.split("=", 1) for kv in args.cfg_options))
@@ -99,19 +128,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
         os.path.join(args.data_root, "nuscenes_infos_temporal_val.pkl"), cfg,
         data_root=args.data_root, device=device,
     )
-    print(f"val dataset: {len(ds)} samples ({cfg.version}, frames {cfg.frames}); "
-          f"device {device}", flush=True)
+    say(f"val dataset: {len(ds)} samples ({cfg.version}, frames {cfg.frames}); "
+        f"device {device}; {distributed.world_size()} rank(s)")
     if args.checkpoint:
         state_dict = load_reference_pth(args.checkpoint)
-        print(f"weights from {args.checkpoint}", flush=True)
+        say(f"weights from {args.checkpoint}")
     else:
-        print("WARNING: seeded random weights (no --checkpoint)", flush=True)
+        say("WARNING: seeded random weights (no --checkpoint)")
         state_dict = init_state_dict(cfg, seed=0)
     model = build_model(cfg, state_dict, device)
     del state_dict
     if args.fuse_conv_bn:
         fuse_conv_bn(model)
-        print("folded conv + BN", flush=True)
+        say("folded conv + BN")
     if v2:
         evaluator = VideoEvaluatorV2(model)
         get_sample, infer = ds.get_test_sample_v2, evaluator.infer_sample
@@ -124,10 +153,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
             torch.cuda.synchronize(device)
 
     n = len(ds) if args.max_samples is None else min(len(ds), args.max_samples)
+    segment = ContiguousVideoSampler(n, distributed.world_size(), distributed.rank())
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     results, load_ms, frame_ms = [], [], []
-    for i in range(n):
+    for i in segment:
         sync()
         t0 = time.perf_counter()
         sample = get_sample(i)
@@ -137,12 +167,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
         t2 = time.perf_counter()
         load_ms.append((t1 - t0) * 1e3)
         frame_ms.append((t2 - t0) * 1e3)
-    # frame 0 carries the first calls' set-up
-    timing = dict(frames=n, frame_ms=frame_ms, load_ms=load_ms,
+    # frame 0 carries the first calls' set-up; rank 0's own frames
+    timing = dict(frames=len(frame_ms), frame_ms=frame_ms, load_ms=load_ms,
                   frame_ms_median=median(frame_ms[1:]), load_ms_median=median(load_ms[1:]),
                   peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
                             if device.type == "cuda" else None),
-                  launches=launch_counts())
+                  launches=launch_counts(), ranks=distributed.world_size())
+    results = gather_results(results, [ds.infos[i]["token"] for i in range(n)])
+    if not lead:
+        return None
     print(json.dumps(timing), flush=True)
 
     if args.out:

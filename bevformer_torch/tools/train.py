@@ -4,6 +4,7 @@
         [--work-dir DIR] [--max-iters N] [--resume-from CKPT] [--load-from PTH]
         [--seed 0] [--log-interval 50] [--ckpt-interval-epochs 1]
         [--eval-interval-epochs 0] [--cfg-options key=val ...] [--device cuda]
+        [--dp N] [--sp 1] [--dist-backend nccl|gloo]
 
 DATA holds `nuscenes_infos_temporal_train.pkl` (and `_val.pkl` for the
 in-training evaluation), as `bevformer_torch.tools.create_data synth`
@@ -30,6 +31,21 @@ weights of a model-zoo `.pth` (or of a checkpoint), with a fresh optimizer.
 Without it the weights are `init_state_dict`'s, seeded by `--seed`, which
 also seeds the data order, the augmentations, dropout and GridMask.
 
+Data parallel (JAX `tools/train.py:33-34`, :100-131): launched by
+`torchrun --nproc-per-node N` (`bevformer_torch/tools/dist_train.sh`), each
+rank joins the process group (`runtime.distributed.maybe_initialize`: NCCL
+on `cuda:LOCAL_RANK`, gloo with `--device cpu` or `--dist-backend gloo`),
+steps `samples_per_gpu` samples of its own (its share of the
+`GroupShuffleSampler` order; V2: draws from generators of (`--seed`, step,
+rank), rank 0's those of a one-process run), and DDP averages the
+gradients: a step of the global batch of N x samples_per_gpu, an epoch
+len(dataset) // that many steps. `--dp` must equal the world size (its
+default); `--sp` above 1 raises NotImplementedError. Rank 0 prints, writes
+`train_log.jsonl` and the checkpoints (which hold every rank's random
+generators; `--resume-from` restores each rank's own); the in-training
+evaluation runs each rank over a contiguous segment of the val split and
+rank 0 scores the gathered results, as `tools.test` does.
+
 The run is on the card unless `--device cpu`; with no card it raises.
 """
 
@@ -51,11 +67,11 @@ import torch
 from bevformer_torch.configs import apply_overrides, get_config
 from bevformer_torch.core.evaluation import evaluate_detections
 from bevformer_torch.data import (
+    ContiguousVideoSampler,
     GroupShuffleSampler,
     NuScenesTemporalDataset,
     NuScenesTemporalDatasetV2,
 )
-from bevformer_torch.device import resolve as resolve_device
 from bevformer_torch.kernels import launch_counts
 from bevformer_torch.runtime import (
     Trainer,
@@ -64,11 +80,14 @@ from bevformer_torch.runtime import (
     build_model,
     collate,
     collate_v2,
+    distributed,
     init_state_dict,
     load_reference_pth,
+    parallel,
     restore_checkpoint,
     save_checkpoint,
 )
+from bevformer_torch.runtime.eval import gather_results
 
 
 def parse_args(argv):
@@ -87,6 +106,12 @@ def parse_args(argv):
                    "CustomDistEvalHook")
     p.add_argument("--cfg-options", nargs="*", default=[], help="key=val config overrides")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel size: the world size of the launch (the default)")
+    p.add_argument("--sp", type=int, default=1, help="BEV sequence-parallel size (1 only)")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="the process group's backend (default: nccl on the card, gloo on "
+                   "the CPU; gloo for several ranks on one card)")
     return p.parse_args(argv)
 
 
@@ -173,18 +198,26 @@ class BatchPrefetcher:
 def run_eval(model, cfg, data_root: str, work_dir: str, step: int, device) -> Optional[dict]:
     """NDS/mAP over the val split (the reference's CustomDistEvalHook; V2:
     JAX `_run_eval_v2` :394, sample by sample through `VideoEvaluatorV2`),
-    appended to `eval_log.jsonl`; the model goes back to train mode."""
+    each rank over its contiguous segment; rank 0 scores the gathered
+    results and appends them to `eval_log.jsonl` (the other ranks return
+    None). The model goes back to train mode."""
     val_pkl = os.path.join(data_root, "nuscenes_infos_temporal_val.pkl")
     if not os.path.exists(val_pkl):
-        print("eval skipped: no val pkl", flush=True)
+        if distributed.rank() == 0:
+            print("eval skipped: no val pkl", flush=True)
         return None
     v2 = cfg.version == "v2"
     ds = (NuScenesTemporalDatasetV2 if v2 else NuScenesTemporalDataset)(
         val_pkl, cfg, data_root=data_root, device=device)
+    segment = ContiguousVideoSampler(len(ds), distributed.world_size(), distributed.rank())
     try:
-        results = (VideoEvaluatorV2 if v2 else VideoEvaluator)(model).run(ds, progress_every=0)
+        results = (VideoEvaluatorV2 if v2 else VideoEvaluator)(model).run(
+            ds, indices=segment.indices(), progress_every=0)
     finally:
         model.train()
+    results = gather_results(results, [ds.infos[i]["token"] for i in range(len(ds))])
+    if distributed.rank() != 0:
+        return None
     m = evaluate_detections(results, ds.gt_by_token(range(len(ds))), verbose=True)
     entry = dict(step=step, NDS=m["nd_score"], mAP=m["mean_ap"])
     print(json.dumps(entry), flush=True)
@@ -195,14 +228,32 @@ def run_eval(model, cfg, data_root: str, work_dir: str, step: int, device) -> Op
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    # the process group before any other use of the card (the reference's
+    # init_dist, `tools/train.py:168-175`)
+    device = distributed.maybe_initialize(args.device, args.dist_backend)
+    try:
+        return train(args, device)
+    finally:
+        distributed.shutdown()
+
+
+def train(args, device: torch.device) -> dict:
+    dp = parallel.check_mesh(args.dp, args.sp)
+    rank = distributed.rank()
+    lead = rank == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
     cfg = get_config(args.config)
     if args.cfg_options:
         cfg = apply_overrides(cfg, dict(kv.split("=", 1) for kv in args.cfg_options))
     work_dir = args.work_dir or os.path.join("work_dirs", args.config)
-    os.makedirs(work_dir, exist_ok=True)
-    with open(os.path.join(work_dir, "config.json"), "w") as f:
-        json.dump({"config": args.config, "overrides": args.cfg_options}, f)
+    if lead:
+        os.makedirs(work_dir, exist_ok=True)
+        with open(os.path.join(work_dir, "config.json"), "w") as f:
+            json.dump({"config": args.config, "overrides": args.cfg_options}, f)
 
     v2 = cfg.version == "v2"
     ds = (NuScenesTemporalDatasetV2 if v2 else NuScenesTemporalDataset)(
@@ -210,16 +261,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         data_root=args.data_root, seed=args.seed, device=device,
     )
     bs = cfg.optim.samples_per_gpu
-    steps_per_epoch = max(1, len(ds) // bs)
+    steps_per_epoch = max(1, len(ds) // (dp * bs))
     total_steps = steps_per_epoch * cfg.optim.total_epochs
     if args.max_iters:
         total_steps = min(total_steps, args.max_iters)
-    print(f"dataset: {len(ds)} samples; batch {bs}; {steps_per_epoch} steps an epoch; "
-          f"{total_steps} steps; device {device}", flush=True)
+    say(f"dataset: {len(ds)} samples; batch {bs} on each of {dp} rank(s) (global "
+        f"{dp * bs}); {steps_per_epoch} steps an epoch; {total_steps} steps; device {device}")
 
     if args.load_from:
         state_dict = load_reference_pth(args.load_from)
-        print(f"weights from {args.load_from}", flush=True)
+        say(f"weights from {args.load_from}")
     else:
         state_dict = init_state_dict(cfg, seed=args.seed)
     trainer = Trainer(build_model(cfg, state_dict, device), total_steps, seed=args.seed)
@@ -227,13 +278,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     start_step = 0
     if args.resume_from:
         start_step, _ = restore_checkpoint(args.resume_from, trainer)
-        print(json.dumps(dict(resumed_from=args.resume_from, step=start_step,
-                              lr=trainer.scheduler.get_last_lr(),
-                              rng=rng_digests(trainer.state_dict()["rng"]))), flush=True)
+        rng = rng_digests(trainer.state_dict()["rng"])  # on every rank: a collective
+        say(json.dumps(dict(resumed_from=args.resume_from, step=start_step,
+                            lr=trainer.scheduler.get_last_lr(), rng=rng)))
 
     # the epoch-seeded shuffle of the reference's DistributedGroupSampler
-    # (`datasets/samplers/group_sampler.py:62-103`) on one card
-    sampler = GroupShuffleSampler(len(ds), seed=args.seed)
+    # (`datasets/samplers/group_sampler.py:62-103`), this rank's share
+    sampler = GroupShuffleSampler(len(ds), num_replicas=dp, rank=rank, seed=args.seed)
     order = {"epoch": -1, "indices": [], "pos": 0}
 
     def next_index(step: int) -> int:
@@ -252,8 +303,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     def collect_batch(step: int):
         if v2:
             # the step's own generators (see the module's docstring)
-            ds.rng = np.random.RandomState([args.seed, step])
-            draw = np.random.default_rng([args.seed, step])
+            seeds = [args.seed, step] + ([rank] if rank else [])
+            ds.rng = np.random.RandomState(seeds)
+            draw = np.random.default_rng(seeds)
         samples, tries = [], 0
         while len(samples) < bs:
             # None: no GT (filter_empty_gt)
@@ -284,7 +336,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             del batch
             last = dict(out, step=step, step_ms=step_ms, host_ms=host_ms, data_wait_ms=wait_ms,
                         time=time.perf_counter() - t_start)
-            if step % args.log_interval == 0 or step == total_steps - 1:
+            if lead and (step % args.log_interval == 0 or step == total_steps - 1):
                 print(json.dumps(last), flush=True)
                 with open(log_path, "a") as f:
                     f.write(json.dumps(last) + "\n")
@@ -292,17 +344,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             if done % ckpt_every == 0 or done == total_steps:
                 path = os.path.join(work_dir, "ckpts", f"iter_{done}.pth")
                 save_checkpoint(path, trainer, done, done // steps_per_epoch)
-                print(f"saved checkpoint @ step {done}: {path}", flush=True)
+                say(f"saved checkpoint @ step {done}: {path}")
             eval_every = steps_per_epoch * args.eval_interval_epochs
             if eval_every and done % eval_every == 0:
                 run_eval(trainer.model, cfg, args.data_root, work_dir, done, device)
     finally:
         prefetch.close()
-    summary = dict(done=True, steps=total_steps - start_step, last=last,
+    summary = dict(done=True, steps=total_steps - start_step, last=last, dp=dp,
                    launches=launch_counts(),
                    peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
                              if device.type == "cuda" else None))
-    print(json.dumps(summary), flush=True)
+    say(json.dumps(summary))
     return summary
 
 

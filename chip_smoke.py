@@ -166,7 +166,33 @@ Phases, each printed as it runs:
      (bf16 launches per frame: base 18 K1, 26 K2), 4 training steps (base
      54 K1, 52 K2, 18 K3/K4, 26 K5, 26 K6), frame and step medians, peaks,
      the witness against the plain and noisy plain paths under phase 13's
-     bf16 rule.
+     bf16 rule;
+  17. data parallel and remat. On phase 12's root (before it is removed):
+     `torchrun --nproc-per-node 1 -m bevformer_torch.tools.train
+     bevformer_base` over NCCL (the process group, DDP, the rank-mean loss
+     normalisers) for 4 steps against phase 12's one-process run of the
+     same steps, by phase 9's rule against a witness (the one-process run
+     again): each step's loss terms, and the first step's grad norm, within
+     1e-3 or 10x the witness's error (atomic sums and Adam's sign steps move
+     the weights apart after the first step), its launches those of the
+     path; then on a root of 4 scenes x 2 frames, `tools.test
+     bevformer_base` on two gloo ranks of the one card against one process
+     (the split falls on a scene start): the same boxes within 1e-5. At
+     the end: `bevformer_torch.tools.dp_step` over two gloo ranks of the
+     card, bevformer_base for 2 steps and bevformerv2-r50-t1 for 1 (the
+     synced BatchNorm), two samples with unequal ground-truth counts,
+     GridMask and dropout off, held against one process stepping both as
+     one batch (and in the other order, the witness): the first step's losses
+     and grad norm within 1e-3 or 10x the witness's error, each group's
+     parameter update within 10% in relative L2 or 10x the witness's, V2's
+     running statistics within 1e-3 (base's second step reported: the
+     ranks' reduction order moves its weights apart);
+     each rank's and the process's peak and step times (gloo goes through
+     the host: a plumbing check, not a speed). Then bevformer_base and
+     bevformerv2-r50-t8 for 2 train-mode steps with `use_remat` off and on:
+     the first step's losses and grad norm within 1e-3, K1 and K2 launches a step (the
+     recomputed encoder layers and DCN blocks on top), step times and peak
+     memory.
 
 The line before the last is the kernels' JSON record (bf16 K1 and K3/K4
 with the launches of tiny_fp16's training run; bf16 K2, K5 and K6 with those
@@ -2663,6 +2689,7 @@ def check_cli(smi):
         v2.update(check_cli_v2_train(data, root, smi))
         v2.update(check_cli_v2_train_t8(data, root, smi))
         v2.update(photometric_times(smi))
+        v2.update(check_dp_cli(data, root, work, first_steps, smi))
 
         # each run's first step carries its process's warm-up
         steady = first_steps[1:] + second_steps[1:]
@@ -2685,6 +2712,389 @@ def check_cli(smi):
         return res
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------ phase 17: data parallel, remat
+
+DP_CLI_STEPS = CLI_TRAIN_STEPS  # tools.train over one NCCL rank, against phase 12's first run
+DP_STEPS = (("bevformer_base", 2), ("bevformerv2-r50-t1", 1))  # dp_step over 2 gloo ranks
+DP_GT_COUNTS = (12, 5)  # the two samples' ground-truth counts (unequal)
+# ||update(2 ranks) - update(1 process)|| / ||update(1 process)|| of a group.
+# Adam's first steps move each element by about lr x sign(g): the error is
+# 2 sqrt(share of elements whose gradient sign differs), here those within
+# rounding of 0 (behind a train-mode BatchNorm's ReLUs, ~1e-2 of a
+# gradient: tests/test_torch_v2_train.py). Ranks stepping their own
+# gradients without the all-reduce disagree on a third or more (error ~1).
+DP_UPDATE_TOL = 0.1
+DP_STATS_TOL = 1e-3  # BatchNorm running statistics, max abs err over max |one process|
+DP_BOX_TOL = 1e-5  # tools.test on 2 ranks vs 1: scores, and boxes over max |box|
+REMAT_STEPS = 2
+REMAT_PRESETS = ("bevformer_base", "bevformerv2-r50-t8")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(nproc: int):
+    """`torch.distributed.run` arguments for `run_cli`: nproc ranks on this
+    host, a free port."""
+    return ["torch.distributed.run", "--nproc-per-node", str(nproc), "--master-addr",
+            "localhost", "--master-port", str(free_port())]
+
+
+def check_dp_cli(data, root, work, first_steps, smi):
+    """Phase 17 (a) and (b)'s tools.test, on phase 12's root: `tools.train
+    bevformer_base` under torchrun with one rank over NCCL (DDP, the
+    process group, the rank-mean normalisers) for DP_CLI_STEPS steps, its
+    losses held to phase 12's one-process run of the same steps within
+    TRAIN_TOL (K3/K4 and K6 add with atomics: not bitwise); then
+    `tools.test` on two gloo ranks of the one card against one process on
+    a root of 4 scenes x 2 frames (the split falls on a scene start): the
+    same boxes within DP_BOX_TOL."""
+    import json as _json
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+
+    def train(head, what, work_dir):
+        recs, secs = run_cli([*head, "bevformer_torch.tools.train", "bevformer_base", "--data-root",
+                              data, "--work-dir", work_dir, "--max-iters", str(DP_CLI_STEPS),
+                              "--log-interval", "1"], what)
+        steps = [r for r in recs if "step_ms" in r and "done" not in r]
+        check(len(steps) == DP_CLI_STEPS, f"{what}: {len(steps)} steps logged")
+        return steps, one(recs, "done", what), secs
+
+    what = "torchrun --nproc-per-node 1 tools.train (NCCL)"
+    steps, done, secs = train([*torchrun(1), "-m"], what, os.path.join(root, "dp_work"))
+    check(done["dp"] == 1, f"{what}: {done}")
+    want = {k: v * DP_CLI_STEPS for k, v in TRAIN_PER_STEP.items()}
+    check(done["launches"] == want, f"{what}: launches {done['launches']}, want {want}")
+    # the witness: the one-process run again
+    again, _, again_s = train([], "tools.train again (the witness)", os.path.join(root, "dp_again"))
+    errs, noise = step_errors(steps, first_steps), step_errors(again, first_steps)
+    for r, e, w in zip(steps, errs, noise):
+        check(e <= max(TRAIN_TOL, WITNESS_FACTOR * w),
+              f"{what} step {r['step']}: {e} (witness {w}): {r} vs one process")
+    res = dict(nccl_step_ms=median_of([r["step_ms"] for r in steps[1:]]),
+               nccl_peak_gib=done["peak_gib"], nccl_loss_err=max(errs), nccl_witness=max(noise))
+    log(f"[dp] {what}: {secs:.1f} s; totals {[round(r['total'], 4) for r in steps]} vs phase 12's "
+        f"one process {[round(r['total'], 4) for r in first_steps]} and the one process again "
+        f"({again_s:.1f} s) {[round(r['total'], 4) for r in again]}; grad norms "
+        f"{[round(r['grad_norm'], 2) for r in steps]} / {[round(r['grad_norm'], 2) for r in first_steps]}"
+        f" / {[round(r['grad_norm'], 2) for r in again]}; relative errors by step (every loss term, "
+        f"the first step's grad norm) {[float(f'{e:.3e}') for e in errs]} (witness "
+        f"{[float(f'{e:.3e}') for e in noise]}); step median {res['nccl_step_ms']:.1f} ms "
+        f"(phase 12's {median_of([r['step_ms'] for r in first_steps[1:]]):.1f}, again "
+        f"{median_of([r['step_ms'] for r in again[1:]]):.1f}), peak {done['peak_gib']:.2f} GiB, "
+        f"launches {done['launches']}; card: {smi}")
+
+    aligned = os.path.join(root, "dp_data")
+    run_cli(["bevformer_torch.tools.create_data", "synth", "--out-dir", aligned, "--scenes", "4",
+             "--frames", "2"], "create_data (4 scenes x 2 frames)")
+    ckpt = os.path.join(work, "ckpts", f"iter_{CLI_RESUME_STEPS}.pth")
+    outs = {}
+    for n in (2, 1):
+        out = os.path.join(root, f"dp_test{n}", "r.json")
+        os.makedirs(os.path.dirname(out))
+        head = [*torchrun(2), "-m"] if n == 2 else []
+        more = ["--device", "cuda:0", "--dist-backend", "gloo"] if n == 2 else []
+        recs, secs = run_cli([*head, "bevformer_torch.tools.test", "bevformer_base", "--data-root",
+                              aligned, "--checkpoint", ckpt, "--out", out, *more],
+                             f"tools.test on {n} rank(s)")
+        timing = one(recs, "frame_ms", f"tools.test on {n} rank(s)")
+        with open(out) as f:
+            outs[n] = [{k: np.asarray(v) for k, v in r.items()} for r in _json.load(f)]
+        res[f"test{n}_s"] = secs
+        res[f"test{n}_frame_ms"] = timing["frame_ms"]
+    check([r["token"] for r in outs[2]] == [r["token"] for r in outs[1]] and len(outs[1]) == 4,
+          "tools.test on 2 ranks: other frames than on 1")
+    errs = []
+    for a, b in zip(outs[2], outs[1]):
+        score_err, box_err, missing = box_set_errors(a, b)
+        check(missing == 0 and score_err <= DP_BOX_TOL and box_err <= DP_BOX_TOL,
+              f"tools.test 2 ranks vs 1, {b['token']}: scores {score_err}, boxes {box_err}, "
+              f"{missing} unmatched")
+        errs.append((score_err, box_err))
+    res["test_box_err"] = max(max(e) for e in errs)
+    res["dp_cli_seconds"] = time.perf_counter() - t0
+    log(f"[dp] tools.test bevformer_base over 4 val frames (2 scenes) on 2 gloo ranks of the one "
+        f"card ({res['test2_s']:.1f} s; rank 0's frame ms "
+        f"{[round(x, 1) for x in res['test2_frame_ms']]}) vs 1 process ({res['test1_s']:.1f} s): "
+        f"max score / box error {res['test_box_err']:.3e}; card: {smi}")
+    return res
+
+
+def with_gt_count(batch, n: int):
+    """A one-sample v1 `Batch` or V2 `BatchV2` with its first n boxes."""
+    import torch
+
+    boxes, labels = batch.gt_boxes.clone(), batch.gt_labels.clone()
+    boxes[:, n:] = 0
+    labels[:, n:] = 0
+    return batch._replace(gt_boxes=boxes, gt_labels=labels, num_gt=torch.full_like(batch.num_gt, n))
+
+
+def two_sample_batch(cfg):
+    """Two seeded samples (unequal ground-truth counts) as one batch, on
+    the CPU."""
+    import torch
+    from bevformer_torch.data import train_batch
+    from bevformer_torch.data.synth import train_batch_v2
+    from bevformer_torch.runtime import Batch, BatchV2
+
+    if cfg.version == "v2":
+        a, b = (with_gt_count(train_batch_v2(cfg, seed=s, device="cpu"), n)
+                for s, n in zip((0, 1), DP_GT_COUNTS))
+        return BatchV2(*[torch.cat(t) for t in zip(a[:9], b[:9])],
+                       mono_targets={k: torch.cat([a.mono_targets[k], b.mono_targets[k]])
+                                     for k in a.mono_targets})
+    a, b = (with_gt_count(train_batch(cfg, seed=s, device="cpu"), n)
+            for s, n in zip((0, 1), DP_GT_COUNTS))
+    return Batch(*[torch.cat(t) for t in zip(a, b)])
+
+
+def step_errors(outs, ref):
+    """Per step, the largest relative error of the loss terms, and at the
+    first step (the same weights on both sides) of the grad norm: a later
+    step starts from weights that Adam's sign steps moved apart wherever
+    rounding put a gradient element on the other side of 0, which random
+    weights amplify."""
+    return [max(abs(o[k] - r[k]) / max(abs(r[k]), 1e-6)
+                for k in ("total", "loss_cls", "loss_bbox") + (("grad_norm",) if i == 0 else ()))
+            for i, (o, r) in enumerate(zip(outs, ref))]
+
+
+def one_process_steps(cfg, sd, batch, steps, device):
+    """`steps` steps of `batch` in one process (dropout off): the outputs,
+    step ms, peak GiB, and the state before and after, on the CPU."""
+    import torch
+    from bevformer_torch.runtime import Trainer, build_model
+
+    torch.cuda.synchronize(device)  # (the allocator's peak resets only once it is set up)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    model = build_model(cfg, sd, device)
+    trainer = Trainer(model, total_steps=TRAIN_TOTAL_STEPS, seed=0)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    on_card = type(batch)(*[{k: v.to(device) for k, v in t.items()} if isinstance(t, dict)
+                            else t.to(device) for t in batch])
+    outs, ms, states = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(trainer.step(on_card))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        states.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    del trainer, model, on_card
+    torch.cuda.empty_cache()
+    return dict(outs=outs, ms=ms, peak_gib=peak, before=before, states=states)
+
+
+def update_errors(state, ref, names):
+    """Per parameter group, ||update - ref's update|| / ||ref's update||,
+    of the first step."""
+    sums = {}
+    for k in names:
+        d = state[k].double() - ref["before"][k].double()
+        d_ref = ref["states"][0][k].double() - ref["before"][k].double()
+        acc = sums.setdefault(group_of(k), [0.0, 0.0])
+        acc[0] += float(((d - d_ref) ** 2).sum())
+        acc[1] += float((d_ref ** 2).sum())
+    return {g: math.sqrt(a / max(b, 1e-30)) for g, (a, b) in sums.items()}
+
+
+def swap_samples(batch):
+    """`batch` of two samples in the other order (a `BatchV2`'s DD3D
+    targets too, one row per camera image): the same step, with every sum
+    over the batch in another order."""
+    if not hasattr(batch, "mono_targets"):
+        return type(batch)(*[t.flip(0) for t in batch])
+    cams = batch.images.shape[2]
+
+    def swap(t):
+        return t.view(2, cams, *t.shape[1:]).flip(0).reshape(t.shape)
+
+    return type(batch)(*[t.flip(0) for t in batch[:9]],
+                       mono_targets={k: swap(v) for k, v in batch.mono_targets.items()})
+
+
+def check_dp_step(name, steps, device, smi):
+    """Phase 17 (b): `name` at full size, `steps` steps of two samples
+    (GridMask and dropout off) over two gloo ranks of the one card
+    (`tools.dp_step` under torchrun: DDP, the synced BatchNorms, the
+    rank-mean normalisers), held against one process stepping both samples
+    as one batch, by phase 9's rule against a witness, one process stepping
+    them in the other order (every sum over the batch in another order, as
+    the ranks' split orders them). The first step, from the same weights: its losses and
+    grad norm within TRAIN_TOL or WITNESS_FACTOR x the witness's error,
+    each group's parameter update within DP_UPDATE_TOL or that factor, V2's
+    running statistics within DP_STATS_TOL. A later step starts from
+    weights that the first step's Adam sign steps moved apart wherever
+    rounding put a gradient element on the other side of 0, which random
+    weights amplify: it runs (DDP's second iteration) and is reported."""
+    import shutil
+    import tempfile
+
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.runtime import init_state_dict
+
+    cfg = get_config(name).replace(use_grid_mask=False)
+    tmp = tempfile.mkdtemp(prefix="bevformer_dp_")
+    try:
+        t0 = time.perf_counter()
+        sd = init_state_dict(cfg, seed=0)
+        batch = two_sample_batch(cfg)
+        spec = os.path.join(tmp, "spec.pt")
+        torch.save(dict(cfg=cfg, state_dict=sd, batch=batch, steps=steps,
+                        total_steps=TRAIN_TOTAL_STEPS), spec)
+        made_s = time.perf_counter() - t0
+        out_path = os.path.join(tmp, "out.pt")
+        _, secs = run_cli([*torchrun(2), "-m", "bevformer_torch.tools.dp_step", spec, out_path,
+                           "--device", str(device), "--dist-backend", "gloo"],
+                          f"dp_step {name} on 2 gloo ranks")
+        out = torch.load(out_path, map_location="cpu", weights_only=False)
+        ref = one_process_steps(cfg, sd, batch, steps, device)
+        witness = one_process_steps(cfg, sd, swap_samples(batch), steps, device)
+
+        loss_err, loss_noise = step_errors(out["outs"], ref["outs"]), step_errors(
+            witness["outs"], ref["outs"])
+        check(loss_err[0] <= max(TRAIN_TOL, WITNESS_FACTOR * loss_noise[0]),
+              f"dp {name} step 0: losses {out['outs'][0]} vs one process {ref['outs'][0]} "
+              f"(witness {loss_noise[0]})")
+        check(all(math.isfinite(v) for o in out["outs"] for v in o.values()),
+              f"dp {name}: {out['outs']}")
+        names = set(out["grads"])
+        upd, upd_noise = (update_errors(out["states"][0], ref, names),
+                          update_errors(witness["states"][0], ref, names))
+        for g, e in upd.items():
+            check(e <= max(DP_UPDATE_TOL, WITNESS_FACTOR * upd_noise[g]),
+                  f"dp {name}: {g} update error {e} (witness {upd_noise[g]})")
+        first = ref["states"][0]
+        stats = [k for k in first if k.endswith(("running_mean", "running_var"))]
+        stats_err = max([float((out["states"][0][k] - first[k]).abs().max()
+                               / max(float(first[k].abs().max()), 1e-6)) for k in stats] or [0.0])
+        check(stats_err <= DP_STATS_TOL, f"dp {name}: running statistics error {stats_err}")
+        res = dict(name=name, steps=steps, dp_step_ms=out["step_ms"], dp_peak_gib=out["peak_gib"],
+                   one_step_ms=ref["ms"] + witness["ms"], one_peak_gib=ref["peak_gib"],
+                   loss_err=loss_err[0], loss_witness=loss_noise[0], later_loss_err=loss_err[1:],
+                   later_loss_witness=loss_noise[1:], update_err=upd,
+                   update_witness=upd_noise, stats_err=stats_err, seconds=secs)
+
+        def short(d):
+            return {g: float(f"{e:.3e}") for g, e in d.items()}
+
+        log(f"[dp] {name}: {steps} step(s) of 2 samples ({DP_GT_COUNTS} GT boxes) on 2 gloo ranks "
+            f"of the one card vs 1 process (the witness: 1 process, the samples swapped): totals "
+            f"{[round(o['total'], 4) for o in out['outs']]} vs "
+            f"{[round(r['total'], 4) for r in ref['outs']]} "
+            f"({[round(r['total'], 4) for r in witness['outs']]}), grad norms "
+            f"{[round(o['grad_norm'], 3) for o in out['outs']]} vs "
+            f"{[round(r['grad_norm'], 3) for r in ref['outs']]} "
+            f"({[round(r['grad_norm'], 3) for r in witness['outs']]}); relative errors by step "
+            f"{[float(f'{e:.3e}') for e in loss_err]} (witness "
+            f"{[float(f'{e:.3e}') for e in loss_noise]}; held: the first); the first step's "
+            f"parameter updates' relative L2 error by group {short(upd)} (witness "
+            f"{short(upd_noise)}); its running statistics "
+            f"{len(stats)} tensors, max error {stats_err:.3e}; rank 0's step ms "
+            f"{[round(x, 1) for x in out['step_ms']]} and peak {out['peak_gib']:.2f} GiB (gloo "
+            f"through the host: plumbing, not a speed), one process's "
+            f"{[round(x, 1) for x in res['one_step_ms']]} ms and peak {ref['peak_gib']:.2f} GiB; "
+            f"the launch {secs:.1f} s, spec {made_s:.1f} s; card: {smi}")
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def remat_step_counts(cfg) -> dict:
+    """Extra launches a training step makes with `use_remat`: K1 in every
+    recomputed encoder layer of the trained frame (TSA and SCA), K2 in every
+    recomputed DCN block (all but each DCN stage's first)."""
+    from bevformer_torch.models.resnet import ARCH_SETTINGS
+
+    blocks = ARCH_SETTINGS[cfg.backbone_depth]
+    dcn = sum(blocks[s] - 1 for s in cfg.backbone_dcn_stages)
+    k2 = "dcn_conv_fwd_bf16" if cfg.dtype == "bfloat16" else "dcn_conv_fwd"
+    return {"msda_fwd": 2 * cfg.encoder_layers, k2: dcn}
+
+
+def check_remat(name, device, smi):
+    """Phase 17 (c): `name` at full size with seeded weights, REMAT_STEPS
+    train-mode steps (dropout and GridMask on, the same seed) with
+    `use_remat` off, then on: the first step's losses and grad norm equal
+    within TRAIN_TOL (the later ones reported), the launches a step (with
+    remat also the recomputed encoder layers' K1 and DCN blocks' K2), the
+    step times and the peak memory."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.data import train_batch
+    from bevformer_torch.data.synth import train_batch_v2
+    from bevformer_torch.kernels import launch_counts
+    from bevformer_torch.runtime import Trainer, build_model, init_state_dict
+
+    base = get_config(name)
+    sd = init_state_dict(base, seed=0)
+    per_step = v2_train_per_step(base) if base.version == "v2" else TRAIN_PER_STEP
+    runs = {}
+    for remat in (False, True):
+        cfg = base.replace(use_remat=remat)
+        model = build_model(cfg, sd, device)
+        trainer = Trainer(model, total_steps=TRAIN_TOTAL_STEPS, seed=0)
+        batch = (train_batch_v2(cfg, seed=0, device=device) if cfg.version == "v2"
+                 else train_batch(cfg, seed=0, device=device))
+        want = dict(per_step)
+        if remat:
+            for k, v in remat_step_counts(cfg).items():
+                want[k] += v
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        outs, secs = [], []
+        for step in range(REMAT_STEPS):
+            start = launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(trainer.step(batch))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            got = {k: v - start[k] for k, v in launch_counts().items()}
+            check(got == want, f"remat {name} use_remat={remat} step {step}: launches {got}, "
+                  f"want {want}")
+            check(all(math.isfinite(v) for v in outs[-1].values()), f"remat {name}: {outs[-1]}")
+        runs[remat] = dict(outs=outs, ms=[x * 1e3 for x in secs],
+                           peak_gib=torch.cuda.max_memory_allocated(device) / 2**30, launches=want)
+        del trainer, model, batch
+        torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    # the first step, from the same weights (`step_errors`: a later one
+    # starts from weights the atomic sums' rounding moved apart)
+    errs = step_errors(on["outs"], off["outs"])
+    loss_err = errs[0]
+    check(loss_err <= TRAIN_TOL, f"remat {name}: {on['outs']} vs {off['outs']}")
+    k2 = "dcn_conv_fwd_bf16" if base.dtype == "bfloat16" else "dcn_conv_fwd"
+    res = dict(name=name, peak_gib=off["peak_gib"], remat_peak_gib=on["peak_gib"],
+               step_ms=off["ms"][-1], remat_step_ms=on["ms"][-1], loss_err=loss_err,
+               launches={r: {k: runs[r]["launches"][k] for k in ("msda_fwd", k2)} for r in runs})
+    log(f"[remat] {name}: use_remat off / on: peak {off['peak_gib']:.2f} / {on['peak_gib']:.2f} "
+        f"GiB, step ms {[round(x, 1) for x in off['ms']]} / {[round(x, 1) for x in on['ms']]} "
+        f"({on['ms'][-1] / off['ms'][-1] - 1:+.1%} at the last step), K1 "
+        f"{off['launches']['msda_fwd']} / {on['launches']['msda_fwd']} and K2 {off['launches'][k2]}"
+        f" / {on['launches'][k2]} launches a step, losses {[round(o['total'], 4) for o in off['outs']]}"
+        f" / {[round(o['total'], 4) for o in on['outs']]} (relative errors by step "
+        f"{[float(f'{e:.3e}') for e in errs]}, the first step's grad norm included; held: the "
+        f"first); card: {smi}")
+    return res
 
 
 def main() -> int:
@@ -2752,6 +3162,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16_dcn = {name: check_preset(name, device, smi, dtype="bfloat16")
                 for name in BF16_DCN_PRESETS}
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    dp = [check_dp_step(name, steps, device, smi) for name, steps in DP_STEPS]
+    remat = [check_remat(name, device, smi) for name in REMAT_PRESETS]
+    t17 = time.perf_counter() - t17
 
     def record(name, src, replaces, rows, per, library_note, counts=tr["counts"]):
         bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
@@ -2891,6 +3306,21 @@ def main() -> int:
         f"{cli['v2_t8_train_host_ms']:.1f} ms, data wait {cli['v2_t8_train_data_wait_ms']:.1f} "
         f"ms), peak {cli['v2_t8_train_peak_gib']} GiB; one frame's photometric distortion host "
         f"{cli['photometric_host_ms']:.1f} / card {cli['photometric_card_ms']:.1f} ms")
+    log(f"[summary] phase 17: torchrun tools.train bevformer_base on 1 NCCL rank: step median "
+        f"{cli['nccl_step_ms']:.1f} ms, peak {cli['nccl_peak_gib']:.2f} GiB, losses within "
+        f"{cli['nccl_loss_err']:.3e} of one process (witness {cli['nccl_witness']:.3e}); tools.test on 2 gloo ranks: boxes within "
+        f"{cli['test_box_err']:.3e} of 1 ({cli['dp_cli_seconds']:.1f} s); on {smi}")
+    for r in dp:
+        log(f"[summary] phase 17: {r['name']} over 2 gloo ranks vs 1 process: losses within "
+            f"{r['loss_err']:.3e} (witness {r['loss_witness']:.3e}), updates within "
+            f"{max(r['update_err'].values()):.3e}, running "
+            f"statistics within {r['stats_err']:.3e}; peak {r['dp_peak_gib']:.2f} GiB a rank, "
+            f"{r['one_peak_gib']:.2f} GiB one process; on {smi}")
+    for r in remat:
+        log(f"[summary] phase 17: {r['name']} use_remat: peak {r['peak_gib']:.2f} -> "
+            f"{r['remat_peak_gib']:.2f} GiB, step {r['step_ms']:.1f} -> {r['remat_step_ms']:.1f} "
+            f"ms, launches {r['launches']}; on {smi}")
+    log(f"[summary] phase 17 (without its CLI part) {t17:.1f} s")
     log(f"[summary] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

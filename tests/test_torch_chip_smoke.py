@@ -243,3 +243,42 @@ def test_v2_train_per_step(name, k1, k34):
 
     per = chip_smoke.v2_train_per_step(get_config(name))
     assert per == dict(dict.fromkeys(per, 0), msda_fwd=k1, msda_bwd=k34)
+
+
+@pytest.mark.parametrize("name,extra", [
+    ("bevformer_base", dict(msda_fwd=12, dcn_conv_fwd=22 + 2)),
+    ("bevformerv2-r50-t8", dict(msda_fwd=12, dcn_conv_fwd=0)),
+    ("bevformer_small", dict(msda_fwd=6, dcn_conv_fwd=22 + 2)),
+])
+def test_remat_step_counts(name, extra):
+    """Phase 17's extra launches a step under `use_remat`: TSA and SCA of
+    each recomputed encoder layer, and the DCN blocks after the first of
+    R101's stages 3-4 (R50 has no DCN)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.configs import get_config
+
+    assert chip_smoke.remat_step_counts(get_config(name)) == extra
+
+
+def test_two_sample_batch():
+    """Phase 17's two samples: unequal ground-truth counts, V2's DD3D
+    targets one row per camera image."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.configs import DataConfig, get_config
+
+    small = dict(backbone_depth=10, bev_h=8, bev_w=8, data=DataConfig(raw_size=(64, 96)))
+    for name in ("bevformer_base", "bevformerv2-r50-t1"):
+        batch = chip_smoke.two_sample_batch(get_config(name, **small))
+        assert batch.num_gt.tolist() == list(chip_smoke.DP_GT_COUNTS)
+        assert batch.images.shape[0] == 2
+        n = chip_smoke.DP_GT_COUNTS[1]
+        assert not batch.gt_boxes[1, n:].any() and batch.gt_boxes[1, :n].any()
+        swapped = chip_smoke.swap_samples(batch)
+        assert torch.equal(swapped.images[0], batch.images[1])
+        assert swapped.num_gt.tolist() == list(chip_smoke.DP_GT_COUNTS)[::-1]
+        if name.startswith("bevformerv2"):
+            assert all(v.shape[0] == 12 for v in batch.mono_targets.values())
+            for k, v in batch.mono_targets.items():
+                assert torch.equal(swapped.mono_targets[k], torch.cat([v[6:], v[:6]])), k
