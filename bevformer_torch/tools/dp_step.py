@@ -77,7 +77,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             outs.append(trainer.step(batch))
             step_ms.append((time.perf_counter() - t0) * 1e3)
             if rank == 0:
-                states.append({k: v.cpu() for k, v in model.state_dict().items()})
+                states.append({k: v.detach().to("cpu", copy=True)
+                               for k, v in model.state_dict().items()})
         peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
         if rank == 0:
             torch.save(dict(outs=outs, step_ms=step_ms, peak_gib=peak, world=world, states=states,
