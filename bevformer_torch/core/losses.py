@@ -10,7 +10,7 @@ mean over its groups. The costs of all the matches go to the host in one
 transfer (`assigner.assign_costs`).
 
 In a data-parallel step each rank computes the loss of its own samples,
-and every normaliser is the mean over the ranks of the local counts
+and every normaliser is the mean over the `dp` group of the local counts
 (`rank_mean_normalisers`, the reference's `reduce_mean`,
 `bevformer_head.py:362-373`): with DDP's mean of the ranks' gradients, the
 step is that of the global batch's loss, which JAX computes whole.
@@ -26,18 +26,21 @@ import torch.nn.functional as F
 
 from bevformer_torch.core.assigner import assign_costs, match_cost
 from bevformer_torch.core.boxes import normalize_bbox
+from bevformer_torch.runtime import distributed
 
 
 def rank_mean_normalisers(sums: torch.Tensor, minimum) -> torch.Tensor:
-    """Loss normalisers from this rank's sums: each summed over the ranks,
+    """Loss normalisers from this rank's sums: each summed over the `dp`
+    group (`runtime.distributed.dp_group`: the ranks of distinct samples),
     clamped at `minimum` (a number, or one per sum; as JAX clamps the
-    global count) and divided by the world size; without a process group, the sums clamped. Every rank
-    calls it in the same order (one collective)."""
-    if not (dist.is_available() and dist.is_initialized()):
+    global count) and divided by its size; with a `dp` group of one rank
+    or none, the sums clamped. Every rank calls it in the same order (one
+    collective)."""
+    if distributed.dp_size() == 1:
         return sums.clamp(min=minimum)
     total = sums.detach().clone()
-    dist.all_reduce(total)
-    return total.clamp(min=minimum) / dist.get_world_size()
+    dist.all_reduce(total, group=distributed.dp_group())
+    return total.clamp(min=minimum) / distributed.dp_size()
 
 
 def sigmoid_focal_loss(

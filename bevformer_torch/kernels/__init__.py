@@ -43,14 +43,23 @@ def launch_counts() -> dict:
     return {k: fn.launches for k, fn in kernel_counters().items()}
 
 
+def launch_queries() -> dict:
+    """Launches so far of K1 and K3/K4 (and their bf16 entries) by the
+    (B, Q) of each: {counter name: [[B, Q, launches], ...]}."""
+    return {k: sorted([*bq, n] for bq, n in c.items()) for k, c in msda.QUERIES.items()}
+
+
 def zero_counts() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
+    for c in msda.QUERIES.values():
+        c.clear()
 
 
 __all__ = [
     "dcn_col2im", "dcn_col2im_plain", "dcn_conv", "dcn_conv_backward_plain",
     "dcn_conv_plain", "dcn_im2col", "dcn_im2col_plain", "kernel_counters", "launch_counts",
+    "launch_queries",
     "ms_deform_attn", "ms_deform_attn_backward", "ms_deform_attn_backward_plain",
     "ms_deform_attn_ho", "ms_deform_attn_plain", "msda_probe", "msda_probe_plain",
     "row_gather", "row_gather_plain", "zero_counts",

@@ -19,7 +19,8 @@ CUDA kernel `csrc/msda_bwd.cu`, on the forward's block mapping and tile;
 `msda_bwd_bf16` for a bf16 value, which sums dValue in an fp32 workspace),
 and the plain PyTorch version `ms_deform_attn_plain` under ordinary autograd
 on a CPU tensor. A bf16 launch counts on `MSDA_FWD_BF16` / `MSDA_BWD_BF16`,
-an fp32 one on the wrapper. The backward's plain version
+an fp32 one on the wrapper, and each launch of K1 or K3/K4 also counts its
+(B, Q) in `QUERIES`. The backward's plain version
 `ms_deform_attn_backward_plain` is autograd through
 `ms_deform_attn_plain`.
 
@@ -34,6 +35,7 @@ fp32 value only.
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Sequence, Tuple
 
@@ -61,6 +63,9 @@ class LaunchCount:
 
 MSDA_FWD_BF16 = LaunchCount()  # ms_deform_attn on a bf16 value
 MSDA_BWD_BF16 = LaunchCount()  # ms_deform_attn_backward on a bf16 value
+# launches of K1 and K3/K4 by (B, Q), under their counters' names
+QUERIES = {k: collections.Counter()
+           for k in ("msda_fwd", "msda_fwd_bf16", "msda_bwd", "msda_bwd_bf16")}
 
 
 def ms_deform_attn_plain(
@@ -232,9 +237,10 @@ def k1_tile_for(value, loc) -> int:
 
 def _launch_fwd(value, spatial_shapes, loc, attw) -> torch.Tensor:
     bf16 = value.dtype == torch.bfloat16
-    out = _launch("msda_fwd_bf16" if bf16 else "msda_fwd", value, spatial_shapes, loc, attw,
-                  k1_tile_for(value, loc))
+    entry = "msda_fwd_bf16" if bf16 else "msda_fwd"
+    out = _launch(entry, value, spatial_shapes, loc, attw, k1_tile_for(value, loc))
     (MSDA_FWD_BF16 if bf16 else ms_deform_attn).launches += 1
+    QUERIES[entry][tuple(loc.shape[:2])] += 1
     return out
 
 
@@ -336,7 +342,9 @@ def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
                                 VALUE_DTYPES)
     _check_grad(value, loc, grad_out)
     grads = _launch_bwd(value, spatial_shapes, loc, attw, grad_out, k1_tile_for(value, loc))
-    (MSDA_BWD_BF16 if value.dtype == torch.bfloat16 else ms_deform_attn_backward).launches += 1
+    bf16 = value.dtype == torch.bfloat16
+    (MSDA_BWD_BF16 if bf16 else ms_deform_attn_backward).launches += 1
+    QUERIES["msda_bwd_bf16" if bf16 else "msda_bwd"][tuple(loc.shape[:2])] += 1
     return grads
 
 

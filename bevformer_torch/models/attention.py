@@ -4,7 +4,10 @@ Ports of `bevformer_tpu/models/attention.py` (reference
 `temporal_self_attention.py`, `spatial_cross_attention.py` and
 `decoder.py::CustomMSDeformableAttention`). Every module samples through
 `kernels.msda.ms_deform_attn` and drops out (`DROPOUT`, train mode only) its
-output projection before the residual, as the JAX package does. Projections
+output projection before the residual, as the JAX package does. On BEV
+queries split over ranks (`runtime.parallel.QuerySplit`), TSA and SCA
+compute this rank's rows: TSA samples the whole BEV, SCA the rows its
+routing (`split_routing`) keeps. Projections
 are plain `nn.Linear` layers with their output channels in reference order:
 TSA (h, queue, l, p[, 2]), the SCA inner attention (h, l, p[, 2]) with p
 split offset-major over the Z anchors. Under bf16 the value and output
@@ -23,7 +26,7 @@ import torch
 import torch.nn as nn
 
 from bevformer_torch.kernels.msda import ms_deform_attn
-from bevformer_torch.models.layers import Fp32Linear
+from bevformer_torch.models.layers import Fp32Linear, QueryDropout
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -114,12 +117,34 @@ def routing_inverse_vis(anyz: torch.Tensor, cap: int):
     return torch.where(found, rank, torch.zeros_like(rank)), found
 
 
+def split_routing(routing: Dict, lo: int, hi: int) -> Dict:
+    """The rows of a routing (`sca_capacity_routing`, over all q queries)
+    whose query is in [lo, hi), as the routing of those hi - lo queries:
+    each camera's kept rows packed in their order, padded to the largest
+    count over the batch and cameras (pad rows read query 0 and are not
+    visible, so they add 0), and the inverse map to the packed slots. The
+    rows the whole routing drops stay dropped, and its fillers stay."""
+    top_idx, vis_sel = routing["top_idx"], routing["vis_sel"]
+    keep = (top_idx >= lo) & (top_idx < hi)  # [bs, cams, cap]
+    rows = max(int(keep.sum(-1).max()), 1)
+    # a stable sort on "not kept" packs the kept slots in their order
+    order = torch.sort((~keep).to(torch.uint8), dim=-1, stable=True)[1][..., :rows]
+    kept = torch.gather(keep, 2, order)
+    packed = torch.cumsum(keep.long(), dim=-1) - 1  # each kept slot's packed slot
+    found = routing["found"][..., lo:hi]
+    inv = torch.gather(packed, 2, routing["inv"][..., lo:hi])
+    return dict(
+        top_idx=torch.where(kept, torch.gather(top_idx, 2, order) - lo, 0),
+        vis_sel=torch.gather(vis_sel, 2, order) & kept,
+        inv=torch.where(found, inv, 0), found=found, anyz=routing["anyz"][..., lo:hi])
+
+
 class SpatialCrossAttention(nn.Module):
     """Camera -> BEV cross attention. Given a routing
-    (`sca_capacity_routing`), each camera attends for its `cap` routed
-    queries only; given none, every camera processes every query and
-    invisible ones are masked. Slots are normalised by the per-query camera
-    hit count."""
+    (`sca_capacity_routing`, or `split_routing` on a split), each camera
+    attends for its routed queries only; given none, every camera processes
+    every query and invisible ones are masked. Slots are normalised by the
+    per-query camera hit count."""
 
     def __init__(self, embed_dims=256, num_cams=6, num_heads=8, num_levels=4,
                  num_points=8):
@@ -129,16 +154,17 @@ class SpatialCrossAttention(nn.Module):
             embed_dims, num_heads, num_levels, num_points
         )
         self.output_proj = nn.Linear(embed_dims, embed_dims)
-        self.dropout = nn.Dropout(DROPOUT)
+        self.dropout = QueryDropout(DROPOUT)
 
     def forward(
         self,
-        query: torch.Tensor,  # [bs, q, e]
+        query: torch.Tensor,  # [bs, q, e] (on a split, this rank's rows)
         value: torch.Tensor,  # [bs, cams, k, e]
         reference_points_cam: torch.Tensor,  # [bs, cams, q, nz, 2]
         bev_mask: torch.Tensor,  # [bs, cams, q, nz]
         spatial_shapes: Shapes,
         routing: Optional[Dict],  # sca_capacity_routing(bev_mask, ratio); None: dense
+        split=None,  # runtime.parallel.QuerySplit: the queries are its rows
     ) -> torch.Tensor:
         bs, q, e = query.shape
         cams = self.num_cams
@@ -173,7 +199,7 @@ class SpatialCrossAttention(nn.Module):
 
         count = anyz.float().sum(dim=1).clamp(min=1.0)
         slots = slots / count[..., None]
-        return self.dropout(self.output_proj(slots)) + query
+        return self.dropout(self.output_proj(slots), split) + query
 
 
 class TemporalSelfAttention(nn.Module):
@@ -194,25 +220,27 @@ class TemporalSelfAttention(nn.Module):
         )
         self.value_proj = nn.Linear(embed_dims, embed_dims)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
-        self.dropout = nn.Dropout(DROPOUT)
+        self.dropout = QueryDropout(DROPOUT)
 
     def forward(
         self,
-        query: torch.Tensor,  # [bs, q, e]
-        value_queue: torch.Tensor,  # [bs, 2, q, e]: (prev BEV, current)
-        query_pos: Optional[torch.Tensor],
+        query: torch.Tensor,  # [bs, q, e] (on a split, this rank's rows)
+        value_queue: torch.Tensor,  # [bs, 2, HW, e]: (prev BEV, current), whole
+        query_pos: Optional[torch.Tensor],  # as query
         reference_points: torch.Tensor,  # [bs, 2, q, 1, 2]
         bev_h: int,
         bev_w: int,
+        split=None,  # runtime.parallel.QuerySplit: the queries are its rows
     ) -> torch.Tensor:
         bs, q, e = query.shape
         h, l, p, nq = self.num_heads, self.num_levels, self.num_points, self.num_bev_queue
         identity = query
         if query_pos is not None:
             query = query + query_pos
-        # offsets and weights see [prev-slot value, query]
-        query_cat = torch.cat([value_queue[:, 0], query], dim=-1)
-        v = self.value_proj(value_queue).view(bs * nq, q, h, e // h)
+        # offsets and weights see [prev-slot value, query] of each query
+        rows = slice(None) if split is None else split.rows
+        query_cat = torch.cat([value_queue[:, 0, rows], query], dim=-1)
+        v = self.value_proj(value_queue).view(bs * nq, bev_h * bev_w, h, e // h)
         offsets = (
             self.sampling_offsets(query_cat).view(bs, q, h, nq, l, p, 2)
             .permute(0, 3, 1, 2, 4, 5, 6).reshape(bs * nq, q, h, l, p, 2)
@@ -228,7 +256,7 @@ class TemporalSelfAttention(nn.Module):
         loc = ref[:, :, None, :, None, :] + offsets / norm[:, None, :]
         out = ms_deform_attn(v, ((bev_h, bev_w),), loc, weights)
         out = out.view(bs, nq, q, e).mean(dim=1)
-        return self.dropout(self.output_proj(out)) + identity
+        return self.dropout(self.output_proj(out), split) + identity
 
 
 class CustomMSDeformableAttention(nn.Module):

@@ -5,6 +5,16 @@ The reference points, the camera projection and the SCA routing are
 computed once per frame; the layers run in a Python loop. With
 `use_remat`, each layer is recomputed in backward (`layers.remat`), as
 JAX's `nn.remat` of its scanned layer (`encoder.py:273-274`).
+
+Within `runtime.parallel.split_queries` on a mesh with an `sp` axis (JAX's
+`maybe_shard(..., "dp", "sp", None)`, `encoder.py:243-246` and `:176`),
+each rank runs the layers on its range of the BEV queries: the layer
+input, `bev_pos` and the references of those queries, and SCA the rows
+of the frame's routing (computed over all queries, as one process routes
+them) that are theirs (`attention.split_routing`). After each layer
+`parallel.gather_queries` hands every rank the whole BEV, from which the
+next layer's TSA value queue is built; it sits outside the recomputed
+layer, so a recomputation runs no collective.
 """
 
 from __future__ import annotations
@@ -19,12 +29,15 @@ from bevformer_torch.models.attention import (
     SpatialCrossAttention,
     TemporalSelfAttention,
     sca_capacity_routing,
+    split_routing,
 )
 from bevformer_torch.models.layers import FFN, layer_norm, remat
+from bevformer_torch.runtime import parallel
 
 
 class BEVFormerLayer(nn.Module):
-    """operation_order = (self_attn, norm, cross_attn, norm, ffn, norm)."""
+    """operation_order = (self_attn, norm, cross_attn, norm, ffn, norm), on
+    the queries of `split` (a `runtime.parallel.QuerySplit`; None: all)."""
 
     def __init__(self, embed_dims=256, num_heads=8, feedforward_channels=512,
                  num_cams=6, num_levels=4, sca_num_points=8, tsa_num_points=4,
@@ -41,16 +54,16 @@ class BEVFormerLayer(nn.Module):
 
     def forward(self, query, value, bev_pos, value_queue, hybrid_ref_2d,
                 reference_points_cam, bev_mask, spatial_shapes, bev_h, bev_w,
-                routing):
+                routing, split=None):
         query = self.attentions[0](
-            query, value_queue, bev_pos, hybrid_ref_2d, bev_h, bev_w
+            query, value_queue, bev_pos, hybrid_ref_2d, bev_h, bev_w, split
         )
         query = self.norms[0](query)
         query = self.attentions[1](
-            query, value, reference_points_cam, bev_mask, spatial_shapes, routing
+            query, value, reference_points_cam, bev_mask, spatial_shapes, routing, split
         )
         query = self.norms[1](query)
-        return self.norms[2](self.ffns[0](query))
+        return self.norms[2](self.ffns[0](query, split))
 
 
 class BEVFormerEncoder(nn.Module):
@@ -105,6 +118,13 @@ class BEVFormerEncoder(nn.Module):
         routing = None
         if self.sca_capacity_ratio and self.sca_capacity_ratio < 1.0:
             routing = sca_capacity_routing(bev_mask, self.sca_capacity_ratio)
+        split = parallel.query_split(bev_h * bev_w)
+        if split is not None:
+            rows = split.rows
+            bev_pos, hybrid_ref_2d = bev_pos[:, rows], hybrid_ref_2d[:, :, rows]
+            reference_points_cam, bev_mask = reference_points_cam[:, :, rows], bev_mask[:, :, rows]
+            if routing is not None:
+                routing = split_routing(routing, split.lo, split.hi)
 
         # TSA value queue: (prev_bev, initial query) for a sample with
         # history, fixed over the layers; (layer input, layer input) without
@@ -118,7 +138,9 @@ class BEVFormerEncoder(nn.Module):
             else:
                 slot0 = slot1 = output
             value_queue = torch.stack([slot0, slot1], dim=1)
-            args = (output, value, bev_pos, value_queue, hybrid_ref_2d,
-                    reference_points_cam, bev_mask, spatial_shapes, bev_h, bev_w, routing)
-            output = remat(layer, *args) if recompute else layer(*args)
+            query = output if split is None else output[:, split.rows]
+            args = (query, value, bev_pos, value_queue, hybrid_ref_2d,
+                    reference_points_cam, bev_mask, spatial_shapes, bev_h, bev_w, routing, split)
+            output = parallel.gather_queries(remat(layer, *args) if recompute else layer(*args),
+                                             split)
         return output

@@ -1,7 +1,7 @@
-"""Shared building blocks: the FFN with residual, the decoder's multi-head
-self-attention, the learned BEV positional encoding, `inverse_sigmoid`,
-the BatchNorm synced over ranks and the recomputation of a block in
-backward (`remat`).
+"""Shared building blocks: the FFN with residual, the dropout of BEV
+queries split over ranks, the decoder's multi-head self-attention, the
+learned BEV positional encoding, `inverse_sigmoid`, the BatchNorm synced
+over ranks and the recomputation of a block in backward (`remat`).
 
 Submodule and parameter names follow the reference `.pth` keys, so a
 reference state dict loads with `load_state_dict`. Dropout sits where the
@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from bevformer_torch.device import fp32
+from bevformer_torch.runtime import distributed
 
 # flax.linen.LayerNorm's default epsilon, which the JAX package uses
 LN_EPS = 1e-6
@@ -43,22 +44,42 @@ class Fp32Linear(nn.Linear):
             return super().forward(x.float())
 
 
+class QueryDropout(nn.Dropout):
+    """Dropout of [bs, q, ...] BEV queries that draws its mask of all q
+    queries with `bernoulli_` and keeps the rows of `split` (a
+    `runtime.parallel.QuerySplit`, whose rows `x` holds; None: all of
+    them). The ranks of an `sp` group share their generator, so each keeps
+    its rows of the one mask a process drops by, as a sharded
+    `jax.random` draw equals an unsharded one. Train mode only."""
+
+    def forward(self, x: torch.Tensor, split=None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        shape = x.shape if split is None else (x.shape[0], split.q, *x.shape[2:])
+        keep = torch.empty(shape, device=x.device).bernoulli_(1 - self.p)
+        if split is not None:
+            keep = keep[:, split.rows].clone()  # not a view of the whole mask
+        return x * keep.to(x.dtype) * (1.0 / (1 - self.p))
+
+
 class FFN(nn.Module):
     """mmcv FFN: Linear -> ReLU -> Dropout -> Linear -> Dropout, plus the
-    residual."""
+    residual. On BEV queries split over ranks, `split` names this rank's
+    rows (`QueryDropout`)."""
 
     def __init__(self, embed_dims: int, feedforward_channels: int, dropout: float = 0.1):
         super().__init__()
         self.layers = nn.Sequential(
             nn.Sequential(
-                nn.Linear(embed_dims, feedforward_channels), nn.ReLU(), nn.Dropout(dropout)
+                nn.Linear(embed_dims, feedforward_channels), nn.ReLU(), QueryDropout(dropout)
             ),
             nn.Linear(feedforward_channels, embed_dims),
-            nn.Dropout(dropout),
+            QueryDropout(dropout),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.layers(x)
+    def forward(self, x: torch.Tensor, split=None) -> torch.Tensor:
+        (fc1, relu, drop1), fc2, drop2 = self.layers
+        return x + drop2(fc2(drop1(relu(fc1(x)), split)), split)
 
 
 class _PackedProjection(nn.Module):
@@ -134,24 +155,27 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 class _SyncBatchNormFn(torch.autograd.Function):
-    """Train-mode BatchNorm over the batch of every rank. Forward all-reduces
-    each rank's count, per-channel mean and sum of squared deviations (one
-    float64 row a rank: summing rows of zeros but one's own is exact) and
-    combines them (Chan's formula, which keeps the variance of a channel
-    whose mean dwarfs its spread); backward all-reduces the per-channel
-    sums of dy and dy * x_hat. The affine gradients are this rank's own:
-    DDP averages them with the rest."""
+    """Train-mode BatchNorm over the batch of every rank of the `dp` group
+    (`runtime.distributed.dp_group`: the ranks that hold distinct samples).
+    Forward all-reduces each rank's count, per-channel mean and sum of
+    squared deviations (one float64 row a rank: summing rows of zeros but
+    one's own is exact) and combines them (Chan's formula, which keeps the
+    variance of a channel whose mean dwarfs its spread); backward
+    all-reduces the per-channel sums of dy and dy * x_hat, which is linear
+    in dy: the `sp` ranks' partial gradients of one sample add up after it.
+    The affine gradients are this rank's own: DDP averages them with the
+    rest."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var, eps, momentum):
-        world, rank = dist.get_world_size(), dist.get_rank()
+        world, rank, group = distributed.dp_size(), distributed.dp_index(), distributed.dp_group()
         c = x.shape[1]
         xf = x.float()
         var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         n = xf.numel() // c
         rows = torch.zeros((world, 2 * c + 1), dtype=torch.float64, device=x.device)
         rows[rank] = torch.cat([mean.double(), var.double() * n, rows.new_tensor([n])])
-        dist.all_reduce(rows)
+        dist.all_reduce(rows, group=group)
         counts = rows[:, 2 * c:]  # [world, 1]
         total = counts.sum()
         g_mean = (rows[:, :c] * counts).sum(0) / total
@@ -164,7 +188,7 @@ class _SyncBatchNormFn(torch.autograd.Function):
         g_mean, invstd = g_mean.float(), torch.rsqrt(g_var + eps).float()
         x_hat = (xf - g_mean[:, None, None]) * invstd[:, None, None]
         ctx.save_for_backward(xf, weight, g_mean, invstd)
-        ctx.total, ctx.dtype = float(total), x.dtype
+        ctx.total, ctx.dtype, ctx.group = float(total), x.dtype, group
         return (x_hat * weight[:, None, None] + bias[:, None, None]).to(x.dtype)
 
     @staticmethod
@@ -175,7 +199,7 @@ class _SyncBatchNormFn(torch.autograd.Function):
         sum_dy = dy.sum((0, 2, 3))
         sum_dy_xhat = (dy * x_hat).sum((0, 2, 3))
         sums = torch.cat([sum_dy, sum_dy_xhat])
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=ctx.group)
         c = sum_dy.shape[0]
         g_dy, g_dy_xhat = sums[:c] / ctx.total, sums[c:] / ctx.total
         dx = (weight * invstd)[:, None, None] * (
@@ -185,15 +209,16 @@ class _SyncBatchNormFn(torch.autograd.Function):
 
 class SyncBatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` whose train-mode batch statistics are those of the
-    batch over every rank of the process group, as JAX's are over the
-    whole `dp`-sharded batch (the reference's SyncBN). Its parameters,
-    buffers and state-dict keys are nn.BatchNorm2d's, and so is its running
-    variance (torch's unbiased one, over the global count). In eval mode,
-    or with one rank or none, it is nn.BatchNorm2d itself."""
+    batch over the ranks of the `dp` group, as JAX's are over the whole
+    `dp`-sharded batch (the reference's SyncBN); the `sp` ranks of a sample
+    all hold it, and counting it once per `sp` rank would bias the running
+    variance. Its parameters, buffers and state-dict keys are
+    nn.BatchNorm2d's, and so is its running variance (torch's unbiased one,
+    over the global count). In eval mode, or with a `dp` group of one rank
+    or none, it is nn.BatchNorm2d itself."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
+        if not (self.training and distributed.dp_size() > 1):
             return super().forward(x)
         momentum = 0.0 if self.momentum is None else self.momentum
         tracking = self.track_running_stats

@@ -1,30 +1,32 @@
-from bevformer_torch.runtime.checkpoint import (
-    build_model,
-    init_state_dict,
-    load_reference_pth,
-    restore_checkpoint,
-    save_checkpoint,
-    state_dict_from_jax,
-    state_dict_from_jax_v2,
-)
-from bevformer_torch.runtime.eval import VideoEvaluator, VideoEvaluatorV2
-from bevformer_torch.runtime.fuse import fuse_conv_bn
-from bevformer_torch.runtime.optim import label_params, make_optimizer
-from bevformer_torch.runtime.train import (
-    Batch,
-    Trainer,
-    collate,
-    history_bev,
-    loss_fn,
-    train_step,
-)
-from bevformer_torch.runtime.train_v2 import BatchV2, collate_v2, history_bevs, loss_fn_v2
+"""The port's runtime: checkpoints, evaluation, training, the process group.
 
-__all__ = [
-    "Batch", "BatchV2", "Trainer", "VideoEvaluator", "VideoEvaluatorV2", "build_model", "collate",
-    "collate_v2", "history_bevs", "loss_fn_v2",
-    "fuse_conv_bn", "history_bev",
-    "init_state_dict", "label_params", "load_reference_pth", "loss_fn", "make_optimizer",
-    "restore_checkpoint", "save_checkpoint", "state_dict_from_jax", "state_dict_from_jax_v2",
-    "train_step",
-]
+Its names load on first use (PEP 562), so that model code can import
+`runtime.distributed` and `runtime.parallel` (the mesh over the ranks)
+without first loading the runtime's modules that import the models.
+"""
+
+import importlib
+
+_HOMES = {
+    "build_model": "checkpoint", "init_state_dict": "checkpoint",
+    "load_reference_pth": "checkpoint", "restore_checkpoint": "checkpoint",
+    "save_checkpoint": "checkpoint", "state_dict_from_jax": "checkpoint",
+    "state_dict_from_jax_v2": "checkpoint",
+    "VideoEvaluator": "eval", "VideoEvaluatorV2": "eval",
+    "fuse_conv_bn": "fuse",
+    "label_params": "optim", "make_optimizer": "optim",
+    "Batch": "train", "Trainer": "train", "collate": "train", "history_bev": "train",
+    "loss_fn": "train", "train_step": "train",
+    "BatchV2": "train_v2", "collate_v2": "train_v2", "history_bevs": "train_v2",
+    "loss_fn_v2": "train_v2",
+}
+
+__all__ = sorted(_HOMES)
+
+
+def __getattr__(name):
+    if name not in _HOMES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_HOMES[name]}"), name)
+    globals()[name] = value
+    return value

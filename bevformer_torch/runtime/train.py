@@ -7,11 +7,15 @@ with the model in eval mode (no dropout, no GridMask; the reference switches
 to eval, `bevformer.py:161`), their backbone batched over the frames; the
 last frame trains, in train mode, with the resulting `prev_bev`.
 
-Under a process group (`runtime.distributed`) each rank steps its own
-samples through `runtime.parallel.data_parallel` (DDP): the clip then sees
-the gradients averaged over the ranks, the global norm JAX's
-`optax.global_norm` takes, and the loss terms returned are their means over
-the ranks, the global batch's.
+Under a process group (`runtime.distributed`) each `dp` index steps its
+own samples through `runtime.parallel.data_parallel` (DDP): the clip then
+sees the gradients averaged over the ranks, the global norm JAX's
+`optax.global_norm` takes (equal on every rank), and the loss terms
+returned are their means over the `dp` group, the global batch's. On a
+mesh with an `sp` axis (`distributed.make_groups`) the step runs within
+`runtime.parallel.split_queries`: every encoder call of it, the history
+frames' included, runs its layers on this rank's range of BEV queries, as
+JAX's sharding constraint holds for every encoder call inside the mesh.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from bevformer_torch.device import fp32, precision
 from bevformer_torch.models import BEVFormer
 from bevformer_torch.runtime import distributed
 from bevformer_torch.runtime.optim import make_optimizer
-from bevformer_torch.runtime.parallel import data_parallel
+from bevformer_torch.runtime.parallel import data_parallel, split_queries
 from bevformer_torch.runtime.train_v2 import loss_fn_v2
 
 
@@ -138,8 +142,8 @@ def train_step(model, optimizer, scheduler, params, max_norm: float,
                batch, loss=loss_fn) -> Dict[str, float]:
     """Zero grads, forward + backward (`loss(model, batch)`), global clip,
     AdamW step, scheduler step. Returns the loss terms (their means over
-    the ranks under a process group), `grad_norm` (before clipping) and the
-    `lr` this step used."""
+    the `dp` group under a process group), `grad_norm` (before clipping)
+    and the `lr` this step used."""
     optimizer.zero_grad(set_to_none=True)
     total, losses = loss(model, batch)
     total.backward()
@@ -150,7 +154,8 @@ def train_step(model, optimizer, scheduler, params, max_norm: float,
     optimizer.step()
     scheduler.step()
     keys = list(losses)
-    terms = distributed.mean_over_ranks(torch.stack([losses[k].detach() for k in keys]))
+    terms = distributed.mean_over_ranks(torch.stack([losses[k].detach() for k in keys]),
+                                        distributed.dp_group())
     out = dict(zip(keys, terms.tolist()))
     out["grad_norm"] = float(grad_norm)
     out["lr"] = lr
@@ -158,9 +163,10 @@ def train_step(model, optimizer, scheduler, params, max_norm: float,
 
 
 def rank_seed(seed: int, rank: int) -> int:
-    """The seed of rank `rank`'s dropout and GridMask draws: `seed` itself
-    on rank 0 (a one-process run draws as it always has), another stream
-    of (seed, rank) on every other rank."""
+    """The seed of the dropout and GridMask draws of `dp` index `rank`:
+    `seed` itself at 0 (a one-process run draws as it always has), another
+    stream of (seed, rank) at every other. The `sp` ranks of one `dp` index
+    share it: they hold one sample and draw one mask for it."""
     if rank == 0:
         return seed
     return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
@@ -174,22 +180,26 @@ class Trainer:
     """Model, AdamW, schedule and seed, for a v1 `BEVFormer` (steps on a
     `Batch`) or a `BEVFormerV2` (steps on a `train_v2.BatchV2`, its loss
     `train_v2.loss_fn_v2`). The seed seeds dropout (torch's global
-    generators) and GridMask's own generator, from (seed, rank) under a
-    process group (`rank_seed`), so that the ranks draw different masks;
-    the model trains in train mode (V2: BatchNorm on batch statistics, over
-    every rank, its running statistics updated). Each step runs on
+    generators) and GridMask's own generator, from (seed, `dp` index)
+    under a process group (`rank_seed`), so that the ranks of distinct
+    samples draw different masks and those of one sample the same; the
+    model trains in train mode (V2: BatchNorm on batch statistics, over
+    the `dp` group, its running statistics updated). Each step runs on
     `runtime.parallel.data_parallel(model, loss)`, which is DDP under a
-    process group. `state_dict` / `load_state_dict` carry all of it, the
-    BatchNorms' running statistics with the weights, so a run restored from
-    one continues as the run that saved it would have; under a process
-    group `state_dict` holds every rank's generators and every rank must
-    call it (a collective), and `load_state_dict` gives each rank its own."""
+    process group, within `parallel.split_queries` (the BEV queries split
+    over the `sp` group, where the mesh has one: build the Trainer after
+    `distributed.make_groups`). `state_dict` / `load_state_dict` carry all
+    of it, the BatchNorms' running statistics with the weights, so a run
+    restored from one continues as the run that saved it would have; under
+    a process group `state_dict` holds every rank's generators and every
+    rank must call it (a collective), and `load_state_dict` gives each rank
+    its own."""
 
     def __init__(self, model: BEVFormer, total_steps: int, seed: int = 0):
         self.model = model.train()
         self.cfg = model.cfg
         self.loss = loss_fn_v2 if model.cfg.version == "v2" else loss_fn
-        seed = rank_seed(seed, distributed.rank())
+        seed = rank_seed(seed, distributed.dp_index())
         torch.manual_seed(seed)
         model.grid_mask.generator.manual_seed(seed)
         self.optimizer, self.scheduler, self.params = make_optimizer(
@@ -201,7 +211,7 @@ class Trainer:
         """One training step in the config's dtype, whatever the caller's
         TF32 flags."""
         device = next(self.model.parameters()).device
-        with precision(self.cfg.dtype, device.type):
+        with precision(self.cfg.dtype, device.type), split_queries():
             return train_step(self.parallel, self.optimizer, self.scheduler, self.params,
                               self.cfg.optim.grad_clip_norm, batch, _run)
 

@@ -5,7 +5,8 @@
 # group in bevformer_torch/runtime/distributed.py::maybe_initialize (NCCL on
 # cuda:LOCAL_RANK; gloo with --device cpu, or --dist-backend gloo --device
 # cuda:0 for several ranks on one card), steps its own samples and DDP
-# averages the gradients.
+# averages the gradients; with --dp D --sp S (D x S = NPROC) the S ranks of
+# each sample split its BEV queries in the encoder.
 #
 #   NPROC=8 [PORT=29500] [PYTHON=python3] bash bevformer_torch/tools/dist_train.sh CONFIG --data-root DATA [args...]
 set -euo pipefail

@@ -4,7 +4,7 @@
         [--work-dir DIR] [--max-iters N] [--resume-from CKPT] [--load-from PTH]
         [--seed 0] [--log-interval 50] [--ckpt-interval-epochs 1]
         [--eval-interval-epochs 0] [--cfg-options key=val ...] [--device cuda]
-        [--dp N] [--sp 1] [--dist-backend nccl|gloo]
+        [--dp N] [--sp S] [--dist-backend nccl|gloo]
 
 DATA holds `nuscenes_infos_temporal_train.pkl` (and `_val.pkl` for the
 in-training evaluation), as `bevformer_torch.tools.create_data synth`
@@ -31,20 +31,24 @@ weights of a model-zoo `.pth` (or of a checkpoint), with a fresh optimizer.
 Without it the weights are `init_state_dict`'s, seeded by `--seed`, which
 also seeds the data order, the augmentations, dropout and GridMask.
 
-Data parallel (JAX `tools/train.py:33-34`, :100-131): launched by
-`torchrun --nproc-per-node N` (`bevformer_torch/tools/dist_train.sh`), each
-rank joins the process group (`runtime.distributed.maybe_initialize`: NCCL
-on `cuda:LOCAL_RANK`, gloo with `--device cpu` or `--dist-backend gloo`),
-steps `samples_per_gpu` samples of its own (its share of the
+Data and sequence parallel (JAX `tools/train.py:33-34`, :100-131,
+:289-291): launched by `torchrun --nproc-per-node N`
+(`bevformer_torch/tools/dist_train.sh`), each rank joins the process
+group (`runtime.distributed.maybe_initialize`: NCCL on `cuda:LOCAL_RANK`,
+gloo with `--device cpu` or `--dist-backend gloo`), and the N ranks form a
+`(dp, sp)` mesh, dp x sp = N (`--dp` defaults to N // `--sp`, `--sp` to
+1; rank = d x sp + s, as JAX's `make_mesh` lays the devices out). Each
+`dp` index steps `samples_per_gpu` samples of its own (its share of the
 `GroupShuffleSampler` order; V2: draws from generators of (`--seed`, step,
-rank), rank 0's those of a one-process run), and DDP averages the
-gradients: a step of the global batch of N x samples_per_gpu, an epoch
-len(dataset) // that many steps. `--dp` must equal the world size (its
-default); `--sp` above 1 raises NotImplementedError. Rank 0 prints, writes
-`train_log.jsonl` and the checkpoints (which hold every rank's random
-generators; `--resume-from` restores each rank's own); the in-training
-evaluation runs each rank over a contiguous segment of the val split and
-rank 0 scores the gathered results, as `tools.test` does.
+`dp` index), index 0's those of a one-process run), its `sp` ranks the same
+ones with the encoder's BEV queries split between them
+(`runtime.parallel`), and DDP averages the gradients: a step of the global
+batch of dp x samples_per_gpu, an epoch len(dataset) // that many steps.
+Rank 0 prints, writes `train_log.jsonl` and the checkpoints (which hold
+every rank's random generators; `--resume-from` restores each rank's own);
+the in-training evaluation runs each rank (of the world, whatever `--sp`)
+over a contiguous segment of the val split and rank 0 scores the gathered
+results, as `tools.test` does.
 
 The run is on the card unless `--device cpu`; with no card it raises.
 """
@@ -108,7 +112,9 @@ def parse_args(argv):
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     p.add_argument("--dp", type=int, default=None,
                    help="data-parallel size: the world size of the launch (the default)")
-    p.add_argument("--sp", type=int, default=1, help="BEV sequence-parallel size (1 only)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel size: ranks that split each sample's BEV queries "
+                   "in the encoder")
     p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
                    help="the process group's backend (default: nccl on the card, gloo on "
                    "the CPU; gloo for several ranks on one card)")
@@ -239,8 +245,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
 def train(args, device: torch.device) -> dict:
     dp = parallel.check_mesh(args.dp, args.sp)
-    rank = distributed.rank()
-    lead = rank == 0
+    distributed.make_groups(dp, args.sp)
+    d = distributed.dp_index()  # whose samples this rank holds
+    lead = distributed.rank() == 0
 
     def say(msg: str) -> None:
         if lead:
@@ -265,8 +272,9 @@ def train(args, device: torch.device) -> dict:
     total_steps = steps_per_epoch * cfg.optim.total_epochs
     if args.max_iters:
         total_steps = min(total_steps, args.max_iters)
-    say(f"dataset: {len(ds)} samples; batch {bs} on each of {dp} rank(s) (global "
-        f"{dp * bs}); {steps_per_epoch} steps an epoch; {total_steps} steps; device {device}")
+    say(f"mesh dp={dp} sp={args.sp}; dataset: {len(ds)} samples; batch {bs} on each of {dp} "
+        f"dp rank(s) (global {dp * bs}); {steps_per_epoch} steps an epoch; {total_steps} steps; "
+        f"device {device}")
 
     if args.load_from:
         state_dict = load_reference_pth(args.load_from)
@@ -283,8 +291,8 @@ def train(args, device: torch.device) -> dict:
                             lr=trainer.scheduler.get_last_lr(), rng=rng)))
 
     # the epoch-seeded shuffle of the reference's DistributedGroupSampler
-    # (`datasets/samplers/group_sampler.py:62-103`), this rank's share
-    sampler = GroupShuffleSampler(len(ds), num_replicas=dp, rank=rank, seed=args.seed)
+    # (`datasets/samplers/group_sampler.py:62-103`), this dp index's share
+    sampler = GroupShuffleSampler(len(ds), num_replicas=dp, rank=d, seed=args.seed)
     order = {"epoch": -1, "indices": [], "pos": 0}
 
     def next_index(step: int) -> int:
@@ -303,7 +311,7 @@ def train(args, device: torch.device) -> dict:
     def collect_batch(step: int):
         if v2:
             # the step's own generators (see the module's docstring)
-            seeds = [args.seed, step] + ([rank] if rank else [])
+            seeds = [args.seed, step] + ([d] if d else [])
             ds.rng = np.random.RandomState(seeds)
             draw = np.random.default_rng(seeds)
         samples, tries = [], 0
@@ -350,7 +358,7 @@ def train(args, device: torch.device) -> dict:
                 run_eval(trainer.model, cfg, args.data_root, work_dir, done, device)
     finally:
         prefetch.close()
-    summary = dict(done=True, steps=total_steps - start_step, last=last, dp=dp,
+    summary = dict(done=True, steps=total_steps - start_step, last=last, dp=dp, sp=args.sp,
                    launches=launch_counts(),
                    peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
                              if device.type == "cuda" else None))

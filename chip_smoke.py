@@ -190,14 +190,28 @@ Phases, each printed as it runs:
      bevformerv2-r50-t8 for 2 train-mode steps with `use_remat` off and on:
      the first step's losses and grad norm within 1e-3, K1 and K2 launches a step (the
      recomputed encoder layers and DCN blocks on top), step times and peak
-     memory.
+     memory;
+  18. the `sp` axis, the BEV queries split over gloo ranks of the one card:
+     `tools.dp_step` for bevformer_base at --dp 1 --sp 2 (one sample) and
+     bevformerv2-r50-t1 at --dp 2 --sp 2 (4 ranks, two samples, with
+     `use_remat`), one step against one process stepping the same samples
+     by phase 17's rules; per rank the launches a step, the K1 and K3/K4
+     launches by call site and queries (TSA at the rank's range, SCA at
+     most the capacity's rows), the peak against the one process's and the
+     step time (gloo through the host: no speed); base's launch first
+     encodes a frame on its 2 ranks, against this process (the BEV within
+     1e-3; per rank the K1 launches, the peak and the frame's time); then
+     K1 and K3/K4 at a rank's split shapes against their plain versions
+     (TSA at 20000 of the 40000 queries, SCA at rank 0's packed routed
+     rows).
 
 The line before the last is the kernels' JSON record (bf16 K1 and K3/K4
 with the launches of tiny_fp16's training run; bf16 K2, K5 and K6 with those
 of bevformer_base's bf16 training run; K1 also with its launches on
 the V2 presets' samples and its times at V2's shapes; K1 and K3/K4 with
 their launches per V2 training step and times at V2 training's new
-shapes): for each kernel its
+shapes, and with their times at a rank's split shapes and each rank's
+launches by call site in phase 18's steps): for each kernel its
 time, launches, plain version's time, bound (bevformer_torch/tools/
 roofline.py, against the H100 SXM data sheet's peaks) and what bounds it,
 and the time of one PyTorch call that computes the same function, or null
@@ -413,17 +427,19 @@ def check_k2(device, gen):
     return rows
 
 
-def check_k34(device, gen):
+# K3/K4's shapes on bevformer_base's training step: (name, B, Q, H, D,
+# shapes, P, launches per training step)
+K34_CASES = [
+    ("tsa", 2, 40000, 8, 32, ((200, 200),), 4, 6),
+    ("sca", 6, 10112, 8, 32, ((116, 200), (58, 100), (29, 50), (15, 25)), 8, 6),
+    ("decoder", 1, 900, 8, 32, ((200, 200),), 4, 6),
+]
+
+
+def check_k34(device, gen, cases=K34_CASES):
     import torch
     from bevformer_torch.tools import common, roofline
 
-    levels = ((116, 200), (58, 100), (29, 50), (15, 25))
-    # (name, B, Q, H, D, shapes, P, launches per training step)
-    cases = [
-        ("tsa", 2, 40000, 8, 32, ((200, 200),), 4, 6),
-        ("sca", 6, 10112, 8, 32, levels, 8, 6),
-        ("decoder", 1, 900, 8, 32, ((200, 200),), 4, 6),
-    ]
     rows = []
     for name, b, q, h, d, shapes, p, per_step in cases:
         value, loc, attw = msda_inputs(b, q, h, d, shapes, p, gen, device)
@@ -3088,6 +3104,204 @@ def check_remat(name, device, smi):
     return res
 
 
+# ------------------------------------------------ phase 18: the sp axis
+
+# tools.dp_step on dp x sp gloo ranks of the one card, dp samples: (name,
+# dp, sp, config overrides); each against one process stepping the same
+# samples. Four full-size t1 ranks want more than the card's 80 GB (one
+# ran out at 16.5 GiB allocated a rank): t1 steps with use_remat
+SP_STEPS = (("bevformer_base", 1, 2, {}), ("bevformerv2-r50-t1", 2, 2, {"use_remat": True}))
+SP_ENCODER_TOL = SLICE_TOL  # a base frame's BEV at sp 2 vs 1: max abs error over max |BEV|
+
+
+def sca_cap(cfg) -> int:
+    """SCA's routed rows a camera (`attention.sca_capacity_routing`)."""
+    q = cfg.bev_h * cfg.bev_w
+    return min((int(q * cfg.sca_capacity_ratio) + 127) // 128 * 128, q)
+
+
+def split_calls(rec, key, cfg, rows):
+    """One rank's launches of msda counter `key` by call site, from its
+    (B, Q) record: TSA (B = 2, the queue of 2), SCA (B = the cameras) and
+    the decoder (B = 1), each {Q: launches}. Fails unless every TSA launch
+    covers the rank's `rows` queries and every SCA launch at most the
+    capacity's rows."""
+    sites = {2: "tsa", cfg.data.num_cams: "sca", 1: "decoder"}
+    calls = {site: {} for site in sites.values()}
+    for b, q, n in rec["queries"][key]:
+        check(b in sites, f"{key}: a launch at B = {b}")
+        calls[sites[b]][q] = calls[sites[b]].get(q, 0) + n
+    check(set(calls["tsa"]) <= {rows}, f"{key}: TSA launches at {calls['tsa']}, want Q = {rows}")
+    check(all(q <= sca_cap(cfg) for q in calls["sca"]),
+          f"{key}: SCA launches at {calls['sca']} above the capacity {sca_cap(cfg)}")
+    return calls
+
+
+def base_frame(cfg):
+    """A v1 frame to encode, on the CPU: the last frame of a seeded
+    `train_batch` without a previous BEV (so that each layer's TSA samples
+    the BEV the last gather made)."""
+    import torch
+    from bevformer_torch.data import train_batch
+
+    b = train_batch(cfg, seed=0, device="cpu")
+    q = cfg.bev_h * cfg.bev_w
+    return (b.images[:, -1], b.can_bus[:, -1], b.lidar2img[:, -1],
+            torch.zeros((1, q, cfg.embed_dims)), torch.zeros((1,), dtype=torch.bool))
+
+
+def check_sp_encoder(out, cfg, sd, frame, bounds, device, smi):
+    """Phase 18 (c), from (a)'s launch: the ranks' BEV of a base frame
+    (backbone, FPN and the 6 encoder layers, eval mode, the queries split)
+    against this process's within SP_ENCODER_TOL, and per rank the K1
+    launches by call site and queries, the peak and the frame's time.
+    Returns each rank's SCA rows (its packed routed rows)."""
+    import torch
+    from bevformer_torch.runtime import build_model
+    from bevformer_torch.tools.dp_step import encode
+
+    torch.cuda.empty_cache()
+    model = build_model(cfg, sd, device)
+    one = encode(model, frame, device)
+    del model
+    torch.cuda.empty_cache()
+    err = float((out["bev"] - one["bev"]).abs().max()) / float(one["bev"].abs().max())
+    check(err <= SP_ENCODER_TOL, f"the base encoder at sp 2: BEV error {err} > {SP_ENCODER_TOL}")
+    q = cfg.bev_h * cfg.bev_w
+    one_calls = split_calls(one, "msda_fwd", cfg, q)
+    sca_rows, peaks = [], []
+    for r, rank in enumerate(out["ranks"]):
+        rec, (lo, hi) = rank["encode"], bounds[r]
+        check(rec["launches"]["msda_fwd"] == 2 * cfg.encoder_layers,
+              f"the base encoder rank {r}: {rec['launches']}")
+        calls = split_calls(rec, "msda_fwd", cfg, hi - lo)
+        sca_rows.append(max(calls["sca"]))
+        peaks.append(rec["peak_gib"])
+        log(f"[sp] base encoder rank {r} (queries [{lo}, {hi}) of {q}): K1 by call site "
+            f"{{Q: launches}} {calls} (one process {one_calls}); peak {rec['peak_gib']:.2f} GiB "
+            f"(one process {one['peak_gib']:.2f}); frame {rec['ms']:.2f} ms (one process "
+            f"{one['ms']:.2f}; the ranks share the card and gloo goes through the host: no "
+            f"speed); card: {smi}")
+    log(f"[sp] base encoder at sp {len(bounds)} vs 1: BEV max abs error / max |BEV| {err:.3e} "
+        f"(tol {SP_ENCODER_TOL:.0e}); card: {smi}")
+    return dict(err=err, sca_rows=sca_rows, peaks=peaks, one_peak_gib=one["peak_gib"],
+                one_ms=one["ms"])
+
+
+def check_sp_step(name, dp, sp, overrides, device, smi):
+    """Phase 18 (a), (b): `name` at full size (with `overrides`), one step
+    of `dp` samples (GridMask and dropout off) through `tools.dp_step` at
+    --dp dp --sp sp on dp x sp gloo ranks of the one card, against one
+    process stepping the same samples, by phase 17's rules (two samples:
+    the witness is one process with the samples swapped; one sample: the
+    loss within TRAIN_TOL and each group's update within DP_UPDATE_TOL).
+    Per rank: K1 and K3/K4 launches by call site and queries (every TSA
+    launch at the rank's range, SCA at its packed rows), the launches a
+    step, the peak against the one process's, the step time (gloo through
+    the host: no speed). A v1 config's launch first encodes a frame
+    (`check_sp_encoder`)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.runtime import init_state_dict, parallel
+    from bevformer_torch.tools.dp_step import rank_share
+
+    cfg = get_config(name).replace(use_grid_mask=False, **overrides)
+    per_step = dict(v2_train_per_step(cfg) if cfg.version == "v2" else TRAIN_PER_STEP)
+    if cfg.use_remat:
+        for k, v in remat_step_counts(cfg).items():
+            per_step[k] += v
+    frame = None if cfg.version == "v2" else base_frame(cfg)
+    tmp = tempfile.mkdtemp(prefix="bevformer_sp_")
+    try:
+        sd = init_state_dict(cfg, seed=0)
+        batch = two_sample_batch(cfg)
+        if dp == 1:
+            batch = rank_share(batch, 0, 2)
+        spec, out_path = os.path.join(tmp, "spec.pt"), os.path.join(tmp, "out.pt")
+        torch.save(dict(cfg=cfg, state_dict=sd, batch=batch, steps=1,
+                        total_steps=TRAIN_TOTAL_STEPS,
+                        **({} if frame is None else {"frame": frame})), spec)
+        what = f"dp_step {name} {overrides or ''} at --dp {dp} --sp {sp} on {dp * sp} gloo ranks"
+        _, secs = run_cli([*torchrun(dp * sp), "-m", "bevformer_torch.tools.dp_step", spec,
+                           out_path, "--dp", str(dp), "--sp", str(sp), "--device", str(device),
+                           "--dist-backend", "gloo"], what)
+        out = torch.load(out_path, map_location="cpu", weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(out["mesh"] == (dp, sp) and len(out["ranks"]) == dp * sp, f"{what}: {out['mesh']}")
+    q = cfg.bev_h * cfg.bev_w
+    bounds = parallel.query_bounds(q, sp)
+    res = dict(name=name, dp=dp, sp=sp, overrides=overrides, seconds=secs,
+               launches=out["ranks"][0]["launches"])
+    if frame is not None:
+        res["encoder"] = check_sp_encoder(out, cfg, sd, frame, bounds, device, smi)
+    ref = one_process_steps(cfg, sd, batch, 1, device)
+    loss_err = step_errors(out["outs"], ref["outs"])[0]
+    names = set(out["grads"])
+    upd = update_errors(out["states"][0], ref, names)
+    loss_noise, upd_noise = 0.0, dict.fromkeys(upd, 0.0)
+    if dp == 2:
+        witness = one_process_steps(cfg, sd, swap_samples(batch), 1, device)
+        loss_noise = step_errors(witness["outs"], ref["outs"])[0]
+        upd_noise = update_errors(witness["states"][0], ref, names)
+    check(loss_err <= max(TRAIN_TOL, WITNESS_FACTOR * loss_noise),
+          f"{what}: losses {out['outs'][0]} vs one process {ref['outs'][0]} "
+          f"(witness {loss_noise})")
+    check(all(math.isfinite(v) for v in out["outs"][0].values()), f"{what}: {out['outs']}")
+    for g, e in upd.items():
+        check(e <= max(DP_UPDATE_TOL, WITNESS_FACTOR * upd_noise[g]),
+              f"{what}: {g} update error {e} (witness {upd_noise[g]})")
+    first = ref["states"][0]
+    stats = [k for k in first if k.endswith(("running_mean", "running_var"))]
+    stats_err = max([float((out["states"][0][k] - first[k]).abs().max()
+                           / max(float(first[k].abs().max()), 1e-6)) for k in stats] or [0.0])
+    check(stats_err <= DP_STATS_TOL, f"{what}: running statistics error {stats_err}")
+
+    ranks = []
+    for r, rec in enumerate(out["ranks"]):
+        lo, hi = bounds[r % sp]
+        check(rec["launches"] == per_step,
+              f"{what} rank {r}: launches {rec['launches']}, want {per_step}")
+        fwd = split_calls(rec, "msda_fwd", cfg, hi - lo)
+        bwd = split_calls(rec, "msda_bwd", cfg, hi - lo)
+        ranks.append(dict(rank=r, queries=(lo, hi), k1=fwd, k34=bwd, peak_gib=rec["peak_gib"],
+                          step_ms=rec["step_ms"]))
+        log(f"[sp] {name}{overrides or ''} (dp {dp}, sp {sp}) rank {r} (d {r // sp}, s {r % sp}; "
+            f"queries [{lo}, {hi}) of {q}): K1 {rec['launches']['msda_fwd']} launches a step, by "
+            f"call site {{Q: launches}} {fwd}; K3/K4 {rec['launches']['msda_bwd']}, {bwd}; "
+            f"peak {rec['peak_gib']:.2f} GiB (one process {ref['peak_gib']:.2f} GiB with "
+            f"{dp} sample(s)); step {rec['step_ms'][0]:.1f} ms (gloo through the host: "
+            f"plumbing, not a speed); card: {smi}")
+    res.update(loss_err=loss_err, loss_witness=loss_noise, update_err=upd,
+               update_witness=upd_noise, stats_err=stats_err, ranks=ranks,
+               one_peak_gib=ref["peak_gib"], one_step_ms=ref["ms"][0])
+
+    def short(d):
+        return {g: float(f"{e:.3e}") for g, e in d.items()}
+
+    log(f"[sp] {name}{overrides or ''} at (dp {dp}, sp {sp}), one step of {dp} sample(s) vs one "
+        f"process: totals {out['outs'][0]['total']:.6f} vs {ref['outs'][0]['total']:.6f}, grad "
+        f"norms {out['outs'][0]['grad_norm']:.4f} vs {ref['outs'][0]['grad_norm']:.4f}; relative "
+        f"error {loss_err:.3e} (witness {loss_noise:.3e}); parameter updates' relative L2 "
+        f"error by group {short(upd)} (witness {short(upd_noise)}); running statistics "
+        f"{len(stats)} tensors, max error {stats_err:.3e}; one process step "
+        f"{ref['ms'][0]:.1f} ms, peak {ref['peak_gib']:.2f} GiB; the launch {secs:.1f} s; "
+        f"card: {smi}")
+    return res
+
+
+def sp_kernel_cases(sca_rows):
+    """K1's and K3/K4's cases at a base rank's split shapes (sp 2): TSA at
+    20000 of the 40000 queries (the value queue whole), SCA at rank 0's
+    packed rows; 6 launches each a frame (K1) or a step (K3/K4)."""
+    tsa, sca = K34_CASES[0], K34_CASES[1]
+    return [("tsa-sp2", tsa[1], tsa[2] // 2, *tsa[3:]),
+            ("sca-sp2", sca[1], sca_rows[0], *sca[3:])]
+
+
 def main() -> int:
     try:
         import torch
@@ -3158,6 +3372,14 @@ def main() -> int:
     dp = [check_dp_step(name, steps, device, smi) for name, steps in DP_STEPS]
     remat = [check_remat(name, device, smi) for name in REMAT_PRESETS]
     t17 = time.perf_counter() - t17
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    sp = [check_sp_step(*case, device, smi) for case in SP_STEPS]
+    sp_encoder = sp[0]["encoder"]
+    sp_cases = sp_kernel_cases(sp_encoder["sca_rows"])
+    k1_sp_rows = check_k1(device, gen, sp_cases, "k1-sp")
+    k34_sp_rows = check_k34(device, gen, sp_cases)
+    t18 = time.perf_counter() - t18
 
     def record(name, src, replaces, rows, per, library_note, counts=tr["counts"]):
         bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
@@ -3246,6 +3468,16 @@ def main() -> int:
     for i, key in ((0, "msda_fwd"), (2, "msda_bwd")):
         kernels[i]["v2_train_launches_per_step"] = {
             name: r["per_step"][key] for name, r in v2_train.items()}
+    # K1 and K3/K4 at a base rank's split shapes (sp 2, per call), and
+    # each rank's launches by call site and queries in phase 18's steps
+    for i, rows in ((0, k1_sp_rows), (2, k34_sp_rows)):
+        for r in rows:
+            cost = r.pop("cost")
+            r.update(bound_ms=cost.bound_ms, bound_by=cost.bound_by)
+        kernels[i]["sp_shapes"] = rows
+        key = "k1" if i == 0 else "k34"
+        kernels[i]["sp_launches_per_rank"] = {
+            f"{r['name']} dp{r['dp']} sp{r['sp']}": [rank[key] for rank in r["ranks"]] for r in sp}
     # launches: the training run's (all five kernels); the inference run's too
     kernels[0]["inference_launches"] = sl["k1"]
     kernels[1]["inference_launches"] = sl["k2"]
@@ -3312,6 +3544,17 @@ def main() -> int:
             f"{r['remat_peak_gib']:.2f} GiB, step {r['step_ms']:.1f} -> {r['remat_step_ms']:.1f} "
             f"ms, launches {r['launches']}; on {smi}")
     log(f"[summary] phase 17 (without its CLI part) {t17:.1f} s")
+    log(f"[summary] phase 18: base encoder at sp 2 vs 1: BEV within {sp_encoder['err']:.3e}; "
+        f"SCA rows a rank {sp_encoder['sca_rows']} of {K34_CASES[1][2]}; peak "
+        f"{[round(p, 2) for p in sp_encoder['peaks']]} GiB a rank, "
+        f"{sp_encoder['one_peak_gib']:.2f} GiB one process; on {smi}")
+    for r in sp:
+        log(f"[summary] phase 18: {r['name']} at (dp {r['dp']}, sp {r['sp']}) vs 1 process: "
+            f"losses within {r['loss_err']:.3e} (witness {r['loss_witness']:.3e}), updates within "
+            f"{max(r['update_err'].values()):.3e}, running statistics within "
+            f"{r['stats_err']:.3e}; peak {[round(k['peak_gib'], 2) for k in r['ranks']]} GiB a "
+            f"rank, {r['one_peak_gib']:.2f} GiB one process; on {smi}")
+    log(f"[summary] phase 18 {t18:.1f} s")
     log(f"[summary] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -282,3 +282,36 @@ def test_two_sample_batch():
             assert all(v.shape[0] == 12 for v in batch.mono_targets.values())
             for k, v in batch.mono_targets.items():
                 assert torch.equal(swapped.mono_targets[k], torch.cat([v[6:], v[:6]])), k
+
+
+def test_sp_phase_cases():
+    """Phase 18: base at (dp 1, sp 2) and V2 t1 at (2, 2) with `use_remat`
+    (four full-size t1 ranks do not fit one card without it); K1 and K3/K4 at a base rank's split shapes: TSA at half of
+    the 40000 queries (the value queue whole), SCA at the rows given."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    assert chip_smoke.SP_STEPS == (("bevformer_base", 1, 2, {}),
+                                   ("bevformerv2-r50-t1", 2, 2, {"use_remat": True}))
+    tsa, sca = chip_smoke.sp_kernel_cases([9000, 8000])
+    assert tsa[:3] == ("tsa-sp2", 2, 20000) and tsa[3:] == chip_smoke.K34_CASES[0][3:]
+    assert sca[:3] == ("sca-sp2", 6, 9000) and sca[3:] == chip_smoke.K34_CASES[1][3:]
+
+
+def test_split_calls():
+    """A rank's (B, Q) record by call site; TSA at other than the rank's
+    queries, or SCA above the capacity's rows, fails."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.configs import get_config
+
+    cfg = get_config("bevformer_base")
+    assert chip_smoke.sca_cap(cfg) == 10112
+    rec = dict(queries={"msda_fwd": [[1, 900, 6], [2, 20000, 24], [6, 9000, 12], [6, 7000, 12]]})
+    assert chip_smoke.split_calls(rec, "msda_fwd", cfg, 20000) == dict(
+        tsa={20000: 24}, sca={9000: 12, 7000: 12}, decoder={900: 6})
+    with pytest.raises(chip_smoke.Failure, match="TSA"):
+        chip_smoke.split_calls(rec, "msda_fwd", cfg, 40000)
+    rec["queries"]["msda_fwd"].append([6, 10113, 1])
+    with pytest.raises(chip_smoke.Failure, match="capacity"):
+        chip_smoke.split_calls(rec, "msda_fwd", cfg, 20000)

@@ -21,8 +21,8 @@ JAX package, which computes the same step over the global batch.
 * `allgather_results` on three ranks (ragged counts, chunk boundaries)
   gives every rank the rank-order concatenation.
 * `tools.train --device cpu` on two ranks through `tools/dist_train.sh`:
-  two steps, a checkpoint with both ranks' generators, a resume; `--dp`
-  other than the world size and `--sp` above 1 raise.
+  two steps, a checkpoint with both ranks' generators, a resume; a `--dp`
+  and `--sp` whose product is not the world size raise.
 * `tools.test` on two ranks through `tools/dist_test.sh` equals one
   process where the split falls on a scene start.
 """
@@ -290,9 +290,9 @@ def _trained(cfg, state_dict):
     return [n for n, _ in model.named_parameters() if labels[n] != "frozen"]
 
 
-def _check_step(r, loss_tol, grad_check):
+def _check_step(r, loss_tol, grad_check, world=2):
     out, cfg = r["out"], r["cfg"]
-    assert out["world"] == 2
+    assert out["world"] == world
     losses = out["outs"][0]
     assert set(r["jlosses"]) <= set(losses)
     for key, ref in r["jlosses"].items():
@@ -350,9 +350,12 @@ def test_v2_running_statistics_over_two_ranks(v2_runs):
     """Each BatchNorm's running statistics after the step equal JAX's over
     the global batch, with torch's unbiased variance over the global
     count n (Flax's is biased: see `tests/test_torch_v2_train.py`)."""
+    _check_running_statistics(v2_runs)
+
+
+def _check_running_statistics(r):
     from bevformer_torch.runtime import build_model
 
-    r = v2_runs
     model = build_model(r["cfg"], r["before"], "cpu")
     counts = {}
 
@@ -439,7 +442,7 @@ def test_mesh_sizes_are_checked():
     assert parallel.check_mesh(None, 1) == 1 and parallel.check_mesh(1, 1) == 1
     with pytest.raises(ValueError, match="--dp 2 with 1 rank"):
         parallel.check_mesh(2, 1)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
+    with pytest.raises(ValueError, match="--sp 2 does not divide the 1 rank"):
         parallel.check_mesh(None, 2)
     with pytest.raises(ValueError, match="--dp 2 with 1 rank"):
         train_cli.main(["bevformer_base", "--data-root", "unused", "--dp", "2", "--device", "cpu"])

@@ -10,7 +10,11 @@ cotangent; rank 0 writes every rank's output, dx, dgamma, dbeta and
 running statistics. CASE `allgather`: each rank holds a seeded, ragged
 list of result arrays (rank r: 2 r + 1 samples, some without boxes) and
 gathers them with `allgather_results` in chunks of 2 samples; rank 0 writes
-what every rank received.
+what every rank received. CASE `sp_encoder`: the ranks form one `sp`
+group, and each runs every `ENCODER_CASES` encoder of `encoder_case`
+within `parallel.split_queries`, forward and backward of a seeded
+cotangent; rank 0 writes every rank's BEV, gradients and msda calls
+((B, Q) of each, forward).
 """
 
 from __future__ import annotations
@@ -23,11 +27,64 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from bevformer_torch.models import attention  # noqa: E402
+from bevformer_torch.models.encoder import BEVFormerEncoder  # noqa: E402
 from bevformer_torch.models.layers import SyncBatchNorm2d  # noqa: E402
-from bevformer_torch.runtime import distributed  # noqa: E402
+from bevformer_torch.runtime import distributed, parallel  # noqa: E402
 
 CHANNELS = 5
 SAMPLES_PER_RANK = 2
+# the split encoder's cases: (name, SCA capacity ratio, use_remat). At 31 x
+# 33 BEV queries (odd) a capacity of 0.1 routes 128 rows a camera, fewer
+# than five of the rigs see (visible queries dropped) and more than the
+# back camera, zoomed in 2x, sees (fillers); 0.25 routes 256, more than
+# any sees; 0 is the dense SCA
+ENCODER_CASES = (("capacity", 0.1, False), ("capacity_remat", 0.1, True),
+                 ("wide_capacity", 0.25, False), ("dense", 0.0, False))
+BEV_HW = (31, 33)
+ENCODER_IMG = (96, 160)
+ENCODER_LEVELS = ((12, 20), (6, 10))
+
+
+def encoder_case(ratio: float, remat: bool):
+    """A seeded 2-layer encoder (32 channels, 4 heads, 6 cameras, 2 levels)
+    in eval mode, its inputs (batch 2: a sample with a previous BEV and one
+    without; the six synthetic rigs) and the cotangent of its BEV."""
+    from bevformer_torch.data.synth import rig_lidar2img
+
+    torch.manual_seed(0)
+    enc = BEVFormerEncoder(num_layers=2, embed_dims=32, num_heads=4, feedforward_channels=64,
+                           num_levels=len(ENCODER_LEVELS), sca_num_points=4, tsa_num_points=2,
+                           sca_capacity_ratio=ratio, use_remat=remat).eval()
+    rng = np.random.RandomState(1)
+    bs, q, k = 2, BEV_HW[0] * BEV_HW[1], sum(h * w for h, w in ENCODER_LEVELS)
+
+    def randn(*shape):
+        return torch.tensor(rng.randn(*shape), dtype=torch.float32)
+
+    l2i = rig_lidar2img(ENCODER_IMG[1], ENCODER_IMG[0])
+    # the back camera (CAM_BACK, 4th) zoomed 2x about the image's centre
+    cy, cx = ENCODER_IMG[0] / 2, ENCODER_IMG[1] / 2
+    l2i[3, 0], l2i[3, 1] = 2 * l2i[3, 0] - cx * l2i[3, 2], 2 * l2i[3, 1] - cy * l2i[3, 2]
+    inputs = dict(bev_query=randn(bs, q, 32), value=randn(bs, 6, k, 32), bev_pos=randn(bs, q, 32),
+                  prev_bev=randn(bs, q, 32), has_prev=torch.tensor([True, False]),
+                  shift=randn(bs, 2) * 0.01,
+                  lidar2img=torch.tensor(np.stack([l2i] * bs), dtype=torch.float32))
+    return enc, inputs, randn(bs, q, 32)
+
+
+def run_encoder(enc, inputs, cotangent):
+    """The encoder's BEV and the gradients of the cotangent's dot product
+    with it: of every parameter and of the float inputs."""
+    leaves = {k: v.clone().requires_grad_(True) for k, v in inputs.items() if v.is_floating_point()}
+    args = dict(inputs, **leaves)
+    out = enc(args["bev_query"], args["value"], args["bev_pos"], args["prev_bev"],
+              args["has_prev"], args["shift"], args["lidar2img"], ENCODER_IMG, ENCODER_LEVELS,
+              *BEV_HW)
+    (out * cotangent).sum().backward()
+    grads = {f"input.{k}": v.grad for k, v in leaves.items()}
+    grads.update({n: p.grad for n, p in enc.named_parameters()})
+    return out.detach(), grads
 
 
 def bn_inputs(world: int):
@@ -77,11 +134,33 @@ def allgather(out: str) -> None:
         torch.save(gathered, out)
 
 
+def sp_encoder(out: str) -> None:
+    distributed.make_groups(1, distributed.world_size())
+    calls = []
+    plain = attention.ms_deform_attn
+
+    def recorded(value, shapes, loc, attw):
+        calls.append(tuple(loc.shape[:2]))
+        return plain(value, shapes, loc, attw)
+
+    attention.ms_deform_attn = recorded
+    mine = {}
+    with parallel.split_queries():
+        for name, ratio, remat in ENCODER_CASES:
+            calls.clear()
+            bev, grads = run_encoder(*encoder_case(ratio, remat))
+            mine[name] = dict(bev=bev, grads=grads, calls=list(calls),
+                              split=parallel.query_split(BEV_HW[0] * BEV_HW[1])[:3])
+    gathered = distributed.all_gather_object(mine)
+    if distributed.rank() == 0:
+        torch.save(gathered, out)
+
+
 def main() -> None:
     case, out = sys.argv[1], sys.argv[2]
     distributed.maybe_initialize("cpu")
     try:
-        {"sync_bn": sync_bn, "allgather": allgather}[case](out)
+        {"sync_bn": sync_bn, "allgather": allgather, "sp_encoder": sp_encoder}[case](out)
     finally:
         distributed.shutdown()
 
