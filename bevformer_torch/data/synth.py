@@ -3,8 +3,8 @@ for the inference path, and synthetic training batches.
 
 `generate` is the port of `bevformer_tpu/data/synth.py::generate`: the
 same `RandomState` draws in the same order, the same pickled infos, and
-camera images written as PNG (`data.image_io`) where the JAX package writes
-JPEG with cv2. Camera rigs are ports of `_camera_rigs`. The frames of
+camera images written as JPEG by cv2 (`data.image_io`), as the JAX package
+writes them. Camera rigs are ports of `_camera_rigs`. The frames of
 `SyntheticVideo` are seeded noise images, already normalised as the data
 pipeline would (caffe-style mean subtraction), with CAN-bus poses along a
 smooth ego trajectory packed as the dataset packs them. `train_batch`
@@ -25,7 +25,7 @@ import torch
 from bevformer_torch.core.boxes import CLASS_NAMES
 from bevformer_torch.core.evaluation import predict_attribute
 from bevformer_torch.data.dataset import CAM_ORDER, lidar2img_from_cam_info
-from bevformer_torch.data.image_io import write_png
+from bevformer_torch.data.image_io import write_image
 from bevformer_torch.device import DEFAULT as DEFAULT_DEVICE
 from bevformer_torch.device import resolve as resolve_device
 from bevformer_torch.runtime.train import Batch
@@ -138,7 +138,7 @@ def generate(
 
             cams = {}
             for cname, rig in rigs.items():
-                data_path = os.path.join("samples", f"{tokens[t]}_{cname}.png")
+                data_path = os.path.join("samples", f"{tokens[t]}_{cname}.jpg")
                 cams[cname] = dict(
                     data_path=data_path,
                     type=cname,
@@ -147,8 +147,8 @@ def generate(
                     sensor2lidar_translation=rig["translation"],
                     timestamp=int((s * 1000 + dt) * 1e6),
                 )
-                write_png(os.path.join(out_dir, data_path),
-                          render_image(rel[keep], obj_wlh[keep], rig, img_w, img_h, rng))
+                write_image(os.path.join(out_dir, data_path),
+                            render_image(rel[keep], obj_wlh[keep], rig, img_w, img_h, rng))
 
             can_bus = np.zeros(18)
             can_bus[:3] = pos

@@ -87,14 +87,18 @@ class MSDeformableAttention3D(nn.Module):
         )
 
 
-def sca_capacity_routing(bev_mask: torch.Tensor, capacity_ratio: float) -> Dict:
+def sca_capacity_routing(bev_mask: torch.Tensor, capacity_ratio: float) -> Optional[Dict]:
     """Static per-camera query selection for SCA: the first `cap` queries of
     each camera, visible ones first in ascending index order, then
     invisible fillers in ascending order (`sca_capacity_precompute`).
     Visible queries beyond `cap` are dropped, as in the JAX package.
+    A ratio of 0 (or 1 and more) routes every query: None, SCA's dense
+    path, as JAX's `attention.py:726` takes it.
 
     bev_mask [bs, cams, q, nz] -> top_idx [bs, cams, cap], vis_sel
     [bs, cams, cap], and the inverse map inv/found [bs, cams, q]."""
+    if not capacity_ratio or capacity_ratio >= 1.0:
+        return None
     bs, cams, q, nz = bev_mask.shape
     cap = min((int(q * capacity_ratio) + 127) // 128 * 128, q)
     anyz = bev_mask.any(dim=-1)

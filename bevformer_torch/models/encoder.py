@@ -115,9 +115,7 @@ class BEVFormerEncoder(nn.Module):
         prev_ref = torch.where(has, ref_2d + shift[:, None, None, :], ref_2d)
         hybrid_ref_2d = torch.stack([prev_ref, ref_2d], dim=1)  # [bs,2,q,1,2]
 
-        routing = None
-        if self.sca_capacity_ratio and self.sca_capacity_ratio < 1.0:
-            routing = sca_capacity_routing(bev_mask, self.sca_capacity_ratio)
+        routing = sca_capacity_routing(bev_mask, self.sca_capacity_ratio)
         split = parallel.query_split(bev_h * bev_w)
         if split is not None:
             rows = split.rows

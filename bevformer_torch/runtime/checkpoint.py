@@ -4,6 +4,11 @@
   `bevformer_tpu/runtime/checkpoint.py::export_reference_state_dict`. Its
   input is the JAX params pytree with numpy leaves; it unstacks the scanned
   backbone blocks (`layer{i}_rest`) and encoder layers by indexing.
+* `vovnet_state_dict`, `rel_position_state_dict`, `mm_layer_state_dict`,
+  `bev_head_state_dict`: JAX params (and batch_stats) of the modules no
+  registered config builds (VoVNet V2-99, RelPositionEmbedding,
+  MMBEVFormerLayer, BEVHead) -> the port's state dicts, keyed by the JAX
+  module names (the reference has no `.pth` layout for them here).
 * `state_dict_from_jax_v2(variables, cfg)`: the same for a BEVFormerV2
   (`export_reference_state_dict_v2`, :905): JAX `{'params',
   'batch_stats'}`, the BatchNorms' running statistics from `batch_stats`,
@@ -188,6 +193,78 @@ def dd3d_state_dict(params: Mapping, stats: Mapping, num_levels: int,
                                                   np.float32)
     sd[f"{f3}.std_depth_per_level"] = np.asarray(dd3d.STD_DEPTH_PER_LEVEL[:num_levels],
                                                  np.float32)
+    return sd
+
+
+def vovnet_state_dict(variables: Mapping[str, Any], prefix: str = "") -> StateDict:
+    """JAX `VoVNet` variables (`{'params'[, 'batch_stats']}`, numpy leaves;
+    FrozenBN keeps its statistics in params, BatchNorm in batch_stats) ->
+    `models.vovnet.VoVNet` state dict, keyed by the JAX module names."""
+    from bevformer_torch.models.vovnet import V2_99
+
+    params = variables["params"] if "params" in variables else variables
+    p = _with_batch_stats(params, variables.get("batch_stats", {}))
+    sd: StateDict = {}
+    get, conv, _, norm = _converters(sd, p)
+
+    def conv_norm(name):
+        conv(f"{prefix}{name}.conv", f"{name.replace('.', '/')}/conv")
+        norm(f"{prefix}{name}.bn", f"{name.replace('.', '/')}/bn", running=True)
+
+    for i in (1, 2, 3):
+        conv_norm(f"stem{i}")
+    for stage, nblocks in enumerate(V2_99["block_per_stage"]):
+        for blk in range(nblocks):
+            name = f"stage{stage + 2}_block{blk}"
+            for i in range(V2_99["layer_per_block"]):
+                conv_norm(f"{name}.layer{i}")
+            conv_norm(f"{name}.concat")
+            conv(f"{prefix}{name}.ese.fc", f"{name}/ese/fc")
+            sd[f"{prefix}{name}.ese.fc.bias"] = get(f"{name}/ese/fc/bias")
+    return sd
+
+
+def rel_position_state_dict(params: Mapping[str, Any], prefix: str = "") -> StateDict:
+    """JAX `RelPositionEmbedding` params -> `models.position_embedding.
+    RelPositionEmbedding` state dict (`fc` has no bias; `norm` where it is
+    on)."""
+    sd: StateDict = {}
+    get, _, _, norm = _converters(sd, params)
+    sd[f"{prefix}fc.weight"] = np.transpose(get("fc/kernel"))
+    if "norm" in params:
+        norm(f"{prefix}norm", "norm")
+    return sd
+
+
+def mm_layer_state_dict(params: Mapping[str, Any], prefix: str = "") -> StateDict:
+    """JAX `MMBEVFormerLayer` params -> `models.mm_layer.MMBEVFormerLayer`
+    state dict, keyed by the JAX module names (the attentions' projections
+    in the layout `state_dict_from_jax` copies for the encoder's)."""
+    sd: StateDict = {}
+    get, _, linear, norm = _converters(sd, params)
+    for nm in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
+        linear(f"{prefix}self_attn.{nm}", f"self_attn/{nm}")
+        linear(f"{prefix}lidar_cross_attn.{nm}", f"lidar_cross_attn/{nm}")
+    for nm in ("sampling_offsets", "attention_weights", "value_proj"):
+        linear(f"{prefix}cross_attn.deformable_attention.{nm}",
+               f"cross_attn/deformable_attention/{nm}")
+    linear(f"{prefix}cross_attn.output_proj", "cross_attn/output_proj")
+    for i in (1, 2, 3):
+        norm(f"{prefix}norm{i}", f"norm{i}")
+    linear(f"{prefix}ffn.layers.0.0", "ffn/fc1")
+    linear(f"{prefix}ffn.layers.1", "ffn/fc2")
+    sd[f"{prefix}cross_model_weights"] = np.asarray(get("cross_model_weights"), np.float32)
+    return sd
+
+
+def bev_head_state_dict(params: Mapping[str, Any], prefix: str = "") -> StateDict:
+    """JAX `BEVHead` params -> `models.bev_head.BEVHead` state dict (three
+    1x1 convs with bias)."""
+    sd: StateDict = {}
+    get, conv, _, _ = _converters(sd, params)
+    for nm in ("conv_cls", "conv_reg", "conv_dir_cls"):
+        conv(f"{prefix}{nm}", nm)
+        sd[f"{prefix}{nm}.bias"] = get(f"{nm}/bias")
     return sd
 
 

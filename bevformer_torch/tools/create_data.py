@@ -5,7 +5,7 @@
         [--scenes 2] [--frames 8] [--objects 12] [--img-w 1600] [--img-h 900] [--seed 0]
 
 writes a synthetic nuScenes-format root: `nuscenes_infos_temporal_{train,
-val}.pkl` and PNG camera images under `D/samples/` (`data.synth.generate`;
+val}.pkl` and JPEG camera images (cv2) under `D/samples/` (`data.synth.generate`;
 the first half of the scenes train, the rest validate). It runs on the host
 only. The `nuscenes` mode, the converter of a raw nuScenes download, is not
 ported: it needs nuscenes-devkit and the dataset.

@@ -3,7 +3,8 @@ data- and sequence-parallel check that a one-process step of the same
 batch is held against.
 
     torchrun --nproc-per-node N -m bevformer_torch.tools.dp_step SPEC OUT
-        [--dp D] [--sp S] [--dropout] [--device cuda] [--dist-backend nccl|gloo]
+        [--dp D] [--sp S] [--then SPEC2 OUT2 D2 S2] [--dropout] [--device cuda]
+        [--dist-backend nccl|gloo]
 
 SPEC is a `torch.save` file this repo's callers write: {"cfg": a
 `BEVFormerConfig`, "state_dict": the weights, "batch": a `Batch` or
@@ -25,7 +26,10 @@ clipped, all on the CPU, "world", "mesh": (D, S), "ranks": each rank's
 {"step_ms", "peak_gib", "launches" (`kernels.launch_counts`, over the
 steps) and "queries" (`kernels.launch_queries`: launches by (B, Q)), and
 given a frame "encode" (`encode`'s record)}, and given a frame "bev": its
-BEV}. Without a card `--device cuda` raises.
+BEV}. `--then SPEC2 OUT2 D2 S2` (repeatable) runs one more job after it
+in the same processes, on the (D2, S2) mesh (D2 x S2 = N): one launch, its
+start-up paid once, for several checks. Without a card `--device cuda`
+raises.
 """
 
 from __future__ import annotations
@@ -84,61 +88,75 @@ def encode(model, frame, device) -> dict:
                 launches=launch_counts(), queries=launch_queries())
 
 
+def run_job(spec_path: str, out_path: str, dp: Optional[int], sp: int, dropout: bool,
+            device: torch.device) -> None:
+    """One SPEC stepped on this launch's ranks laid out as (dp, sp); rank 0
+    writes OUT."""
+    dp = parallel.check_mesh(dp, sp)
+    distributed.make_groups(dp, sp)
+    spec = torch.load(spec_path, map_location="cpu", weights_only=False)
+    model = build_model(spec["cfg"], spec["state_dict"], device)
+    # the frame first, beside nothing but the model (no batch, no DDP)
+    encoded = None if "frame" not in spec else encode(model, spec["frame"], device)
+    trainer = Trainer(model, spec["total_steps"], seed=0)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout) and not dropout:
+            m.p = 0.0  # (v1's history restores every module's train mode)
+    world, rank = distributed.world_size(), distributed.rank()
+    share = rank_share(spec["batch"], distributed.dp_index(), dp)
+    batch = type(share)(*[
+        {k: v.to(device) for k, v in t.items()} if isinstance(t, dict) else t.to(device)
+        for t in share])
+    steps = spec["steps"]
+    del spec
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    outs, step_ms, states = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        outs.append(trainer.step(batch))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if rank == 0:
+            states.append({k: v.detach().to("cpu", copy=True)
+                           for k, v in model.state_dict().items()})
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+    mine = dict(step_ms=step_ms, peak_gib=peak, launches=launch_counts(),
+                queries=launch_queries())
+    if encoded is not None:
+        bev = encoded.pop("bev")
+        mine["encode"] = encoded
+    ranks = distributed.all_gather_object(mine)
+    if rank == 0:
+        torch.save(dict(outs=outs, step_ms=step_ms, peak_gib=peak, world=world, states=states,
+                        mesh=(dp, sp), ranks=ranks,
+                        grads={k: p.grad.cpu() for k, p in model.named_parameters()
+                               if p.grad is not None},
+                        **({} if encoded is None else {"bev": bev})),
+                   out_path)
+    distributed.barrier()
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(description="data-parallel training steps of one batch")
     p.add_argument("spec")
     p.add_argument("out")
     p.add_argument("--dp", type=int, default=None)
     p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--then", nargs=4, action="append", default=[],
+                   metavar=("SPEC", "OUT", "DP", "SP"), help="a further job of this launch")
     p.add_argument("--dropout", action="store_true", help="keep the config's dropout")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"))
     args = p.parse_args(argv)
     device = distributed.maybe_initialize(args.device, args.dist_backend)
     try:
-        dp = parallel.check_mesh(args.dp, args.sp)
-        distributed.make_groups(dp, args.sp)
-        spec = torch.load(args.spec, map_location="cpu", weights_only=False)
-        model = build_model(spec["cfg"], spec["state_dict"], device)
-        # the frame first, beside nothing but the model (no batch, no DDP)
-        encoded = None if "frame" not in spec else encode(model, spec["frame"], device)
-        trainer = Trainer(model, spec["total_steps"], seed=0)
-        for m in model.modules():
-            if isinstance(m, torch.nn.Dropout) and not args.dropout:
-                m.p = 0.0  # (v1's history restores every module's train mode)
-        world, rank = distributed.world_size(), distributed.rank()
-        share = rank_share(spec["batch"], distributed.dp_index(), dp)
-        batch = type(share)(*[
-            {k: v.to(device) for k, v in t.items()} if isinstance(t, dict) else t.to(device)
-            for t in share])
-        steps = spec["steps"]
-        del spec
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
-        zero_counts()
-        outs, step_ms, states = [], [], []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            outs.append(trainer.step(batch))
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            if rank == 0:
-                states.append({k: v.detach().to("cpu", copy=True)
-                               for k, v in model.state_dict().items()})
-        peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
-        mine = dict(step_ms=step_ms, peak_gib=peak, launches=launch_counts(),
-                    queries=launch_queries())
-        if encoded is not None:
-            bev = encoded.pop("bev")
-            mine["encode"] = encoded
-        ranks = distributed.all_gather_object(mine)
-        if rank == 0:
-            torch.save(dict(outs=outs, step_ms=step_ms, peak_gib=peak, world=world, states=states,
-                            mesh=(dp, args.sp), ranks=ranks,
-                            grads={k: p.grad.cpu() for k, p in model.named_parameters()
-                                   if p.grad is not None},
-                            **({} if encoded is None else {"bev": bev})),
-                       args.out)
-        distributed.barrier()
+        jobs = [(args.spec, args.out, args.dp, args.sp)]
+        jobs += [(spec, out, int(dp), int(sp)) for spec, out, dp, sp in args.then]
+        for spec, out, dp, sp in jobs:
+            run_job(spec, out, dp, sp, args.dropout, device)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
     finally:
         distributed.shutdown()
 

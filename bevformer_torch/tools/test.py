@@ -28,7 +28,7 @@ boxes seen by more than one camera (NuScenesEval_custom's overlap_test). A
 line
 {"frames", "frame_ms", "load_ms", ...} reports each frame's (V2: each
 sample's) time (its images' loading and preprocessing, then the model and
-decode), the peak device memory and the kernels' launches.
+decode), the peak device memory and the kernels' launches over the frames.
 
 Over ranks (`torchrun --nproc-per-node N`, `bevformer_torch/tools/
 dist_test.sh`; JAX `tools/test.py:116-117`, :201-233), each rank runs a
@@ -64,7 +64,7 @@ from bevformer_torch.data import (
     NuScenesTemporalDataset,
     NuScenesTemporalDatasetV2,
 )
-from bevformer_torch.kernels import launch_counts
+from bevformer_torch.kernels import launch_counts, zero_counts
 from bevformer_torch.runtime import distributed
 from bevformer_torch.runtime.eval import gather_results
 from bevformer_torch.runtime import (
@@ -156,6 +156,7 @@ def evaluate(args, device: torch.device) -> Optional[dict]:
     segment = ContiguousVideoSampler(n, distributed.world_size(), distributed.rank())
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()  # the launches of this run's frames, also where a process runs several
     results, load_ms, frame_ms = [], [], []
     for i in segment:
         sync()

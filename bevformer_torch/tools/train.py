@@ -76,7 +76,7 @@ from bevformer_torch.data import (
     NuScenesTemporalDataset,
     NuScenesTemporalDatasetV2,
 )
-from bevformer_torch.kernels import launch_counts
+from bevformer_torch.kernels import launch_counts, zero_counts
 from bevformer_torch.runtime import (
     Trainer,
     VideoEvaluator,
@@ -332,6 +332,7 @@ def train(args, device: torch.device) -> dict:
     ckpt_every = steps_per_epoch * args.ckpt_interval_epochs
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()  # the launches of this run's steps, also where a process runs several
     t_start = time.perf_counter()
     last = None
     prefetch = BatchPrefetcher(collect_batch, start_step, total_steps, device)

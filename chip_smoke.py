@@ -96,23 +96,26 @@ Phases, each printed as it runs:
      of scale, and the flags read on again after it;
   11. profile: one frame that carries prev_bev under torch.profiler, its
      device busy share and the ops that take the device time;
-  12. the CLIs, each as its own process at bevformer_base full size on a
+  12. the CLIs, each as its own process at bevformer_base full size on one
      synthetic nuScenes-format root in a temporary directory:
-     `bevformer_torch.tools.create_data synth` at its defaults (2 scenes x 8
-     frames x 6 cameras at 1600 x 900, PNG; one train scene, one val scene),
-     `tools.train` for 4 steps with a checkpoint, `tools.train
-     --resume-from` it to 6 (the restored step, lr and random generators'
-     states must be the saved ones), `tools.test` on the last checkpoint
-     over the 8 val frames. Each must exit 0 with finite losses and metrics,
+     `bevformer_torch.tools.create_data synth` of 4 scenes x 4 frames x 6
+     cameras at 1600 x 900 (JPEG through cv2; two train scenes, two val
+     scenes), `tools.train` for 4 steps with a checkpoint, `tools.test` on
+     it over the 8 val frames (the resumed run is V2 t1's, below). Each
+     must exit 0 with finite losses and metrics,
      launch each kernel of its path as often as the path does (K1-K6 per
      training step, K1 and K2 per frame), and leave every key of
      `evaluate_detections` in `metrics_summary.json`. The val split's own
      ground truth scored as predictions gives mAP 1 and every TP error 0.
      It prints the step, host and data-wait medians of `train_log.jsonl`,
-     the frame median of `tools.test`, the NDS/mAP of the seeded weights
-     and the phase's wall time. Then `tools.fp16.train bevformer_tiny` for 2
-     steps (bf16: the bf16 K1 and K3/K4 launches per step), and `tools.test
-     bevformer_tiny` on its checkpoint with and without `--fuse-conv-bn`:
+     the frame and load medians of `tools.test`, the NDS/mAP of the seeded
+     weights and the phase's wall time; one frame's six camera decodes on
+     the host, cv2 JPEG against cv2 PNG of the same pixels. The CLIs run
+     through their `main(argv)`, a few a process (`run_mains`: create,
+     train and test; fp16 train and the tiny tests; ...). Then
+     `tools.fp16.train bevformer_tiny` for 2 steps (bf16: the bf16 K1 and
+     K3/K4 launches per step), and `tools.test bevformer_tiny` on its
+     checkpoint with and without `--fuse-conv-bn`:
      tiny's K1 launches per frame, the same decoded boxes (scores to 1e-4,
      matched boxes to 1e-3 of scale). Then `tools.test
      bevformerv2-r50-t1-base` (a `.pth` of seeded weights, the reg
@@ -173,11 +176,13 @@ Phases, each printed as it runs:
      normalisers) for 4 steps against phase 12's one-process run of the
      same steps: the first step's loss terms and grad norm within 1e-3, the
      later ones reported (atomic sums and Adam's sign steps move the weights
-     apart after the first step), its launches those of the path; then on a root of 4 scenes x 2 frames, `tools.test
-     bevformer_base` on two gloo ranks of the one card against one process
-     (the split falls on a scene start): the same boxes within 1e-5. At
+     apart after the first step), its launches those of the path; then
+     `tools.test bevformer_base` on two gloo ranks of the one card against
+     one process over the root's 8 val frames (the split falls on a scene
+     start): the same boxes within 1e-5. At
      the end: `bevformer_torch.tools.dp_step` over two gloo ranks of the
-     card, bevformer_base for 2 steps and bevformerv2-r50-t1 for 1 (the
+     card, bevformer_base for 2 steps (a further job of phase 18's base
+     launch, `--then`: one torchrun start-up) and bevformerv2-r50-t1 for 1 (the
      synced BatchNorm), two samples with unequal ground-truth counts,
      GridMask and dropout off, held against one process stepping both as
      one batch (and in the other order, the witness): the first step's losses
@@ -203,7 +208,25 @@ Phases, each printed as it runs:
      1e-3; per rank the K1 launches, the peak and the frame's time); then
      K1 and K3/K4 at a rank's split shapes against their plain versions
      (TSA at 20000 of the 40000 queries, SCA at rank 0's packed routed
-     rows).
+     rows);
+  19. the modules no registered config builds, at full width: (a) VoVNet
+     V2-99 (FrozenBN, seeded statistics, eval mode) on a 6 x 3 x 640 x 1600
+     batch: its stride 8/16/32 outputs (512/768/1024 channels), the
+     forward's time and peak, and the folded model (`fuse_conv_bn`) within
+     1e-4 of the unfolded one; (b) MMBEVFormerLayer at its defaults (base's
+     widths, SCA routing every query) on 40,000 queries, base's 6-camera
+     value over 4 levels, a 200 x 200 lidar BEV and base's `point_sampling`
+     of the synthetic rigs: kernel path against plain path, forward (1e-4)
+     and one backward (each gradient 1e-3 in relative L2), times, peak, its
+     launches counted from 0 (K1 3, K3/K4 3); then K1 and K3/K4 at the
+     layer's new shapes (the lidar branch, dense SCA) against their plain
+     versions with bounds; (c) BEVHead (FreeAnchor) on a 200 x 200 x 256
+     BEV (800,000 anchors): forward, the loss on 12 GT boxes, backward,
+     `get_bboxes(300)`, times and peak, and the same predictions on the
+     CPU: the losses within 1e-5, every bag's anchors and the decoded picks
+     equal in order (ties: a box outside the BEV, saturated scores); (d)
+     is in phase 12: the JPEG `load_ms` and the decode times. Each phase's
+     seconds are printed at the end.
 
 The line before the last is the kernels' JSON record (bf16 K1 and K3/K4
 with the launches of tiny_fp16's training run; bf16 K2, K5 and K6 with those
@@ -211,7 +234,8 @@ of bevformer_base's bf16 training run; K1 also with its launches on
 the V2 presets' samples and its times at V2's shapes; K1 and K3/K4 with
 their launches per V2 training step and times at V2 training's new
 shapes, and with their times at a rank's split shapes and each rank's
-launches by call site in phase 18's steps): for each kernel its
+launches by call site in phase 18's steps, and at MMBEVFormerLayer's
+shapes with the layer's launches): for each kernel its
 time, launches, plain version's time, bound (bevformer_torch/tools/
 roofline.py, against the H100 SXM data sheet's peaks) and what bounds it,
 and the time of one PyTorch call that computes the same function, or null
@@ -2208,8 +2232,10 @@ def check_v2_training(name, steps, device, smi):
 
 # ---------------------------------------------------------------- CLIs
 
-CLI_TRAIN_STEPS = 4  # tools.train, then tools.train --resume-from to CLI_RESUME_STEPS
-CLI_RESUME_STEPS = 6
+CLI_TRAIN_STEPS = 4  # tools.train bevformer_base (V2 t1 resumes its run: check_cli_v2_train)
+# phase 12's one root: 4 scenes x 4 frames at 1600 x 900 (2 train, 2 val
+# scenes); phase 17's tools.test splits its 8 val frames at a scene start
+CLI_SCENES, CLI_FRAMES = 4, 4
 CLI_TIMEOUT = 600  # seconds per CLI process
 PERFECT_TOL = 1e-9  # |mAP - 1| and every TP error of the ground truth scored against itself
 
@@ -2229,6 +2255,41 @@ def run_cli(args, what):
     check(proc.returncode == 0, f"{what} exited {proc.returncode}")
     records = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
     return records, secs
+
+
+MAINS = """import json, sys
+from importlib import import_module
+for i, (module, argv) in enumerate(json.loads(sys.argv[1])):
+    print(json.dumps({"run": i}), flush=True)
+    import_module(module).main(argv)
+"""
+
+
+def run_mains(calls, what):
+    """`module.main(argv)` for each (module, argv) of `calls`, in order in
+    one process (one start-up; the later runs on a warm card), as `run_cli`
+    runs one CLI: the JSON lines of each run, and the process's wall
+    seconds. Each CLI counts the launches of its own run."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", MAINS, json.dumps(calls)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(f"[cli] {what} stdout:\n{proc.stdout[-4000:]}\n[cli] {what} stderr:\n"
+            f"{proc.stderr[-8000:]}")
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    runs = []
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            rec = json.loads(line)
+            if list(rec) == ["run"]:
+                runs.append([])
+            else:
+                runs[-1].append(rec)
+    check(len(runs) == len(calls), f"{what}: {len(runs)} runs of {len(calls)}")
+    return runs, secs
 
 
 def one(records, key, what):
@@ -2306,29 +2367,28 @@ def check_cli_fp16_and_fuse(data, root, smi):
     """`tools.fp16.train bevformer_tiny` for FP16_CLI_STEPS steps on the
     phase's root (bf16: the bf16 K1 and K3/K4 launches per step of
     bevformer_tiny_fp16), then `tools.test bevformer_tiny` on its checkpoint
-    with and without `--fuse-conv-bn`: the K1 launches per frame of tiny,
-    and the same decoded boxes (scores to FUSE_SCORE_TOL, matched boxes to
-    FUSE_BOX_TOL of scale)."""
-    import numpy as np
+    without and with `--fuse-conv-bn`, the three in one process: the K1
+    launches per frame of tiny, and the same decoded boxes (scores to
+    FUSE_SCORE_TOL, matched boxes to FUSE_BOX_TOL of scale)."""
     from bevformer_torch.configs import get_config
 
     work = os.path.join(root, "work_fp16")
     what = f"tools.fp16.train bevformer_tiny to step {FP16_CLI_STEPS}"
-    recs, train_s = run_cli(["bevformer_torch.tools.fp16.train", "bevformer_tiny", "--data-root",
-                             data, "--work-dir", work, "--max-iters", str(FP16_CLI_STEPS),
-                             "--log-interval", "1"], what)
+    ckpt = os.path.join(work, "ckpts", f"iter_{FP16_CLI_STEPS}.pth")
+    fold = fold_comparison("bevformer_tiny", data, ckpt, work,
+                           path_launches(get_config("bevformer_tiny"))[0], smi, before=[
+                               ("bevformer_torch.tools.fp16.train",
+                                ["bevformer_tiny", "--data-root", data, "--work-dir", work,
+                                 "--max-iters", str(FP16_CLI_STEPS), "--log-interval", "1"])])
+    recs = fold["before"][0]
     done = one(recs, "done", what)
     steps = [r for r in recs if "step_ms" in r and "done" not in r]
     want = times(path_launches(get_config("bevformer_tiny_fp16"))[1], done["steps"])
     check(done["launches"] == want, f"{what}: launches {done['launches']}, want {want}")
     check(all(math.isfinite(r["total"]) for r in steps), f"{what}: {steps}")
-    log(f"[cli] {what}: {train_s:.1f} s, peak {done['peak_gib']} GiB, launches "
-        f"{done['launches']}; steps: " + "; ".join(
+    log(f"[cli] {what} (first of the process's runs, {fold['seconds']:.1f} s), peak "
+        f"{done['peak_gib']} GiB, launches {done['launches']}; steps: " + "; ".join(
             f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms" for r in steps))
-
-    ckpt = os.path.join(work, "ckpts", f"iter_{FP16_CLI_STEPS}.pth")
-    fold = fold_comparison("bevformer_tiny", data, ckpt, work,
-                           path_launches(get_config("bevformer_tiny"))[0], smi)
     return dict(fp16_step_ms=median_of([r["step_ms"] for r in steps[1:]]),
                 fp16_peak_gib=done["peak_gib"], fuse_score_err=fold["score_err"],
                 fuse_box_err=fold["box_err"], fuse_frame_ms=fold["folded_ms"],
@@ -2339,39 +2399,41 @@ def check_cli_base_bf16(data, root, smi):
     """`tools.train bevformer_base --cfg-options dtype=bfloat16` for
     BF16_CLI_STEPS steps on the phase's root, then `tools.test
     bevformer_base --cfg-options dtype=bfloat16` on its checkpoint over
-    BF16_CLI_FRAMES val frames: the bf16 K1-K6 launches per step and per
-    frame, finite losses and metrics."""
+    BF16_CLI_FRAMES val frames, the two in one process: the bf16 K1-K6
+    launches per step and per frame, finite losses and metrics."""
     from bevformer_torch.configs import get_config
 
     cfg = get_config("bevformer_base").replace(dtype="bfloat16")
     per_frame, per_step = path_launches(cfg)
     work = os.path.join(root, "work_bf16")
     what = f"tools.train bevformer_base dtype=bfloat16 to step {BF16_CLI_STEPS}"
-    recs, train_s = run_cli(["bevformer_torch.tools.train", "bevformer_base", "--data-root", data,
-                             "--work-dir", work, "--max-iters", str(BF16_CLI_STEPS),
-                             "--log-interval", "1", "--cfg-options", "dtype=bfloat16"], what)
+    test_what = f"tools.test bevformer_base dtype=bfloat16 over {BF16_CLI_FRAMES} frames"
+    (recs, test_recs), secs = run_mains([
+        ("bevformer_torch.tools.train",
+         ["bevformer_base", "--data-root", data, "--work-dir", work, "--max-iters",
+          str(BF16_CLI_STEPS), "--log-interval", "1", "--cfg-options", "dtype=bfloat16"]),
+        ("bevformer_torch.tools.test",
+         ["bevformer_base", "--data-root", data, "--checkpoint",
+          os.path.join(work, "ckpts", f"iter_{BF16_CLI_STEPS}.pth"), "--out",
+          os.path.join(work, "results.json"), "--max-samples", str(BF16_CLI_FRAMES),
+          "--cfg-options", "dtype=bfloat16"])], f"{what}, then {test_what}")
     done = one(recs, "done", what)
     steps = [r for r in recs if "step_ms" in r and "done" not in r]
     want = times(per_step, done["steps"])
     check(done["launches"] == want, f"{what}: launches {done['launches']}, want {want}")
     check(all(math.isfinite(r["total"]) for r in steps), f"{what}: {steps}")
-    log(f"[cli] {what}: {train_s:.1f} s, peak {done['peak_gib']} GiB, launches "
-        f"{done['launches']}; steps: " + "; ".join(
+    log(f"[cli] {what} (the process of it and the test {secs:.1f} s), peak {done['peak_gib']} "
+        f"GiB, launches {done['launches']}; steps: " + "; ".join(
             f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms" for r in steps))
 
-    what = f"tools.test bevformer_base dtype=bfloat16 over {BF16_CLI_FRAMES} frames"
-    recs, test_s = run_cli(["bevformer_torch.tools.test", "bevformer_base", "--data-root", data,
-                            "--checkpoint", os.path.join(work, "ckpts",
-                                                         f"iter_{BF16_CLI_STEPS}.pth"),
-                            "--out", os.path.join(work, "results.json"), "--max-samples",
-                            str(BF16_CLI_FRAMES), "--cfg-options", "dtype=bfloat16"], what)
-    timing = one(recs, "frame_ms", what)
-    summary = one(recs, "NDS", what)
+    what = test_what
+    timing = one(test_recs, "frame_ms", what)
+    summary = one(test_recs, "NDS", what)
     want = times(per_frame, timing["frames"])
     check(timing["frames"] == BF16_CLI_FRAMES, f"{what}: {timing['frames']} frames")
     check(timing["launches"] == want, f"{what}: launches {timing['launches']}, want {want}")
     check(all(math.isfinite(v) for v in summary.values()), f"{what}: {summary}")
-    log(f"[cli] {what}: {test_s:.1f} s, frame ms {[round(x, 1) for x in timing['frame_ms']]}, "
+    log(f"[cli] {what}: frame ms {[round(x, 1) for x in timing['frame_ms']]}, "
         f"peak {timing['peak_gib']} GiB, launches {timing['launches']}; {json.dumps(summary)}; "
         f"card: {smi}")
     return dict(bf16_step_ms=median_of([r["step_ms"] for r in steps[1:]]),
@@ -2379,30 +2441,38 @@ def check_cli_base_bf16(data, root, smi):
                 bf16_test_peak_gib=timing["peak_gib"])
 
 
-def fold_comparison(name, data, ckpt, work, per_frame, smi):
-    """`tools.test <name>` on `ckpt` over the val frames with and without
-    `--fuse-conv-bn`: each run launches every kernel `per_frame` times a
-    frame and gives finite metrics, and the two give the same decoded boxes
+def fold_comparison(name, data, ckpt, work, per_frame, smi, before=()):
+    """`tools.test <name>` on `ckpt` over the val frames without and with
+    `--fuse-conv-bn`, the two runs in one process (`run_mains`): each run
+    launches every kernel `per_frame` times a frame and gives finite
+    metrics, and the two give the same decoded boxes; the (module, argv)
+    calls `before` run first in the same process (their JSON lines come
+    back as the result's "before")
     (scores to FUSE_SCORE_TOL, matched boxes to FUSE_BOX_TOL of scale).
     Returns each run's frame median and the two errors."""
     import numpy as np
 
     runs, res = {}, {}
-    for tag, more in (("unfolded", []), ("folded", ["--fuse-conv-bn"])):
+    tags = (("unfolded", []), ("folded", ["--fuse-conv-bn"]))
+    outs = {tag: os.path.join(work, f"{name}_{tag}.json") for tag, _ in tags}
+    recs_by_run, secs = run_mains([*before] + [
+        ("bevformer_torch.tools.test",
+         [name, "--data-root", data, "--checkpoint", ckpt, "--out", outs[tag], *more])
+        for tag, more in tags], f"tools.test {name} unfolded, then folded, in one process")
+    res["before"], res["seconds"] = recs_by_run[:len(before)], secs
+    for (tag, _), recs in zip(tags, recs_by_run[len(before):]):
         what = f"tools.test {name} {tag}"
-        out = os.path.join(work, f"{name}_{tag}.json")
-        recs, secs = run_cli(["bevformer_torch.tools.test", name, "--data-root", data,
-                              "--checkpoint", ckpt, "--out", out, *more], what)
         timing = one(recs, "frame_ms", what)
         summary = one(recs, "NDS", what)
         want = times(per_frame, timing["frames"])
         check(timing["launches"] == want, f"{what}: launches {timing['launches']}, want {want}")
         check(all(math.isfinite(v) for v in summary.values()), f"{what}: {summary}")
-        with open(out) as f:
+        with open(outs[tag]) as f:
             runs[tag] = {r["token"]: {k: np.asarray(v) for k, v in r.items() if k != "token"}
                          for r in json.load(f)}
-        log(f"[cli] {what}: {secs:.1f} s over {timing['frames']} frames, frame ms "
-            f"{[round(x, 1) for x in timing['frame_ms']]} (load "
+        log(f"[cli] {what} ({secs:.1f} s for the process's {len(recs_by_run)} runs) over "
+            f"{timing['frames']} frames, "
+            f"frame ms {[round(x, 1) for x in timing['frame_ms']]} (load "
             f"{[round(x, 1) for x in timing['load_ms']]}), median {timing['frame_ms_median']:.1f} "
             f"ms, peak {timing['peak_gib']} GiB, launches {timing['launches']}; NDS "
             f"{summary['NDS']!r} mAP {summary['mAP']!r}")
@@ -2467,7 +2537,9 @@ def check_cli_v2_train(data, root, smi):
     GlobalRotScaleTrans per sample): CLI_TRAIN_STEPS steps with a
     checkpoint, then `--resume-from` it to V2_CLI_RESUME_STEPS with
     `--eval-interval-epochs 1` (the eval at the epoch's end, through
-    `VideoEvaluatorV2`): finite losses, K1 and K3/K4 launches per step (and
+    `VideoEvaluatorV2`), the two runs in one process (`run_mains`; the
+    resumed run restores everything from the checkpoint, as a new process
+    does): finite losses, K1 and K3/K4 launches per step (and
     the eval's K1 per val sample), the restored step, lr and generators
     the saved ones, an NDS/mAP line. Returns
     the step, host and data-wait medians and the peak."""
@@ -2485,30 +2557,35 @@ def check_cli_v2_train(data, root, smi):
     n_val = len(load_infos(os.path.join(data, "nuscenes_infos_temporal_val.pkl"))[0])
     per_eval = times(v2_per_sample(cfg), n_val)
 
-    def train(steps, evals, *more):
+    ckpt_path = os.path.join(work, "ckpts", f"iter_{CLI_TRAIN_STEPS}.pth")
+    args = [name, "--data-root", data, "--work-dir", work, "--log-interval", "1",
+            "--eval-interval-epochs", "1", "--max-iters"]
+    runs, secs = run_mains([
+        ("bevformer_torch.tools.train", [*args, str(CLI_TRAIN_STEPS)]),
+        ("bevformer_torch.tools.train", [*args, str(V2_CLI_RESUME_STEPS), "--resume-from",
+                                         ckpt_path])],
+        f"tools.train {name} to step {CLI_TRAIN_STEPS}, then resumed to {V2_CLI_RESUME_STEPS}")
+
+    def parsed(recs, steps, evals):
         what = f"tools.train {name} to step {steps}"
-        recs, secs = run_cli(["bevformer_torch.tools.train", name, "--data-root", data,
-                              "--work-dir", work, "--max-iters", str(steps), "--log-interval",
-                              "1", "--eval-interval-epochs", "1", *more], what)
         logged = [r for r in recs if "step_ms" in r and "done" not in r]
         done = one(recs, "done", what)
         for r in logged:
             check(all(math.isfinite(v) for v in r.values() if isinstance(v, float)), f"{what}: {r}")
         expect = {k: v * done["steps"] + evals * per_eval[k] for k, v in want.items()}
         check(done["launches"] == expect, f"{what}: launches {done['launches']}, want {expect}")
-        log(f"[cli] {what}: {secs:.1f} s, peak {done['peak_gib']} GiB, launches "
-            f"{done['launches']}; steps: " + "; ".join(
+        log(f"[cli] {what} (the process of both runs {secs:.1f} s), peak {done['peak_gib']} "
+            f"GiB, launches {done['launches']}; steps: " + "; ".join(
                 f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms host "
                 f"{r['host_ms']:.1f} ms wait {r['data_wait_ms']:.1f} ms" for r in logged))
         return recs, logged, done
 
-    _, first, first_done = train(CLI_TRAIN_STEPS, 0)
-    ckpt_path = os.path.join(work, "ckpts", f"iter_{CLI_TRAIN_STEPS}.pth")
+    _, first, first_done = parsed(runs[0], CLI_TRAIN_STEPS, 0)
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     saved = dict(step=ckpt["step"], lr=ckpt["scheduler"]["_last_lr"], rng=rng_digests(ckpt["rng"]))
     n_mono = sum(k.startswith("fcos3d_bbox_head.") for k in ckpt["state_dict"])
     del ckpt
-    recs, second, second_done = train(V2_CLI_RESUME_STEPS, 1, "--resume-from", ckpt_path)
+    recs, second, second_done = parsed(runs[1], V2_CLI_RESUME_STEPS, 1)
     resumed = one(recs, "resumed_from", f"tools.train {name} --resume-from")
     restored = {k: resumed[k] for k in saved}
     check(restored == saved, f"{name}: restored {restored} != saved {saved}")
@@ -2572,7 +2649,7 @@ def photometric_times(smi):
 
 def check_cli_v2_train_t8(data, root, smi):
     """`tools.train bevformerv2-r50-t8` on the phase's root for
-    V2_T8_CLI_STEPS steps: each sample's 8 frames of 6 PNGs through the
+    V2_T8_CLI_STEPS steps: each sample's 8 frames of 6 JPEGs through the
     photometric distortion, PIL's resize and the flip in the data thread,
     against t8's step. Finite losses, 102 K1 and 18 K3/K4 launches per
     step; the medians of steps 1-2 of the step, host and data-wait times,
@@ -2607,15 +2684,18 @@ def check_cli_v2_train_t8(data, root, smi):
 
 
 def check_cli(smi):
-    """The port's CLIs as a user runs them, each its own process, at
-    bevformer_base full size: create_data synth at its defaults (2 scenes x
-    8 frames x 6 cameras at 1600 x 900: one train scene, one val scene),
-    tools.train for CLI_TRAIN_STEPS steps with a checkpoint, tools.train
-    --resume-from it to CLI_RESUME_STEPS (the restored step, lr and random
-    generators must be the saved ones), tools.test on the last checkpoint
-    over the val frames; each must exit 0 with finite numbers and launch
-    every kernel of its path as often as the path does. Then the perfect
-    detector. The root is removed afterwards."""
+    """The port's CLIs as a user runs them, through their `main(argv)` in
+    processes of their own (a few CLIs a process, `run_mains`: each
+    process's start-up costs 10-25 s), at bevformer_base full size:
+    create_data synth of CLI_SCENES x CLI_FRAMES (x 6 cameras at 1600 x
+    900, JPEG: half the scenes train, half validate), tools.train for
+    CLI_TRAIN_STEPS steps with a checkpoint, tools.test on it over the val
+    frames; each must finish with finite numbers and launch every kernel of
+    its path as often as the path does (`--resume-from` runs in V2 t1's
+    `tools.train`, `check_cli_v2_train`).
+    Then the perfect detector, one frame's decodes timed (`decode_times`),
+    and the other CLI checks on the same root. The root is removed
+    afterwards."""
     import shutil
     import tempfile
 
@@ -2628,56 +2708,50 @@ def check_cli(smi):
     root = tempfile.mkdtemp(prefix="bevformer_cli_")
     data, work = os.path.join(root, "data"), os.path.join(root, "work")
     try:
-        _, create_s = run_cli(["bevformer_torch.tools.create_data", "synth", "--out-dir", data],
-                              "create_data")
-        n_png = len(os.listdir(os.path.join(data, "samples")))
-        log(f"[cli] create_data synth: {n_png} PNG images in {create_s:.1f} s")
-
-        def train(steps, *more):
-            what = f"tools.train to step {steps}"
-            recs, secs = run_cli(["bevformer_torch.tools.train", "bevformer_base", "--data-root",
-                                  data, "--work-dir", work, "--max-iters", str(steps),
-                                  "--log-interval", "1", *more], what)
-            steps_logged = [r for r in recs if "step_ms" in r and "done" not in r]
-            done = one(recs, "done", what)
-            for r in steps_logged:
-                check(all(math.isfinite(r[k]) for k in ("total", "loss_cls", "loss_bbox",
-                                                        "grad_norm")), f"{what}: {r}")
-            ran = done["steps"]
-            want = {k: v * ran for k, v in TRAIN_PER_STEP.items()}
-            check(done["launches"] == want, f"{what}: launches {done['launches']}, want {want}")
-            log(f"[cli] {what}: {secs:.1f} s, peak {done['peak_gib']} GiB, launches "
-                f"{done['launches']}; steps: " + "; ".join(
-                    f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms host "
-                    f"{r['host_ms']:.1f} ms wait {r['data_wait_ms']:.1f} ms" for r in steps_logged))
-            return recs, steps_logged, done
-
-        _, first_steps, first_done = train(CLI_TRAIN_STEPS)
         ckpt_path = os.path.join(work, "ckpts", f"iter_{CLI_TRAIN_STEPS}.pth")
+        out = os.path.join(work, "results.json")
+        (_, recs, test_recs), secs = run_mains([
+            ("bevformer_torch.tools.create_data",
+             ["synth", "--out-dir", data, "--scenes", str(CLI_SCENES), "--frames",
+              str(CLI_FRAMES)]),
+            ("bevformer_torch.tools.train",
+             ["bevformer_base", "--data-root", data, "--work-dir", work, "--max-iters",
+              str(CLI_TRAIN_STEPS), "--log-interval", "1"]),
+            ("bevformer_torch.tools.test",
+             ["bevformer_base", "--data-root", data, "--checkpoint", ckpt_path, "--out", out])],
+            "create_data, tools.train, tools.test")
+        names = os.listdir(os.path.join(data, "samples"))
+        check(len(names) == CLI_SCENES * CLI_FRAMES * 6 and all(n.endswith(".jpg") for n in names),
+              f"create_data synth wrote {len(names)} files, not all .jpg")
+        log(f"[cli] create_data synth: {len(names)} JPEG images; then tools.train and tools.test "
+            f"in the same process, {secs:.1f} s for the three")
+
+        what = f"tools.train to step {CLI_TRAIN_STEPS}"
+        first_steps = [r for r in recs if "step_ms" in r and "done" not in r]
+        first_done = one(recs, "done", what)
+        for r in first_steps:
+            check(all(math.isfinite(r[k]) for k in ("total", "loss_cls", "loss_bbox",
+                                                    "grad_norm")), f"{what}: {r}")
+        want = {k: v * first_done["steps"] for k, v in TRAIN_PER_STEP.items()}
+        check(first_done["launches"] == want,
+              f"{what}: launches {first_done['launches']}, want {want}")
+        log(f"[cli] {what}: peak {first_done['peak_gib']} GiB, launches "
+            f"{first_done['launches']}; steps: " + "; ".join(
+                f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms host "
+                f"{r['host_ms']:.1f} ms wait {r['data_wait_ms']:.1f} ms" for r in first_steps))
         ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        saved = dict(step=ckpt["step"], lr=ckpt["scheduler"]["_last_lr"],
-                     rng=rng_digests(ckpt["rng"]))
+        saved = dict(step=ckpt["step"], rng=rng_digests(ckpt["rng"]))
         check(sorted(ckpt) == ["meta", "optimizer", "rng", "scheduler", "state_dict", "step"],
               f"checkpoint keys {sorted(ckpt)}")
         del ckpt
-        second, second_steps, second_done = train(CLI_RESUME_STEPS, "--resume-from", ckpt_path)
-        resumed = one(second, "resumed_from", "tools.train --resume-from")
-        restored = {k: resumed[k] for k in saved}
-        log(f"[cli] saved {saved}; restored {restored}")
-        check(restored == saved, f"restored {restored} != saved {saved}")
         check(saved["step"] == CLI_TRAIN_STEPS, f"saved step {saved['step']}")
         check("torch_cuda" in saved["rng"], f"saved rng {saved['rng']}")
-        check([r["step"] for r in first_steps + second_steps] == list(range(CLI_RESUME_STEPS)),
-              "the two runs did not log steps 0-5 once each")
+        check([r["step"] for r in first_steps] == list(range(CLI_TRAIN_STEPS)),
+              f"the run did not log steps 0-{CLI_TRAIN_STEPS - 1} once each")
 
         cfg = get_config("bevformer_base")
-        out = os.path.join(work, "results.json")
-        recs, test_s = run_cli(["bevformer_torch.tools.test", "bevformer_base", "--data-root", data,
-                                "--checkpoint", os.path.join(work, "ckpts",
-                                                             f"iter_{CLI_RESUME_STEPS}.pth"),
-                                "--out", out], "tools.test")
-        timing = one(recs, "frame_ms", "tools.test")
-        summary = one(recs, "NDS", "tools.test")
+        timing = one(test_recs, "frame_ms", "tools.test")
+        summary = one(test_recs, "NDS", "tools.test")
         frames = timing["frames"]
         per_frame = dict(TRAIN_PER_STEP, msda_fwd=K1_PER_FRAME, dcn_conv_fwd=K2_PER_FRAME,
                          msda_bwd=0, dcn_im2col=0, dcn_col2im=0)
@@ -2691,37 +2765,38 @@ def check_cli(smi):
         check(sorted(metrics) == ["label_aps", "label_tp_errors", "mean_ap", "nd_score",
                                   "tp_errors"], f"metrics_summary.json keys {sorted(metrics)}")
         check(os.path.exists(os.path.splitext(out)[0] + "_nusc.json"), "no submission json")
-        log(f"[cli] tools.test over {frames} val frames: {test_s:.1f} s, frame ms "
+        log(f"[cli] tools.test over {frames} val frames: frame ms "
             f"{[round(x, 1) for x in timing['frame_ms']]} (load "
             f"{[round(x, 1) for x in timing['load_ms']]}), peak {timing['peak_gib']} GiB, "
             f"launches {timing['launches']}; {json.dumps(summary)}")
 
         perfect_detector(data, cfg, "cuda")
+        decode = decode_times(data, smi)
         fp16 = check_cli_fp16_and_fuse(data, root, smi)
         fp16.update(check_cli_base_bf16(data, root, smi))
         v2 = check_cli_v2(data, root, smi)
         v2.update(check_cli_v2_train(data, root, smi))
         v2.update(check_cli_v2_train_t8(data, root, smi))
         v2.update(photometric_times(smi))
-        v2.update(check_dp_cli(data, root, work, first_steps, smi))
+        v2.update(check_dp_cli(data, root, ckpt_path, first_steps, smi))
 
-        # each run's first step carries its process's warm-up
-        steady = first_steps[1:] + second_steps[1:]
+        # the run's first step carries its process's warm-up
+        steady = first_steps[1:]
         res = dict(
             step_ms=median_of([r["step_ms"] for r in steady]),
             host_ms=median_of([r["host_ms"] for r in steady]),
             data_wait_ms=median_of([r["data_wait_ms"] for r in steady]),
             frame_ms=timing["frame_ms_median"], load_ms=timing["load_ms_median"],
-            train_peak_gib=max(first_done["peak_gib"] or 0, second_done["peak_gib"] or 0),
+            train_peak_gib=first_done["peak_gib"],
             test_peak_gib=timing["peak_gib"], NDS=summary["NDS"], mAP=summary["mAP"],
         )
-        res.update(fp16, **v2)
+        res.update(fp16, **v2, **decode)
         res["seconds"] = time.perf_counter() - t_start
         log(f"[cli] medians: tools.train step {res['step_ms']:.1f} ms (steps "
             f"{[r['step'] for r in steady]}), host {res['host_ms']:.1f} ms, data wait "
             f"{res['data_wait_ms']:.1f} ms; tools.test frame {res['frame_ms']:.1f} ms (load "
             f"{res['load_ms']:.1f} ms); peak train {res['train_peak_gib']} / test "
-            f"{res['test_peak_gib']} GiB; seeded weights after {CLI_RESUME_STEPS} steps: NDS "
+            f"{res['test_peak_gib']} GiB; seeded weights after {CLI_TRAIN_STEPS} steps: NDS "
             f"{res['NDS']!r} mAP {res['mAP']!r}; phase wall time {res['seconds']:.1f} s; card: {smi}")
         return res
     finally:
@@ -2732,6 +2807,9 @@ def check_cli(smi):
 
 DP_CLI_STEPS = CLI_TRAIN_STEPS  # tools.train over one NCCL rank, against phase 12's first run
 DP_STEPS = (("bevformer_base", 2), ("bevformerv2-r50-t1", 1))  # dp_step over 2 gloo ranks
+# the DP_STEPS configs whose dp_step runs as a further job (`--then`) of
+# phase 18's launch of the same config: one torchrun start-up for both
+DP_IN_SP = ("bevformer_base",)
 DP_GT_COUNTS = (12, 5)  # the two samples' ground-truth counts (unequal)
 # ||update(2 ranks) - update(1 process)|| / ||update(1 process)|| of a group.
 # Adam's first steps move each element by about lr x sign(g): the error is
@@ -2761,7 +2839,7 @@ def torchrun(nproc: int):
             "localhost", "--master-port", str(free_port())]
 
 
-def check_dp_cli(data, root, work, first_steps, smi):
+def check_dp_cli(data, root, ckpt, first_steps, smi):
     """Phase 17 (a) and (b)'s tools.test, on phase 12's root: `tools.train
     bevformer_base` under torchrun with one rank over NCCL (DDP, the
     process group, the rank-mean normalisers) for DP_CLI_STEPS steps
@@ -2769,8 +2847,9 @@ def check_dp_cli(data, root, work, first_steps, smi):
     losses and grad norm within TRAIN_TOL (K3/K4 and K6 add with atomics:
     not bitwise), the later ones reported (`step_errors`); then
     `tools.test` on two gloo ranks of the one card against this process on
-    a root of 4 scenes x 2 frames (the split falls on a scene start): the
-    same boxes within DP_BOX_TOL."""
+    the root's val split (2 scenes of CLI_FRAMES: the split falls on a
+    scene start), from phase 12's checkpoint `ckpt`: the same boxes within
+    DP_BOX_TOL."""
     import json as _json
 
     import numpy as np
@@ -2799,15 +2878,11 @@ def check_dp_cli(data, root, work, first_steps, smi):
         f"{median_of([r['step_ms'] for r in first_steps[1:]]):.1f}), peak {done['peak_gib']:.2f} GiB, "
         f"launches {done['launches']}; card: {smi}")
 
-    aligned = os.path.join(root, "dp_data")
-    run_cli(["bevformer_torch.tools.create_data", "synth", "--out-dir", aligned, "--scenes", "4",
-             "--frames", "2"], "create_data (4 scenes x 2 frames)")
-    ckpt = os.path.join(work, "ckpts", f"iter_{CLI_RESUME_STEPS}.pth")
     outs = {}
     for n in (2, 1):
         out = os.path.join(root, f"dp_test{n}", "r.json")
         os.makedirs(os.path.dirname(out))
-        args = ["bevformer_base", "--data-root", aligned, "--checkpoint", ckpt, "--out", out]
+        args = ["bevformer_base", "--data-root", data, "--checkpoint", ckpt, "--out", out]
         t1 = time.perf_counter()
         if n == 2:
             recs, _ = run_cli([*torchrun(2), "-m", "bevformer_torch.tools.test", *args, "--device",
@@ -2819,8 +2894,9 @@ def check_dp_cli(data, root, work, first_steps, smi):
             outs[n] = [{k: np.asarray(v) for k, v in r.items()} for r in _json.load(f)]
         res[f"test{n}_s"] = time.perf_counter() - t1
         res[f"test{n}_frame_ms"] = frame_ms
-    check([r["token"] for r in outs[2]] == [r["token"] for r in outs[1]] and len(outs[1]) == 4,
-          "tools.test on 2 ranks: other frames than on 1")
+    n_val = CLI_SCENES // 2 * CLI_FRAMES
+    check([r["token"] for r in outs[2]] == [r["token"] for r in outs[1]]
+          and len(outs[1]) == n_val, "tools.test on 2 ranks: other frames than on 1")
     errs = []
     for a, b in zip(outs[2], outs[1]):
         score_err, box_err, missing = box_set_errors(a, b)
@@ -2830,8 +2906,8 @@ def check_dp_cli(data, root, work, first_steps, smi):
         errs.append((score_err, box_err))
     res["test_box_err"] = max(max(e) for e in errs)
     res["dp_cli_seconds"] = time.perf_counter() - t0
-    log(f"[dp] tools.test bevformer_base over 4 val frames (2 scenes) on 2 gloo ranks of the one "
-        f"card ({res['test2_s']:.1f} s; rank 0's frame ms "
+    log(f"[dp] tools.test bevformer_base over {n_val} val frames (2 scenes) on 2 gloo ranks of "
+        f"the one card ({res['test2_s']:.1f} s; rank 0's frame ms "
         f"{[round(x, 1) for x in res['test2_frame_ms']]}) vs this process ({res['test1_s']:.1f} s): "
         f"max score / box error {res['test_box_err']:.3e}; card: {smi}")
     return res
@@ -2936,7 +3012,25 @@ def swap_samples(batch):
                        mono_targets={k: swap(v) for k, v in batch.mono_targets.items()})
 
 
-def check_dp_step(name, steps, device, smi):
+def dp_job(name, steps, tmp):
+    """Phase 17 (b)'s `tools.dp_step` job for `name`, its spec written into
+    `tmp`: full size, GridMask off, seeded weights, `two_sample_batch`."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.runtime import init_state_dict
+
+    t0 = time.perf_counter()
+    cfg = get_config(name).replace(use_grid_mask=False)
+    sd = init_state_dict(cfg, seed=0)
+    batch = two_sample_batch(cfg)
+    spec, out = os.path.join(tmp, f"dp_{name}.pt"), os.path.join(tmp, f"dp_{name}_out.pt")
+    torch.save(dict(cfg=cfg, state_dict=sd, batch=batch, steps=steps,
+                    total_steps=TRAIN_TOTAL_STEPS), spec)
+    return dict(name=name, steps=steps, cfg=cfg, sd=sd, batch=batch, spec=spec, out=out,
+                made_s=time.perf_counter() - t0)
+
+
+def check_dp_step(name, steps, device, smi, launched=None):
     """Phase 17 (b): `name` at full size, `steps` steps of two samples
     (GridMask and dropout off) over two gloo ranks of the one card
     (`tools.dp_step` under torchrun: DDP, the synced BatchNorms, the
@@ -2949,79 +3043,75 @@ def check_dp_step(name, steps, device, smi):
     running statistics within DP_STATS_TOL. A later step starts from
     weights that the first step's Adam sign steps moved apart wherever
     rounding put a gradient element on the other side of 0, which random
-    weights amplify: it runs (DDP's second iteration) and is reported."""
+    weights amplify: it runs (DDP's second iteration) and is reported.
+    `launched`: (the `dp_job`, its output, the launch's seconds) of a job
+    another launch ran (`DP_IN_SP`); else this launches it."""
     import shutil
     import tempfile
 
     import torch
-    from bevformer_torch.configs import get_config
-    from bevformer_torch.runtime import init_state_dict
 
-    cfg = get_config(name).replace(use_grid_mask=False)
-    tmp = tempfile.mkdtemp(prefix="bevformer_dp_")
-    try:
-        t0 = time.perf_counter()
-        sd = init_state_dict(cfg, seed=0)
-        batch = two_sample_batch(cfg)
-        spec = os.path.join(tmp, "spec.pt")
-        torch.save(dict(cfg=cfg, state_dict=sd, batch=batch, steps=steps,
-                        total_steps=TRAIN_TOTAL_STEPS), spec)
-        made_s = time.perf_counter() - t0
-        out_path = os.path.join(tmp, "out.pt")
-        _, secs = run_cli([*torchrun(2), "-m", "bevformer_torch.tools.dp_step", spec, out_path,
-                           "--device", str(device), "--dist-backend", "gloo"],
-                          f"dp_step {name} on 2 gloo ranks")
-        out = torch.load(out_path, map_location="cpu", weights_only=False)
-        ref = one_process_steps(cfg, sd, batch, steps, device)
-        witness = one_process_steps(cfg, sd, swap_samples(batch), 1, device)
+    if launched is None:
+        tmp = tempfile.mkdtemp(prefix="bevformer_dp_")
+        try:
+            job = dp_job(name, steps, tmp)
+            _, secs = run_cli([*torchrun(2), "-m", "bevformer_torch.tools.dp_step", job["spec"],
+                               job["out"], "--device", str(device), "--dist-backend", "gloo"],
+                              f"dp_step {name} on 2 gloo ranks")
+            out = torch.load(job["out"], map_location="cpu", weights_only=False)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    else:
+        job, out, secs = launched
+    cfg, sd, batch, made_s = job["cfg"], job["sd"], job["batch"], job["made_s"]
+    ref = one_process_steps(cfg, sd, batch, steps, device)
+    witness = one_process_steps(cfg, sd, swap_samples(batch), 1, device)
 
-        loss_err, loss_noise = step_errors(out["outs"], ref["outs"]), step_errors(
-            witness["outs"], ref["outs"])
-        check(loss_err[0] <= max(TRAIN_TOL, WITNESS_FACTOR * loss_noise[0]),
-              f"dp {name} step 0: losses {out['outs'][0]} vs one process {ref['outs'][0]} "
-              f"(witness {loss_noise[0]})")
-        check(all(math.isfinite(v) for o in out["outs"] for v in o.values()),
-              f"dp {name}: {out['outs']}")
-        names = set(out["grads"])
-        upd, upd_noise = (update_errors(out["states"][0], ref, names),
-                          update_errors(witness["states"][0], ref, names))
-        for g, e in upd.items():
-            check(e <= max(DP_UPDATE_TOL, WITNESS_FACTOR * upd_noise[g]),
-                  f"dp {name}: {g} update error {e} (witness {upd_noise[g]})")
-        first = ref["states"][0]
-        stats = [k for k in first if k.endswith(("running_mean", "running_var"))]
-        stats_err = max([float((out["states"][0][k] - first[k]).abs().max()
-                               / max(float(first[k].abs().max()), 1e-6)) for k in stats] or [0.0])
-        check(stats_err <= DP_STATS_TOL, f"dp {name}: running statistics error {stats_err}")
-        res = dict(name=name, steps=steps, dp_step_ms=out["step_ms"], dp_peak_gib=out["peak_gib"],
-                   one_step_ms=ref["ms"] + witness["ms"], one_peak_gib=ref["peak_gib"],
-                   loss_err=loss_err[0], loss_witness=loss_noise[0], later_loss_err=loss_err[1:],
-                   update_err=upd,
-                   update_witness=upd_noise, stats_err=stats_err, seconds=secs)
+    loss_err, loss_noise = step_errors(out["outs"], ref["outs"]), step_errors(
+        witness["outs"], ref["outs"])
+    check(loss_err[0] <= max(TRAIN_TOL, WITNESS_FACTOR * loss_noise[0]),
+          f"dp {name} step 0: losses {out['outs'][0]} vs one process {ref['outs'][0]} "
+          f"(witness {loss_noise[0]})")
+    check(all(math.isfinite(v) for o in out["outs"] for v in o.values()),
+          f"dp {name}: {out['outs']}")
+    names = set(out["grads"])
+    upd, upd_noise = (update_errors(out["states"][0], ref, names),
+                      update_errors(witness["states"][0], ref, names))
+    for g, e in upd.items():
+        check(e <= max(DP_UPDATE_TOL, WITNESS_FACTOR * upd_noise[g]),
+              f"dp {name}: {g} update error {e} (witness {upd_noise[g]})")
+    first = ref["states"][0]
+    stats = [k for k in first if k.endswith(("running_mean", "running_var"))]
+    stats_err = max([float((out["states"][0][k] - first[k]).abs().max()
+                           / max(float(first[k].abs().max()), 1e-6)) for k in stats] or [0.0])
+    check(stats_err <= DP_STATS_TOL, f"dp {name}: running statistics error {stats_err}")
+    res = dict(name=name, steps=steps, dp_step_ms=out["step_ms"], dp_peak_gib=out["peak_gib"],
+               one_step_ms=ref["ms"] + witness["ms"], one_peak_gib=ref["peak_gib"],
+               loss_err=loss_err[0], loss_witness=loss_noise[0], later_loss_err=loss_err[1:],
+               update_err=upd,
+               update_witness=upd_noise, stats_err=stats_err, seconds=secs)
 
-        def short(d):
-            return {g: float(f"{e:.3e}") for g, e in d.items()}
+    def short(d):
+        return {g: float(f"{e:.3e}") for g, e in d.items()}
 
-        log(f"[dp] {name}: {steps} step(s) of 2 samples ({DP_GT_COUNTS} GT boxes) on 2 gloo ranks "
-            f"of the one card vs 1 process (the witness: 1 process, the samples swapped): totals "
-            f"{[round(o['total'], 4) for o in out['outs']]} vs "
-            f"{[round(r['total'], 4) for r in ref['outs']]} "
-            f"({[round(r['total'], 4) for r in witness['outs']]}), grad norms "
-            f"{[round(o['grad_norm'], 3) for o in out['outs']]} vs "
-            f"{[round(r['grad_norm'], 3) for r in ref['outs']]} "
-            f"({[round(r['grad_norm'], 3) for r in witness['outs']]}); relative errors by step "
-            f"{[float(f'{e:.3e}') for e in loss_err]} (witness "
-            f"{[float(f'{e:.3e}') for e in loss_noise]}; held: the first); the first step's "
-            f"parameter updates' relative L2 error by group {short(upd)} (witness "
-            f"{short(upd_noise)}); its running statistics "
-            f"{len(stats)} tensors, max error {stats_err:.3e}; rank 0's step ms "
-            f"{[round(x, 1) for x in out['step_ms']]} and peak {out['peak_gib']:.2f} GiB (gloo "
-            f"through the host: plumbing, not a speed), one process's "
-            f"{[round(x, 1) for x in res['one_step_ms']]} ms and peak {ref['peak_gib']:.2f} GiB; "
-            f"the launch {secs:.1f} s, spec {made_s:.1f} s; card: {smi}")
-        return res
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[dp] {name}: {steps} step(s) of 2 samples ({DP_GT_COUNTS} GT boxes) on 2 gloo ranks "
+        f"of the one card vs 1 process (the witness: 1 process, the samples swapped): totals "
+        f"{[round(o['total'], 4) for o in out['outs']]} vs "
+        f"{[round(r['total'], 4) for r in ref['outs']]} "
+        f"({[round(r['total'], 4) for r in witness['outs']]}), grad norms "
+        f"{[round(o['grad_norm'], 3) for o in out['outs']]} vs "
+        f"{[round(r['grad_norm'], 3) for r in ref['outs']]} "
+        f"({[round(r['grad_norm'], 3) for r in witness['outs']]}); relative errors by step "
+        f"{[float(f'{e:.3e}') for e in loss_err]} (witness "
+        f"{[float(f'{e:.3e}') for e in loss_noise]}; held: the first); the first step's "
+        f"parameter updates' relative L2 error by group {short(upd)} (witness "
+        f"{short(upd_noise)}); its running statistics "
+        f"{len(stats)} tensors, max error {stats_err:.3e}; rank 0's step ms "
+        f"{[round(x, 1) for x in out['step_ms']]} and peak {out['peak_gib']:.2f} GiB (gloo "
+        f"through the host: plumbing, not a speed), one process's "
+        f"{[round(x, 1) for x in res['one_step_ms']]} ms and peak {ref['peak_gib']:.2f} GiB; "
+        f"the launch {secs:.1f} s, spec {made_s:.1f} s; card: {smi}")
+    return res
 
 
 def remat_step_counts(cfg) -> dict:
@@ -3110,7 +3200,10 @@ def check_remat(name, device, smi):
 # dp, sp, config overrides); each against one process stepping the same
 # samples. Four full-size t1 ranks want more than the card's 80 GB (one
 # ran out at 16.5 GiB allocated a rank): t1 steps with use_remat
-SP_STEPS = (("bevformer_base", 1, 2, {}), ("bevformerv2-r50-t1", 2, 2, {"use_remat": True}))
+# at 2 encoder layers: the split's path at a cut depth (each layer splits
+# and gathers alike), for the script's time
+SP_STEPS = (("bevformer_base", 1, 2, {"encoder_layers": 2}),
+            ("bevformerv2-r50-t1", 2, 2, {"use_remat": True, "encoder_layers": 2}))
 SP_ENCODER_TOL = SLICE_TOL  # a base frame's BEV at sp 2 vs 1: max abs error over max |BEV|
 
 
@@ -3199,7 +3292,9 @@ def check_sp_step(name, dp, sp, overrides, device, smi):
     launch at the rank's range, SCA at its packed rows), the launches a
     step, the peak against the one process's, the step time (gloo through
     the host: no speed). A v1 config's launch first encodes a frame
-    (`check_sp_encoder`)."""
+    (`check_sp_encoder`). A config of DP_IN_SP runs its phase 17 (b)
+    `dp_job` as a further job of the launch (`--then`), checked by
+    `check_dp_step` into the result's "dp_step"."""
     import shutil
     import tempfile
 
@@ -3209,13 +3304,17 @@ def check_sp_step(name, dp, sp, overrides, device, smi):
     from bevformer_torch.tools.dp_step import rank_share
 
     cfg = get_config(name).replace(use_grid_mask=False, **overrides)
-    per_step = dict(v2_train_per_step(cfg) if cfg.version == "v2" else TRAIN_PER_STEP)
+    per_step = dict(v2_train_per_step(cfg) if cfg.version == "v2" else path_launches(cfg)[1])
     if cfg.use_remat:
         for k, v in remat_step_counts(cfg).items():
             per_step[k] += v
     frame = None if cfg.version == "v2" else base_frame(cfg)
     tmp = tempfile.mkdtemp(prefix="bevformer_sp_")
+    then, dp_launched = [], None
     try:
+        if name in DP_IN_SP:
+            job = dp_job(name, dict(DP_STEPS)[name], tmp)
+            then = ["--then", job["spec"], job["out"], "2", str(dp * sp // 2)]
         sd = init_state_dict(cfg, seed=0)
         batch = two_sample_batch(cfg)
         if dp == 1:
@@ -3226,9 +3325,12 @@ def check_sp_step(name, dp, sp, overrides, device, smi):
                         **({} if frame is None else {"frame": frame})), spec)
         what = f"dp_step {name} {overrides or ''} at --dp {dp} --sp {sp} on {dp * sp} gloo ranks"
         _, secs = run_cli([*torchrun(dp * sp), "-m", "bevformer_torch.tools.dp_step", spec,
-                           out_path, "--dp", str(dp), "--sp", str(sp), "--device", str(device),
-                           "--dist-backend", "gloo"], what)
+                           out_path, "--dp", str(dp), "--sp", str(sp), *then, "--device",
+                           str(device), "--dist-backend", "gloo"], what)
         out = torch.load(out_path, map_location="cpu", weights_only=False)
+        if then:
+            dp_launched = (job, torch.load(job["out"], map_location="cpu", weights_only=False),
+                           secs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     check(out["mesh"] == (dp, sp) and len(out["ranks"]) == dp * sp, f"{what}: {out['mesh']}")
@@ -3290,6 +3392,10 @@ def check_sp_step(name, dp, sp, overrides, device, smi):
         f"{len(stats)} tensors, max error {stats_err:.3e}; one process step "
         f"{ref['ms'][0]:.1f} ms, peak {ref['peak_gib']:.2f} GiB; the launch {secs:.1f} s; "
         f"card: {smi}")
+    if dp_launched is not None:
+        del ref
+        res["dp_step"] = check_dp_step(name, dict(DP_STEPS)[name], device, smi,
+                                       launched=dp_launched)
     return res
 
 
@@ -3300,6 +3406,374 @@ def sp_kernel_cases(sca_rows):
     tsa, sca = K34_CASES[0], K34_CASES[1]
     return [("tsa-sp2", tsa[1], tsa[2] // 2, *tsa[3:]),
             ("sca-sp2", sca[1], sca_rows[0], *sca[3:])]
+
+
+# ------------------------------------------- phase 19: the modules no config builds
+
+VOV_INPUT = (6, 3, 640, 1600)  # V2's crop, six cameras
+VOV_OUT = ((512, 80, 200), (768, 40, 100), (1024, 20, 50))  # out_indices (1, 2, 3): strides 8-32
+VOV_FOLD_TOL = 1e-4  # folded vs unfolded VoVNet, max abs err over max |unfolded|, per stage
+VOV_REPS = 5  # timed forwards (after a warm-up), each model
+MM_BEV = (200, 200)  # MMBEVFormerLayer at its defaults: base's widths
+MM_LEVELS = K1_CASES[1][5]  # base's 4 FPN levels at 928 x 1600 (K = 30825)
+MM_FWD_TOL = 1e-4  # kernel vs plain path: output, max abs err over max |plain|
+MM_GRAD_TOL = 1e-3  # ... each gradient, ||kernel - plain|| / ||plain||
+MM_REPS = 3  # timed forwards and backwards, each path
+HEAD_GT = 12  # FreeAnchor ground-truth boxes (one outside the BEV: a bag of ties)
+HEAD_MAX_NUM = 300
+HEAD_LOSS_TOL = 1e-5  # card vs CPU losses, relative
+HEAD_REPS = 3
+
+
+def mm_kernel_cases():
+    """K1's and K3/K4's new shapes in one MMBEVFormerLayer call at its
+    defaults: the lidar branch (one 200 x 200 level, 40,000 queries, 4
+    points) and SCA with every query routed (capacity 0: 40,000 rows a
+    camera over base's 4 levels); one launch each a forward (K1) or a
+    backward (K3/K4). TSA's shape is base's (`K1_CASES`)."""
+    q = MM_BEV[0] * MM_BEV[1]
+    return [("lidar", 1, q, 8, 32, (MM_BEV,), 4, 1),
+            ("sca-dense", 6, q, 8, 32, MM_LEVELS, 8, 1)]
+
+
+def mm_layer_launches() -> dict:
+    """K1 and K3/K4 launches of one MMBEVFormerLayer forward and backward,
+    by (B, Q): TSA over the queue of 2, SCA over the 6 cameras (dense),
+    the lidar branch; each one K1 call and, in backward, one K3/K4 call."""
+    q = MM_BEV[0] * MM_BEV[1]
+    calls = [[1, q, 1], [2, q, 1], [6, q, 1]]
+    return dict(msda_fwd=calls, msda_bwd=calls)
+
+
+def check_vovnet(device, smi):
+    """Phase 19 (a): VoVNet V2-99 (FrozenBN with seeded statistics, eval
+    mode) on a 6 x 3 x 640 x 1600 batch in channels-last memory (the
+    detectors' NHWC images permuted): the out_indices (1, 2, 3) shapes,
+    finite outputs, the CUDA-event median of VOV_REPS forwards and the peak,
+    and the folded model (`runtime.fuse.fuse_conv_bn`) against the unfolded
+    one per stage within VOV_FOLD_TOL, with its time."""
+    import copy
+
+    import torch
+    from bevformer_torch.models.resnet import FrozenBN
+    from bevformer_torch.models.vovnet import VoVNet
+    from bevformer_torch.runtime.fuse import fuse_conv_bn
+
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    model = VoVNet(out_indices=(1, 2, 3))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FrozenBN):
+                n = m.weight.shape[0]
+                m.weight.copy_(1 + 0.1 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+    model = model.to(device).eval()
+    # channels-last memory, as the detectors hand a backbone their NHWC
+    # images permuted
+    n, c, h, w = VOV_INPUT
+    x = torch.randn((n, h, w, c), generator=gen).to(device).permute(0, 3, 1, 2)
+    folded = fuse_conv_bn(copy.deepcopy(model))
+
+    def run(m):
+        with torch.no_grad():
+            outs = m(x)
+        torch.cuda.synchronize()
+        return outs
+
+    res = {}
+    for tag, m in (("unfolded", model), ("folded", folded)):
+        run(m)
+        torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        for _ in range(VOV_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs = run(m)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        res[tag] = dict(outs=outs, ms=median_of(times),
+                        peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    outs = res["unfolded"]["outs"]
+    shapes = [tuple(o.shape) for o in outs]
+    check(shapes == [(VOV_INPUT[0], *s) for s in VOV_OUT], f"VoVNet output shapes {shapes}")
+    check(all(bool(torch.isfinite(o).all()) and float(o.abs().max()) > 0 for o in outs),
+          "VoVNet outputs not finite, or zero")
+    errs = [rel_err(f, o) for f, o in zip(res["folded"]["outs"], outs)]
+    log(f"[vovnet] V2-99 (FrozenBN, eval) on {list(VOV_INPUT)}: outputs {shapes}; forward "
+        f"{res['unfolded']['ms']:.2f} ms (median of {VOV_REPS}, CUDA events), peak "
+        f"{res['unfolded']['peak_gib']:.2f} GiB; folded (fuse_conv_bn, "
+        f"{sum(isinstance(m, FrozenBN) for m in model.modules())} BNs) "
+        f"{res['folded']['ms']:.2f} ms, peak {res['folded']['peak_gib']:.2f} GiB, max abs err / "
+        f"max |unfolded| by stage {[float(f'{e:.3e}') for e in errs]} (tol "
+        f"{VOV_FOLD_TOL:.0e}); card: {smi}")
+    check(max(errs) <= VOV_FOLD_TOL, f"VoVNet folded vs unfolded: {errs}")
+    return dict(ms=res["unfolded"]["ms"], peak_gib=res["unfolded"]["peak_gib"],
+                folded_ms=res["folded"]["ms"], fold_err=max(errs), shapes=shapes)
+
+
+def mm_inputs(device):
+    """MMBEVFormerLayer's inputs at base's widths, seeded: the BEV query,
+    its position and TSA queue, base's 6-camera value over its 4 levels, a
+    200 x 200 lidar BEV, the hybrid 2D references (the previous frame's
+    shifted by 1.5 cells), and the camera references and `bev_mask` from
+    base's `point_sampling` of the synthetic rigs (`data.synth`)."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.core import geometry
+    from bevformer_torch.data.synth import rig_lidar2img
+
+    cfg = get_config("bevformer_base")
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    q, e = MM_BEV[0] * MM_BEV[1], cfg.embed_dims
+    k = sum(h * w for h, w in MM_LEVELS)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    ref_3d = geometry.reference_points_3d(*MM_BEV, cfg.pc_range[5] - cfg.pc_range[2],
+                                          cfg.num_points_in_pillar, bs=1, device=device)
+    ref_2d = geometry.reference_points_2d(*MM_BEV, bs=1, device=device)
+    l2i = torch.from_numpy(rig_lidar2img()).float()[None].to(device)
+    ref_cam, bev_mask = geometry.point_sampling(ref_3d, cfg.pc_range, l2i, cfg.data.img_size)
+    shift = torch.tensor([1.5 / MM_BEV[1], -1.5 / MM_BEV[0]], device=device)
+    return dict(query=rnd(1, q, e), value=rnd(1, 6, k, e), lidar=rnd(1, q, e),
+                bev_pos=rnd(1, q, e), vq=rnd(1, 2, q, e),
+                ref2d=torch.stack([ref_2d + shift, ref_2d], 1), ref_cam=ref_cam,
+                bev_mask=bev_mask, proj=rnd(1, q, e))
+
+
+MM_ORDER = ("query", "value", "lidar", "bev_pos", "vq", "ref2d", "ref_cam", "bev_mask")
+MM_GRAD_INPUTS = ("query", "value", "lidar", "vq")
+
+
+def check_mm_layer(device, smi):
+    """Phase 19 (b): MMBEVFormerLayer at its defaults (base's widths, SCA
+    capacity 0) on `mm_inputs`, eval mode (no dropout), on the kernel path
+    and on the plain path (`plain_kernels`): one forward and one backward of
+    a seeded projection each, the output within MM_FWD_TOL and each
+    gradient (inputs and parameters) within MM_GRAD_TOL; the kernel path's
+    K1 and K3/K4 launches counted from 0 over its forward and backward
+    (`mm_layer_launches`); CUDA-event medians of MM_REPS forwards and
+    backwards of each path, and the kernel path's peak."""
+    import torch
+    from bevformer_torch.kernels import launch_counts, launch_queries, zero_counts
+    from bevformer_torch.models.mm_layer import MMBEVFormerLayer
+
+    torch.manual_seed(19)
+    layer = MMBEVFormerLayer().to(device).eval()
+    a = mm_inputs(device)
+    n_vis = a["bev_mask"].any(-1).sum(-1)[0].tolist()
+
+    def run(counted=False):
+        xs = {k: (v.clone().requires_grad_(True) if k in MM_GRAD_INPUTS else v)
+              for k, v in a.items()}
+        layer.zero_grad(set_to_none=True)
+        if counted:
+            zero_counts()
+        out = layer(*[xs[k] for k in MM_ORDER], MM_LEVELS, *MM_BEV)
+        (out * xs["proj"]).sum().backward()
+        torch.cuda.synchronize()
+        counts = (launch_counts(), launch_queries()) if counted else None
+        grads = {f"d{k}": xs[k].grad for k in MM_GRAD_INPUTS}
+        grads.update({n: p.grad for n, p in layer.named_parameters()})
+        return out.detach(), grads, counts
+
+    def timed():
+        xs = {k: (v.clone().requires_grad_(True) if k in MM_GRAD_INPUTS else v)
+              for k, v in a.items()}
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        out = layer(*[xs[k] for k in MM_ORDER], MM_LEVELS, *MM_BEV)
+        marks[1].record()
+        (out * xs["proj"]).sum().backward()
+        marks[2].record()
+        torch.cuda.synchronize()
+        return marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
+
+    torch.cuda.reset_peak_memory_stats(device)
+    out, grads, (counts, queries) = run(counted=True)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    ker = [timed() for _ in range(MM_REPS)]
+    with plain_kernels():
+        ref, ref_grads, _ = run()
+        plain = [timed() for _ in range(MM_REPS)]
+    want = mm_layer_launches()
+    got = {k: queries[k] for k in want}
+    check(counts["msda_fwd"] == 3 and counts["msda_bwd"] == 3 and got == want,
+          f"mm_layer launches {counts}, by (B, Q) {got}, want {want}")
+    check(bool(torch.isfinite(out).all()), "mm_layer output not finite")
+    fwd_err = rel_err(out, ref)
+    grad_errs = {k: float((g - ref_grads[k]).norm() / ref_grads[k].norm().clamp(min=1e-30))
+                 for k, g in grads.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    res = dict(fwd_ms=median_of([t[0] for t in ker]), bwd_ms=median_of([t[1] for t in ker]),
+               plain_fwd_ms=median_of([t[0] for t in plain]),
+               plain_bwd_ms=median_of([t[1] for t in plain]), peak_gib=peak, fwd_err=fwd_err,
+               grad_err=grad_errs[worst], launches=counts, queries=got)
+    log(f"[mm] MMBEVFormerLayer (defaults: 256 channels, 8 heads, SCA capacity 0) at 40,000 "
+        f"queries, 6 x {sum(h * w for h, w in MM_LEVELS)} camera values, a 200 x 200 lidar BEV; "
+        f"visible queries by camera {n_vis}: kernel vs plain output max abs err / max |plain| "
+        f"{fwd_err:.3e} (tol {MM_FWD_TOL:.0e}), gradients' relative L2 error at most "
+        f"{grad_errs[worst]:.3e} ({worst}; tol {MM_GRAD_TOL:.0e}; inputs "
+        f"{ {k: float(f'{grad_errs[k]:.2e}') for k in grads if k.startswith('d')} }); forward "
+        f"{res['fwd_ms']:.2f} / backward {res['bwd_ms']:.2f} ms (plain {res['plain_fwd_ms']:.2f} / "
+        f"{res['plain_bwd_ms']:.2f}; medians of {MM_REPS}, CUDA events), peak {peak:.2f} GiB; "
+        f"launches counted from 0 over one forward and backward: K1 {counts['msda_fwd']}, "
+        f"K3/K4 {counts['msda_bwd']}, by (B, Q) {got['msda_fwd']}; card: {smi}")
+    check(fwd_err <= MM_FWD_TOL, f"mm_layer output {fwd_err}")
+    check(grad_errs[worst] <= MM_GRAD_TOL, f"mm_layer gradient {worst}: {grad_errs[worst]}")
+    return res
+
+
+def head_gt(cfg):
+    """HEAD_GT bottom-z boxes [1, G, 9] and labels, seeded: boxes of the
+    classes' sizes inside the BEV, one a 0.3 m box at a cell's centre, and
+    one outside the BEV (its bag: IoU-0 anchors, every one a tie)."""
+    import numpy as np
+    import torch
+    from bevformer_torch.models.bev_head import ANCHOR_SIZES
+
+    rng = np.random.RandomState(19)
+    labels = rng.randint(0, len(ANCHOR_SIZES), HEAD_GT)
+    boxes = np.zeros((HEAD_GT, 9), np.float32)
+    boxes[:, :2] = rng.uniform(-45, 45, (HEAD_GT, 2))
+    boxes[:, 2] = rng.uniform(-2, 0, HEAD_GT)
+    boxes[:, 3:6] = np.asarray(ANCHOR_SIZES)[labels] * rng.uniform(0.8, 1.2, (HEAD_GT, 3))
+    boxes[:, 6] = rng.uniform(-np.pi, np.pi, HEAD_GT)
+    boxes[:, 7:] = rng.randn(HEAD_GT, 2)
+    cell = (cfg.pc_range[3] - cfg.pc_range[0]) / cfg.bev_w
+    boxes[0, :7] = [cfg.pc_range[0] + 100.5 * cell, cfg.pc_range[1] + 80.5 * cell, -1.0, 0.3,
+                    0.3, 1.0, 0.0]
+    boxes[1, :2] = [200.0, -200.0]
+    return (torch.from_numpy(boxes)[None], torch.from_numpy(labels.astype(np.int64))[None],
+            torch.tensor([HEAD_GT]))
+
+
+def check_bev_head(device, smi):
+    """Phase 19 (c): BEVHead at base's 200 x 200 x 256 BEV (800,000
+    anchors; the conv_cls bias of every 7th class channel at 40, so that
+    its sigmoid saturates to 1 and `get_bboxes` picks among ties), on a
+    seeded BEV of that shape: forward, the FreeAnchor loss on HEAD_GT boxes,
+    backward and `get_bboxes(max_num=HEAD_MAX_NUM)`, each timed (CUDA
+    events, medians of HEAD_REPS), the peak. The same predictions on the
+    CPU: the losses within HEAD_LOSS_TOL, every bag's anchors and the
+    decoded (anchor, class) picks equal, in order (the tie order)."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.models import bev_head as bh
+
+    cfg = get_config("bevformer_base")
+    torch.manual_seed(19)
+    head = bh.BEVHead(cfg)
+    with torch.no_grad():
+        head.conv_cls.bias[::7] = 40.0
+    head = head.to(device)
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    bev = torch.randn((1, cfg.bev_h * cfg.bev_w, cfg.embed_dims), generator=gen).to(device)
+    boxes, labels, ng = head_gt(cfg)
+
+    def stamp():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(HEAD_REPS + 1):
+        head.zero_grad(set_to_none=True)
+        t = [stamp()]
+        preds = head(bev)
+        t.append(stamp())
+        losses = head.loss(preds, boxes.to(device), labels.to(device), ng.to(device))
+        t.append(stamp())
+        losses["total"].backward()
+        t.append(stamp())
+        dec = head.get_bboxes(preds, HEAD_MAX_NUM)
+        t.append(stamp())
+        torch.cuda.synchronize()
+        times.append([a.elapsed_time(b) for a, b in zip(t[:-1], t[1:])])
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    ms = [median_of([x[i] for x in times[1:]]) for i in range(4)]
+
+    cpu_preds = {k: v.detach().cpu() for k, v in preds.items()}
+    cpu_losses = head.loss(cpu_preds, boxes, labels, ng)
+    cpu_dec = head.get_bboxes(cpu_preds, HEAD_MAX_NUM)
+    anchors = {d: bh.generate_anchors(cfg.bev_h, cfg.bev_w, cfg.pc_range, d)
+               for d in ("cpu", device)}
+    bags = {d: bh.positive_bags(anchors[d], boxes[0].to(d), HEAD_GT, head.pre_anchor_topk)
+            for d in ("cpu", device)}
+    losses = {k: float(v.detach()) for k, v in losses.items()}
+    cpu_losses = {k: float(v.detach()) for k, v in cpu_losses.items()}
+    loss_errs = {k: abs(v - cpu_losses[k]) / max(abs(cpu_losses[k]), 1e-12)
+                 for k, v in losses.items()}
+    same_bags = torch.equal(bags[device][2].cpu(), bags["cpu"][2])
+    ties = int((bags["cpu"][1] == 0).sum())
+    picks = {d: (r["labels"].cpu(), r["bboxes"].cpu()) for d, r in (("card", dec),
+                                                                     ("cpu", cpu_dec))}
+    same_picks = torch.equal(picks["card"][0], picks["cpu"][0])
+    box_err = rel_err(picks["card"][1], picks["cpu"][1])
+    saturated = int((dec["scores"] == 1.0).sum())
+    log(f"[head] BEVHead (FreeAnchor) on a {cfg.bev_h} x {cfg.bev_w} x {cfg.embed_dims} BEV, "
+        f"{anchors['cpu'].shape[0]} anchors, {HEAD_GT} GT boxes: losses "
+        f"{ {k: round(v, 6) for k, v in losses.items()} } (CPU relative error "
+        f"{max(loss_errs.values()):.2e}, tol {HEAD_LOSS_TOL:.0e}); bags' anchors equal the CPU's "
+        f"in order: {same_bags} ({ties} IoU-0 ties among {HEAD_GT} x {head.pre_anchor_topk}); "
+        f"get_bboxes({HEAD_MAX_NUM}) picks equal the CPU's in order: {same_picks} ({saturated} "
+        f"saturated scores; boxes max abs err / max |box| {box_err:.2e}); forward {ms[0]:.3f}, "
+        f"loss {ms[1]:.3f}, backward {ms[2]:.3f}, get_bboxes {ms[3]:.3f} ms (medians of "
+        f"{HEAD_REPS}, CUDA events), peak {peak:.2f} GiB; card: {smi}")
+    check(all(math.isfinite(v) for v in losses.values()), f"BEVHead losses {losses}")
+    check(max(loss_errs.values()) <= HEAD_LOSS_TOL, f"BEVHead card vs CPU losses {loss_errs}")
+    check(same_bags and ties > 0, f"BEVHead bags differ on the card, or no tie ({ties})")
+    check(same_picks and saturated == HEAD_MAX_NUM and box_err <= SLICE_TOL,
+          f"BEVHead get_bboxes picks differ on the card ({saturated} saturated, boxes {box_err})")
+    return dict(fwd_ms=ms[0], loss_ms=ms[1], bwd_ms=ms[2], decode_ms=ms[3], peak_gib=peak,
+                loss_err=max(loss_errs.values()), ties=ties)
+
+
+DECODE_REPEATS = 3  # timed decodes of one frame's six images, each codec
+
+
+def decode_times(data, smi):
+    """Phase 19 (d): one frame's six camera decodes on the host
+    (`data.image_io.read_image`: cv2), JPEG (the CLI root's files) and PNG
+    of the same pixels (written here by cv2 at its default level): the
+    median of DECODE_REPEATS after a warm-up, and the files' bytes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from bevformer_torch.data.image_io import read_image, write_image
+
+    samples = os.path.join(data, "samples")
+    jpgs = sorted(os.path.join(samples, f) for f in os.listdir(samples))[:6]
+    tmp = tempfile.mkdtemp(prefix="bevformer_png_")
+    try:
+        pngs = []
+        for p in jpgs:
+            pngs.append(os.path.join(tmp, os.path.basename(p)[:-4] + ".png"))
+            write_image(pngs[-1], read_image(p))
+        res = {}
+        for tag, files in (("jpeg", jpgs), ("png", pngs)):
+            secs = []
+            for _ in range(DECODE_REPEATS + 1):
+                t = time.perf_counter()
+                imgs = [read_image(f) for f in files]
+                secs.append(time.perf_counter() - t)
+            res[tag] = median_of(secs[1:]) * 1e3
+            res[f"{tag}_mb"] = sum(os.path.getsize(f) for f in files) / 1e6
+        check(all(np.array_equal(read_image(a), read_image(b)) for a, b in zip(jpgs, pngs)),
+              "the PNGs do not hold the JPEGs' pixels")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[decode] one frame's 6 cameras ({imgs[0].shape[1]} x {imgs[0].shape[0]}) on the host: "
+        f"cv2 JPEG {res['jpeg']:.1f} ms ({res['jpeg_mb']:.2f} MB), cv2 PNG of the same pixels "
+        f"{res['png']:.1f} ms ({res['png_mb']:.2f} MB); medians of {DECODE_REPEATS}; card: {smi}")
+    return dict(jpeg_decode_ms=res["jpeg"], png_decode_ms=res["png"], jpeg_mb=res["jpeg_mb"],
+                png_mb=res["png_mb"])
 
 
 def main() -> int:
@@ -3335,51 +3809,74 @@ def main() -> int:
     build.library()
     check_vector_atomics(res.path)
 
+    seconds = {}  # each phase's wall time
+
+    @contextmanager
+    def phase(n):
+        t = time.perf_counter()
+        yield
+        seconds[n] = round(time.perf_counter() - t, 1)
+        torch.cuda.empty_cache()
+
+    seconds["1-2"] = round(time.perf_counter() - t_start, 1)
     gen = torch.Generator(device=device).manual_seed(0)
-    k1_rows = check_k1(device, gen)
-    k1_v2_rows = check_k1(device, gen, K1_V2_CASES, "k1-v2")
-    k1_v2_train_rows = check_k1(device, gen, K1_V2_TRAIN_CASES, "k1-v2-train")
-    k2_rows = check_k2(device, gen)
-    k34_rows = check_k34(device, gen)
-    k34_v2_train_rows = check_k34_v2(device, gen)
-    bf16_fwd_rows, bf16_bwd_rows = check_bf16_msda(device, gen)
-    im2col_rows, col2im_rows = check_k56(device, gen)
-    bf16_k2_rows, bf16_k5_rows, bf16_k6_rows = check_bf16_dcn(device, gen)
-    bf16_k2_ragged = check_bf16_k2_ragged(device, gen)
-    torch.cuda.empty_cache()
-    probe_runs, probe_counts = check_probes()
-    torch.cuda.empty_cache()
-    tr = check_training(device, smi)
-    torch.cuda.empty_cache()
-    check_training_witness(device, smi)
-    torch.cuda.empty_cache()
-    sl = check_slice(device, smi)
-    check_precision(sl["model"], sl["video"])
-    profile_frame(sl["model"], sl["video"], smi)
-    del sl["model"], sl["video"]
-    torch.cuda.empty_cache()
-    cli = check_cli(smi)
-    torch.cuda.empty_cache()
-    presets = {name: check_preset(name, device, smi) for name in PRESETS}
-    v2 = {name: check_v2(name, device, smi) for name in V2_PRESETS}
-    torch.cuda.empty_cache()
-    v2_train = {name: check_v2_training(name, steps, device, smi) for name, steps in V2_TRAIN}
-    torch.cuda.empty_cache()
-    bf16_dcn = {name: check_preset(name, device, smi, dtype="bfloat16")
-                for name in BF16_DCN_PRESETS}
-    torch.cuda.empty_cache()
-    t17 = time.perf_counter()
-    dp = [check_dp_step(name, steps, device, smi) for name, steps in DP_STEPS]
-    remat = [check_remat(name, device, smi) for name in REMAT_PRESETS]
-    t17 = time.perf_counter() - t17
-    torch.cuda.empty_cache()
-    t18 = time.perf_counter()
-    sp = [check_sp_step(*case, device, smi) for case in SP_STEPS]
-    sp_encoder = sp[0]["encoder"]
-    sp_cases = sp_kernel_cases(sp_encoder["sca_rows"])
-    k1_sp_rows = check_k1(device, gen, sp_cases, "k1-sp")
-    k34_sp_rows = check_k34(device, gen, sp_cases)
-    t18 = time.perf_counter() - t18
+    with phase("3"):
+        k1_rows = check_k1(device, gen)
+        k1_v2_rows = check_k1(device, gen, K1_V2_CASES, "k1-v2")
+        k1_v2_train_rows = check_k1(device, gen, K1_V2_TRAIN_CASES, "k1-v2-train")
+    with phase("4"):
+        k2_rows = check_k2(device, gen)
+    with phase("5"):
+        k34_rows = check_k34(device, gen)
+        k34_v2_train_rows = check_k34_v2(device, gen)
+        bf16_fwd_rows, bf16_bwd_rows = check_bf16_msda(device, gen)
+    with phase("6"):
+        im2col_rows, col2im_rows = check_k56(device, gen)
+        bf16_k2_rows, bf16_k5_rows, bf16_k6_rows = check_bf16_dcn(device, gen)
+        bf16_k2_ragged = check_bf16_k2_ragged(device, gen)
+    with phase("7"):
+        probe_runs, probe_counts = check_probes()
+    with phase("8"):
+        tr = check_training(device, smi)
+    with phase("9"):
+        check_training_witness(device, smi)
+    with phase("10-11"):
+        sl = check_slice(device, smi)
+        check_precision(sl["model"], sl["video"])
+        profile_frame(sl["model"], sl["video"], smi)
+        del sl["model"], sl["video"]
+    with phase("12 and 17 (a)"):
+        cli = check_cli(smi)
+    with phase("13"):
+        presets = {name: check_preset(name, device, smi) for name in PRESETS}
+    with phase("14"):
+        v2 = {name: check_v2(name, device, smi) for name in V2_PRESETS}
+    with phase("15"):
+        v2_train = {name: check_v2_training(name, steps, device, smi)
+                    for name, steps in V2_TRAIN}
+    with phase("16"):
+        bf16_dcn = {name: check_preset(name, device, smi, dtype="bfloat16")
+                    for name in BF16_DCN_PRESETS}
+    with phase("17 (b), (c)"):
+        dp = [check_dp_step(name, steps, device, smi) for name, steps in DP_STEPS
+              if name not in DP_IN_SP]
+        remat = [check_remat(name, device, smi) for name in REMAT_PRESETS]
+    with phase("18 and 17 (b) of DP_IN_SP"):
+        sp = [check_sp_step(*case, device, smi) for case in SP_STEPS]
+        dp += [r.pop("dp_step") for r in sp if "dp_step" in r]
+        sp_encoder = sp[0]["encoder"]
+        sp_cases = sp_kernel_cases(sp_encoder["sca_rows"])
+        k1_sp_rows = check_k1(device, gen, sp_cases, "k1-sp")
+        k34_sp_rows = check_k34(device, gen, sp_cases)
+    with phase("19"):
+        vov = check_vovnet(device, smi)
+        torch.cuda.empty_cache()
+        mm = check_mm_layer(device, smi)
+        torch.cuda.empty_cache()
+        k1_mm_rows = check_k1(device, gen, mm_kernel_cases(), "k1-mm")
+        k34_mm_rows = check_k34(device, gen, mm_kernel_cases())
+        torch.cuda.empty_cache()
+        head = check_bev_head(device, smi)
 
     def record(name, src, replaces, rows, per, library_note, counts=tr["counts"]):
         bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
@@ -3478,6 +3975,15 @@ def main() -> int:
         key = "k1" if i == 0 else "k34"
         kernels[i]["sp_launches_per_rank"] = {
             f"{r['name']} dp{r['dp']} sp{r['sp']}": [rank[key] for rank in r["ranks"]] for r in sp}
+    # K1 and K3/K4 at MMBEVFormerLayer's new shapes (per call: one launch
+    # each a layer's forward or backward), and the layer's launches counted
+    # from 0 over one forward and backward (phase 19)
+    for i, rows in ((0, k1_mm_rows), (2, k34_mm_rows)):
+        for r in rows:
+            cost = r.pop("cost")
+            r.update(bound_ms=cost.bound_ms, bound_by=cost.bound_by)
+        kernels[i]["mm_layer_shapes"] = rows
+        kernels[i]["mm_layer_launches"] = mm["launches"]["msda_fwd" if i == 0 else "msda_bwd"]
     # launches: the training run's (all five kernels); the inference run's too
     kernels[0]["inference_launches"] = sl["k1"]
     kernels[1]["inference_launches"] = sl["k2"]
@@ -3496,7 +4002,8 @@ def main() -> int:
         f"on {smi}; bounds against {roofline.PEAKS}")
     log(f"[summary] CLIs: tools.train step median {cli['step_ms']:.1f} ms (host "
         f"{cli['host_ms']:.1f} ms, data wait {cli['data_wait_ms']:.1f} ms), tools.test frame "
-        f"median {cli['frame_ms']:.1f} ms, phase {cli['seconds']:.1f} s")
+        f"median {cli['frame_ms']:.1f} ms (load {cli['load_ms']:.1f} ms), phase "
+        f"{cli['seconds']:.1f} s")
     log(f"[summary] CLIs: tools.train bevformer_base dtype=bfloat16 step median "
         f"{cli['bf16_step_ms']:.1f} ms, peak {cli['bf16_train_peak_gib']} GiB; tools.test frame "
         f"median {cli['bf16_frame_ms']:.1f} ms, peak {cli['bf16_test_peak_gib']} GiB")
@@ -3543,7 +4050,6 @@ def main() -> int:
         log(f"[summary] phase 17: {r['name']} use_remat: peak {r['peak_gib']:.2f} -> "
             f"{r['remat_peak_gib']:.2f} GiB, step {r['step_ms']:.1f} -> {r['remat_step_ms']:.1f} "
             f"ms, launches {r['launches']}; on {smi}")
-    log(f"[summary] phase 17 (without its CLI part) {t17:.1f} s")
     log(f"[summary] phase 18: base encoder at sp 2 vs 1: BEV within {sp_encoder['err']:.3e}; "
         f"SCA rows a rank {sp_encoder['sca_rows']} of {K34_CASES[1][2]}; peak "
         f"{[round(p, 2) for p in sp_encoder['peaks']]} GiB a rank, "
@@ -3554,7 +4060,17 @@ def main() -> int:
             f"{max(r['update_err'].values()):.3e}, running statistics within "
             f"{r['stats_err']:.3e}; peak {[round(k['peak_gib'], 2) for k in r['ranks']]} GiB a "
             f"rank, {r['one_peak_gib']:.2f} GiB one process; on {smi}")
-    log(f"[summary] phase 18 {t18:.1f} s")
+    log(f"[summary] phase 19: VoVNet-99 forward on {list(VOV_INPUT)} {vov['ms']:.2f} ms (folded "
+        f"{vov['folded_ms']:.2f}, within {vov['fold_err']:.2e}), peak {vov['peak_gib']:.2f} GiB; "
+        f"MMBEVFormerLayer forward / backward {mm['fwd_ms']:.2f} / {mm['bwd_ms']:.2f} ms (plain "
+        f"{mm['plain_fwd_ms']:.2f} / {mm['plain_bwd_ms']:.2f}), kernel vs plain "
+        f"{mm['fwd_err']:.2e} / gradients {mm['grad_err']:.2e}, peak {mm['peak_gib']:.2f} GiB; BEVHead forward "
+        f"{head['fwd_ms']:.3f}, FreeAnchor loss {head['loss_ms']:.3f}, backward "
+        f"{head['bwd_ms']:.3f}, get_bboxes {head['decode_ms']:.3f} ms, peak "
+        f"{head['peak_gib']:.2f} GiB, card = CPU (losses within {head['loss_err']:.1e}); "
+        f"phase 12's tools.test load {cli['load_ms']:.1f} ms a frame (JPEG), six decodes "
+        f"JPEG {cli['jpeg_decode_ms']:.1f} / PNG {cli['png_decode_ms']:.1f} ms; on {smi}")
+    log(f"[summary] phase seconds {json.dumps(seconds)}")
     log(f"[summary] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

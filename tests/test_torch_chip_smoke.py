@@ -286,13 +286,15 @@ def test_two_sample_batch():
 
 def test_sp_phase_cases():
     """Phase 18: base at (dp 1, sp 2) and V2 t1 at (2, 2) with `use_remat`
-    (four full-size t1 ranks do not fit one card without it); K1 and K3/K4 at a base rank's split shapes: TSA at half of
+    (four full-size t1 ranks do not fit one card without it), both at 2
+    encoder layers; K1 and K3/K4 at a base rank's split shapes: TSA at half of
     the 40000 queries (the value queue whole), SCA at the rows given."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
-    assert chip_smoke.SP_STEPS == (("bevformer_base", 1, 2, {}),
-                                   ("bevformerv2-r50-t1", 2, 2, {"use_remat": True}))
+    assert chip_smoke.SP_STEPS == (
+        ("bevformer_base", 1, 2, {"encoder_layers": 2}),
+        ("bevformerv2-r50-t1", 2, 2, {"use_remat": True, "encoder_layers": 2}))
     tsa, sca = chip_smoke.sp_kernel_cases([9000, 8000])
     assert tsa[:3] == ("tsa-sp2", 2, 20000) and tsa[3:] == chip_smoke.K34_CASES[0][3:]
     assert sca[:3] == ("sca-sp2", 6, 9000) and sca[3:] == chip_smoke.K34_CASES[1][3:]
@@ -315,3 +317,127 @@ def test_split_calls():
     rec["queries"]["msda_fwd"].append([6, 10113, 1])
     with pytest.raises(chip_smoke.Failure, match="capacity"):
         chip_smoke.split_calls(rec, "msda_fwd", cfg, 20000)
+
+
+def test_mm_phase_cases():
+    """Phase 19: K1's and K3/K4's new shapes in one MMBEVFormerLayer call at
+    its defaults, one launch each a forward or backward, with their cost
+    rows: the lidar branch (one 200 x 200 level, 4 points) and SCA with every
+    query routed (6 cameras of 40,000 rows over base's 4 levels, 8 points)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.tools import roofline
+
+    lidar, sca = chip_smoke.mm_kernel_cases()
+    assert lidar == ("lidar", 1, 40000, 8, 32, ((200, 200),), 4, 1)
+    assert sca == ("sca-dense", 6, 40000, 8, 32, chip_smoke.K1_CASES[1][5], 8, 1)
+    assert sum(h * w for h, w in sca[5]) == 30825
+    for name, b, q, h, d, shapes, p, _ in (lidar, sca):
+        for cost in (roofline.msda_fwd(b, q, h, d, shapes, p),
+                     roofline.msda_bwd(b, q, h, d, shapes, p)):
+            assert cost.bound_ms > 0 and cost.bound_by in ("bytes", "operations"), name
+    # dense SCA reads and writes 40000 / 10112 times the capacity's rows
+    fwd = roofline.msda_fwd(*sca[1:7])
+    capped = roofline.msda_fwd(*chip_smoke.K1_CASES[1][1:7])
+    assert fwd.bytes > capped.bytes and fwd.flops == pytest.approx(capped.flops * 40000 / 10112)
+
+
+def test_mm_layer_launches_are_the_layers_calls(monkeypatch):
+    """`mm_layer_launches` against the msda calls one MMBEVFormerLayer
+    forward and backward makes (each forward call and its backward counted
+    on the CPU's plain path), at a small BEV."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.kernels import msda
+    from bevformer_torch.models import attention
+    from bevformer_torch.models.mm_layer import MMBEVFormerLayer
+
+    monkeypatch.setattr(chip_smoke, "MM_BEV", (4, 5))
+    calls = {"msda_fwd": [], "msda_bwd": []}
+
+    class Counted(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, value, shapes, loc, attw):
+            ctx.save_for_backward(value, loc, attw)
+            ctx.shapes = shapes
+            calls["msda_fwd"].append(tuple(loc.shape[:2]))
+            return msda.ms_deform_attn_plain(value, shapes, loc, attw)
+
+        @staticmethod
+        def backward(ctx, g):
+            value, loc, attw = ctx.saved_tensors
+            calls["msda_bwd"].append(tuple(loc.shape[:2]))
+            dv, dl, da = msda.ms_deform_attn_backward_plain(value, ctx.shapes, loc, attw, g)
+            return dv, None, dl, da
+
+    monkeypatch.setattr(attention, "ms_deform_attn", Counted.apply)
+    layer = MMBEVFormerLayer(embed_dims=32, num_heads=8, feedforward_channels=64, num_levels=2)
+    q, levels = 20, ((3, 4), (2, 2))
+    rng = np.random.RandomState(0)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    query = t(1, q, 32).requires_grad_(True)
+    out = layer(query, t(1, 6, 16, 32), t(1, q, 32), t(1, q, 32), t(1, 2, q, 32),
+                torch.rand(1, 2, q, 1, 2), torch.rand(1, 6, q, 4, 2),
+                torch.from_numpy(rng.rand(1, 6, q, 4) < 0.5), levels, 4, 5)
+    out.sum().backward()
+    want = chip_smoke.mm_layer_launches()
+    for key in want:
+        got = sorted([b, n, calls[key].count((b, n))] for b, n in set(calls[key]))
+        assert got == want[key], key
+
+
+def test_head_gt_pins_a_bag_of_ties():
+    """Phase 19 (c)'s boxes: 12, one 0.3 m box overlapping some anchors,
+    one outside the BEV overlapping none (its bag: 25 IoU-0 anchors, the
+    lowest indices); the bags equal a CPU recomputation."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.models import bev_head as bh
+
+    cfg = get_config("bevformer_base")
+    boxes, labels, ng = chip_smoke.head_gt(cfg)
+    assert boxes.shape == (1, 12, 9) and labels.shape == (1, 12) and int(ng) == 12
+    anchors = bh.generate_anchors(cfg.bev_h, cfg.bev_w, cfg.pc_range)
+    iou, topv, topi = bh.positive_bags(anchors, boxes[0], 12, 25)
+    assert (iou[:, 0] > 0).sum() > 0 and (iou[:, 1] == 0).all()
+    assert topi[1].tolist() == list(range(25)) and (topv[1] == 0).all()
+
+
+def test_decode_times_reads_one_frame_both_ways(tmp_path):
+    """Phase 19 (d)'s decode timing on a tiny root: the PNGs hold the JPEGs'
+    pixels, and both codecs' times and bytes are reported."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.data import synth
+
+    synth.generate(str(tmp_path), num_scenes=2, frames_per_scene=1, num_objects=4,
+                   img_w=160, img_h=96)
+    res = chip_smoke.decode_times(str(tmp_path), "cpu")
+    assert res["jpeg_decode_ms"] > 0 and res["png_decode_ms"] > 0
+    assert 0 < res["jpeg_mb"] < res["png_mb"]
+
+
+def test_run_mains_runs_each_argv_in_one_process(tmp_path):
+    """`run_mains`: one process calls `module.main(argv)` for each (module,
+    argv), and the JSON lines come back split by run; a failing run fails
+    the call."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    runs, secs = chip_smoke.run_mains([
+        ("bevformer_torch.tools.create_data",
+         ["synth", "--out-dir", a, "--scenes", "2", "--frames", "1", "--img-w", "32",
+          "--img-h", "16"]),
+        ("bevformer_torch.tools.create_data",
+         ["synth", "--out-dir", b, "--scenes", "2", "--frames", "1", "--img-w", "32",
+          "--img-h", "16"])], "create_data twice")
+    assert runs == [[], []] and secs > 0
+    assert len(list((tmp_path / "a" / "samples").iterdir())) == 12
+    assert len(list((tmp_path / "b" / "samples").iterdir())) == 12
+    with pytest.raises(chip_smoke.Failure, match="exited"):
+        chip_smoke.run_mains([("bevformer_torch.tools.create_data", ["nomode"])], "bad")

@@ -1,5 +1,5 @@
 """The port's data layer against the JAX package's, on the CPU at 160 x 96
-images: the PNG writer and reader, the synthetic root (`generate` and its
+images: the cv2 JPEG writer and reader, the synthetic root (`generate` and its
 rendered pixels), cv2's float HSV conversions, the photometric distortion
 and the whole per-frame pipeline, the dataset's train and test samples,
 the samplers and `--cfg-options`.
@@ -44,46 +44,48 @@ def _max_err(a, b) -> float:
 # ---------------------------------------------------------------- images
 
 @pytest.mark.parametrize("shape", [(1, 1), (96, 160), (7, 33)])
-def test_png_round_trip_is_bitwise(tmp_path, shape):
-    img = np.random.RandomState(0).randint(0, 256, shape + (3,)).astype(np.uint8)
-    path = str(tmp_path / "a.png")
-    image_io.write_png(path, img)
-    assert np.array_equal(image_io.read_image(path), img)
-    assert np.array_equal(cv2.imread(path), img)  # BGR in, BGR out, as cv2
+def test_jpeg_round_trip_decodes_as_cv2(tmp_path, shape):
+    """write_image / read_image are cv2.imwrite / cv2.imread of a `.jpg`:
+    the decode equals cv2's of the same file, and stays within the codec's
+    loss of the array written (a smooth image: JPEG keeps low frequencies)."""
+    h, w = shape
+    yy, xx = np.mgrid[:h, :w]
+    img = np.stack([(xx * 255 // max(w - 1, 1)), (yy * 255 // max(h - 1, 1)),
+                    np.full_like(xx, 128)], -1).astype(np.uint8)
+    path = str(tmp_path / "a.jpg")
+    image_io.write_image(path, img)
+    assert open(path, "rb").read(3) == b"\xff\xd8\xff"  # a JPEG
+    ours = image_io.read_image(path)
+    assert ours.dtype == np.uint8 and ours.shape == img.shape
+    assert np.array_equal(ours, cv2.imread(path))  # BGR in, BGR out, as cv2
+    assert np.abs(ours.astype(int) - img).max() <= 24
 
 
-def test_png_reader_refuses_what_the_writer_does_not_write(tmp_path):
+def test_image_io_refuses_what_it_cannot_take(tmp_path):
     img = np.random.RandomState(1).randint(0, 256, (16, 24, 3)).astype(np.uint8)
-    grey = str(tmp_path / "grey.png")
-    cv2.imwrite(grey, img[..., 0])
-    with pytest.raises(ValueError, match="colour type 0"):
-        image_io.read_image(grey)
-    # cv2's own writer filters rows (and may add chunks): refused, not misread
-    other = str(tmp_path / "cv2.png")
-    cv2.imwrite(other, img)
-    with pytest.raises(ValueError):
-        image_io.read_image(other)
-    good = str(tmp_path / "good.png")
-    image_io.write_png(good, img)
-    data = open(good, "rb").read()
-    (tmp_path / "cut.png").write_bytes(data[:-20])
-    with pytest.raises(ValueError, match="truncated|CRC"):
-        image_io.read_image(str(tmp_path / "cut.png"))
-    (tmp_path / "x.bmp").write_bytes(b"BM" + bytes(60))
-    with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
-        image_io.read_image(str(tmp_path / "x.bmp"))
     with pytest.raises(ValueError, match="uint8"):
-        image_io.write_png(good, img.astype(np.float32))
+        image_io.write_image(str(tmp_path / "f.jpg"), img.astype(np.float32))
+    with pytest.raises(ValueError, match=r"\[H, W, 3\]"):
+        image_io.write_image(str(tmp_path / "g.jpg"), img[..., 0])
+    with pytest.raises(FileNotFoundError, match="missing.jpg"):
+        image_io.read_image(str(tmp_path / "missing.jpg"))
+    (tmp_path / "x.jpg").write_bytes(b"BM" + bytes(60))
+    with pytest.raises(FileNotFoundError, match="x.jpg"):
+        image_io.read_image(str(tmp_path / "x.jpg"))
+    with pytest.raises(RuntimeError, match="could not write"):
+        image_io.write_image(str(tmp_path / "no_such_dir" / "a.jpg"), img)
 
 
 def test_jpeg_goes_to_cv2_or_raises(tmp_path, monkeypatch):
     img = np.random.RandomState(2).randint(0, 256, (16, 24, 3)).astype(np.uint8)
     path = str(tmp_path / "a.jpg")
-    cv2.imwrite(path, img)
+    image_io.write_image(path, img)
     assert np.array_equal(image_io.read_image(path), cv2.imread(path))
     monkeypatch.setitem(__import__("sys").modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="a.jpg.*no JPEG decoder"):
+    with pytest.raises(RuntimeError, match="a.jpg.*cannot decode.*cv2 does not import"):
         image_io.read_image(path)
+    with pytest.raises(RuntimeError, match="b.jpg.*cannot write.*cv2 does not import"):
+        image_io.write_image(str(tmp_path / "b.jpg"), img)
 
 
 # ---------------------------------------------------------------- synthetic root
@@ -91,31 +93,41 @@ def test_jpeg_goes_to_cv2_or_raises(tmp_path, monkeypatch):
 @pytest.fixture(scope="module")
 def roots(tmp_path_factory):
     """The port's root and the JAX package's at the same seed, with the
-    arrays JAX hands cv2.imwrite captured by file name."""
+    arrays each hands cv2.imwrite captured by file name (the port's are
+    written too: its root's JPEGs)."""
     port_root = str(tmp_path_factory.mktemp("port_root"))
     jax_root = str(tmp_path_factory.mktemp("jax_root"))
-    synth.generate(port_root, **GEN)
-    captured = {}
+    ours, captured = {}, {}
+    write = cv2.imwrite
     mp = pytest.MonkeyPatch()
+    mp.setattr(cv2, "imwrite", lambda path, img: ours.setdefault(
+        os.path.basename(path), img.copy()) is not None and write(path, img))
+    try:
+        synth.generate(port_root, **GEN)
+    finally:
+        mp.undo()
     mp.setattr(cv2, "imwrite", lambda path, img: captured.setdefault(
         os.path.basename(path), img.copy()) is not None)
     try:
         jax_synth.generate(jax_root, **GEN)
     finally:
         mp.undo()
-    return port_root, jax_root, captured
+    return port_root, jax_root, captured, ours
 
 
 def test_rendered_pixels_equal_jax(roots):
-    port_root, _, captured = roots
+    port_root, _, captured, ours = roots
     names = sorted(os.listdir(os.path.join(port_root, "samples")))
-    assert len(names) == len(captured) == 2 * 4 * 6
+    assert len(names) == len(captured) == len(ours) == 2 * 4 * 6
+    assert all(name.endswith(".jpg") for name in names)
     clipped = 0
     for name in names:
-        ours = image_io.read_image(os.path.join(port_root, "samples", name))
-        ref = captured[name.replace(".png", ".jpg")]
-        assert np.array_equal(ours, ref), name
-        clipped += int((ours[0] != ours[0, :1]).any() or (ours[:, 0] != ours[:1, 0]).any())
+        assert np.array_equal(ours[name], captured[name]), name
+        img = ours[name]
+        clipped += int((img[0] != img[0, :1]).any() or (img[:, 0] != img[:1, 0]).any())
+        decoded = image_io.read_image(os.path.join(port_root, "samples", name))
+        assert decoded.shape == img.shape and np.array_equal(decoded, cv2.imread(
+            os.path.join(port_root, "samples", name)))
     # boxes reach the image's edges, where the fill clips
     assert clipped > 0
 
@@ -137,15 +149,12 @@ def _equal(a, b, where=""):
 
 @pytest.mark.parametrize("split", ["train", "val"])
 def test_generated_infos_equal_jax(roots, split):
-    port_root, jax_root, _ = roots
+    port_root, jax_root = roots[:2]
     name = f"nuscenes_infos_temporal_{split}.pkl"
     with open(os.path.join(port_root, name), "rb") as f:
         ours = pickle.load(f)
     with open(os.path.join(jax_root, name), "rb") as f:
         ref = pickle.load(f)
-    for info in ref["infos"]:
-        for cam in info["cams"].values():
-            cam["data_path"] = cam["data_path"].replace(".jpg", ".png")
     _equal(ours, ref)
     assert len(ours["infos"]) == 4
 
@@ -270,6 +279,26 @@ def test_annotations_equal_jax(datasets):
     for ref_ds, ds in datasets:
         for info in ds.infos:
             _equal(ds._annotations(info), ref_ds._annotations(info))
+
+
+def test_datasets_decode_the_same_jpeg_root_identically(datasets, monkeypatch):
+    """The port's dataset and the JAX package's read every camera JPEG of
+    one root to the same pixels, bit for bit (both through cv2.imread), the
+    arrays each hands its pipeline."""
+    import bevformer_tpu.data.dataset as jax_dataset_module
+    import bevformer_torch.data.dataset as dataset_module
+
+    got = {}
+    monkeypatch.setattr(jax_dataset_module, "preprocess_images",
+                        lambda imgs, *a, **k: got.__setitem__("jax", np.stack(imgs)))
+    monkeypatch.setattr(dataset_module, "preprocess_images",
+                        lambda imgs, *a, **k: got.__setitem__("port", imgs.numpy()))
+    for ref_ds, ds in datasets:
+        for index in range(len(ds)):
+            ref_ds._load_frame_images(ref_ds.frame_record(index), train=False)
+            ds._load_frame_images(ds.frame_record(index), train=False)
+            assert got["port"].dtype == np.uint8 and got["port"].shape == got["jax"].shape
+            assert np.array_equal(got["port"].astype(np.float32), got["jax"]), index
 
 
 @pytest.mark.parametrize("n,replicas,seed", [(7, 1, 0), (10, 3, 4), (16, 4, 1)])

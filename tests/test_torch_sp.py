@@ -290,7 +290,10 @@ def v1_runs(tmp_path_factory, jobs):
              torch.zeros((1, q, cfg.embed_dims)), torch.zeros((1,), dtype=torch.bool))
     torch.save(dict(cfg=cfg, state_dict=before, batch=batch, steps=1, total_steps=TOTAL_STEPS,
                     frame=frame), tmp / "spec.pt")
-    launches = {mesh: dp_step(tmp, f"dp{mesh[0]}_sp{mesh[1]}", tmp / "spec.pt", *mesh)
+    # the (1, 2) launch runs the spec a second time as a further job (`--then`)
+    then = ("--then", str(tmp / "spec.pt"), str(tmp / "then.pt"), "1", "2")
+    launches = {mesh: dp_step(tmp, f"dp{mesh[0]}_sp{mesh[1]}", tmp / "spec.pt", *mesh,
+                              *(then if mesh == (1, 2) else ()))
                 for mesh in V1_MESHES}
     tx, sched = jax_optim.make_optimizer(JCFG.optim, params, TOTAL_STEPS)
     state = jax_train.TrainState(jnp.zeros((), jnp.int32), params, tx.init(params))
@@ -307,6 +310,7 @@ def v1_runs(tmp_path_factory, jobs):
     for mesh, job in launches.items():
         job.finish()
         runs[mesh]["out"] = torch.load(tmp / f"dp{mesh[0]}_sp{mesh[1]}.pt", weights_only=False)
+    runs["then"] = torch.load(tmp / "then.pt", weights_only=False)
     return runs
 
 
@@ -347,6 +351,22 @@ def test_dp_step_encodes_the_frame_as_one_process(v1_runs, mesh):
     one = encode(build_model(r["cfg"], r["before"], "cpu"), r["frame"], torch.device("cpu"))
     assert_close(r["out"]["bev"], one["bev"], ENCODER_TOL, "bev")
     assert all("encode" in rank for rank in r["out"]["ranks"])
+
+
+def test_dp_step_then_runs_a_further_job_as_a_launch_of_its_own(v1_runs):
+    """`tools.dp_step --then`: the same spec run again as a second job of
+    one launch gives the first job's record bitwise (the mesh's groups made
+    anew, the counters and peaks reset, the model and trainer built anew)."""
+    first, again = v1_runs[(1, 2)]["out"], v1_runs["then"]
+    assert again["mesh"] == (1, 2) and len(again["ranks"]) == 2
+    assert again["outs"] == first["outs"]
+    assert torch.equal(again["bev"], first["bev"])
+    for key in ("states", "grads"):
+        a, b = again[key], first[key]
+        for x, y in ((a, b),) if key == "grads" else zip(a, b):
+            assert sorted(x) == sorted(y) and all(torch.equal(x[k], y[k]) for k in x), key
+    for a, b in zip(again["ranks"], first["ranks"]):
+        assert a["launches"] == b["launches"] and a["queries"] == b["queries"]
 
 
 @pytest.fixture(scope="module")

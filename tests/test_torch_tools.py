@@ -19,13 +19,15 @@ from bevformer_torch.tools import (
     bench_kernel_probe3,
     bench_msda_decompose,
     bench_msda_kernel,
+    bench_vovnet,
     common,
     roofline,
     witness_seeds,
 )
 
 TOOLS = [bench_msda_kernel, bench_kernel_probe3, bench_kernel_probe, bench_hi_probe,
-         bench_msda_decompose, bench_dma_gather, witness_seeds, bench_dcn_variants]
+         bench_msda_decompose, bench_dma_gather, witness_seeds, bench_dcn_variants,
+         bench_vovnet]
 
 
 def _no_card():
