@@ -162,10 +162,9 @@ class BEVHead(nn.Module):
         self.conv_cls = nn.Conv2d(e, NUM_ANCHORS * cfg.num_classes, 1)
         self.conv_reg = nn.Conv2d(e, NUM_ANCHORS * code_size, 1)
         self.conv_dir_cls = nn.Conv2d(e, NUM_ANCHORS * 2, 1)
-
-    def anchors(self, device=None) -> torch.Tensor:
-        c = self.cfg
-        return generate_anchors(c.bev_h, c.bev_w, c.pc_range, device)
+        # made once on the host (see `generate_anchors`); `.to(device)` moves them
+        self.register_buffer("anchors", generate_anchors(cfg.bev_h, cfg.bev_w, cfg.pc_range),
+                             persistent=False)
 
     def forward(self, bev: torch.Tensor) -> Dict[str, torch.Tensor]:
         c = self.cfg
@@ -186,7 +185,7 @@ class BEVHead(nn.Module):
         gt_labels [B, G], num_gt [B] (the rest padding)."""
         c = self.cfg
         k = self.pre_anchor_topk
-        anchors = self.anchors(preds["cls"].device)
+        anchors = self.anchors.to(preds["cls"].device)
         pos, neg = [], []
         for cls_s, reg_s, boxes, labels, ng in zip(preds["cls"], preds["reg"], gt_boxes,
                                                    gt_labels, num_gt):
@@ -226,7 +225,7 @@ class BEVHead(nn.Module):
         """Top-k decode over every (anchor, class) score (the NMS-free test
         path): bboxes [B, max_num, 9], scores, labels."""
         c = self.cfg
-        anchors = self.anchors(preds["cls"].device)
+        anchors = self.anchors.to(preds["cls"].device)
         out = {"bboxes": [], "scores": [], "labels": []}
         for cls_s, reg_s in zip(preds["cls"], preds["reg"]):
             sc, idx = top_k(cls_s.float().sigmoid().reshape(-1), max_num)

@@ -9,17 +9,16 @@ stages of [1, 3, 9, 3] blocks. Submodules carry the JAX module names
 weight bridge (`runtime.checkpoint.vovnet_state_dict`) maps one to one; the
 norm is the port's `resnet.make_norm` ("frozen" or "bn").
 
-On the card its convolutions run outside cuDNN (`VoVNet.use_cudnn`):
-cuDNN's fp32 algorithms for the 3x3 convs of 160 and 192 channels ran at
-0.24-2.2 TFLOP/s with a 42.6 GiB workspace, and PyTorch's own convolution
-(im2col and a cuBLAS product) took a 6 x 640 x 1600 forward from 3961 ms
-to 157 ms, its peak from 42.6 to 3.7 GiB (`tools/bench_vovnet.py` on an
-H100; PERF.md).
+On the card its convolutions run outside cuDNN, forward and backward
+(`NativeConv2d`): cuDNN's fp32 algorithms for the 3x3 convs of 160 and 192
+channels ran at 0.24-2.2 TFLOP/s with a 42.6 GiB workspace, and PyTorch's
+own convolution (im2col and a cuBLAS product) took a 6 x 640 x 1600
+forward from 3961 ms to 157 ms, its peak from 42.6 to 3.7 GiB
+(`tools/bench_vovnet.py` on an H100; PERF.md).
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import List, Tuple
 
 import torch
@@ -38,13 +37,47 @@ V2_99 = dict(
 )
 
 
+class _NativeConv(torch.autograd.Function):
+    """conv2d whose forward and backward both run with cuDNN off. Autograd's
+    own conv backward picks its backend from the global flags when the
+    backward runs, not from those of its forward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, conv):
+        ctx.save_for_backward(x, weight)
+        ctx.conv, ctx.has_bias = conv, bias is not None
+        with torch.backends.cudnn.flags(enabled=False):
+            return F.conv2d(x, weight, bias, conv.stride, conv.padding, conv.dilation,
+                            conv.groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        conv = ctx.conv
+        need = ctx.needs_input_grad
+        with torch.backends.cudnn.flags(enabled=False):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]] if ctx.has_bias else None,
+                list(conv.stride), list(conv.padding), list(conv.dilation), False, [0, 0],
+                conv.groups, [need[0], need[1], ctx.has_bias and need[2]])
+        return gx, gw, gb, None
+
+
+class NativeConv2d(nn.Conv2d):
+    """`nn.Conv2d` (the same parameters and state-dict keys) computed outside
+    cuDNN, forward and backward (`_NativeConv`); see the module's docstring."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _NativeConv.apply(x, self.weight, self.bias, self)
+
+
 class ConvNorm(nn.Module):
     """Bias-free conv ("same" padding), norm, ReLU."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  norm: str = "frozen"):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
+        self.conv = NativeConv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
         self.bn = make_norm(norm, cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -57,7 +90,7 @@ class ESE(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.fc = nn.Conv2d(channels, channels, 1)
+        self.fc = NativeConv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * F.hardsigmoid(self.fc(x.mean(dim=(2, 3), keepdim=True)))
@@ -93,8 +126,6 @@ class VoVNet(nn.Module):
     """V2-99; returns the stages in `out_indices` (0: stage 2, strides 4,
     8, 16, 32 for stages 2-5), each NCHW."""
 
-    use_cudnn = False  # see the module's docstring; `tools/bench_vovnet.py` times both
-
     def __init__(self, out_indices: Tuple[int, ...] = (1, 2, 3), norm: str = "frozen"):
         super().__init__()
         cfg = V2_99
@@ -117,16 +148,14 @@ class VoVNet(nn.Module):
             self.blocks.append(names)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        with (contextlib.nullcontext() if self.use_cudnn
-              else torch.backends.cudnn.flags(enabled=False)):
-            x = self.stem3(self.stem2(self.stem1(x)))
-            outs = []
-            for stage, names in enumerate(self.blocks):
-                if stage > 0:
-                    # pads with -inf, as flax's max_pool
-                    x = F.max_pool2d(x, 3, 2, 1)
-                for name in names:
-                    x = getattr(self, name)(x)
-                if stage in self.out_indices:
-                    outs.append(x)
+        x = self.stem3(self.stem2(self.stem1(x)))
+        outs = []
+        for stage, names in enumerate(self.blocks):
+            if stage > 0:
+                # pads with -inf, as flax's max_pool
+                x = F.max_pool2d(x, 3, 2, 1)
+            for name in names:
+                x = getattr(self, name)(x)
+            if stage in self.out_indices:
+                outs.append(x)
         return outs

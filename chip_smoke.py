@@ -100,9 +100,11 @@ Phases, each printed as it runs:
      synthetic nuScenes-format root in a temporary directory:
      `bevformer_torch.tools.create_data synth` of 4 scenes x 4 frames x 6
      cameras at 1600 x 900 (JPEG through cv2; two train scenes, two val
-     scenes), `tools.train` for 4 steps with a checkpoint, `tools.test` on
-     it over the 8 val frames (the resumed run is V2 t1's, below). Each
-     must exit 0 with finite losses and metrics,
+     scenes), `tools.train` for 4 steps with a checkpoint, `tools.train
+     --resume-from` it to 6 (mid-way through the epoch of the 8 train
+     frames: the restored step, lr and generators the saved ones, steps
+     0-5 each logged once), `tools.test` on the last checkpoint over the 8
+     val frames. Each must exit 0 with finite losses and metrics,
      launch each kernel of its path as often as the path does (K1-K6 per
      training step, K1 and K2 per frame), and leave every key of
      `evaluate_detections` in `metrics_summary.json`. The val split's own
@@ -112,7 +114,7 @@ Phases, each printed as it runs:
      weights and the phase's wall time; one frame's six camera decodes on
      the host, cv2 JPEG against cv2 PNG of the same pixels. The CLIs run
      through their `main(argv)`, a few a process (`run_mains`: create,
-     train and test; fp16 train and the tiny tests; ...). Then
+     train, resume and test; fp16 train and the tiny tests; ...). Then
      `tools.fp16.train bevformer_tiny` for 2 steps (bf16: the bf16 K1 and
      K3/K4 launches per step), and `tools.test bevformer_tiny` on its
      checkpoint with and without `--fuse-conv-bn`:
@@ -2232,7 +2234,8 @@ def check_v2_training(name, steps, device, smi):
 
 # ---------------------------------------------------------------- CLIs
 
-CLI_TRAIN_STEPS = 4  # tools.train bevformer_base (V2 t1 resumes its run: check_cli_v2_train)
+CLI_TRAIN_STEPS = 4  # tools.train bevformer_base, then
+CLI_RESUME_STEPS = 6  # --resume-from to here: mid-way through the 8 train frames' epoch
 # phase 12's one root: 4 scenes x 4 frames at 1600 x 900 (2 train, 2 val
 # scenes); phase 17's tools.test splits its 8 val frames at a scene start
 CLI_SCENES, CLI_FRAMES = 4, 4
@@ -2689,10 +2692,12 @@ def check_cli(smi):
     process's start-up costs 10-25 s), at bevformer_base full size:
     create_data synth of CLI_SCENES x CLI_FRAMES (x 6 cameras at 1600 x
     900, JPEG: half the scenes train, half validate), tools.train for
-    CLI_TRAIN_STEPS steps with a checkpoint, tools.test on it over the val
-    frames; each must finish with finite numbers and launch every kernel of
-    its path as often as the path does (`--resume-from` runs in V2 t1's
-    `tools.train`, `check_cli_v2_train`).
+    CLI_TRAIN_STEPS steps with a checkpoint, tools.train --resume-from it
+    to CLI_RESUME_STEPS (mid-way through the train split's first epoch: the
+    restored step, lr and random generators must be the saved ones, and
+    the two runs log each step once), tools.test on the last checkpoint
+    over the val frames; each must finish with finite numbers and launch
+    every kernel of its path as often as the path does.
     Then the perfect detector, one frame's decodes timed (`decode_times`),
     and the other CLI checks on the same root. The root is removed
     afterwards."""
@@ -2710,44 +2715,56 @@ def check_cli(smi):
     try:
         ckpt_path = os.path.join(work, "ckpts", f"iter_{CLI_TRAIN_STEPS}.pth")
         out = os.path.join(work, "results.json")
-        (_, recs, test_recs), secs = run_mains([
+        train_args = ["bevformer_base", "--data-root", data, "--work-dir", work,
+                      "--log-interval", "1", "--max-iters"]
+        (_, recs, second, test_recs), secs = run_mains([
             ("bevformer_torch.tools.create_data",
              ["synth", "--out-dir", data, "--scenes", str(CLI_SCENES), "--frames",
               str(CLI_FRAMES)]),
+            ("bevformer_torch.tools.train", [*train_args, str(CLI_TRAIN_STEPS)]),
             ("bevformer_torch.tools.train",
-             ["bevformer_base", "--data-root", data, "--work-dir", work, "--max-iters",
-              str(CLI_TRAIN_STEPS), "--log-interval", "1"]),
+             [*train_args, str(CLI_RESUME_STEPS), "--resume-from", ckpt_path]),
             ("bevformer_torch.tools.test",
-             ["bevformer_base", "--data-root", data, "--checkpoint", ckpt_path, "--out", out])],
-            "create_data, tools.train, tools.test")
+             ["bevformer_base", "--data-root", data, "--checkpoint",
+              os.path.join(work, "ckpts", f"iter_{CLI_RESUME_STEPS}.pth"), "--out", out])],
+            "create_data, tools.train, tools.train --resume-from, tools.test")
         names = os.listdir(os.path.join(data, "samples"))
         check(len(names) == CLI_SCENES * CLI_FRAMES * 6 and all(n.endswith(".jpg") for n in names),
               f"create_data synth wrote {len(names)} files, not all .jpg")
-        log(f"[cli] create_data synth: {len(names)} JPEG images; then tools.train and tools.test "
-            f"in the same process, {secs:.1f} s for the three")
+        log(f"[cli] create_data synth: {len(names)} JPEG images; then tools.train, its "
+            f"--resume-from and tools.test in the same process, {secs:.1f} s for the four")
 
-        what = f"tools.train to step {CLI_TRAIN_STEPS}"
-        first_steps = [r for r in recs if "step_ms" in r and "done" not in r]
-        first_done = one(recs, "done", what)
-        for r in first_steps:
-            check(all(math.isfinite(r[k]) for k in ("total", "loss_cls", "loss_bbox",
-                                                    "grad_norm")), f"{what}: {r}")
-        want = {k: v * first_done["steps"] for k, v in TRAIN_PER_STEP.items()}
-        check(first_done["launches"] == want,
-              f"{what}: launches {first_done['launches']}, want {want}")
-        log(f"[cli] {what}: peak {first_done['peak_gib']} GiB, launches "
-            f"{first_done['launches']}; steps: " + "; ".join(
-                f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms host "
-                f"{r['host_ms']:.1f} ms wait {r['data_wait_ms']:.1f} ms" for r in first_steps))
+        def train_run(recs, steps):
+            what = f"tools.train to step {steps}"
+            logged = [r for r in recs if "step_ms" in r and "done" not in r]
+            done = one(recs, "done", what)
+            for r in logged:
+                check(all(math.isfinite(r[k]) for k in ("total", "loss_cls", "loss_bbox",
+                                                        "grad_norm")), f"{what}: {r}")
+            want = {k: v * done["steps"] for k, v in TRAIN_PER_STEP.items()}
+            check(done["launches"] == want, f"{what}: launches {done['launches']}, want {want}")
+            log(f"[cli] {what}: peak {done['peak_gib']} GiB, launches {done['launches']}; "
+                f"steps: " + "; ".join(
+                    f"{r['step']}: loss {r['total']:.4f} step {r['step_ms']:.1f} ms host "
+                    f"{r['host_ms']:.1f} ms wait {r['data_wait_ms']:.1f} ms" for r in logged))
+            return logged, done
+
+        first_steps, first_done = train_run(recs, CLI_TRAIN_STEPS)
+        second_steps, second_done = train_run(second, CLI_RESUME_STEPS)
         ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        saved = dict(step=ckpt["step"], rng=rng_digests(ckpt["rng"]))
+        saved = dict(step=ckpt["step"], lr=ckpt["scheduler"]["_last_lr"],
+                     rng=rng_digests(ckpt["rng"]))
         check(sorted(ckpt) == ["meta", "optimizer", "rng", "scheduler", "state_dict", "step"],
               f"checkpoint keys {sorted(ckpt)}")
         del ckpt
+        resumed = one(second, "resumed_from", "tools.train --resume-from")
+        restored = {k: resumed[k] for k in saved}
+        log(f"[cli] saved {saved}; restored {restored}")
+        check(restored == saved, f"restored {restored} != saved {saved}")
         check(saved["step"] == CLI_TRAIN_STEPS, f"saved step {saved['step']}")
         check("torch_cuda" in saved["rng"], f"saved rng {saved['rng']}")
-        check([r["step"] for r in first_steps] == list(range(CLI_TRAIN_STEPS)),
-              f"the run did not log steps 0-{CLI_TRAIN_STEPS - 1} once each")
+        check([r["step"] for r in first_steps + second_steps] == list(range(CLI_RESUME_STEPS)),
+              f"the two runs did not log steps 0-{CLI_RESUME_STEPS - 1} once each")
 
         cfg = get_config("bevformer_base")
         timing = one(test_recs, "frame_ms", "tools.test")
@@ -2780,14 +2797,14 @@ def check_cli(smi):
         v2.update(photometric_times(smi))
         v2.update(check_dp_cli(data, root, ckpt_path, first_steps, smi))
 
-        # the run's first step carries its process's warm-up
-        steady = first_steps[1:]
+        # each run's first step carries its warm-up
+        steady = first_steps[1:] + second_steps[1:]
         res = dict(
             step_ms=median_of([r["step_ms"] for r in steady]),
             host_ms=median_of([r["host_ms"] for r in steady]),
             data_wait_ms=median_of([r["data_wait_ms"] for r in steady]),
             frame_ms=timing["frame_ms_median"], load_ms=timing["load_ms_median"],
-            train_peak_gib=first_done["peak_gib"],
+            train_peak_gib=max(first_done["peak_gib"] or 0, second_done["peak_gib"] or 0),
             test_peak_gib=timing["peak_gib"], NDS=summary["NDS"], mAP=summary["mAP"],
         )
         res.update(fp16, **v2, **decode)
@@ -2796,7 +2813,7 @@ def check_cli(smi):
             f"{[r['step'] for r in steady]}), host {res['host_ms']:.1f} ms, data wait "
             f"{res['data_wait_ms']:.1f} ms; tools.test frame {res['frame_ms']:.1f} ms (load "
             f"{res['load_ms']:.1f} ms); peak train {res['train_peak_gib']} / test "
-            f"{res['test_peak_gib']} GiB; seeded weights after {CLI_TRAIN_STEPS} steps: NDS "
+            f"{res['test_peak_gib']} GiB; seeded weights after {CLI_RESUME_STEPS} steps: NDS "
             f"{res['NDS']!r} mAP {res['mAP']!r}; phase wall time {res['seconds']:.1f} s; card: {smi}")
         return res
     finally:

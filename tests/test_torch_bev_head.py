@@ -81,6 +81,16 @@ def test_anchors_codec_and_iou_match_jax():
                  TOL, "iou")
 
 
+def test_head_holds_jax_anchors_outside_its_state_dict(setup):
+    """The head builds its anchors once, on the host, as JAX's; they are a
+    buffer that moves with the module and no checkpoint key."""
+    jcfg, cfg, _, head, _, _ = setup
+    assert np.array_equal(head.anchors.numpy(), np.asarray(
+        jbh.generate_anchors(jcfg.bev_h, jcfg.bev_w, jcfg.pc_range)))
+    assert "anchors" not in head.state_dict()
+    assert head.anchors.shape == (cfg.bev_h * cfg.bev_w * bh.NUM_ANCHORS, 9)
+
+
 @pytest.mark.parametrize("k", [1, 5, 25])
 def test_top_k_takes_jax_tie_order(k):
     rng = np.random.RandomState(k)
