@@ -56,15 +56,17 @@ def camera_rigs(img_w=1600, img_h=900) -> Dict[str, dict]:
     return rigs
 
 
-def rig_lidar2img(img_w=1600, img_h=900) -> np.ndarray:
-    """[6, 4, 4] lidar2img of the six rigs, in CAM_ORDER."""
+def rig_lidar2img(img_w=1600, img_h=900, rigs: Optional[Dict[str, dict]] = None) -> np.ndarray:
+    """[6, 4, 4] lidar2img of the six rigs (default `camera_rigs`), in
+    CAM_ORDER."""
+    rigs = rigs or camera_rigs(img_w, img_h)
     return np.stack([
         lidar2img_from_cam_info(dict(
-            sensor2lidar_rotation=r["rotation"],
-            sensor2lidar_translation=r["translation"],
-            cam_intrinsic=r["intrinsic"],
+            sensor2lidar_rotation=rigs[c]["rotation"],
+            sensor2lidar_translation=rigs[c]["translation"],
+            cam_intrinsic=rigs[c]["intrinsic"],
         ))
-        for r in camera_rigs(img_w, img_h).values()
+        for c in CAM_ORDER
     ])
 
 

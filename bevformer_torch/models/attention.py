@@ -19,7 +19,8 @@ locations stay fp32, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,8 +92,8 @@ def sca_capacity_routing(bev_mask: torch.Tensor, capacity_ratio: float) -> Optio
     """Static per-camera query selection for SCA: the first `cap` queries of
     each camera, visible ones first in ascending index order, then
     invisible fillers in ascending order (`sca_capacity_precompute`).
-    Visible queries beyond `cap` are dropped, as in the JAX package.
-    A ratio of 0 (or 1 and more) routes every query: None, SCA's dense
+    Visible queries beyond `cap` are dropped, as in the JAX package
+    (counted inside `capacity_count`). A ratio of 0 (or 1 and more) routes every query: None, SCA's dense
     path, as JAX's `attention.py:726` takes it.
 
     bev_mask [bs, cams, q, nz] -> top_idx [bs, cams, cap], vis_sel
@@ -102,11 +103,63 @@ def sca_capacity_routing(bev_mask: torch.Tensor, capacity_ratio: float) -> Optio
     bs, cams, q, nz = bev_mask.shape
     cap = min((int(q * capacity_ratio) + 127) // 128 * 128, q)
     anyz = bev_mask.any(dim=-1)
+    for count in _CAPACITY_COUNTS:
+        count.add(anyz, cap)
     # a stable sort on "invisible" keeps the ascending order within each group
     top_idx = torch.sort((~anyz).to(torch.uint8), dim=-1, stable=True)[1][..., :cap]
     vis_sel = torch.gather(anyz, 2, top_idx)
     inv, found = routing_inverse_vis(anyz, cap)
     return dict(top_idx=top_idx, vis_sel=vis_sel, inv=inv, found=found, anyz=anyz)
+
+
+class CapacityCount:
+    """The visible SCA queries that `sca_capacity_routing` drops, counted on
+    the device over the frames routed while it is active
+    (`capacity_count`), with no host sync: per frame, the sum over (batch,
+    camera) of max(visible - cap, 0), and the most visible queries of one
+    camera; `read` (one sync) gives the largest of each over the frames,
+    JAX's `max_capacity_clipped` (`attention.py:741-751`, `tools/test.py:
+    237-243`) and the largest visible count."""
+
+    def __init__(self):
+        self.clipped: Optional[torch.Tensor] = None
+        self.visible: Optional[torch.Tensor] = None
+        self.cap: Optional[int] = None
+        self.frames = 0
+
+    def add(self, anyz: torch.Tensor, cap: int) -> None:
+        vis = anyz.sum(dim=-1)  # [bs, cams]
+        clipped = (vis - cap).clamp(min=0).sum()
+        most = vis.max()
+        if self.clipped is None:
+            self.clipped, self.visible = clipped, most
+        else:
+            self.clipped = torch.maximum(self.clipped, clipped)
+            self.visible = torch.maximum(self.visible, most)
+        self.cap = cap
+        self.frames += 1
+
+    def read(self) -> Dict[str, Optional[int]]:
+        """max_capacity_clipped (0 when nothing was routed: dense SCA drops
+        nothing), max_visible and the capacity (None when nothing was
+        routed), and the routings counted."""
+        return dict(max_capacity_clipped=0 if self.clipped is None else int(self.clipped),
+                    max_visible=None if self.visible is None else int(self.visible),
+                    sca_capacity=self.cap, routings=self.frames)
+
+
+_CAPACITY_COUNTS: List[CapacityCount] = []
+
+
+@contextmanager
+def capacity_count():
+    """A `CapacityCount` of every SCA routing made inside the block."""
+    count = CapacityCount()
+    _CAPACITY_COUNTS.append(count)
+    try:
+        yield count
+    finally:
+        _CAPACITY_COUNTS.remove(count)
 
 
 def routing_inverse_vis(anyz: torch.Tensor, cap: int):

@@ -86,6 +86,29 @@ class BEVFormerEncoder(nn.Module):
             for _ in range(num_layers)
         )
 
+    def frame_geometry(self, has_prev, shift, lidar2img, img_shape, bev_h: int, bev_w: int):
+        """The per-frame work outside the layers: the pillar and BEV-plane
+        reference points, their projection into the cameras
+        (`point_sampling`), TSA's hybrid references (the prev slot shifted
+        by the ego motion) and SCA's routing. Returns
+        (reference_points_cam [bs, cams, q, nz, 2], bev_mask [bs, cams, q,
+        nz], hybrid_ref_2d [bs, 2, q, 1, 2], routing or None)."""
+        bs, dev = lidar2img.shape[0], lidar2img.device
+        ref_3d = geometry.reference_points_3d(
+            bev_h, bev_w, self.pc_range[5] - self.pc_range[2],
+            self.num_points_in_pillar, bs=bs, device=dev,
+        )
+        ref_2d = geometry.reference_points_2d(bev_h, bev_w, bs=bs, device=dev)
+        reference_points_cam, bev_mask = geometry.point_sampling(
+            ref_3d, self.pc_range, lidar2img, img_shape
+        )
+        # the prev slot's references are shifted by the ego motion
+        has = has_prev.view(bs, 1, 1, 1)
+        prev_ref = torch.where(has, ref_2d + shift[:, None, None, :], ref_2d)
+        hybrid_ref_2d = torch.stack([prev_ref, ref_2d], dim=1)  # [bs,2,q,1,2]
+        routing = sca_capacity_routing(bev_mask, self.sca_capacity_ratio)
+        return reference_points_cam, bev_mask, hybrid_ref_2d, routing
+
     def forward(
         self,
         bev_query: torch.Tensor,  # [bs, q, e]
@@ -101,21 +124,8 @@ class BEVFormerEncoder(nn.Module):
         bev_w: int,
     ) -> torch.Tensor:
         bs = bev_query.shape[0]
-        dev = bev_query.device
-        ref_3d = geometry.reference_points_3d(
-            bev_h, bev_w, self.pc_range[5] - self.pc_range[2],
-            self.num_points_in_pillar, bs=bs, device=dev,
-        )
-        ref_2d = geometry.reference_points_2d(bev_h, bev_w, bs=bs, device=dev)
-        reference_points_cam, bev_mask = geometry.point_sampling(
-            ref_3d, self.pc_range, lidar2img, img_shape
-        )
-        # the prev slot's references are shifted by the ego motion
-        has = has_prev.view(bs, 1, 1, 1)
-        prev_ref = torch.where(has, ref_2d + shift[:, None, None, :], ref_2d)
-        hybrid_ref_2d = torch.stack([prev_ref, ref_2d], dim=1)  # [bs,2,q,1,2]
-
-        routing = sca_capacity_routing(bev_mask, self.sca_capacity_ratio)
+        reference_points_cam, bev_mask, hybrid_ref_2d, routing = self.frame_geometry(
+            has_prev, shift, lidar2img, img_shape, bev_h, bev_w)
         split = parallel.query_split(bev_h * bev_w)
         if split is not None:
             rows = split.rows

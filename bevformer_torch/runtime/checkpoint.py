@@ -280,6 +280,35 @@ def state_dict_from_jax_v2(variables: Mapping[str, Any], cfg) -> StateDict:
     return sd
 
 
+def _norms_ffn(linear, norm, dst: str, node: Mapping) -> None:
+    for i in range(3):
+        norm(f"{dst}.norms.{i}", f"norm{i + 1}", node)
+    linear(f"{dst}.ffns.0.layers.0.0", "ffn/fc1", node)
+    linear(f"{dst}.ffns.0.layers.1", "ffn/fc2", node)
+
+
+def encoder_state_dict(enc: Mapping[str, Any], num_layers: int, prefix: str = "") -> StateDict:
+    """The params of a JAX `BEVFormerEncoder` (its scanned layer stack
+    `layers/layer`) -> the state dict of the port's `BEVFormerEncoder`,
+    keys under `prefix`."""
+    sd: StateDict = {}
+    _, _, linear, norm = _converters(sd, enc)
+    stacked = _node(enc, "layers/layer")
+    for lid in range(num_layers):
+        node = _index(stacked, lid)
+        dst = f"{prefix}layers.{lid}"
+        for nm in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
+            linear(f"{dst}.attentions.0.{nm}", f"self_attn/{nm}", node)
+        for nm in ("sampling_offsets", "attention_weights", "value_proj"):
+            linear(
+                f"{dst}.attentions.1.deformable_attention.{nm}",
+                f"cross_attn/deformable_attention/{nm}", node,
+            )
+        linear(f"{dst}.attentions.1.output_proj", "cross_attn/output_proj", node)
+        _norms_ffn(linear, norm, dst, node)
+    return sd
+
+
 def state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict:
     """JAX params (numpy leaves) -> reference-keyed state dict. For a V2
     config the params must hold the running statistics in their BN nodes
@@ -333,26 +362,8 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict:
         linear(f"{tr}.fusion.layer_norm.0", f"{trd}/fusion/out_fc")
         norm(f"{tr}.fusion.layer_norm.1", f"{trd}/fusion/out_ln")
 
-    def norms_ffn(dst, node):
-        for i in range(3):
-            norm(f"{dst}.norms.{i}", f"norm{i + 1}", node)
-        linear(f"{dst}.ffns.0.layers.0.0", "ffn/fc1", node)
-        linear(f"{dst}.ffns.0.layers.1", "ffn/fc2", node)
-
-    stacked = _node(p, f"{trd}/encoder/layers/layer")
-    for lid in range(cfg.encoder_layers):
-        node = _index(stacked, lid)
-        dst = f"{tr}.encoder.layers.{lid}"
-        for nm in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
-            linear(f"{dst}.attentions.0.{nm}", f"self_attn/{nm}", node)
-        for nm in ("sampling_offsets", "attention_weights", "value_proj"):
-            linear(
-                f"{dst}.attentions.1.deformable_attention.{nm}",
-                f"cross_attn/deformable_attention/{nm}", node,
-            )
-        linear(f"{dst}.attentions.1.output_proj", "cross_attn/output_proj", node)
-        norms_ffn(dst, node)
-
+    sd.update(encoder_state_dict(_node(p, f"{trd}/encoder"), cfg.encoder_layers,
+                                 f"{tr}.encoder."))
     for lid in range(cfg.decoder_layers):
         node = _node(p, f"{trd}/decoder/layer{lid}")
         dst = f"{tr}.decoder.layers.{lid}"
@@ -366,7 +377,7 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict:
         linear(f"{dst}.attentions.0.attn.out_proj", "out_proj", sa)
         for nm in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
             linear(f"{dst}.attentions.1.{nm}", f"cross_attn/{nm}", node)
-        norms_ffn(dst, node)
+        _norms_ffn(linear, norm, dst, node)
 
     return sd
 

@@ -19,4 +19,11 @@ and `bench_hi_probe` (the cost split of K7 and of K1),
 `bench_dma_gather` (the row gather against `torch.take_along_dim`).
 `roofline` gives each kernel call's least time on the card from its shapes;
 `common` holds the shapes, seeded inputs and CUDA-event timing.
+
+The model measuring tools are the JAX package's tools of the same names,
+each a `main(argv) -> dict` that raises without a card and prints one JSON
+line (`common.json_line`): `benchmark` (frames/s of video inference, in
+`bench.py`'s shape), `bench_train_step`, `bench_v2`, `bench_train_v2`,
+`bench_components`, `bench_enc_only`, `bench_dcn`, `bench_train2`,
+`bench_train_bisect` and `audit_sca_capacity`.
 """

@@ -1,5 +1,6 @@
-"""What the port's kernel benchmark and probe tools share: their shapes, the
-seeded inputs, CUDA-event timing, the card's line and the JSON records.
+"""What the port's kernel benchmark and probe tools and its model measuring
+tools share: their shapes, the seeded inputs, CUDA-event timing, the card's
+line and the JSON records.
 
 The default shape is bevformer_base's spatial cross-attention (SCA) as the
 JAX tools time it: B = 6 cameras, H = 8 heads, D = 32, P = 8 points, the
@@ -9,6 +10,13 @@ Q = 16000 routed queries per camera (`--q 10112` is capacity 0.25).
 200 x 200 level, P = 4. Inputs are made with numpy from seed 0, as the JAX
 tools make theirs, then moved to the card. Nothing here allocates on import,
 and nothing falls back to the CPU: a tool without a card raises.
+
+The model measuring tools (`benchmark`, `bench_*` of whole modules,
+`audit_sca_capacity`) share `example_inputs` (the JAX package's seeded
+frame), `seeded_model`, `time_calls` (CUDA events around each call after a
+warm-up: the median and the spread) and `json_line`, the one JSON record a
+run prints. Their inner functions take a device, so that they run on the
+CPU too (timed there on the host clock).
 """
 
 from __future__ import annotations
@@ -17,13 +25,14 @@ import argparse
 import functools
 import json
 import subprocess
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from bevformer_torch.kernels import gather, msda
+from bevformer_torch.kernels import gather, launch_counts, msda, zero_counts
 from bevformer_torch.tools import roofline
 
 SCA_LEVELS = ((116, 200), (58, 100), (29, 50), (15, 25))
@@ -212,3 +221,209 @@ def measure(tool: str, case: str, fn: Callable[[], torch.Tensor], ref: torch.Ten
         extra["plain_ms"] = time_ms(plain, PLAIN_REPS)[0]
     return record(tool, case, cost, ms, max_abs_err=max_abs_err(out, ref),
                   scale=float(ref.abs().max()), launches=launches, **extra)
+
+
+# ------------------------------------------------ the model measuring tools
+
+EXAMPLE_FOCAL = 1000.0  # px: the example rig's focal length (`__graft_entry__.py:29`)
+
+
+def example_inputs(cfg, bs: int, device):
+    """The JAX package's seeded example frame (`__graft_entry__.py::
+    _example_inputs`), drawn in the same order from numpy seed 0: images
+    [bs, cams, H, W, 3] N(0, 1) x 0.1 at `cfg.data.img_size`, can_bus
+    [bs, 18] N(0, 1) x 0.1, lidar2img [bs, cams, 4, 4] of one camera of
+    focal length 1000 px at the image centre looking along the lidar's +x
+    (every camera the same), prev_bev [bs, bev_h * bev_w, e] zeros and
+    has_prev [bs] false; float32 (has_prev bool), on `device`."""
+    h, w = cfg.data.img_size
+    rng = np.random.RandomState(SEED)
+    images = rng.randn(bs, cfg.data.num_cams, h, w, 3).astype(np.float32) * 0.1
+    can_bus = rng.randn(bs, 18).astype(np.float32) * 0.1
+    return (torch.from_numpy(images).to(device), torch.from_numpy(can_bus).to(device),
+            example_lidar2img(cfg, bs, device),
+            torch.zeros((bs, cfg.bev_h * cfg.bev_w, cfg.embed_dims), device=device),
+            torch.zeros((bs,), dtype=torch.bool, device=device))
+
+
+def example_lidar2img(cfg, bs: int, device) -> torch.Tensor:
+    """The example frame's lidar2img [bs, cams, 4, 4] (`example_inputs`)."""
+    h, w = cfg.data.img_size
+    f = EXAMPLE_FOCAL
+    intr = np.array([[f, 0, w / 2, 0], [0, f, h / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    extr = np.array([[0, -1, 0, 0], [0, 0, -1, 0], [1, 0, 0, 0], [0, 0, 0, 1.0]])
+    l2i = np.tile((intr @ extr)[None, None], (bs, cfg.data.num_cams, 1, 1)).astype(np.float32)
+    return torch.from_numpy(l2i).to(device)
+
+
+def tool_config(name: str, options: Sequence[str] = (), dtype: Optional[str] = None, **fields):
+    """`get_config(name)` with `--cfg-options key=val` strings applied, then
+    `dtype` (None: the config's own) and `fields`."""
+    from bevformer_torch.configs import apply_overrides, get_config
+
+    cfg = get_config(name)
+    if options:
+        cfg = apply_overrides(cfg, dict(kv.split("=", 1) for kv in options))
+    if dtype:
+        fields["dtype"] = dtype
+    return cfg.replace(**fields) if fields else cfg
+
+
+_WEIGHTS: Dict[str, dict] = {}
+KEPT_WEIGHTS = 2  # configs whose seeded weights a process keeps, the oldest dropped first
+
+
+def seeded_model(cfg, device, seed: int = 0):
+    """`build_model(cfg, init_state_dict(cfg, seed), device)`, in eval mode.
+    The seeded weights are kept for the process, by everything of the
+    config but its dtype, `use_remat` and `use_grid_mask` (which change no
+    weight), for the last `KEPT_WEIGHTS` configs: a tool that builds one
+    model several ways draws them once."""
+    from bevformer_torch.runtime import build_model, init_state_dict
+
+    key = repr((cfg.replace(dtype="float32", use_remat=False, use_grid_mask=False), seed))
+    if key not in _WEIGHTS:
+        while len(_WEIGHTS) >= KEPT_WEIGHTS:
+            del _WEIGHTS[next(iter(_WEIGHTS))]
+        _WEIGHTS[key] = init_state_dict(cfg, seed=seed)
+    return build_model(cfg, _WEIGHTS[key], device)
+
+
+def train_model(cfg, device, seed: int = 0):
+    """`seeded_model` made ready to train (`frozen_as_trainer`)."""
+    return frozen_as_trainer(seeded_model(cfg, device), seed)
+
+
+def frozen_as_trainer(model, seed: int = 0):
+    """`model` in train mode, its frozen stages frozen as `Trainer` freezes
+    them (`runtime.optim.label_params`; no gradient is computed below
+    them), dropout and GridMask drawing from `seed`."""
+    from bevformer_torch.runtime.optim import FROZEN, label_params
+
+    model.train()
+    labels = label_params(model, model.cfg.optim.frozen_stages)
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] != FROZEN)
+    torch.manual_seed(seed)
+    model.grid_mask.generator.manual_seed(seed)
+    return model
+
+
+def grad_step(model, loss: Callable[[], torch.Tensor]) -> Callable[[], torch.Tensor]:
+    """A call that zeroes `model`'s gradients, evaluates `loss()` and runs
+    its backward; it returns the loss, detached."""
+    def call():
+        model.zero_grad(set_to_none=True)
+        value = loss()
+        value.backward()
+        return value.detach()
+    return call
+
+
+def where(device) -> str:
+    """What a metric's name says it ran on: one GPU, or the CPU."""
+    return "1 GPU" if torch.device(device).type == "cuda" else "CPU"
+
+
+@dataclass
+class Timing:
+    """The times of the timed calls (ms, in order), the clock that took
+    them, the kernel launches per timed call (the counters that moved) and
+    the TF32 flags in force where the calls ran."""
+
+    ms: List[float]
+    clock: str
+    launches: Dict[str, float] = field(default_factory=dict)
+    tf32: Dict[str, bool] = field(default_factory=dict)
+
+    @property
+    def median(self) -> float:
+        return float(np.median(self.ms))
+
+    def fields(self) -> dict:
+        """The record's fields: median, min and max ms (the spread), each
+        call's ms, the clock, launches per call."""
+        return dict(ms_median=self.median, ms_min=min(self.ms), ms_max=max(self.ms), ms=self.ms,
+                    launches_per_call=self.launches, clock=self.clock)
+
+
+def tf32_flags() -> Dict[str, bool]:
+    return dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                cudnn=torch.backends.cudnn.allow_tf32)
+
+
+def time_calls(fn: Callable[[], object], reps: int, device, warmup: int = 1) -> Timing:
+    """Each of `reps` calls of `fn` after `warmup` untimed ones: on the card
+    between a pair of CUDA events, the device idle before each (a frame or
+    step's latency: the host's launches and syncs inside it count, no
+    earlier work does; a whole frame needs no L2 flush); on the CPU on the
+    host clock. The kernel launches are counted over the timed calls."""
+    for _ in range(warmup):
+        fn()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    zero_counts()
+    flags = tf32_flags()
+    ms = []
+    for _ in range(reps):
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize(device)
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: n / max(reps, 1) for k, n in launch_counts().items() if n}
+    return Timing(ms=ms, clock="cuda_events" if cuda else "host", launches=launches, tf32=flags)
+
+
+def peak_gib(device) -> Optional[float]:
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def json_line(metric: str, value: float, unit: str, vs_baseline: Optional[float], *,
+              device, dtype: str, timing: Optional[Timing] = None, **extra) -> dict:
+    """The one JSON record of a measuring tool's run, printed and returned:
+    `metric`, `value`, `unit` and `vs_baseline` in `bench.py`'s shape, then
+    `extra`, `timing`'s fields, the config's dtype and the TF32 flags in
+    force where the timed calls ran, the peak device memory
+    (`torch.cuda.max_memory_allocated`, GiB), the kernel launches (per timed
+    call where a timing is given; else the counts since the tool zeroed
+    them) and the card's `nvidia-smi` name and power limit."""
+    rec = dict(metric=metric, value=value, unit=unit, vs_baseline=vs_baseline, **extra)
+    if timing is not None:
+        rec.update(timing.fields())
+    launches = timing.launches if timing is not None else {
+        k: n for k, n in launch_counts().items() if n}
+    rec.update(dtype=dtype, tf32=timing.tf32 if timing is not None else tf32_flags(),
+               peak_gib=peak_gib(device), launches=launches,
+               card=card_line() if torch.device(device).type == "cuda" else "cpu")
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def bench_parser(description: str, config: Optional[str]) -> argparse.ArgumentParser:
+    """A model measuring tool's options: the config (positional; optional
+    where `config` gives a default), `--dtype` (default the config's own)
+    and `--cfg-options`."""
+    ap = argparse.ArgumentParser(description=description)
+    if config is None:
+        ap.add_argument("config")
+    else:
+        ap.add_argument("config", nargs="?", default=config)
+    ap.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
+                    help="default: the config's own")
+    ap.add_argument("--cfg-options", nargs="*", default=[])
+    return ap

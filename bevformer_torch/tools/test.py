@@ -28,7 +28,12 @@ boxes seen by more than one camera (NuScenesEval_custom's overlap_test). A
 line
 {"frames", "frame_ms", "load_ms", ...} reports each frame's (V2: each
 sample's) time (its images' loading and preprocessing, then the model and
-decode), the peak device memory and the kernels' launches over the frames.
+decode), the peak device memory, the kernels' launches over the frames and
+the visible SCA queries past the routing's capacity
+(`models.attention.capacity_count`, counted on the card and read once
+after the last frame): `max_capacity_clipped`, the most dropped in one
+frame (JAX `tools/test.py:237-243`), and `max_visible`, the most visible
+queries of one camera in one frame, against `sca_capacity`.
 
 Over ranks (`torchrun --nproc-per-node N`, `bevformer_torch/tools/
 dist_test.sh`; JAX `tools/test.py:116-117`, :201-233), each rank runs a
@@ -65,6 +70,7 @@ from bevformer_torch.data import (
     NuScenesTemporalDatasetV2,
 )
 from bevformer_torch.kernels import launch_counts, zero_counts
+from bevformer_torch.models.attention import capacity_count
 from bevformer_torch.runtime import distributed
 from bevformer_torch.runtime.eval import gather_results
 from bevformer_torch.runtime import (
@@ -158,22 +164,23 @@ def evaluate(args, device: torch.device) -> Optional[dict]:
         torch.cuda.reset_peak_memory_stats(device)
     zero_counts()  # the launches of this run's frames, also where a process runs several
     results, load_ms, frame_ms = [], [], []
-    for i in segment:
-        sync()
-        t0 = time.perf_counter()
-        sample = get_sample(i)
-        sync()
-        t1 = time.perf_counter()
-        results.append(infer(sample))  # waits for the decode
-        t2 = time.perf_counter()
-        load_ms.append((t1 - t0) * 1e3)
-        frame_ms.append((t2 - t0) * 1e3)
+    with capacity_count() as dropped:
+        for i in segment:
+            sync()
+            t0 = time.perf_counter()
+            sample = get_sample(i)
+            sync()
+            t1 = time.perf_counter()
+            results.append(infer(sample))  # waits for the decode
+            t2 = time.perf_counter()
+            load_ms.append((t1 - t0) * 1e3)
+            frame_ms.append((t2 - t0) * 1e3)
     # frame 0 carries the first calls' set-up; rank 0's own frames
     timing = dict(frames=len(frame_ms), frame_ms=frame_ms, load_ms=load_ms,
                   frame_ms_median=median(frame_ms[1:]), load_ms_median=median(load_ms[1:]),
                   peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
                             if device.type == "cuda" else None),
-                  launches=launch_counts(), ranks=distributed.world_size())
+                  launches=launch_counts(), ranks=distributed.world_size(), **dropped.read())
     results = gather_results(results, [ds.infos[i]["token"] for i in range(n)])
     if not lead:
         return None

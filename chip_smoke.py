@@ -227,8 +227,24 @@ Phases, each printed as it runs:
      `get_bboxes(300)`, times and peak, and the same predictions on the
      CPU: the losses within 1e-5, every bag's anchors and the decoded picks
      equal in order (ties: a box outside the BEV, saturated scores); (d)
-     is in phase 12: the JPEG `load_ms` and the decode times. Each phase's
-     seconds are printed at the end.
+     is in phase 12: the JPEG `load_ms` and the decode times;
+  20. the measuring tools (`bevformer_torch/tools`), each through its
+     `main(argv)` in this process at full width with seeded weights:
+     `benchmark bevformer_base --samples 4` in fp32 and in bf16 (frames/s,
+     CUDA events around each frame), `bench_train_step bevformer_base
+     --steps 2` (use_remat on), `bench_components bevformer_base`,
+     `bench_enc_only --layers 1 6` and `--glue`, `bench_dcn` (dcn and
+     plain), `bench_v2` (t1), `bench_train_v2 --iters 1` (t1),
+     `bench_train2` and `bench_train_bisect` (bevformer_tiny) and
+     `audit_sca_capacity`. Each must print one JSON line carrying the
+     card's line; the fp32 frame median must lie within 15% of phase 10's,
+     each path's launches per frame or step be the path's (K1 18 and K2 26
+     a base frame), backbone + neck < BEV only < full, the encoder at 1
+     layer faster than at 6, and no visible SCA query dropped on the
+     synthetic rig or the example frame. Then one base frame of the
+     benchmark's chain in each dtype under torch.profiler: its device
+     kernel time against the tool's frame median, the device's idle share
+     of a frame. Each phase's seconds are printed at the end.
 
 The line before the last is the kernels' JSON record (bf16 K1 and K3/K4
 with the launches of tiny_fp16's training run; bf16 K2, K5 and K6 with those
@@ -1650,13 +1666,14 @@ def check_v2(name, device, smi):
                 witness=witness)
 
 
-KERNEL_NAMES = ("msda_fwd_kernel", "dcn_conv_fwd_kernel", "msda_bwd_kernel",
-                "dcn_im2col_kernel", "dcn_col2im_kernel")
+KERNEL_NAMES = ("msda_fwd_kernel", "dcn_conv_fwd_kernel", "dcn_conv_fwd_bf16_kernel",
+                "msda_bwd_kernel", "dcn_im2col_kernel", "dcn_col2im_kernel")
 
 
 def profile_run(fn, tag, what, smi):
     """Run `fn` once under torch.profiler: wall time, device kernel time,
-    busy share, and the ops that take the device time."""
+    busy share, and the ops that take the device time. Returns (wall ms
+    with the profiler on, device kernel ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1690,6 +1707,7 @@ def profile_run(fn, tag, what, smi):
         log(f"[{tag}]   {ms:9.3f} ms {ms / busy_ms:6.1%} {count:5d} calls  {name[:70]}")
     log(f"[{tag}] the port's kernels: " + ", ".join(
         f"{k} {ms:.3f} ms ({n} calls)" for k, (ms, n) in port.items()))
+    return wall_ms, busy_ms
 
 
 def profile_frame(model, video, smi):
@@ -2785,7 +2803,11 @@ def check_cli(smi):
         log(f"[cli] tools.test over {frames} val frames: frame ms "
             f"{[round(x, 1) for x in timing['frame_ms']]} (load "
             f"{[round(x, 1) for x in timing['load_ms']]}), peak {timing['peak_gib']} GiB, "
-            f"launches {timing['launches']}; {json.dumps(summary)}")
+            f"launches {timing['launches']}; SCA queries dropped "
+            f"{timing['max_capacity_clipped']} (most visible {timing['max_visible']} of capacity "
+            f"{timing['sca_capacity']}); {json.dumps(summary)}")
+        check(timing["max_capacity_clipped"] == 0,
+              f"tools.test dropped {timing['max_capacity_clipped']} visible SCA queries")
 
         perfect_detector(data, cfg, "cuda")
         decode = decode_times(data, smi)
@@ -3751,6 +3773,168 @@ def check_bev_head(device, smi):
                 loss_err=max(loss_errs.values()), ties=ties)
 
 
+# ---------------------------------------------------------- measuring tools
+
+# phase 20: (tool, argv) in order, each `main(argv)` in this process
+TOOL_RUNS = (
+    ("benchmark", ["bevformer_base", "--samples", "4"]),
+    ("benchmark", ["bevformer_base", "--samples", "4", "--dtype", "bfloat16"]),
+    ("bench_train_step", ["bevformer_base", "--steps", "2"]),
+    ("bench_components", ["bevformer_base"]),
+    ("bench_enc_only", ["--layers", "1", "6"]),
+    ("bench_enc_only", ["--glue"]),
+    ("bench_dcn", []),
+    ("bench_v2", []),
+    ("bench_train_v2", ["--iters", "1"]),
+    ("bench_train2", []),
+    ("bench_train_bisect", []),
+    ("audit_sca_capacity", []),
+)
+TOOL_FRAME_TOL = 0.15  # benchmark's fp32 base frame median against phase 10's, relative
+
+
+def profile_benchmark_frames(smi, medians):
+    """One frame of `tools.benchmark`'s chain on bevformer_base (after its
+    warm-up frames) under torch.profiler in each dtype of `medians`: its
+    device kernel time against the tool's CUDA-event frame median of that
+    dtype (`medians`, an unprofiled frame) gives the device's idle share
+    of a frame. {dtype: dict(busy_ms, wall_ms, idle)}."""
+    import torch
+    from bevformer_torch.device import precision
+    from bevformer_torch.runtime.eval import VideoEvaluator
+    from bevformer_torch.tools import benchmark, common
+
+    device = torch.device("cuda", 0)
+    out = {}
+    for dtype, median in medians.items():
+        cfg = common.tool_config("bevformer_base", (), dtype)
+        chain = benchmark.frames(VideoEvaluator(common.seeded_model(cfg, device)),
+                                 common.example_inputs(cfg, 1, device))
+        with precision(dtype, device.type):
+            for _ in range(benchmark.WARMUP):
+                next(chain)
+            wall, busy = profile_run(lambda: next(chain), "tools",
+                                     f"benchmark bevformer_base {dtype} frame", smi)
+        out[dtype] = dict(busy_ms=busy, wall_ms=wall, idle=1 - busy / median)
+        log(f"[tools] benchmark bevformer_base {dtype}: device kernel time {busy:.2f} ms of the "
+            f"tool's {median:.2f} ms frame median: idle {out[dtype]['idle']:.1%} of an "
+            f"unprofiled frame; card: {smi}")
+        del chain
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_tool(name, argv):
+    """`bevformer_torch.tools.<name>.main(argv)` in this process: its
+    record, the JSON lines it printed and its wall seconds."""
+    import io
+    from contextlib import redirect_stdout
+    from importlib import import_module
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        rec = import_module(f"bevformer_torch.tools.{name}").main(argv)
+    lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+    return rec, lines, time.perf_counter() - t0
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def check_tools(smi, frame_ms):
+    """Phase 20: every measuring tool through its `main` (TOOL_RUNS), each
+    record's keys, launches and orderings checked; `frame_ms` is phase 10's
+    fp32 frame median."""
+    import torch
+    from bevformer_torch.configs import get_config
+
+    recs = {}
+    for name, argv in TOOL_RUNS:
+        rec, lines, secs = run_tool(name, argv)
+        what = " ".join([name, *argv])
+        check(lines == [rec], f"{what}: printed {len(lines)} JSON lines, not its one record")
+        check(rec["card"] == smi, f"{what}: card {rec['card']!r}, not {smi!r}")
+        check(rec.get("clock", "cuda_events") == "cuda_events", f"{what}: clock {rec.get('clock')}")
+        for key in ("metric", "value", "unit", "vs_baseline", "dtype", "tf32", "peak_gib",
+                    "launches"):
+            check(key in rec, f"{what}: no {key!r} in its line")
+        check(math.isfinite(rec["value"]), f"{what}: value {rec['value']}")
+        cases = rec.get("cases", {})
+        detail = [f"spread {rec['ms_min']:.2f}-{rec['ms_max']:.2f} ms"] if "ms_min" in rec else []
+        detail += [f"{k} {c['ms_median']:.2f}" for k, c in cases.items() if "ms_median" in c]
+        log(f"[tools] {what}: {rec['value']:.4g} {rec['unit']} ({', '.join(detail)}), peak "
+            f"{rec['peak_gib']:.2f} GiB, launches {rec['launches']}, tf32 {rec['tf32']}, "
+            f"{secs:.1f} s; {rec['metric']}; card: {smi}")
+        recs[what] = rec
+        torch.cuda.empty_cache()
+
+    base = get_config("bevformer_base")
+    frame, step = path_launches(base)
+    fp32 = recs["benchmark bevformer_base --samples 4"]
+    bf16 = recs["benchmark bevformer_base --samples 4 --dtype bfloat16"]
+    check(fp32["launches"] == nonzero(frame), f"benchmark fp32: launches {fp32['launches']}, "
+          f"not {nonzero(frame)}")
+    check(bf16["launches"] == nonzero(path_launches(base.replace(dtype="bfloat16"))[0]),
+          f"benchmark bf16: launches {bf16['launches']}")
+    off = abs(fp32["frame_ms_median"] - frame_ms) / frame_ms
+    log(f"[tools] benchmark fp32 frame median {fp32['frame_ms_median']:.2f} ms (CUDA events) "
+        f"against phase 10's {frame_ms:.2f} (host clock): {100 * off:.1f}% apart; bf16 "
+        f"{bf16['frame_ms_median']:.2f} ms; SCA dropped {fp32['max_capacity_clipped']} (most "
+        f"visible {fp32['max_visible']} of capacity {fp32['sca_capacity']})")
+    check(off <= TOOL_FRAME_TOL, f"benchmark fp32 frame {fp32['frame_ms_median']:.2f} ms is "
+          f"{100 * off:.1f}% from phase 10's {frame_ms:.2f}")
+    idle = profile_benchmark_frames(smi, {"float32": fp32["frame_ms_median"],
+                                          "bfloat16": bf16["frame_ms_median"]})
+    for rec in (fp32, bf16):
+        check(rec["max_capacity_clipped"] == 0, f"the example frame dropped "
+              f"{rec['max_capacity_clipped']} visible SCA queries")
+    ts = recs["bench_train_step bevformer_base --steps 2"]
+    want = dict(step)
+    for k, v in remat_step_counts(base).items():
+        want[k] += v
+    check(ts["launches"] == nonzero(want), f"bench_train_step: launches {ts['launches']}, not "
+          f"{nonzero(want)}")
+    check(math.isfinite(ts["loss"]), f"bench_train_step: loss {ts['loss']}")
+    comp = recs["bench_components bevformer_base"]["cases"]
+    bb, bev, full = (comp[k]["ms_median"] for k in ("backbone_neck", "bev_only", "full"))
+    check(bb < bev < full, f"bench_components: backbone + neck {bb:.2f}, BEV only {bev:.2f}, "
+          f"full {full:.2f} ms")
+    check(comp["full"]["launches_per_call"] == nonzero(frame),
+          f"bench_components: full forward launches {comp['full']['launches_per_call']}")
+    enc = recs["bench_enc_only --layers 1 6"]["cases"]
+    check(enc["L1"]["ms_median"] < enc["L6"]["ms_median"],
+          f"bench_enc_only: L1 {enc['L1']['ms_median']:.2f} >= L6 {enc['L6']['ms_median']:.2f}")
+    check(enc["L6"]["launches_per_call"] == {"msda_fwd": 2 * base.encoder_layers},
+          f"bench_enc_only L6: launches {enc['L6']['launches_per_call']}")
+    dcn = recs["bench_dcn"]["cases"]
+    check(dcn["dcn"]["launches_per_call"] == {"dcn_conv_fwd": frame["dcn_conv_fwd"]}
+          and not dcn["plain"]["launches_per_call"], f"bench_dcn: launches "
+          f"{dcn['dcn']['launches_per_call']} / {dcn['plain']['launches_per_call']}")
+    t1 = get_config("bevformerv2-r50-t1")
+    check(recs["bench_v2"]["launches"] == nonzero(v2_per_sample(t1)),
+          f"bench_v2: launches {recs['bench_v2']['launches']}")
+    tv2 = recs["bench_train_v2 --iters 1"]
+    check(tv2["launches"].get("msda_bwd") == v2_train_per_step(t1)["msda_bwd"]
+          and math.isfinite(tv2["loss"]), f"bench_train_v2: launches {tv2['launches']}, loss "
+          f"{tv2['loss']}")
+    for what in ("bench_train2", "bench_train_bisect"):
+        for case, c in recs[what]["cases"].items():
+            check(math.isfinite(c["loss"]) and c["ms_median"] > 0, f"{what} {case}: {c}")
+    audit = recs["audit_sca_capacity"]["cases"]
+    check(audit["base_synthetic"]["max_capacity_clipped"] == 0,
+          f"the synthetic rig dropped {audit['base_synthetic']['max_capacity_clipped']} visible "
+          "SCA queries at base")
+    log("[tools] SCA audit: visible-query fraction max " + ", ".join(
+        f"{k} {c['max_query_fraction']:.4f} (pairs {c['max_pair_fraction']:.4f}, dropped "
+        f"{c['max_capacity_clipped']} at ratio {c['capacity_ratio']})" for k, c in audit.items()))
+    return dict(frame_ms=fp32["frame_ms_median"], fps=fp32["value"],
+                bf16_frame_ms=bf16["frame_ms_median"], step_ms=ts["value"], backbone_ms=bb,
+                bev_ms=bev, full_ms=full, v2_ms=recs["bench_v2"]["value"],
+                v2_train_ms=tv2["value"], frame_off=off, idle=idle)
+
+
 DECODE_REPEATS = 3  # timed decodes of one frame's six images, each codec
 
 
@@ -3894,6 +4078,8 @@ def main() -> int:
         k34_mm_rows = check_k34(device, gen, mm_kernel_cases())
         torch.cuda.empty_cache()
         head = check_bev_head(device, smi)
+    with phase("20"):
+        tools = check_tools(smi, sl["median_ms"])
 
     def record(name, src, replaces, rows, per, library_note, counts=tr["counts"]):
         bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
@@ -4087,6 +4273,13 @@ def main() -> int:
         f"{head['peak_gib']:.2f} GiB, card = CPU (losses within {head['loss_err']:.1e}); "
         f"phase 12's tools.test load {cli['load_ms']:.1f} ms a frame (JPEG), six decodes "
         f"JPEG {cli['jpeg_decode_ms']:.1f} / PNG {cli['png_decode_ms']:.1f} ms; on {smi}")
+    log(f"[summary] phase 20: benchmark bevformer_base fp32 {tools['fps']:.3f} frames/s (frame "
+        f"{tools['frame_ms']:.2f} ms, {100 * tools['frame_off']:.1f}% from phase 10, idle "
+        f"{tools['idle']['float32']['idle']:.1%}), bf16 frame {tools['bf16_frame_ms']:.2f} ms "
+        f"(idle {tools['idle']['bfloat16']['idle']:.1%}); bench_train_step (use_remat) {tools['step_ms']:.1f} "
+        f"ms; components backbone + neck {tools['backbone_ms']:.2f} / BEV only "
+        f"{tools['bev_ms']:.2f} / full {tools['full_ms']:.2f} ms; V2 t1 sample "
+        f"{tools['v2_ms']:.1f} ms, training iteration {tools['v2_train_ms']:.1f} ms; on {smi}")
     log(f"[summary] phase seconds {json.dumps(seconds)}")
     log(f"[summary] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,14 +12,24 @@ import pytest
 import torch
 
 from bevformer_torch.tools import (
+    audit_sca_capacity,
+    bench_components,
+    bench_dcn,
     bench_dcn_variants,
     bench_dma_gather,
+    bench_enc_only,
     bench_hi_probe,
     bench_kernel_probe,
     bench_kernel_probe3,
     bench_msda_decompose,
     bench_msda_kernel,
+    bench_train2,
+    bench_train_bisect,
+    bench_train_step,
+    bench_train_v2,
+    bench_v2,
     bench_vovnet,
+    benchmark,
     common,
     roofline,
     witness_seeds,
@@ -27,7 +37,10 @@ from bevformer_torch.tools import (
 
 TOOLS = [bench_msda_kernel, bench_kernel_probe3, bench_kernel_probe, bench_hi_probe,
          bench_msda_decompose, bench_dma_gather, witness_seeds, bench_dcn_variants,
-         bench_vovnet]
+         bench_vovnet, bench_train_step, bench_v2, bench_train_v2, bench_components,
+         bench_enc_only, bench_dcn, bench_train2, bench_train_bisect, audit_sca_capacity]
+# the tools whose config is a required argument
+TOOL_ARGV = {benchmark: ["bevformer_base"]}
 
 
 def _no_card():
@@ -206,11 +219,12 @@ def test_incoherent_locations_and_gather_inputs():
     assert all(sorted(row) == list(range(64)) for row in idx.tolist())
 
 
-@pytest.mark.parametrize("tool", TOOLS, ids=lambda m: m.__name__.rsplit(".", 1)[1])
+@pytest.mark.parametrize("tool", TOOLS + list(TOOL_ARGV),
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_tool_main_raises_without_a_card(tool):
     _no_card()
     with pytest.raises(RuntimeError, match="CUDA"):
-        tool.main([])
+        tool.main(TOOL_ARGV.get(tool, []))
 
 
 @pytest.mark.parametrize("name", sorted(bench_dcn_variants.VARIANTS))
