@@ -47,11 +47,17 @@
 //
 // - bf16 (`msda_fwd_bf16`, the counterpart of _kernel_hi with
 //   compute_dtype=bfloat16, computing the exact path's function on a bf16
-//   value): the same body on a bf16 value, each lane's 4 channels by one
-//   8-byte load widened to fp32 exactly, loc and attw fp32, the sums fp32,
+//   value): phase 1 as above, phase 2 mapped for a 64-byte bf16 row
+//   (sum_payload_bf16). Four lanes cover one row of 32 channels, each lane
+//   with one 16-byte load of eight bf16 channels, widened to fp32 exactly,
+//   so one warp load moves eight corner rows (fp32's eight-lane mapping on
+//   a bf16 value, PR 8's design, moved four of 64 bytes: as many load
+//   instructions a sample as fp32, for half the bytes). The warp's eight
+//   4-lane groups take SPLIT shares of each of 8 / SPLIT queries; the
+//   wrapper picks the tile and SPLIT per shape (kernels/msda.py::
+//   k1_bf16_plan). loc and attw fp32, the sums fp32 in the order above,
 //   the output rounded to bf16 once (nearest even, as the plain version's
-//   cast). The mapping is fp32's: 8 lanes cover a 64-byte row of 32
-//   channels.
+//   cast) and written by one 16-byte store of eight channels a lane.
 //
 // `msda_fwd` runs the msda (kFull) and `msda_fwd_probe` the cost-split
 // modes of csrc/msda_fwd.cuh on the same body (the counterpart of
@@ -65,12 +71,12 @@ constexpr int kThreads = 256;
 constexpr int kSmemLimit = 227 * 1024;  // shared memory a block may use on sm_90
 constexpr int kMaxTile = 128;           // kernels/msda.py::K1_TILES
 
-template <int MODE, int SPLIT, typename T>
+template <int MODE, int SPLIT>
 __global__ void __launch_bounds__(kThreads)
-msda_fwd_kernel(const T* __restrict__ value,      // [B, K, H, D]
+msda_fwd_kernel(const float* __restrict__ value,  // [B, K, H, D]
                 const float* __restrict__ loc,    // [B, Q, H, L, P, 2]
                 const float* __restrict__ attw,   // [B, Q, H, L, P]
-                T* __restrict__ out,              // [B, Q, H, D]
+                float* __restrict__ out,          // [B, Q, H, D]
                 int K, int Q, int H, int D, int L, int P, int tile, int tiles,
                 Levels lv) {
   extern __shared__ int4 payload[];
@@ -86,11 +92,118 @@ msda_fwd_kernel(const T* __restrict__ value,      // [B, K, H, D]
                                         D, L, P);
 }
 
-template <int MODE, int SPLIT, typename T>
-int launch_split(const T* value, const float* loc, const float* attw, T* out,
-                 const Levels& lv, int K, int Q, int H, int D, int L, int P, int tile,
-                 int tiles, unsigned blocks, size_t smem, cudaStream_t stream) {
-  auto kernel = msda_fwd_kernel<MODE, SPLIT, T>;
+// one sample's terms for this lane's 8 bf16 channels (lo: 0-3, hi: 4-7),
+// into one pair of accumulators per corner: the four 16-byte corner loads
+// go out, pinned in order by ldg8_if, before any is used
+__device__ __forceinline__ void add_sample8(float4 (&s)[4][2], int4 c, float4 w,
+                                            const __nv_bfloat16* v, int64_t row) {
+  const uint4 u0 = ldg8_if(c.x >= 0, v + c.x * row);
+  const uint4 u1 = ldg8_if(c.y >= 0, v + c.y * row);
+  const uint4 u2 = ldg8_if(c.z >= 0, v + c.z * row);
+  const uint4 u3 = ldg8_if(c.w >= 0, v + c.w * row);
+  float4 lo, hi;
+  widen8(u0, lo, hi);
+  fma4(s[0][0], w.x, lo);
+  fma4(s[0][1], w.x, hi);
+  widen8(u1, lo, hi);
+  fma4(s[1][0], w.y, lo);
+  fma4(s[1][1], w.y, hi);
+  widen8(u2, lo, hi);
+  fma4(s[2][0], w.z, lo);
+  fma4(s[2][1], w.z, hi);
+  widen8(u3, lo, hi);
+  fma4(s[3][0], w.w, lo);
+  fma4(s[3][1], w.w, hi);
+}
+
+// phase 2 on a bf16 value: 4 lanes x 8 channels per 32-channel row (64
+// bytes); the warp's eight 4-lane groups take SPLIT shares of each of
+// 8 / SPLIT queries, summed in the plain version's order within a share and
+// across the shares by __shfl_xor (the share's lanes sit 4, 8 and 16 apart)
+template <int SPLIT>
+__device__ __forceinline__ void sum_payload_bf16(const int4* corners, const float4* weights,
+                                                 const __nv_bfloat16* __restrict__ value,
+                                                 __nv_bfloat16* __restrict__ out, int b, int h,
+                                                 int q0, int tile, int K, int Q, int H, int D,
+                                                 int L, int P) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kQueriesPerPass = 8 / SPLIT;
+  const int lp_n = L * P;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int grp = lane >> 2;
+  const int slot = grp / SPLIT;  // this group's query in the pass
+  const int part = grp % SPLIT;  // its share of that query's samples
+  const int64_t row = (int64_t)H * D;  // elements between value pixels
+  const __nv_bfloat16* vb = value + (int64_t)b * K * row + (int64_t)h * D + 8 * (lane & 3);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the loop bounds are the same in every lane: the shuffles need them all
+  for (int base = warp * kQueriesPerPass; base < tile; base += kWarps * kQueriesPerPass) {
+    const int qi = base + slot;
+    const bool active = qi < tile && q0 + qi < Q;
+    const int4* ck = corners + qi * lp_n;
+    const float4* cw = weights + qi * lp_n;
+    __nv_bfloat16* op = out + (((int64_t)b * Q + q0 + qi) * H + h) * D + 8 * (lane & 3);
+    for (int d0 = 0; d0 < D; d0 += 32) {
+      float4 lo = zero, hi = zero;
+      if (active) {
+        for (int l = 0; l < L; ++l) {
+          float4 s[4][2];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) s[k][0] = s[k][1] = zero;
+          const int first = l * P + (part - l * P % SPLIT + SPLIT) % SPLIT;
+          const int end = (l + 1) * P;
+#pragma unroll 2
+          for (int j = first; j < end; j += SPLIT) add_sample8(s, ck[j], cw[j], vb + d0, row);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            lo.x += s[k][0].x;
+            lo.y += s[k][0].y;
+            lo.z += s[k][0].z;
+            lo.w += s[k][0].w;
+            hi.x += s[k][1].x;
+            hi.y += s[k][1].y;
+            hi.z += s[k][1].z;
+            hi.w += s[k][1].w;
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 4; m < 4 * SPLIT; m <<= 1) {
+        lo = shfl_xor4(lo, m);
+        hi = shfl_xor4(hi, m);
+      }
+      if (active && part == 0) store8(op + d0, lo, hi);
+    }
+  }
+}
+
+template <int SPLIT>
+__global__ void __launch_bounds__(kThreads)
+msda_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ value,  // [B, K, H, D]
+                     const float* __restrict__ loc,            // [B, Q, H, L, P, 2]
+                     const float* __restrict__ attw,           // [B, Q, H, L, P]
+                     __nv_bfloat16* __restrict__ out,          // [B, Q, H, D]
+                     int K, int Q, int H, int D, int L, int P, int tile, int tiles,
+                     Levels lv) {
+  extern __shared__ int4 payload[];
+  int4* corners = payload;                                           // [tile * L * P]
+  float4* weights = reinterpret_cast<float4*>(payload + tile * L * P);  // [tile * L * P]
+  const int h = (int)(blockIdx.x % H);
+  const int rest = (int)(blockIdx.x / H);
+  const int q0 = (rest % tiles) * tile;
+  const int b = rest / tiles;
+  build_payload<kFull, kThreads>(corners, weights, loc, attw, b, h, q0, tile, Q, H, L, P, lv);
+  __syncthreads();
+  sum_payload_bf16<SPLIT>(corners, weights, value, out, b, h, q0, tile, K, Q, H, D, L, P);
+}
+
+// launch `kernel` (value, loc, attw, out, K, Q, H, D, L, P, tile, tiles, lv)
+// on `blocks` blocks with `smem` bytes of dynamic shared memory
+template <typename Kernel, typename T>
+int launch(Kernel kernel, const T* value, const float* loc, const float* attw, T* out,
+           const Levels& lv, int K, int Q, int H, int D, int L, int P, int tile, int tiles,
+           unsigned blocks, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -102,36 +215,47 @@ int launch_split(const T* value, const float* loc, const float* attw, T* out,
 }
 
 // The one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries,
-// a payload that fits shared memory, a grid that fits one dimension, D a
-// multiple of 32, and value and out on 16-byte boundaries (as the fp32
-// float4 loads and stores need; bf16 is held to the same); anything else
-// returns cudaErrorInvalidValue, which the wrapper raises.
-template <int MODE, typename T>
+// a SPLIT of 1, 2, 4 or 8 4-lane groups a query (bf16; fp32 picks its own,
+// split_for), a payload that fits shared memory, a grid that fits one
+// dimension, D a multiple of 32, and value and out on 16-byte boundaries
+// (the fp32 float4 loads and stores, the bf16 16-byte loads of eight
+// channels and 16-byte stores); anything else returns
+// cudaErrorInvalidValue, which the wrapper raises. Sets the launch's tiles,
+// blocks (0: nothing to launch) and shared memory.
+inline int check_fwd(const void* value, const void* out, int L, int B, int Q, int H, int D,
+                     int P, int tile, int split, int& tiles, unsigned& blocks, size_t& smem) {
+  if (L < 1 || L > kMaxLevels || P < 1 || D % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (tile < 1 || tile > kMaxTile || (tile & (tile - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if (split != 1 && split != 2 && split != 4 && split != 8) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)value | (uintptr_t)out) % 16 != 0) return (int)cudaErrorInvalidValue;
+  smem = (size_t)tile * L * P * (sizeof(int4) + sizeof(float4));
+  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  tiles = (Q + tile - 1) / tile;
+  const int64_t n = (int64_t)B * H * tiles;
+  if (n > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  blocks = (unsigned)n;
+  return (int)cudaSuccess;
+}
+
+template <int MODE>
 int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* out,
                     const void* level_hw, int L, int B, int K, int Q, int H, int D,
                     int P, int tile, void* stream) {
-  if (L < 1 || L > kMaxLevels || P < 1 || D % 32 != 0) return (int)cudaErrorInvalidValue;
-  if (tile < 1 || tile > kMaxTile || (tile & (tile - 1)) != 0) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)value | (uintptr_t)out) % 16 != 0) return (int)cudaErrorInvalidValue;
-  const int lp_n = L * P;
-  const size_t smem = (size_t)tile * lp_n * (sizeof(int4) + sizeof(float4));
-  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  int tiles;
+  unsigned n;
+  size_t smem;
+  const int rc = check_fwd(value, out, L, B, Q, H, D, P, tile, 1, tiles, n, smem);
+  if (rc != (int)cudaSuccess || n == 0) return rc;
   const Levels lv = load_levels(level_hw, L);
-  if ((int64_t)B * Q * H == 0) return (int)cudaSuccess;
-  const int tiles = (Q + tile - 1) / tile;
-  const int64_t blocks = (int64_t)B * H * tiles;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int split = split_for(lp_n);
-  const T* v = static_cast<const T*>(value);
+  const float* v = static_cast<const float*>(value);
   const float* lo = static_cast<const float*>(loc);
   const float* a = static_cast<const float*>(attw);
-  T* o = static_cast<T*>(out);
+  float* o = static_cast<float*>(out);
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned n = (unsigned)blocks;
-  switch (split) {
-    case 1: return launch_split<MODE, 1, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    case 2: return launch_split<MODE, 2, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    default: return launch_split<MODE, 4, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+  switch (split_for(L * P)) {
+    case 1: return launch(msda_fwd_kernel<MODE, 1>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    case 2: return launch(msda_fwd_kernel<MODE, 2>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    default: return launch(msda_fwd_kernel<MODE, 4>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
   }
 }
 
@@ -141,16 +265,32 @@ int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* 
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attw,
                         void* out, const void* level_hw, int L, int B, int K,
                         int Q, int H, int D, int P, int tile, void* stream) {
-  return launch_msda_fwd<kFull, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D, P,
-                                       tile, stream);
+  return launch_msda_fwd<kFull>(value, loc, attw, out, level_hw, L, B, K, Q, H, D, P, tile,
+                                stream);
 }
 
-// msda_fwd on a bf16 value, with a bf16 out (loc and attw fp32)
+// msda_fwd on a bf16 value, with a bf16 out (loc and attw fp32); split: the
+// 4-lane groups a query (the wrapper's kernels/msda.py::k1_bf16_plan)
 extern "C" int msda_fwd_bf16(const void* value, const void* loc, const void* attw,
                              void* out, const void* level_hw, int L, int B, int K,
-                             int Q, int H, int D, int P, int tile, void* stream) {
-  return launch_msda_fwd<kFull, __nv_bfloat16>(value, loc, attw, out, level_hw, L, B, K, Q, H,
-                                               D, P, tile, stream);
+                             int Q, int H, int D, int P, int tile, int split, void* stream) {
+  int tiles;
+  unsigned n;
+  size_t smem;
+  const int rc = check_fwd(value, out, L, B, Q, H, D, P, tile, split, tiles, n, smem);
+  if (rc != (int)cudaSuccess || n == 0) return rc;
+  const Levels lv = load_levels(level_hw, L);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(value);
+  const float* lo = static_cast<const float*>(loc);
+  const float* a = static_cast<const float*>(attw);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (split) {
+    case 1: return launch(msda_fwd_bf16_kernel<1>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    case 2: return launch(msda_fwd_bf16_kernel<2>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    case 4: return launch(msda_fwd_bf16_kernel<4>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    default: return launch(msda_fwd_bf16_kernel<8>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+  }
 }
 
 extern "C" int msda_fwd_probe(const void* value, const void* loc, const void* attw,
@@ -159,13 +299,13 @@ extern "C" int msda_fwd_probe(const void* value, const void* loc, const void* at
                               void* stream) {
   switch (mode) {
     case kGather:
-      return launch_msda_fwd<kGather, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
+      return launch_msda_fwd<kGather>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
                                       P, tile, stream);
     case kWeights:
-      return launch_msda_fwd<kWeights, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
+      return launch_msda_fwd<kWeights>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
                                        P, tile, stream);
     case kNoop:
-      return launch_msda_fwd<kNoop, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
+      return launch_msda_fwd<kNoop>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
                                     P, tile, stream);
     default:
       return (int)cudaErrorInvalidValue;

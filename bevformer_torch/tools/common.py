@@ -199,7 +199,8 @@ def record(tool: str, case: str, cost: Optional[roofline.Cost], ms: float, **ext
 
 def launch_counters() -> dict:
     """The launch count of every kernel wrapper the tools call."""
-    return dict(msda_fwd=msda.ms_deform_attn, msda_fwd_ho=msda.ms_deform_attn_ho,
+    return dict(msda_fwd=msda.ms_deform_attn, msda_fwd_bf16=msda.MSDA_FWD_BF16,
+                msda_bwd_bf16=msda.MSDA_BWD_BF16, msda_fwd_ho=msda.ms_deform_attn_ho,
                 msda_probe=msda.msda_probe, row_gather=gather.row_gather)
 
 

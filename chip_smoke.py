@@ -30,9 +30,11 @@ Phases, each printed as it runs:
      (those of the bf16 entry too); then bf16 K1 and K3/K4 (msda_fwd_bf16,
      msda_bwd_bf16: a bf16 value and grad_out, fp32 sums, a bf16 output and
      dValue) against their plain versions at bevformer_tiny_fp16's three
-     shapes and at bevformer_base's SCA (output and dValue within one bf16
-     ulp at their scale, dLoc and dAttw 1e-3), with times and bounds at
-     bf16's 2-byte value rows; and K3/K4 at V2 training's two new shapes;
+     shapes and at bevformer_base's three (output and dValue within one
+     bf16 ulp at their scale, dLoc and dAttw 1e-3), with times, bounds at
+     bf16's 2-byte value rows, launches a frame and a step, and at base's
+     shapes the fp32 entries' times on the same value in fp32; and K3/K4 at
+     V2 training's two new shapes;
   6. K5/K6 (dcn_im2col, dcn_col2im) and the DCN backward they make with two
      matrix products, against autograd through the plain DCN at K2's shapes,
      with times of each kernel alone, K5's share of its bound and the share
@@ -55,12 +57,14 @@ Phases, each printed as it runs:
      boundary) within one bf16 ulp;
   7. probes: the kernel benchmark and probe tools (bevformer_torch/tools),
      each through its `main` at bevformer_base's full SCA width (and TSA's
-     for K1's cost split): K7 (msda_fwd_ho) against K1 and the plain msda on
-     y-coherent and y-incoherent inputs, K7's tile and accumulator sweep,
+     for K1's cost split): K7 (msda_fwd_ho) against K1, bf16 K1 and K3/K4
+     and the plain msda on y-coherent (K7 and K1 also y-incoherent)
+     inputs, K7's tile and accumulator sweep,
      the cost split (gather, weights, noop) of K7 and of K1, both kernels at
      SCA's level 0 alone, and the row gather against take_along_dim; every
-     case held against its plain version (msda 1e-5 max abs, modes 1e-5 of
-     scale, the gather bitwise), every new kernel launched;
+     case held against its plain version (msda 1e-5 max abs, bf16 msda one
+     bf16 ulp at max |plain|, modes 1e-5 of scale, the gather bitwise),
+     every new kernel launched;
   8. training: bevformer_base at full size with seeded weights takes 4
      AdamW steps (`Trainer.step`, train mode: dropout and GridMask on) on a
      seeded synthetic batch of queue 4 (3 history frames without gradient,
@@ -561,29 +565,40 @@ def ulps(a, ref) -> float:
     return float((a.float() - ref.float()).abs().max()) / bf16_ulp(float(ref.float().abs().max()))
 
 
+# bf16 K1's and K3/K4's shapes: (name, B, Q, H, D, shapes, P, launches a
+# tiny_fp16 frame (= a tiny_fp16 step's backward), launches a bevformer_base
+# frame, K1 launches a base step, K3/K4 launches a base step)
+BF16_MSDA_CASES = [
+    ("tiny_tsa", 2, 2500, 8, 32, ((50, 50),), 4, 3, 0, 0, 0),
+    ("tiny_sca", 6, 2500, 8, 32, ((15, 25),), 8, 3, 0, 0, 0),
+    ("tiny_decoder", 1, 900, 8, 32, ((50, 50),), 4, 6, 0, 0, 0),
+    ("base_tsa", *K1_CASES[0][1:7], 0, 6, 3 * 6 + 6, 6),
+    ("base_sca", *K1_CASES[1][1:7], 0, 6, 3 * 6 + 6, 6),
+    ("base_decoder", *K1_CASES[2][1:7], 0, 6, 6, 6),
+]
+BF16_BASE_PLAIN_REPS = 1  # timed plain calls at base's shapes (tiny's: 3 forward, 2 backward)
+
+
 def check_bf16_msda(device, gen):
     """bf16 K1 (msda_fwd_bf16) and K3/K4 (msda_bwd_bf16) against their plain
-    versions at bevformer_tiny_fp16's three shapes (TSA, dense SCA, decoder;
-    launches per frame and per training step) and at bevformer_base's SCA
-    in bf16 (on no path yet): errors, times, bounds at bf16's 2-byte value
-    and output, and the plain versions' times."""
+    versions at bevformer_tiny_fp16's three shapes (TSA, dense SCA, decoder)
+    and at bevformer_base's three (the path of base and small with
+    dtype=bfloat16): errors in bf16 ulps and the bitwise-equal share, times,
+    bounds at bf16's 2-byte value and output, the plain versions' times, each
+    shape's launches a tiny_fp16 frame or step and a base frame or step, and
+    at base's shapes the fp32 entries' times on the same value in fp32."""
     import torch
     from bevformer_torch.kernels import msda
     from bevformer_torch.tools import roofline
 
-    levels = ((116, 200), (58, 100), (29, 50), (15, 25))
-    # (name, B, Q, H, D, shapes, P, launches per tiny_fp16 frame = per step's backward)
-    cases = [
-        ("tiny_tsa", 2, 2500, 8, 32, ((50, 50),), 4, 3),
-        ("tiny_sca", 6, 2500, 8, 32, ((15, 25),), 8, 3),
-        ("tiny_decoder", 1, 900, 8, 32, ((50, 50),), 4, 6),
-        ("base_sca", 6, 10112, 8, 32, levels, 8, 0),
-    ]
     fwd_rows, bwd_rows = [], []
-    for name, b, q, h, d, shapes, p, per in cases:
+    for name, b, q, h, d, shapes, p, per, base_frame, base_fwd, base_bwd in BF16_MSDA_CASES:
+        base = name.startswith("base")
+        plain_reps = BF16_BASE_PLAIN_REPS if base else None
         value, loc, attw = msda_inputs(b, q, h, d, shapes, p, gen, device)
         value = value.bfloat16()
         g = torch.randn((b, q, h * d), generator=gen, device=device).bfloat16()
+        plan = msda.k1_bf16_plan_for(value, loc)
         out = msda.ms_deform_attn(value, shapes, loc, attw)
         ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
         torch.cuda.synchronize()
@@ -592,16 +607,29 @@ def check_bf16_msda(device, gen):
         fwd_err = float((out.float() - ref.float()).abs().max())
         del out, ref
         ms = time_ms(lambda: msda.ms_deform_attn(value, shapes, loc, attw), 20)
-        plain_ms = time_ms(lambda: msda.ms_deform_attn_plain(value, shapes, loc, attw), 3)
+        plain_ms = time_ms(lambda: msda.ms_deform_attn_plain(value, shapes, loc, attw),
+                           plain_reps or 3)
+        fp32 = {}
+        if base:
+            v32, g32 = value.float(), g.float()
+            fp32 = dict(fp32_ms=time_ms(lambda: msda.ms_deform_attn(v32, shapes, loc, attw), 20),
+                        fp32_bwd_ms=time_ms(lambda: msda.ms_deform_attn_backward(
+                            v32, shapes, loc, attw, g32), 10))
+            del v32, g32
         cost = roofline.msda_fwd(b, q, h, d, shapes, p, itemsize=2)
+        launches = (f"{base_frame} launches a base frame, {base_fwd} a base step; fp32 K1 "
+                    f"{fp32['fp32_ms']:.4f} ms" if base else f"{per} launches a tiny_fp16 frame")
         log(f"[bf16-k1] {name}: value {list(value.shape)} bf16 max abs err {fwd_err:.3e} = "
             f"{fwd_ulps:.2f} bf16 ulps at max|plain| (tol {BF16_FWD_ULPS}; {same:.2%} bitwise "
             f"equal) kernel {ms:.4f} ms ({cost.bound_ms / ms:.1%} of its bound "
-            f"{cost.bound_ms:.4f}; tile {msda.k1_tile_for(value, loc)}) plain {plain_ms:.4f} ms")
+            f"{cost.bound_ms:.4f}; tile {plan[0]}, split {plan[1]}; {launches}) plain "
+            f"{plain_ms:.4f} ms")
         check(fwd_ulps <= BF16_FWD_ULPS, f"bf16 K1 {name}: {fwd_ulps:.2f} ulps")
         fwd_rows.append(dict(shape=name, max_abs_err=fwd_err, ulps=fwd_ulps, ms=ms,
-                             plain_ms=plain_ms, per_frame=per, share_of_bound=cost.bound_ms / ms,
-                             bitwise_equal_share=same, cost=cost))
+                             plain_ms=plain_ms, per_frame=per, base_per_frame=base_frame,
+                             base_per_step=base_fwd, share_of_bound=cost.bound_ms / ms,
+                             bitwise_equal_share=same, tile=plan[0], split=plan[1], cost=cost,
+                             **({"fp32_ms": fp32["fp32_ms"]} if base else {})))
 
         ours = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
         ref = msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g)
@@ -609,24 +637,31 @@ def check_bf16_msda(device, gen):
         check(ours[0].dtype == torch.bfloat16 and ours[1].dtype == ours[2].dtype == torch.float32,
               f"bf16 K3/K4 {name}: dtypes {[x.dtype for x in ours]}")
         dv_ulps = ulps(ours[0], ref[0])
+        dv_same = float((ours[0] == ref[0]).float().mean())
         aux = {k: rel_err(a, r) for k, a, r in zip(("dloc", "dattw"), ours[1:], ref[1:])}
         err = max(float((ours[0].float() - ref[0].float()).abs().max()),
                   *(float((a - r).abs().max()) for a, r in zip(ours[1:], ref[1:])))
         del ours, ref
         bms = time_ms(lambda: msda.ms_deform_attn_backward(value, shapes, loc, attw, g), 10)
         bplain_ms = time_ms(
-            lambda: msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g), 2)
+            lambda: msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g),
+            plain_reps or 2)
         bcost = roofline.msda_bwd(b, q, h, d, shapes, p, itemsize=2)
+        launches = (f"{base_bwd} launches a base step; fp32 K3/K4 {fp32['fp32_bwd_ms']:.4f} ms"
+                    if base else f"{per} launches a tiny_fp16 step")
         log(f"[bf16-k3k4] {name}: dvalue {dv_ulps:.2f} bf16 ulps at max|plain| (tol "
-            f"{BF16_FWD_ULPS}), max abs err / max |plain|: {fmt_errors(aux)} (tol "
-            f"{BF16_AUX_TOL:.0e}) kernel {bms:.4f} ms ({bcost.bound_ms / bms:.1%} of its bound "
-            f"{bcost.bound_ms:.4f}) plain {bplain_ms:.4f} ms")
+            f"{BF16_FWD_ULPS}; {dv_same:.2%} bitwise equal), max abs err / max |plain|: "
+            f"{fmt_errors(aux)} (tol {BF16_AUX_TOL:.0e}) kernel {bms:.4f} ms "
+            f"({bcost.bound_ms / bms:.1%} of its bound {bcost.bound_ms:.4f}; {launches}) plain "
+            f"{bplain_ms:.4f} ms")
         check(dv_ulps <= BF16_FWD_ULPS, f"bf16 K3/K4 {name} dvalue: {dv_ulps:.2f} ulps")
         for k, e in aux.items():
             check(e <= BF16_AUX_TOL, f"bf16 K3/K4 {name} {k}: {e:.2e} > {BF16_AUX_TOL}")
         bwd_rows.append(dict(shape=name, max_abs_err=err, dvalue_ulps=dv_ulps, ms=bms,
-                             plain_ms=bplain_ms, per_step=per,
-                             share_of_bound=bcost.bound_ms / bms, cost=bcost, **aux))
+                             plain_ms=bplain_ms, per_step=per, base_per_step=base_bwd,
+                             share_of_bound=bcost.bound_ms / bms, dvalue_bitwise_equal_share=dv_same,
+                             tile=plan[0], split=plan[1], cost=bcost,
+                             **({"fp32_ms": fp32["fp32_bwd_ms"]} if base else {}), **aux))
         del value, loc, attw, g
     return fwd_rows, bwd_rows
 
@@ -1027,14 +1062,19 @@ def check_probes():
                 check(r["launches"] > 0, f"{what}: no kernel launched")
             if "bitwise_equal" in r:
                 check(r["bitwise_equal"], f"{what}: not bitwise equal to take_along_dim")
+            elif r["case"].endswith("_bf16"):
+                check(r["max_abs_err"] <= BF16_FWD_ULPS * bf16_ulp(r["scale"]),
+                      f"{what}: max abs error {r['max_abs_err']:.2e} > {BF16_FWD_ULPS} bf16 ulp "
+                      f"at {r['scale']:.3e}")
             elif r.get("mode", "full") == "full":
                 check(r["max_abs_err"] <= PROBE_TOL,
                       f"{what}: max abs error {r['max_abs_err']:.2e} > {PROBE_TOL}")
             else:
                 check(r["max_abs_err"] <= PROBE_TOL * r["scale"],
                       f"{what}: max abs error {r['max_abs_err']:.2e} > {PROBE_TOL} x {r['scale']:.3e}")
-    log(f"[probes] every case within tolerance (msda {PROBE_TOL:.0e} max abs, probe modes "
-        f"{PROBE_TOL:.0e} of max |plain|, row gather bitwise)")
+    log(f"[probes] every case within tolerance (msda {PROBE_TOL:.0e} max abs, bf16 msda "
+        f"{BF16_FWD_ULPS} bf16 ulp at max |plain|, probe modes {PROBE_TOL:.0e} of max |plain|, "
+        f"row gather bitwise)")
     return runs, counts
 
 
@@ -4116,7 +4156,18 @@ def main() -> int:
                "dot grid_sampler_pair_ms)"),
     ] + probe_records(probe_runs, probe_counts)
     # bf16 K1 and K3/K4: bevformer_tiny_fp16's training run (phase 13) and
-    # its video; per frame / per step over tiny's shapes, base's SCA beside
+    # its video; per frame / per step over tiny's shapes; over a base frame
+    # and step at base's shapes beside, with the fp32 entries' time there
+    def base_totals(rows, per):
+        base = [r for r in rows if r[per]]
+        bound = roofline.total([(r["cost"], r[per]) for r in base])
+        return dict(ms=sum(r["ms"] * r[per] for r in base),
+                    fp32_ms=sum(r["fp32_ms"] * r[per] for r in base),
+                    bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+    bf16_base = [dict(per_frame=base_totals(bf16_fwd_rows, "base_per_frame"),
+                      per_step=base_totals(bf16_fwd_rows, "base_per_step")),
+                 dict(per_step=base_totals(bf16_bwd_rows, "base_per_step"))]
     fp16 = presets["bevformer_tiny_fp16"]
     kernels += [
         record("msda_fwd_bf16", "bevformer_torch/csrc/msda_fwd.cu",
@@ -4127,6 +4178,7 @@ def main() -> int:
                "no single PyTorch call computes the msda backward", counts=fp16["train_counts"]),
     ]
     kernels[-2]["inference_launches"] = fp16["inference_counts"]["msda_fwd_bf16"]
+    kernels[-2]["bevformer_base"], kernels[-1]["bevformer_base"] = bf16_base
     # bf16 K2, K5 and K6: bevformer_base's bf16 training run (phase 16) and
     # its video; per frame / per step over base's shapes, small's beside
     base16 = bf16_dcn["bevformer_base"]

@@ -212,6 +212,25 @@ def test_path_launches_bf16(name, frame, step):
     assert name in chip_smoke.BF16_DCN_PRESETS
 
 
+def test_bf16_msda_cases_count_the_paths_launches():
+    """check_bf16_msda's launches by shape add up to bf16 K1's and K3/K4's
+    launches a frame and a step on bevformer_tiny_fp16 and on
+    bevformer_base in bf16, and base's shapes are phase 3's."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.configs import get_config
+
+    cases = chip_smoke.BF16_MSDA_CASES
+    tiny = chip_smoke.path_launches(get_config("bevformer_tiny_fp16"))
+    base = chip_smoke.path_launches(get_config("bevformer_base").replace(dtype="bfloat16"))
+    assert sum(c[7] for c in cases) == tiny[0]["msda_fwd_bf16"] == tiny[1]["msda_bwd_bf16"]
+    assert sum(c[8] for c in cases) == base[0]["msda_fwd_bf16"]
+    assert sum(c[9] for c in cases) == base[1]["msda_fwd_bf16"]
+    assert sum(c[10] for c in cases) == base[1]["msda_bwd_bf16"]
+    assert [c[1:7] for c in cases if c[0].startswith("base")] == [
+        k[1:7] for k in chip_smoke.K1_CASES]
+
+
 def test_box_set_errors():
     """The --fuse-conv-bn comparison: boxes matched by label and score as
     sets, whatever their order; a missing match is counted."""

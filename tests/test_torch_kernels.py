@@ -671,11 +671,13 @@ def test_mini_train_step_kernel_path_matches_plain_path(cuda_device):
 
 BF16_CASES = [
     # bevformer_tiny_fp16's three shapes (TSA, dense SCA, decoder) and
-    # bevformer_base's SCA (Q cut)
+    # bevformer_base's three in bf16 (SCA's Q cut)
     ("tiny_tsa", 2, 2500, 8, 32, ((50, 50),), 4),
     ("tiny_sca", 6, 2500, 8, 32, ((15, 25),), 8),
     ("tiny_decoder", 1, 900, 8, 32, ((50, 50),), 4),
     ("base_sca", 6, 300, 8, 32, ((116, 200), (58, 100), (29, 50), (15, 25)), 8),
+    ("base_tsa", 2, 40000, 8, 32, ((200, 200),), 4),
+    ("base_decoder", 1, 900, 8, 32, ((200, 200),), 4),
 ]
 
 
@@ -711,15 +713,17 @@ def test_bf16_msda_kernel_matches_plain(cuda_device, name, b, q, h, d, shapes, p
     _within_a_bf16_ulp(out, msda.ms_deform_attn_plain(value, shapes, loc, attw), name)
 
 
+@pytest.mark.parametrize("split", msda.K1_BF16_SPLITS)
 @pytest.mark.parametrize("tile", msda.K1_TILES)
 @pytest.mark.parametrize("case", [0, 1, 3], ids=["tsa", "sca", "base_sca"])
-def test_bf16_msda_kernel_every_tile(cuda_device, tile, case):
+def test_bf16_msda_kernel_every_tile(cuda_device, tile, case, split):
+    """bf16 K1 at every tile and every SPLIT of 4-lane groups a query."""
     name, b, q, h, d, shapes, p = BF16_CASES[case]
     value, loc, attw = _bf16_inputs(b, 137, h, d, shapes, p, tile, cuda_device)
-    out = msda._launch("msda_fwd_bf16", value, shapes, loc, attw, tile)
+    out = msda._launch("msda_fwd_bf16", value, shapes, loc, attw, tile, split)
     torch.cuda.synchronize()
     _within_a_bf16_ulp(out, msda.ms_deform_attn_plain(value, shapes, loc, attw),
-                       f"{name} tile {tile}")
+                       f"{name} tile {tile} split {split}")
 
 
 @pytest.mark.parametrize("name,b,q,h,d,shapes,p", BF16_CASES, ids=[c[0] for c in BF16_CASES])
@@ -733,14 +737,30 @@ def test_bf16_msda_backward_kernel_matches_plain(cuda_device, name, b, q, h, d, 
     _check_bf16_backward(grads, value, shapes, loc, attw, g, name)
 
 
+@pytest.mark.parametrize("split", msda.K1_BF16_SPLITS)
 @pytest.mark.parametrize("tile", msda.K1_TILES)
 @pytest.mark.parametrize("case", [0, 1, 3], ids=["tsa", "sca", "base_sca"])
-def test_bf16_msda_backward_kernel_every_tile(cuda_device, tile, case):
+def test_bf16_msda_backward_kernel_every_tile(cuda_device, tile, case, split):
+    """bf16 K3/K4 at every tile and every SPLIT of 4-lane groups a query."""
     name, b, q, h, d, shapes, p = BF16_CASES[case]
     value, loc, attw = _bf16_inputs(b, 137, h, d, shapes, p, 120 + tile, cuda_device)
     g = torch.randn((b, 137, h * d), device=cuda_device).bfloat16()
-    grads = msda._launch_bwd(value, shapes, loc, attw, g, tile)
-    _check_bf16_backward(grads, value, shapes, loc, attw, g, f"{name} tile {tile}")
+    grads = msda._launch_bwd(value, shapes, loc, attw, g, tile, split)
+    _check_bf16_backward(grads, value, shapes, loc, attw, g,
+                         f"{name} tile {tile} split {split}")
+
+
+@pytest.mark.parametrize("case", [0, 3, 4], ids=["tsa", "base_sca", "base_tsa"])
+def test_bf16_msda_backward_rounds_in_the_kernel(cuda_device, case):
+    """bf16 K3/K4 rounding dValue in its last block of each (b, h) range:
+    the same fp32 sums as the separate rounding pass but for the atomics'
+    order, within one bf16 ulp of the plain version."""
+    name, b, q, h, d, shapes, p = BF16_CASES[case]
+    value, loc, attw = _bf16_inputs(b, q, h, d, shapes, p, 130 + case, cuda_device)
+    g = torch.randn((b, q, h * d), device=cuda_device).bfloat16()
+    tile, split = msda.k1_bf16_plan_for(value, loc)
+    grads = msda._launch_bwd(value, shapes, loc, attw, g, tile, split, round_in_kernel=True)
+    _check_bf16_backward(grads, value, shapes, loc, attw, g, f"{name} rounded in the kernel")
 
 
 def test_bf16_msda_autograd_runs_the_bf16_kernels(cuda_device):
@@ -804,6 +824,18 @@ def test_bf16_msda_refuses_misaligned_tensors(cuda_device, offset):
         with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
             msda.ms_deform_attn_backward(args[0], ((4, 5),), loc, attw, args[1])
     assert (msda.MSDA_FWD_BF16.launches, msda.MSDA_BWD_BF16.launches) == before
+
+
+@pytest.mark.parametrize("split", [0, 3, 16])
+def test_bf16_msda_refuses_a_split_it_has_no_kernel_for(cuda_device, split):
+    """The C entries are the one check of SPLIT: 1, 2, 4 or 8 4-lane groups
+    a query, anything else refused before a launch."""
+    value, loc, attw = _bf16_inputs(1, 5, 8, 32, ((4, 5),), 2, 0, cuda_device)
+    g = torch.randn((1, 5, 256), device=cuda_device).bfloat16()
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        msda._launch("msda_fwd_bf16", value, ((4, 5),), loc, attw, 8, split)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        msda._launch_bwd(value, ((4, 5),), loc, attw, g, 8, split)
 
 
 # ---------------------------------------------------------------- bf16 DCN

@@ -2,7 +2,9 @@
 exact op `ms_deform_attn_jnp`, on the CPU.
 
 Tolerance: 1e-5 of the output's scale. Both sides gather the same corners
-in fp32 and sum the same terms, in another order.
+in fp32 and sum the same terms, in another order. On a bf16 value both read
+it exactly in fp32, sum in fp32 and round the output to bf16 once: within
+one bf16 ulp at the output's scale.
 """
 
 import numpy as np
@@ -13,7 +15,7 @@ import jax.numpy as jnp
 
 from bevformer_tpu.kernels.msda import ms_deform_attn_jnp
 from bevformer_torch.kernels import msda
-from tests.torch_port_helpers import assert_close, t
+from tests.torch_port_helpers import assert_close, bf16_ulps, t
 
 # (name, batch, queries, heads, head dim, spatial shapes, points) in the
 # layouts of the three call sites, at small sizes
@@ -45,6 +47,20 @@ def test_plain_msda_matches_jax(name, b, q, h, d, shapes, p):
     out = msda.ms_deform_attn_plain(t(value), shapes, t(loc), t(attw))
     assert out.shape == (b, q, h * d)
     assert_close(out, np.asarray(ref), 1e-5, name)
+
+
+@pytest.mark.parametrize("name,b,q,h,d,shapes,p", CASES[:3], ids=[c[0] for c in CASES[:3]])
+def test_plain_msda_on_a_bf16_value_matches_jax(name, b, q, h, d, shapes, p):
+    """The function bf16 K1 is held to on the card: the plain version on a
+    bf16 value against `ms_deform_attn_jnp` on the same bf16 value."""
+    value, loc, attw = _inputs(b, q, h, d, shapes, p, seed=len(name) + 40)
+    v16 = t(value).bfloat16()
+    ref = ms_deform_attn_jnp(jnp.asarray(v16.float().numpy()).astype(jnp.bfloat16), shapes,
+                             jnp.asarray(loc), jnp.asarray(attw))
+    assert ref.dtype == jnp.bfloat16
+    out = msda.ms_deform_attn_plain(v16, shapes, t(loc), t(attw))
+    assert out.dtype == torch.bfloat16 and out.shape == (b, q, h * d)
+    assert bf16_ulps(out, np.asarray(ref.astype(jnp.float32))) <= 1, name
 
 
 def test_wrapper_takes_plain_version_for_cpu_tensors():
@@ -86,3 +102,26 @@ def test_k1_tile_per_shape(shape, want):
     tile = msda.k1_tile(b, q, h, samples, 132)
     assert tile == want and tile in msda.K1_TILES
     assert tile * samples * 32 <= 227 * 1024  # the payload fits shared memory
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((2, 40000, 8, 1 * 4), (128, 1)),   # base TSA: 64 groups cover 64 of 128 queries
+    ((6, 10112, 8, 4 * 8), (16, 4)),    # base SCA: 16 queries, 4 groups each
+    ((1, 900, 8, 1 * 4), (16, 4)),      # base decoder: one sample a group
+    ((2, 2500, 8, 1 * 4), (128, 1)),    # tiny_fp16 TSA
+    ((6, 2500, 8, 1 * 8), (64, 1)),     # tiny_fp16 dense SCA (one level)
+    ((1, 900, 8, 1 * 4), (16, 4)),      # tiny_fp16 decoder
+    ((1, 5, 8, 2), (8, 2)),             # fewer samples than groups: one a group
+    ((2, 1000, 8, 8 * 100), (1, 8)),    # one query a block: SPLIT at most 8
+], ids=["base_tsa", "base_sca", "base_decoder", "tiny_tsa", "tiny_sca", "tiny_decoder",
+        "two_samples", "wide"])
+def test_k1_bf16_plan_per_shape(shape, want):
+    """bf16 K1's (and K3/K4's) queries per block and SPLIT on a 132-SM card
+    (an H100 SXM): K1's tile, and a SPLIT that gives every 4-lane group of
+    the block a share where the tile allows."""
+    b, q, h, samples = shape
+    tile, split = msda.k1_bf16_plan(b, q, h, samples, 132)
+    assert (tile, split) == want
+    assert tile == msda.k1_tile(b, q, h, samples, 132) and split in msda.K1_BF16_SPLITS
+    assert split <= samples  # every group has a sample
+    assert tile * samples * 32 + tile * 32 * 4 <= 227 * 1024  # K3/K4's payload fits too

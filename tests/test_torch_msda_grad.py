@@ -22,7 +22,7 @@ import jax.numpy as jnp
 from bevformer_tpu.kernels.msda import ms_deform_attn_jnp
 from bevformer_torch.kernels import msda
 from tests.test_torch_msda import CASES, _inputs
-from tests.torch_port_helpers import assert_close, edge_locations, t
+from tests.torch_port_helpers import assert_close, bf16_ulps, edge_locations, t
 
 TOL = 1e-5
 
@@ -59,6 +59,29 @@ def test_msda_grads_match_jax(name, b, q, h, d, shapes, p):
     for what, leaf, direct, r in zip(("dvalue", "dloc", "dattw"), leaves, plain, ref):
         assert_close(leaf.grad, np.asarray(r), TOL, f"{name} {what} (autograd)")
         assert_close(direct, np.asarray(r), TOL, f"{name} {what} (backward wrapper)")
+
+
+@pytest.mark.parametrize("name,b,q,h,d,shapes,p", CASES[:3], ids=[c[0] for c in CASES[:3]])
+def test_msda_grads_on_a_bf16_value_match_jax(name, b, q, h, d, shapes, p):
+    """The gradient bf16 K3/K4 is held to on the card: autograd through the
+    plain version on a bf16 value, with a bf16 grad_out, against `jax.vjp`
+    of `ms_deform_attn_jnp` on the same bf16 value and cotangent. dValue is
+    bf16 on both sides (fp32 sums rounded once): within one bf16 ulp at its
+    scale; dLoc and dAttw fp32: 1e-5 of their scale."""
+    value, loc, attw = _inputs(b, q, h, d, shapes, p, seed=len(name) + 51)
+    loc = _off_edges(loc, shapes)
+    v16 = t(value).bfloat16()
+    g16 = t(np.random.RandomState(6).randn(b, q, h * d).astype(np.float32)).bfloat16()
+    jv = jnp.asarray(v16.float().numpy()).astype(jnp.bfloat16)
+    out, vjp = jax.vjp(lambda v, lc, aw: ms_deform_attn_jnp(v, shapes, lc, aw), jv,
+                       jnp.asarray(loc), jnp.asarray(attw))
+    ref = vjp(jnp.asarray(g16.float().numpy()).astype(out.dtype))
+    assert ref[0].dtype == jnp.bfloat16
+    ours = msda.ms_deform_attn_backward(v16, shapes, t(loc), t(attw), g16)
+    assert ours[0].dtype == torch.bfloat16
+    assert bf16_ulps(ours[0], np.asarray(ref[0].astype(jnp.float32))) <= 1, name
+    for what, a, r in zip(("dloc", "dattw"), ours[1:], ref[1:]):
+        assert_close(a, np.asarray(r), TOL, f"{name} {what}")
 
 
 EDGE_SHAPES = ((8, 16), (4, 8))  # powers of two: exact locations in fp32

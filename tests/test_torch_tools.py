@@ -21,6 +21,7 @@ from bevformer_torch.tools import (
     bench_hi_probe,
     bench_kernel_probe,
     bench_kernel_probe3,
+    bench_msda_bf16,
     bench_msda_decompose,
     bench_msda_kernel,
     bench_train2,
@@ -38,7 +39,8 @@ from bevformer_torch.tools import (
 TOOLS = [bench_msda_kernel, bench_kernel_probe3, bench_kernel_probe, bench_hi_probe,
          bench_msda_decompose, bench_dma_gather, witness_seeds, bench_dcn_variants,
          bench_vovnet, bench_train_step, bench_v2, bench_train_v2, bench_components,
-         bench_enc_only, bench_dcn, bench_train2, bench_train_bisect, audit_sca_capacity]
+         bench_enc_only, bench_dcn, bench_train2, bench_train_bisect, audit_sca_capacity,
+         bench_msda_bf16]
 # the tools whose config is a required argument
 TOOL_ARGV = {benchmark: ["bevformer_base"]}
 
@@ -246,6 +248,27 @@ def test_tool_cases_parse():
         common.parser("x", ("a",)).parse_args(["c"])
 
 
+def test_bf16_msda_tool_cases_parse():
+    """bench_msda_kernel's bf16 cases, and bench_msda_bf16's cases, shape
+    sets and builds to time beside the package's."""
+    args = bench_msda_kernel.CASES
+    assert {"k1_bf16", "k34_bf16"} <= set(args)
+    parsed = common.parser("x", args).parse_args(["k1_bf16", "k34_bf16", "--tsa", "--reps", "3"])
+    assert (parsed.cases, parsed.tsa, parsed.reps) == (["k1_bf16", "k34_bf16"], True, 3)
+    ap = bench_msda_bf16.parser()
+    every = ap.parse_args([])
+    assert every.cases == list(bench_msda_bf16.CASES) and every.against == []
+    assert every.shapes == ["base", "tiny"]
+    one = ap.parse_args(["fwd", "bwd", "--against", "a", "--against", "b", "--shapes", "base"])
+    assert (one.cases, one.against, one.shapes) == (["fwd", "bwd"], ["a", "b"], ["base"])
+    names = [s.name for group in bench_msda_bf16.SHAPES.values() for s in group]
+    assert names == ["base_tsa", "base_sca", "base_decoder", "tiny_tsa", "tiny_sca",
+                     "tiny_decoder"]
+    for bad in (["nope"], ["--shapes", "huge"]):
+        with pytest.raises(SystemExit):
+            ap.parse_args(bad)
+
+
 @pytest.fixture
 def cpu_tools(monkeypatch):
     """The tools on the CPU at tiny shapes, with the card and its clock
@@ -265,7 +288,7 @@ def cpu_tools(monkeypatch):
 
 
 @pytest.mark.parametrize("tool,argv,n", [
-    (bench_msda_kernel, [], 5),
+    (bench_msda_kernel, [], 7),
     (bench_kernel_probe3, ["t16a1", "t64a2"], 2),
     (bench_kernel_probe, [], 4),
     (bench_hi_probe, ["--tsa"], 4),
