@@ -66,24 +66,11 @@
 //   K1). The C entry is the one check of tile, alignment, shared memory
 //   and grid.
 // - bf16 (`msda_bwd_bf16`, the gradient of the exact path on a bf16 value,
-//   whose backward is that of val_l.astype(f32)): its own kernel,
-//   msda_bwd_bf16_kernel, with phase 1 as above (grad_out widened to fp32
-//   exactly, once, into the shared rows) and phase 2 mapped for a 64-byte
-//   bf16 row: four lanes cover a row of 32 channels, each with one 16-byte
-//   load of eight channels (PR 8's design ran the fp32 mapping on a bf16
-//   value: eight lanes of 8-byte loads, as many load instructions a sample
-//   as fp32 for half the bytes). The warp's eight 4-lane groups take SPLIT
-//   shares of a query's samples (SPLIT from the wrapper,
-//   kernels/msda.py::k1_bf16_plan); a sample's dAttw, dLoc.x and dLoc.y
-//   partials are summed over the group's 4 lanes by two __shfl_xor steps
-//   each. dLoc and dAttw are fp32; dValue is summed in fp32 (as the JAX
-//   function does), two 16-byte red.global.add.v4.f32 a lane and corner,
-//   into an fp32 workspace that the wrapper zeroes and rounds to bf16
-//   once.
-//   ROUND (an experiment, timed by tools/bench_msda_bf16.py): the last
-//   block to finish a (batch, head) range, by a per-range counter, rounds
-//   that range of the workspace into the bf16 dValue itself, in place of
-//   the wrapper's separate pass.
+//   whose backward is that of val_l.astype(f32)): value and grad_out bf16,
+//   each lane's 4 channels by one 8-byte load widened to fp32 exactly
+//   (grad_out once, into the shared fp32 rows); dLoc and dAttw fp32;
+//   dValue summed by the same 16-byte fp32 vector atomics into an fp32
+//   workspace, which the wrapper rounds to bf16 once.
 
 #include "msda_fwd.cuh"
 
@@ -104,18 +91,30 @@ __device__ __forceinline__ void red4(float* p, float w, float4 g) {
   atomicAdd(reinterpret_cast<float4*>(p), make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
 }
 
-// phase 1 of a block: the payload of the `tile` queries from q0 of (b, h),
-// one sample per thread at a time: each sample's four corner pixels (-1
-// outside) and (tx, ty, attw, level); a sample outside the bounds writes
-// its dAttw = dLoc = 0 here
-__device__ __forceinline__ void bwd_payload(int4* corners, float4* params,
-                                            const float* __restrict__ loc,
-                                            const float* __restrict__ attw,
-                                            float* __restrict__ dloc, float* __restrict__ dattw,
-                                            int b, int h, int q0, int tile, int Q, int H, int L,
-                                            int P, const Levels& lv) {
+template <int SPLIT, typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+msda_bwd_kernel(const T* __restrict__ value,         // [B, K, H, D]
+                const float* __restrict__ loc,       // [B, Q, H, L, P, 2]
+                const float* __restrict__ attw,      // [B, Q, H, L, P]
+                const T* __restrict__ grad_out,      // [B, Q, H, D]
+                float* __restrict__ dvalue,          // [B, K, H, D] fp32, zeroed
+                float* __restrict__ dloc,            // [B, Q, H, L, P, 2]
+                float* __restrict__ dattw,           // [B, Q, H, L, P]
+                int K, int Q, int H, int D, int L, int P, int tile, int tiles,
+                Levels lv) {
+  extern __shared__ int4 payload[];
   const int lp_n = L * P;
   const int items = tile * lp_n;
+  const int d4 = D / 4;
+  int4* corners = payload;                                       // [tile * L * P]
+  float4* params = reinterpret_cast<float4*>(payload + items);   // [tile * L * P]
+  float4* grads = params + items;                                // [tile][D / 4]
+  const int q0 = (int)(blockIdx.x % tiles) * tile;
+  const int rest = (int)(blockIdx.x / tiles);
+  const int h = rest % H;
+  const int b = rest / H;
+
+  // phase 1: the tile's payload, one sample per thread at a time
   for (int i = threadIdx.x; i < items; i += kThreads) {
     const int qi = i / lp_n;
     const int lp = i - qi * lp_n;
@@ -150,32 +149,6 @@ __device__ __forceinline__ void bwd_payload(int4* corners, float4* params,
     corners[i] = c;
     params[i] = pr;
   }
-}
-
-template <int SPLIT>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-msda_bwd_kernel(const float* __restrict__ value,     // [B, K, H, D]
-                const float* __restrict__ loc,       // [B, Q, H, L, P, 2]
-                const float* __restrict__ attw,      // [B, Q, H, L, P]
-                const float* __restrict__ grad_out,  // [B, Q, H, D]
-                float* __restrict__ dvalue,          // [B, K, H, D] fp32, zeroed
-                float* __restrict__ dloc,            // [B, Q, H, L, P, 2]
-                float* __restrict__ dattw,           // [B, Q, H, L, P]
-                int K, int Q, int H, int D, int L, int P, int tile, int tiles,
-                Levels lv) {
-  extern __shared__ int4 payload[];
-  const int lp_n = L * P;
-  const int items = tile * lp_n;
-  const int d4 = D / 4;
-  int4* corners = payload;                                       // [tile * L * P]
-  float4* params = reinterpret_cast<float4*>(payload + items);   // [tile * L * P]
-  float4* grads = params + items;                                // [tile][D / 4]
-  const int q0 = (int)(blockIdx.x % tiles) * tile;
-  const int rest = (int)(blockIdx.x / tiles);
-  const int h = rest % H;
-  const int b = rest / H;
-
-  bwd_payload(corners, params, loc, attw, dloc, dattw, b, h, q0, tile, Q, H, L, P, lv);
   for (int i = threadIdx.x; i < tile * d4; i += kThreads) {
     const int qi = i / d4;
     const int q = q0 + qi;
@@ -197,7 +170,7 @@ msda_bwd_kernel(const float* __restrict__ value,     // [B, K, H, D]
   const int part = grp % SPLIT;  // its share of that query's samples
   const int64_t row = (int64_t)H * D;  // elements between value pixels
   const int64_t lane_base = (int64_t)b * K * row + (int64_t)h * D + 4 * l8;
-  const float* vb = value + lane_base;
+  const T* vb = value + lane_base;
   float* dvb = dvalue + lane_base;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int base = warp * kQueriesPerPass; base < tile; base += kWarps * kQueriesPerPass) {
@@ -218,7 +191,7 @@ msda_bwd_kernel(const float* __restrict__ value,     // [B, K, H, D]
       const float a00 = w00 * a, a01 = w01 * a, a10 = w10 * a, a11 = w11 * a;
       float s_attw = 0.f, s_x = 0.f, s_y = 0.f;
       for (int d0 = 0; d0 < D; d0 += 32) {
-        const float* v = vb + d0;
+        const T* v = vb + d0;
         const float4 v00 = c.x >= 0 ? load4(v + c.x * row) : zero;
         const float4 v01 = c.y >= 0 ? load4(v + c.y * row) : zero;
         const float4 v10 = c.z >= 0 ? load4(v + c.z * row) : zero;
@@ -265,293 +238,84 @@ msda_bwd_kernel(const float* __restrict__ value,     // [B, K, H, D]
   }
 }
 
-// the sums of one sample's dAttw, dLoc.x and dLoc.y terms over 4 channels:
-// corner values v.. (fp32), their bilinear weights w.., g = grad_out
-__device__ __forceinline__ void add_terms(float& s_attw, float& s_x, float& s_y, float4 g,
-                                          float4 v00, float4 v01, float4 v10, float4 v11,
-                                          float w00, float w01, float w10, float w11, float tx,
-                                          float ty) {
-  const float4 s = make_float4(
-      w00 * v00.x + w01 * v01.x + w10 * v10.x + w11 * v11.x,
-      w00 * v00.y + w01 * v01.y + w10 * v10.y + w11 * v11.y,
-      w00 * v00.z + w01 * v01.z + w10 * v10.z + w11 * v11.z,
-      w00 * v00.w + w01 * v01.w + w10 * v10.w + w11 * v11.w);
-  const float4 sx = make_float4(
-      (1.f - ty) * (v01.x - v00.x) + ty * (v11.x - v10.x),
-      (1.f - ty) * (v01.y - v00.y) + ty * (v11.y - v10.y),
-      (1.f - ty) * (v01.z - v00.z) + ty * (v11.z - v10.z),
-      (1.f - ty) * (v01.w - v00.w) + ty * (v11.w - v10.w));
-  const float4 sy = make_float4(
-      (1.f - tx) * (v10.x - v00.x) + tx * (v11.x - v01.x),
-      (1.f - tx) * (v10.y - v00.y) + tx * (v11.y - v01.y),
-      (1.f - tx) * (v10.z - v00.z) + tx * (v11.z - v01.z),
-      (1.f - tx) * (v10.w - v00.w) + tx * (v11.w - v01.w));
-  s_attw += dot4(g, s);
-  s_x += dot4(g, sx);
-  s_y += dot4(g, sy);
-}
-
-// dvalue[p .. p + 7] += w * (g0, g1): two 16-byte vector atomics
-__device__ __forceinline__ void red8(float* p, float w, float4 g0, float4 g1) {
-  red4(p, w, g0);
-  red4(p + 4, w, g1);
-}
-
-template <int SPLIT, bool ROUND>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-msda_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ value,     // [B, K, H, D]
-                     const float* __restrict__ loc,               // [B, Q, H, L, P, 2]
-                     const float* __restrict__ attw,              // [B, Q, H, L, P]
-                     const __nv_bfloat16* __restrict__ grad_out,  // [B, Q, H, D]
-                     float* __restrict__ dvalue,                  // [B, K, H, D] fp32, zeroed
-                     float* __restrict__ dloc,                    // [B, Q, H, L, P, 2]
-                     float* __restrict__ dattw,                   // [B, Q, H, L, P]
-                     __nv_bfloat16* __restrict__ dvalue_bf16,     // [B, K, H, D] (ROUND)
-                     int* __restrict__ done,                      // [B, H] zeroed (ROUND)
-                     int K, int Q, int H, int D, int L, int P, int tile, int tiles,
-                     Levels lv) {
-  extern __shared__ int4 payload[];
-  const int lp_n = L * P;
-  const int items = tile * lp_n;
-  const int d4 = D / 4;
-  const int d8 = D / 8;
-  int4* corners = payload;                                       // [tile * L * P]
-  float4* params = reinterpret_cast<float4*>(payload + items);   // [tile * L * P]
-  float4* grads = params + items;                                // [tile][D / 4]
-  const int q0 = (int)(blockIdx.x % tiles) * tile;
-  const int rest = (int)(blockIdx.x / tiles);
-  const int h = rest % H;
-  const int b = rest / H;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  bwd_payload(corners, params, loc, attw, dloc, dattw, b, h, q0, tile, Q, H, L, P, lv);
-  for (int i = threadIdx.x; i < tile * d8; i += kThreads) {
-    const int qi = i / d8;
-    const int q = q0 + qi;
-    float4 lo = zero, hi = zero;
-    if (q < Q) {
-      const __nv_bfloat16* g = grad_out + (((int64_t)b * Q + q) * H + h) * D + 8 * (i - qi * d8);
-      widen8(__ldg(reinterpret_cast<const uint4*>(g)), lo, hi);
-    }
-    grads[2 * i] = lo;
-    grads[2 * i + 1] = hi;
-  }
-  __syncthreads();
-
-  // phase 2: 4 lanes x 16 bytes per 64-byte row; the warp's eight 4-lane
-  // groups take SPLIT shares of each of 8 / SPLIT queries. A group's lanes
-  // follow one path, so the shuffles name the group's lanes alone
-  constexpr int kQueriesPerPass = 8 / SPLIT;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int grp = lane >> 2;
-  const int l4 = lane & 3;
-  const unsigned group_mask = 0xfu << (lane & 28);
-  const int slot = grp / SPLIT;  // this group's query in the pass
-  const int part = grp % SPLIT;  // its share of that query's samples
-  const int64_t row = (int64_t)H * D;  // elements between value pixels
-  const int64_t lane_base = (int64_t)b * K * row + (int64_t)h * D + 8 * l4;
-  const __nv_bfloat16* vb = value + lane_base;
-  float* dvb = dvalue + lane_base;
-  const uint4 none = make_uint4(0u, 0u, 0u, 0u);
-  for (int base = warp * kQueriesPerPass; base < tile; base += kWarps * kQueriesPerPass) {
-    const int qi = base + slot;
-    if (qi >= tile || q0 + qi >= Q) continue;
-    const int4* ck = corners + qi * lp_n;
-    const float4* cp = params + qi * lp_n;
-    const float4* gq = grads + qi * d4 + 2 * l4;
-    const int64_t it0 = (((int64_t)b * Q + q0 + qi) * H + h) * lp_n;
-#pragma unroll 1
-    for (int j = part; j < lp_n; j += SPLIT) {
-      const int4 c = ck[j];
-      if ((c.x & c.y & c.z & c.w) < 0) continue;  // outside: phase 1 wrote its zeros
-      const float4 pr = cp[j];
-      const float tx = pr.x, ty = pr.y, a = pr.z;
-      const float w00 = (1.f - tx) * (1.f - ty), w01 = tx * (1.f - ty);
-      const float w10 = (1.f - tx) * ty, w11 = tx * ty;
-      const float a00 = w00 * a, a01 = w01 * a, a10 = w10 * a, a11 = w11 * a;
-      float s_attw = 0.f, s_x = 0.f, s_y = 0.f;
-      for (int d0 = 0; d0 < D; d0 += 32) {
-        const __nv_bfloat16* v = vb + d0;
-        const uint4 u00 = c.x >= 0 ? __ldg(reinterpret_cast<const uint4*>(v + c.x * row)) : none;
-        const uint4 u01 = c.y >= 0 ? __ldg(reinterpret_cast<const uint4*>(v + c.y * row)) : none;
-        const uint4 u10 = c.z >= 0 ? __ldg(reinterpret_cast<const uint4*>(v + c.z * row)) : none;
-        const uint4 u11 = c.w >= 0 ? __ldg(reinterpret_cast<const uint4*>(v + c.w * row)) : none;
-        const float4 g0 = gq[d0 / 4];
-        const float4 g1 = gq[d0 / 4 + 1];
-        float4 v00, v01, v10, v11, x00, x01, x10, x11;
-        widen8(u00, v00, x00);
-        widen8(u01, v01, x01);
-        widen8(u10, v10, x10);
-        widen8(u11, v11, x11);
-        add_terms(s_attw, s_x, s_y, g0, v00, v01, v10, v11, w00, w01, w10, w11, tx, ty);
-        add_terms(s_attw, s_x, s_y, g1, x00, x01, x10, x11, w00, w01, w10, w11, tx, ty);
-        float* dv = dvb + d0;
-        if (c.x >= 0 && a00 != 0.f) red8(dv + c.x * row, a00, g0, g1);
-        if (c.y >= 0 && a01 != 0.f) red8(dv + c.y * row, a01, g0, g1);
-        if (c.z >= 0 && a10 != 0.f) red8(dv + c.z * row, a10, g0, g1);
-        if (c.w >= 0 && a11 != 0.f) red8(dv + c.w * row, a11, g0, g1);
-      }
-#pragma unroll
-      for (int m = 1; m < 4; m <<= 1) {
-        s_attw += __shfl_xor_sync(group_mask, s_attw, m);
-        s_x += __shfl_xor_sync(group_mask, s_x, m);
-        s_y += __shfl_xor_sync(group_mask, s_y, m);
-      }
-      if (l4 == 0) {
-        const int l = __float_as_int(pr.w);
-        const int64_t it = it0 + j;
-        dattw[it] = s_attw;
-        dloc[2 * it] = a * s_x * (float)lv.w[l];
-        dloc[2 * it + 1] = a * s_y * (float)lv.h[l];
-      }
-    }
-  }
-  if (!ROUND) return;
-  // the last block of (b, h) to finish rounds the range's dValue rows:
-  // every thread's adds are ordered before the count, the count before the
-  // reads (from L2: this SM's L1 holds no dvalue line)
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(done + b * H + h, 1) == tiles - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const int64_t chunks = (int64_t)K * d8;  // 8 channels each
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < chunks; i += kThreads) {
-    const int64_t k = i / d8;
-    const int64_t off = ((int64_t)b * K + k) * row + (int64_t)h * D + 8 * (i - k * d8);
-    store8(dvalue_bf16 + off, __ldcg(reinterpret_cast<const float4*>(dvalue + off)),
-           __ldcg(reinterpret_cast<const float4*>(dvalue + off + 4)));
-  }
-}
-
-// launch `kernel` (value, loc, attw, grad_out, dvalue, dloc, dattw, then
-// `extra`, then K, Q, H, D, L, P, tile, tiles, lv) on `blocks` blocks with
-// `smem` bytes of dynamic shared memory
-template <typename Kernel, typename T, typename... Extra>
-int launch(Kernel kernel, unsigned blocks, size_t smem, cudaStream_t stream, const T* value,
-           const float* loc, const float* attw, const T* grad_out, float* dvalue, float* dloc,
-           float* dattw, const Levels& lv, int K, int Q, int H, int D, int L, int P, int tile,
-           int tiles, Extra... extra) {
+template <int SPLIT, typename T>
+int launch_split(const T* value, const float* loc, const float* attw, const T* grad_out,
+                 float* dvalue, float* dloc, float* dattw, const Levels& lv, int K, int Q,
+                 int H, int D, int L, int P, int tile, int tiles, unsigned blocks, size_t smem,
+                 cudaStream_t stream) {
+  auto kernel = msda_bwd_kernel<SPLIT, T>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<blocks, kThreads, smem, stream>>>(value, loc, attw, grad_out, dvalue, dloc, dattw,
-                                             extra..., K, Q, H, D, L, P, tile, tiles, lv);
+                                             K, Q, H, D, L, P, tile, tiles, lv);
   return (int)cudaGetLastError();
 }
 
-// The one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries,
-// a SPLIT of 1, 2, 4 or 8 4-lane groups a query (bf16; fp32 picks its own),
-// D a multiple of 32, value, grad_out and dvalue (and a bf16 dValue) on
-// 16-byte boundaries (the 16-byte loads and vector atomics), a per-range
-// count wherever a bf16 dValue is given, a payload that fits shared memory
-// and a grid that fits one dimension; anything else returns
-// cudaErrorInvalidValue, which the wrapper raises. Sets the launch's tiles,
-// blocks (0: nothing to launch) and shared memory.
-inline int check_bwd(const void* value, const void* grad_out, const void* dvalue,
-                     const void* dvalue_bf16, const void* done, int L, int B, int Q, int H,
-                     int D, int P, int tile, int split, int& tiles, unsigned& blocks,
-                     size_t& smem) {
+template <typename T>
+int launch_msda_bwd(const void* value, const void* loc, const void* attw, const void* grad_out,
+                    void* dvalue, void* dloc, void* dattw, const void* level_hw, int L, int B,
+                    int K, int Q, int H, int D, int P, int tile, int split, void* stream) {
   if (L < 1 || L > kMaxLevels || P < 1 || D < 32 || D % 32 != 0)
     return (int)cudaErrorInvalidValue;
   if (tile < 1 || tile > kMaxTile || (tile & (tile - 1)) != 0) return (int)cudaErrorInvalidValue;
-  if (split != 1 && split != 2 && split != 4 && split != 8) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)value | (uintptr_t)grad_out | (uintptr_t)dvalue | (uintptr_t)dvalue_bf16) %
-          16 != 0)
+  if (split != 1 && split != 2 && split != 4) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)value | (uintptr_t)grad_out | (uintptr_t)dvalue) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (dvalue_bf16 != nullptr && done == nullptr) return (int)cudaErrorInvalidValue;
-  smem = (size_t)tile * L * P * (sizeof(int4) + sizeof(float4)) + (size_t)tile * D * sizeof(float);
+  const int lp_n = L * P;
+  const size_t smem = (size_t)tile * lp_n * (sizeof(int4) + sizeof(float4)) +
+                      (size_t)tile * D * sizeof(float);
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
-  tiles = (Q + tile - 1) / tile;
-  const int64_t n = (int64_t)B * H * tiles;
-  if (n > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  blocks = (unsigned)n;
-  return (int)cudaSuccess;
-}
-
-template <int SPLIT>
-int launch_bf16(bool round, unsigned n, size_t smem, cudaStream_t s, const __nv_bfloat16* v,
-                const float* lo, const float* a, const __nv_bfloat16* g, float* dv, float* dl,
-                float* da, __nv_bfloat16* dvb, int* done, const Levels& lv, int K, int Q, int H,
-                int D, int L, int P, int tile, int tiles) {
-  if (round)
-    return launch(msda_bwd_bf16_kernel<SPLIT, true>, n, smem, s, v, lo, a, g, dv, dl, da, lv, K,
-                  Q, H, D, L, P, tile, tiles, dvb, done);
-  return launch(msda_bwd_bf16_kernel<SPLIT, false>, n, smem, s, v, lo, a, g, dv, dl, da, lv, K, Q,
-                H, D, L, P, tile, tiles, dvb, done);
+  const Levels lv = load_levels(level_hw, L);
+  if ((int64_t)B * Q * H == 0) return (int)cudaSuccess;
+  const int tiles = (Q + tile - 1) / tile;
+  const int64_t blocks = (int64_t)B * H * tiles;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const T* v = static_cast<const T*>(value);
+  const float* lo = static_cast<const float*>(loc);
+  const float* a = static_cast<const float*>(attw);
+  const T* g = static_cast<const T*>(grad_out);
+  float* dv = static_cast<float*>(dvalue);
+  float* dl = static_cast<float*>(dloc);
+  float* da = static_cast<float*>(dattw);
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned n = (unsigned)blocks;
+  switch (split) {
+    case 1: return launch_split<1, T>(v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    case 2: return launch_split<2, T>(v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    default: return launch_split<4, T>(v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+  }
 }
 
 }  // namespace
 
 // dvalue (fp32) must be zeroed by the caller (the kernel adds into it).
-// tile: queries per block (the wrapper's kernels/msda.py::k1_tile).
-// check_bwd is the one check of the arguments.
+// tile: queries per block (the wrapper's kernels/msda.py::k1_tile). The
+// one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries, a
+// SPLIT of 1, 2 or 4 8-lane groups a query, D a multiple of 32, value,
+// grad_out and dvalue on 16-byte boundaries (the float4 loads and vector
+// atomics; bf16 is held to the same), a payload that fits shared memory
+// and a grid that fits one dimension; anything else returns
+// cudaErrorInvalidValue, which the wrapper raises.
 extern "C" int msda_bwd(const void* value, const void* loc, const void* attw,
                         const void* grad_out, void* dvalue, void* dloc,
                         void* dattw, const void* level_hw, int L, int B, int K,
                         int Q, int H, int D, int P, int tile, void* stream) {
-  int tiles;
-  unsigned n;
-  size_t smem;
-  const int rc = check_bwd(value, grad_out, dvalue, nullptr, nullptr, L, B, Q, H, D, P, tile, 1,
-                           tiles, n, smem);
-  if (rc != (int)cudaSuccess || n == 0) return rc;
-  const Levels lv = load_levels(level_hw, L);
-  const float* v = static_cast<const float*>(value);
-  const float* lo = static_cast<const float*>(loc);
-  const float* a = static_cast<const float*>(attw);
-  const float* g = static_cast<const float*>(grad_out);
-  float* dv = static_cast<float*>(dvalue);
-  float* dl = static_cast<float*>(dloc);
-  float* da = static_cast<float*>(dattw);
-  cudaStream_t s = (cudaStream_t)stream;
   // SPLIT groups per query, as many as give each at least 4 samples
-  const int lp_n = L * P;
-  const int split = lp_n >= 16 ? 4 : lp_n >= 8 ? 2 : 1;
-  switch (split) {
-    case 1: return launch(msda_bwd_kernel<1>, n, smem, s, v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles);
-    case 2: return launch(msda_bwd_kernel<2>, n, smem, s, v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles);
-    default: return launch(msda_bwd_kernel<4>, n, smem, s, v, lo, a, g, dv, dl, da, lv, K, Q, H, D, L, P, tile, tiles);
-  }
+  const int split = L * P >= 16 ? 4 : L * P >= 8 ? 2 : 1;
+  return launch_msda_bwd<float>(value, loc, attw, grad_out, dvalue, dloc, dattw, level_hw, L,
+                                B, K, Q, H, D, P, tile, split, stream);
 }
 
-// msda_bwd on a bf16 value and grad_out (dvalue, dloc and dattw fp32; split:
-// the 4-lane groups a query, kernels/msda.py::k1_bf16_plan). With a
-// dvalue_bf16 (else null), the kernel also rounds the fp32 sums into it,
-// counting finished blocks per (b, h) in `done` (int32 [B, H], zeroed).
+// msda_bwd on a bf16 value and grad_out (dvalue, dloc and dattw fp32), at
+// `split` 8-lane groups a query (the wrapper's kernels/msda.py::
+// k34_bf16_plan)
 extern "C" int msda_bwd_bf16(const void* value, const void* loc, const void* attw,
                              const void* grad_out, void* dvalue, void* dloc,
-                             void* dattw, void* dvalue_bf16, void* done,
-                             const void* level_hw, int L, int B, int K, int Q, int H, int D,
-                             int P, int tile, int split, void* stream) {
-  int tiles;
-  unsigned n;
-  size_t smem;
-  const int rc = check_bwd(value, grad_out, dvalue, dvalue_bf16, done, L, B, Q, H, D, P, tile,
-                           split, tiles, n, smem);
-  if (rc != (int)cudaSuccess || n == 0) return rc;
-  const Levels lv = load_levels(level_hw, L);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(value);
-  const float* lo = static_cast<const float*>(loc);
-  const float* a = static_cast<const float*>(attw);
-  const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(grad_out);
-  float* dv = static_cast<float*>(dvalue);
-  float* dl = static_cast<float*>(dloc);
-  float* da = static_cast<float*>(dattw);
-  __nv_bfloat16* dvb = static_cast<__nv_bfloat16*>(dvalue_bf16);
-  int* dn = static_cast<int*>(done);
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool round = dvb != nullptr;
-  switch (split) {
-    case 1: return launch_bf16<1>(round, n, smem, s, v, lo, a, g, dv, dl, da, dvb, dn, lv, K, Q, H, D, L, P, tile, tiles);
-    case 2: return launch_bf16<2>(round, n, smem, s, v, lo, a, g, dv, dl, da, dvb, dn, lv, K, Q, H, D, L, P, tile, tiles);
-    case 4: return launch_bf16<4>(round, n, smem, s, v, lo, a, g, dv, dl, da, dvb, dn, lv, K, Q, H, D, L, P, tile, tiles);
-    default: return launch_bf16<8>(round, n, smem, s, v, lo, a, g, dv, dl, da, dvb, dn, lv, K, Q, H, D, L, P, tile, tiles);
-  }
+                             void* dattw, const void* level_hw, int L, int B, int K,
+                             int Q, int H, int D, int P, int tile, int split, void* stream) {
+  return launch_msda_bwd<__nv_bfloat16>(value, loc, attw, grad_out, dvalue, dloc, dattw,
+                                        level_hw, L, B, K, Q, H, D, P, tile, split, stream);
 }

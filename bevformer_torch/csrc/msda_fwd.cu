@@ -47,36 +47,46 @@
 //
 // - bf16 (`msda_fwd_bf16`, the counterpart of _kernel_hi with
 //   compute_dtype=bfloat16, computing the exact path's function on a bf16
-//   value): phase 1 as above, phase 2 mapped for a 64-byte bf16 row
-//   (sum_payload_bf16). Four lanes cover one row of 32 channels, each lane
-//   with one 16-byte load of eight bf16 channels, widened to fp32 exactly,
-//   so one warp load moves eight corner rows (fp32's eight-lane mapping on
-//   a bf16 value, PR 8's design, moved four of 64 bytes: as many load
-//   instructions a sample as fp32, for half the bytes). The warp's eight
-//   4-lane groups take SPLIT shares of each of 8 / SPLIT queries; the
-//   wrapper picks the tile and SPLIT per shape (kernels/msda.py::
-//   k1_bf16_plan). loc and attw fp32, the sums fp32 in the order above,
-//   the output rounded to bf16 once (nearest even, as the plain version's
-//   cast) and written by one 16-byte store of eight channels a lane.
+//   value): loc and attw fp32, the sums fp32 in the order above, the output
+//   rounded to bf16 once (nearest even, as the plain version's cast). Two
+//   lane mappings of phase 2, picked per shape by the wrapper with the
+//   tile and SPLIT (kernels/msda.py::k1_bf16_plan):
+//   - four lanes a 64-byte row of 32 bf16 channels (sum_payload_bf16), each
+//     with one 16-byte load of eight channels widened to fp32 exactly, so a
+//     warp load moves eight corner rows; the warp's eight 4-lane groups take
+//     SPLIT shares of each of 8 / SPLIT queries; one 16-byte store of eight
+//     channels a lane. 64 registers (four blocks an SM), one sample's loads
+//     in flight a group: at SCA's shape it took 0.85 ms a call against the
+//     eight-lane mapping's 0.95 and fp32's 0.90 (tools/bench_msda_bf16.py,
+//     NVIDIA H100 80GB HBM3, 700 W);
+//   - eight lanes a row as fp32 (sum_payload on a bf16 value: 8-byte loads
+//     of four channels, PR 8's design), which stays faster where a query
+//     has few samples (TSA, the decoder: 0.14 ms a call at TSA against the
+//     four-lane mapping's 0.17).
+//   What bounds both is the rate of corner requests (one per 32-channel row
+//   whatever its bytes), so neither comes near the bf16 byte bound.
 //
 // `msda_fwd` runs the msda (kFull) and `msda_fwd_probe` the cost-split
 // modes of csrc/msda_fwd.cuh on the same body (the counterpart of
 // tools/bench_hi_probe.py's kernel variants), both on an fp32 value.
+
+#include <type_traits>
 
 #include "msda_fwd.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kThreads4 = 128;  // bf16 K1's four-lane kernel
 constexpr int kSmemLimit = 227 * 1024;  // shared memory a block may use on sm_90
 constexpr int kMaxTile = 128;           // kernels/msda.py::K1_TILES
 
-template <int MODE, int SPLIT>
+template <int MODE, int SPLIT, typename T>
 __global__ void __launch_bounds__(kThreads)
-msda_fwd_kernel(const float* __restrict__ value,  // [B, K, H, D]
+msda_fwd_kernel(const T* __restrict__ value,      // [B, K, H, D]
                 const float* __restrict__ loc,    // [B, Q, H, L, P, 2]
                 const float* __restrict__ attw,   // [B, Q, H, L, P]
-                float* __restrict__ out,          // [B, Q, H, D]
+                T* __restrict__ out,              // [B, Q, H, D]
                 int K, int Q, int H, int D, int L, int P, int tile, int tiles,
                 Levels lv) {
   extern __shared__ int4 payload[];
@@ -90,6 +100,21 @@ msda_fwd_kernel(const float* __restrict__ value,  // [B, K, H, D]
   __syncthreads();
   sum_payload<MODE, SPLIT, 1, kThreads>(corners, weights, value, out, b, h, q0, tile, K, Q, H,
                                         D, L, P);
+}
+
+template <int MODE, int SPLIT, typename T>
+int launch_split(const T* value, const float* loc, const float* attw, T* out,
+                 const Levels& lv, int K, int Q, int H, int D, int L, int P, int tile,
+                 int tiles, unsigned blocks, size_t smem, cudaStream_t stream) {
+  auto kernel = msda_fwd_kernel<MODE, SPLIT, T>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(value, loc, attw, out, K, Q, H, D, L, P, tile,
+                                             tiles, lv);
+  return (int)cudaGetLastError();
 }
 
 // one sample's terms for this lane's 8 bf16 channels (lo: 0-3, hi: 4-7),
@@ -116,17 +141,18 @@ __device__ __forceinline__ void add_sample8(float4 (&s)[4][2], int4 c, float4 w,
   fma4(s[3][1], w.w, hi);
 }
 
-// phase 2 on a bf16 value: 4 lanes x 8 channels per 32-channel row (64
-// bytes); the warp's eight 4-lane groups take SPLIT shares of each of
+// phase 2 on a bf16 value, four lanes x 8 channels per 32-channel row (64
+// bytes): the warp's eight 4-lane groups take SPLIT shares of each of
 // 8 / SPLIT queries, summed in the plain version's order within a share and
-// across the shares by __shfl_xor (the share's lanes sit 4, 8 and 16 apart)
+// across the shares by __shfl_xor (a query's shares sit 4, 8 and 16 lanes
+// apart)
 template <int SPLIT>
 __device__ __forceinline__ void sum_payload_bf16(const int4* corners, const float4* weights,
                                                  const __nv_bfloat16* __restrict__ value,
                                                  __nv_bfloat16* __restrict__ out, int b, int h,
                                                  int q0, int tile, int K, int Q, int H, int D,
                                                  int L, int P) {
-  constexpr int kWarps = kThreads / 32;
+  constexpr int kWarps = kThreads4 / 32;
   constexpr int kQueriesPerPass = 8 / SPLIT;
   const int lp_n = L * P;
   const int warp = threadIdx.x >> 5;
@@ -153,7 +179,7 @@ __device__ __forceinline__ void sum_payload_bf16(const int4* corners, const floa
           for (int k = 0; k < 4; ++k) s[k][0] = s[k][1] = zero;
           const int first = l * P + (part - l * P % SPLIT + SPLIT) % SPLIT;
           const int end = (l + 1) * P;
-#pragma unroll 2
+#pragma unroll 1
           for (int j = first; j < end; j += SPLIT) add_sample8(s, ck[j], cw[j], vb + d0, row);
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
@@ -178,8 +204,10 @@ __device__ __forceinline__ void sum_payload_bf16(const int4* corners, const floa
   }
 }
 
+// K1 on a bf16 value with the four-lane mapping; 64 registers, four blocks
+// an SM (at 80 the SPLIT 1 instantiation spilled and SCA ran 15% slower)
 template <int SPLIT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads4, 1024 / kThreads4)
 msda_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ value,  // [B, K, H, D]
                      const float* __restrict__ loc,            // [B, Q, H, L, P, 2]
                      const float* __restrict__ attw,           // [B, Q, H, L, P]
@@ -193,69 +221,74 @@ msda_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ value,  // [B, K, H, D]
   const int rest = (int)(blockIdx.x / H);
   const int q0 = (rest % tiles) * tile;
   const int b = rest / tiles;
-  build_payload<kFull, kThreads>(corners, weights, loc, attw, b, h, q0, tile, Q, H, L, P, lv);
+  build_payload<kFull, kThreads4>(corners, weights, loc, attw, b, h, q0, tile, Q, H, L, P, lv);
   __syncthreads();
   sum_payload_bf16<SPLIT>(corners, weights, value, out, b, h, q0, tile, K, Q, H, D, L, P);
 }
 
-// launch `kernel` (value, loc, attw, out, K, Q, H, D, L, P, tile, tiles, lv)
-// on `blocks` blocks with `smem` bytes of dynamic shared memory
-template <typename Kernel, typename T>
-int launch(Kernel kernel, const T* value, const float* loc, const float* attw, T* out,
-           const Levels& lv, int K, int Q, int H, int D, int L, int P, int tile, int tiles,
-           unsigned blocks, size_t smem, cudaStream_t stream) {
+template <int SPLIT>
+int launch_split4(const __nv_bfloat16* value, const float* loc, const float* attw,
+                  __nv_bfloat16* out, const Levels& lv, int K, int Q, int H, int D, int L, int P,
+                  int tile, int tiles, unsigned blocks, size_t smem, cudaStream_t stream) {
+  auto kernel = msda_fwd_bf16_kernel<SPLIT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<blocks, kThreads, smem, stream>>>(value, loc, attw, out, K, Q, H, D, L, P, tile,
+  kernel<<<blocks, kThreads4, smem, stream>>>(value, loc, attw, out, K, Q, H, D, L, P, tile,
                                              tiles, lv);
   return (int)cudaGetLastError();
 }
 
-// The one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries,
-// a SPLIT of 1, 2, 4 or 8 4-lane groups a query (bf16; fp32 picks its own,
-// split_for), a payload that fits shared memory, a grid that fits one
-// dimension, D a multiple of 32, and value and out on 16-byte boundaries
-// (the fp32 float4 loads and stores, the bf16 16-byte loads of eight
-// channels and 16-byte stores); anything else returns
-// cudaErrorInvalidValue, which the wrapper raises. Sets the launch's tiles,
-// blocks (0: nothing to launch) and shared memory.
-inline int check_fwd(const void* value, const void* out, int L, int B, int Q, int H, int D,
-                     int P, int tile, int split, int& tiles, unsigned& blocks, size_t& smem) {
-  if (L < 1 || L > kMaxLevels || P < 1 || D % 32 != 0) return (int)cudaErrorInvalidValue;
-  if (tile < 1 || tile > kMaxTile || (tile & (tile - 1)) != 0) return (int)cudaErrorInvalidValue;
-  if (split != 1 && split != 2 && split != 4 && split != 8) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)value | (uintptr_t)out) % 16 != 0) return (int)cudaErrorInvalidValue;
-  smem = (size_t)tile * L * P * (sizeof(int4) + sizeof(float4));
-  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
-  tiles = (Q + tile - 1) / tile;
-  const int64_t n = (int64_t)B * H * tiles;
-  if (n > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  blocks = (unsigned)n;
-  return (int)cudaSuccess;
-}
-
-template <int MODE>
+// The one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries;
+// lanes of 8 a 32-channel row, or of 4 on a bf16 value; a SPLIT of 1, 2 or 4
+// lane groups a query, or 8 with 4 lanes; a payload that fits shared
+// memory, a grid that fits one dimension, D a multiple of 32, and value and
+// out on 16-byte boundaries (the fp32 float4 loads and stores, the bf16
+// 16-byte loads of eight channels; bf16's 8-byte loads are held to the
+// same); anything else returns cudaErrorInvalidValue, which the wrapper
+// raises.
+template <int MODE, typename T>
 int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* out,
                     const void* level_hw, int L, int B, int K, int Q, int H, int D,
-                    int P, int tile, void* stream) {
-  int tiles;
-  unsigned n;
-  size_t smem;
-  const int rc = check_fwd(value, out, L, B, Q, H, D, P, tile, 1, tiles, n, smem);
-  if (rc != (int)cudaSuccess || n == 0) return rc;
+                    int P, int tile, int lanes, int split, void* stream) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if (L < 1 || L > kMaxLevels || P < 1 || D % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (tile < 1 || tile > kMaxTile || (tile & (tile - 1)) != 0) return (int)cudaErrorInvalidValue;
+  const bool four = lanes == 4;
+  if (lanes != 8 && !(four && kBf16 && MODE == kFull)) return (int)cudaErrorInvalidValue;
+  if (split != 1 && split != 2 && split != 4 && !(four && split == 8))
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)value | (uintptr_t)out) % 16 != 0) return (int)cudaErrorInvalidValue;
+  const int lp_n = L * P;
+  const size_t smem = (size_t)tile * lp_n * (sizeof(int4) + sizeof(float4));
+  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
   const Levels lv = load_levels(level_hw, L);
-  const float* v = static_cast<const float*>(value);
+  if ((int64_t)B * Q * H == 0) return (int)cudaSuccess;
+  const int tiles = (Q + tile - 1) / tile;
+  const int64_t blocks = (int64_t)B * H * tiles;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const T* v = static_cast<const T*>(value);
   const float* lo = static_cast<const float*>(loc);
   const float* a = static_cast<const float*>(attw);
-  float* o = static_cast<float*>(out);
+  T* o = static_cast<T*>(out);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (split_for(L * P)) {
-    case 1: return launch(msda_fwd_kernel<MODE, 1>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    case 2: return launch(msda_fwd_kernel<MODE, 2>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    default: return launch(msda_fwd_kernel<MODE, 4>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+  const unsigned n = (unsigned)blocks;
+  if constexpr (kBf16) {
+    if (four) {
+      switch (split) {
+        case 1: return launch_split4<1>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+        case 2: return launch_split4<2>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+        case 4: return launch_split4<4>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+        default: return launch_split4<8>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+      }
+    }
+  }
+  switch (split) {
+    case 1: return launch_split<MODE, 1, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    case 2: return launch_split<MODE, 2, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+    default: return launch_split<MODE, 4, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
   }
 }
 
@@ -265,48 +298,36 @@ int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* 
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attw,
                         void* out, const void* level_hw, int L, int B, int K,
                         int Q, int H, int D, int P, int tile, void* stream) {
-  return launch_msda_fwd<kFull>(value, loc, attw, out, level_hw, L, B, K, Q, H, D, P, tile,
-                                stream);
+  return launch_msda_fwd<kFull, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D, P,
+                                       tile, 8, split_for(L * P), stream);
 }
 
-// msda_fwd on a bf16 value, with a bf16 out (loc and attw fp32); split: the
-// 4-lane groups a query (the wrapper's kernels/msda.py::k1_bf16_plan)
+// msda_fwd on a bf16 value, with a bf16 out (loc and attw fp32), at `lanes`
+// (4 or 8) a 32-channel row and `split` lane groups a query (the wrapper's
+// kernels/msda.py::k1_bf16_plan)
 extern "C" int msda_fwd_bf16(const void* value, const void* loc, const void* attw,
                              void* out, const void* level_hw, int L, int B, int K,
-                             int Q, int H, int D, int P, int tile, int split, void* stream) {
-  int tiles;
-  unsigned n;
-  size_t smem;
-  const int rc = check_fwd(value, out, L, B, Q, H, D, P, tile, split, tiles, n, smem);
-  if (rc != (int)cudaSuccess || n == 0) return rc;
-  const Levels lv = load_levels(level_hw, L);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(value);
-  const float* lo = static_cast<const float*>(loc);
-  const float* a = static_cast<const float*>(attw);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (split) {
-    case 1: return launch(msda_fwd_bf16_kernel<1>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    case 2: return launch(msda_fwd_bf16_kernel<2>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    case 4: return launch(msda_fwd_bf16_kernel<4>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-    default: return launch(msda_fwd_bf16_kernel<8>, v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-  }
+                             int Q, int H, int D, int P, int tile, int lanes, int split,
+                             void* stream) {
+  return launch_msda_fwd<kFull, __nv_bfloat16>(value, loc, attw, out, level_hw, L, B, K, Q, H,
+                                               D, P, tile, lanes, split, stream);
 }
 
 extern "C" int msda_fwd_probe(const void* value, const void* loc, const void* attw,
                               void* out, const void* level_hw, int L, int B, int K,
                               int Q, int H, int D, int P, int mode, int tile,
                               void* stream) {
+  const int split = split_for(L * P);
   switch (mode) {
     case kGather:
-      return launch_msda_fwd<kGather>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
-                                      P, tile, stream);
+      return launch_msda_fwd<kGather, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
+                                             P, tile, 8, split, stream);
     case kWeights:
-      return launch_msda_fwd<kWeights>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
-                                       P, tile, stream);
+      return launch_msda_fwd<kWeights, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
+                                              P, tile, 8, split, stream);
     case kNoop:
-      return launch_msda_fwd<kNoop>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
-                                    P, tile, stream);
+      return launch_msda_fwd<kNoop, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
+                                           P, tile, 8, split, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -10,11 +10,12 @@
 //   ACC independent sets of corner accumulators each, summed in the plain
 //   version's order (per level, each corner over the points, then the
 //   corners in turn) and across the groups by __shfl_xor.
-// sum_payload reads an fp32 value (a lane's 4 channels by one 16-byte load).
-// The bf16 entries of K1 and K3/K4 map their lanes apart (msda_fwd.cu::
-// sum_payload_bf16, msda_bwd.cu::msda_bwd_bf16_kernel): 4 lanes x 16 bytes
-// per 64-byte bf16 corner row, a lane's 8 channels by one load, widened to
-// fp32 exactly (widen8), the sums fp32.
+// sum_payload reads an fp32 value (a lane's 4 channels by one 16-byte load)
+// or a bf16 one (one 8-byte load, widened to fp32 exactly) and writes its
+// output in the value's dtype (bf16 rounded to nearest even, once); the sums
+// are fp32 either way. bf16 K1 also maps four lanes to a 64-byte bf16 row
+// (msda_fwd.cu::sum_payload_bf16: a lane's 8 channels by one 16-byte load,
+// widen8; the output by one 16-byte store, store8).
 //
 // The modes split a kernel's cost (the probes of tools/bench_hi_probe.py
 // and tools/bench_kernel_probe.py time them). Each is a function of the
@@ -75,9 +76,21 @@ __device__ __forceinline__ float4 widen4(uint2 u) {
 // 4 consecutive channels at p as fp32
 __device__ __forceinline__ float4 load4(const float* p) { return ldg4(p); }
 
-// 4 consecutive channels at p from fp32: one 16-byte store
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+// 4 consecutive channels at p from fp32: one 16-byte store, or one 8-byte
+// store of the values rounded to bf16 (nearest even)
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
 }
 
 // 8 bf16 in four 32-bit words (element 0 in the low half of x) as fp32:
@@ -122,7 +135,8 @@ __device__ __forceinline__ float4 shfl_xor4(float4 v, int m) {
   return v;
 }
 
-// a load of the 4 fp32 channels at p where `live`, else zeros. The asm is volatile, so the four corner loads of a
+// a load of the 4 channels at p where `live`, else zeros (16 bytes of fp32,
+// or 8 of bf16 widened). The asm is volatile, so the four corner loads of a
 // sample leave in order, all before their first use
 __device__ __forceinline__ float4 ldg4_if(bool live, const float* p) {
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -132,6 +146,16 @@ __device__ __forceinline__ float4 ldg4_if(bool live, const float* p) {
       : "+f"(v.x), "+f"(v.y), "+f"(v.z), "+f"(v.w)
       : "r"((int)live), "l"(p));
   return v;
+}
+
+__device__ __forceinline__ float4 ldg4_if(bool live, const __nv_bfloat16* p) {
+  uint2 u = make_uint2(0u, 0u);
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "@q ld.global.nc.v2.b32 {%0, %1}, [%3];\n\t}"
+      : "+r"(u.x), "+r"(u.y)
+      : "r"((int)live), "l"(p));
+  return widen4(u);
 }
 
 // the 8 bf16 channels at p where `live`, else zeros, by one 16-byte load;

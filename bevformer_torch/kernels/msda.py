@@ -17,8 +17,8 @@ bf16 value); locations and weights are fp32.
 `torch.autograd.Function` whose backward is `ms_deform_attn_backward` (the
 CUDA kernel `csrc/msda_bwd.cu`, on the forward's block mapping and tile;
 `msda_bwd_bf16` for a bf16 value, which sums dValue in an fp32 workspace).
-The bf16 entries map four lanes to a 64-byte row and take their tile and
-SPLIT from `k1_bf16_plan`;
+bf16 K1 takes its tile, lanes a 32-channel row and SPLIT from
+`k1_bf16_plan`, bf16 K3/K4 its tile and SPLIT from `k34_bf16_plan`;
 and the plain PyTorch version `ms_deform_attn_plain` under ordinary autograd
 on a CPU tensor. A bf16 launch counts on `MSDA_FWD_BF16` / `MSDA_BWD_BF16`,
 an fp32 one on the wrapper, and each launch of K1 or K3/K4 also counts its
@@ -237,29 +237,55 @@ def k1_tile_for(value, loc) -> int:
     return k1_tile(b, q, h, l * p, _sm_count(value.device))
 
 
-K1_BF16_SPLITS = (1, 2, 4, 8)  # csrc/msda_fwd.cu, msda_bwd.cu: 4-lane groups a query
+K1_BF16_LANES = (4, 8)  # csrc/msda_fwd.cu: bf16 K1's lanes a 32-channel row
+SPLITS = {4: (1, 2, 4, 8), 8: (1, 2, 4)}  # lane groups a query, by lanes a row
 K1_BF16_GROUPS = 64  # 4-lane groups a block: 8 warps of 8
+K1_BF16_MIN_SAMPLES = 8  # samples a query from which bf16 K1 maps 4 lanes a row
 
 
-def k1_bf16_plan(b: int, q: int, h: int, samples: int, sms: int) -> Tuple[int, int]:
-    """bf16 K1's (and its backward's) (queries per block, SPLIT) for B `b`,
-    Q `q`, H `h` and `samples` = L*P per query on a card of `sms` SMs: K1's
-    tile (`k1_tile`), and SPLIT 4-lane groups a query, doubled from 1 while
-    a pass of the block's K1_BF16_GROUPS groups (K1_BF16_GROUPS / SPLIT
-    queries) would outrun the tile, up to 8 and to the query's samples
-    (TSA 1 at a tile of 128, SCA 4 and the decoder 4 at 16)."""
+def split_for(samples: int) -> int:
+    """The fp32 kernels' 8-lane groups a query (csrc/msda_fwd.cuh::
+    split_for): as many as give each at least 4 samples."""
+    return 4 if samples >= 16 else 2 if samples >= 8 else 1
+
+
+def k1_bf16_plan(b: int, q: int, h: int, samples: int, sms: int) -> Tuple[int, int, int]:
+    """bf16 K1's (queries per block, lanes a 32-channel row, SPLIT lane
+    groups a query) for B `b`, Q `q`, H `h` and `samples` = L*P per query on
+    a card of `sms` SMs. From K1_BF16_MIN_SAMPLES samples a query (SCA) four
+    lanes, at K1's tile (`k1_tile`) with SPLIT doubled from 1 while a pass
+    of the block's K1_BF16_GROUPS groups (K1_BF16_GROUPS / SPLIT queries)
+    would outrun the tile, up to 8 and to the query's samples; with fewer
+    (TSA, the decoder) K1's own plan, eight lanes a row."""
     tile = k1_tile(b, q, h, samples, sms)
+    if samples < K1_BF16_MIN_SAMPLES:
+        return tile, 8, split_for(samples)
     split = 1
-    while split < K1_BF16_SPLITS[-1] and tile * split < K1_BF16_GROUPS and 2 * split <= samples:
+    while split < SPLITS[4][-1] and tile * split < K1_BF16_GROUPS and 2 * split <= samples:
         split *= 2
-    return tile, split
+    return tile, 4, split
 
 
-def k1_bf16_plan_for(value, loc) -> Tuple[int, int]:
-    """`k1_bf16_plan` for these inputs on their card."""
+def k34_bf16_plan(b: int, q: int, h: int, samples: int, sms: int) -> Tuple[int, int]:
+    """bf16 K3/K4's (queries per block, SPLIT 8-lane groups a query): K1's
+    tile and the fp32 kernel's SPLIT."""
+    return k1_tile(b, q, h, samples, sms), split_for(samples)
+
+
+def _plan_args(value, loc):
     b, _, h, _ = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
-    return k1_bf16_plan(b, q, h, l * p, _sm_count(value.device))
+    return b, q, h, l * p, _sm_count(value.device)
+
+
+def k1_bf16_plan_for(value, loc) -> Tuple[int, int, int]:
+    """`k1_bf16_plan` for these inputs on their card."""
+    return k1_bf16_plan(*_plan_args(value, loc))
+
+
+def k34_bf16_plan_for(value, loc) -> Tuple[int, int]:
+    """`k34_bf16_plan` for these inputs on their card."""
+    return k34_bf16_plan(*_plan_args(value, loc))
 
 
 def _launch_fwd(value, spatial_shapes, loc, attw) -> torch.Tensor:
@@ -336,38 +362,30 @@ def _check_grad(value, loc, grad_out):
 
 
 def _launch_bwd(value, spatial_shapes, loc, attw, grad_out, tile: int,
-                split: Optional[int] = None, round_in_kernel: bool = False):
-    """One launch of `msda_bwd` at `tile` queries per block, or of
-    `msda_bwd_bf16` for a bf16 value at `tile` and `split`: (dValue in the
-    value's dtype, dLoc, dAttw). The kernel adds dValue into
-    an fp32 workspace; a bf16 dValue is that sum rounded once, by a
-    separate pass or, with `round_in_kernel`, by the kernel's last block of
-    each (b, h)."""
+                split: Optional[int] = None):
+    """One launch of `msda_bwd` at `tile` queries per block (the kernel's
+    own SPLIT), or of `msda_bwd_bf16` for a bf16 value at `tile` and
+    `split`: (dValue in the value's dtype, dLoc, dAttw). The kernel adds
+    dValue into an fp32 workspace; a bf16 dValue is that sum rounded once."""
     b, k, h, d = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
     bf16 = value.dtype == torch.bfloat16
-    # the fp32 workspace, and behind it (bf16) the kernel's per-(b, h) counts
-    n = value.numel()
-    work = torch.zeros(n + (-(-b * h // 4) * 4 if bf16 else 0), dtype=torch.float32,
-                       device=value.device)
-    dvalue = work[:n].view(value.shape)
+    entry = "msda_bwd_bf16" if bf16 else "msda_bwd"
+    dvalue = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     dloc = torch.empty_like(loc)
     dattw = torch.empty_like(attw)
-    out = torch.empty_like(value) if round_in_kernel else None
     level_hw = _level_hw(spatial_shapes)
     lib = build.library()
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [value.data_ptr(), loc.data_ptr(), attw.data_ptr(), grad_out.data_ptr(),
-                dvalue.data_ptr(), dloc.data_ptr(), dattw.data_ptr()]
-        if bf16:
-            ptrs += [out.data_ptr() if round_in_kernel else None,
-                     work[n:].data_ptr() if round_in_kernel else None]
-        entry = "msda_bwd_bf16" if bf16 else "msda_bwd"
-        plan = (tile, split) if bf16 else (tile,)
-        rc = getattr(lib, entry)(*ptrs, level_hw.ctypes.data, l, b, k, q, h, d, p, *plan, stream)
+        rc = getattr(lib, entry)(
+            value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
+            grad_out.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
+            dattw.data_ptr(), level_hw.ctypes.data, l, b, k, q, h, d, p, tile,
+            *((split,) if bf16 else ()), stream,
+        )
     build.check_launch(entry, rc)
-    return (out if round_in_kernel else dvalue.to(value.dtype)), dloc, dattw
+    return dvalue.to(value.dtype), dloc, dattw
 
 
 def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
@@ -375,14 +393,14 @@ def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
     [B, K, H, D] in the value's dtype, dLoc [B, Q, H, L, P, 2] and dAttw
     [B, Q, H, L, P] in fp32. The plain version for a CPU tensor, the CUDA
     kernel `msda_bwd` for a CUDA tensor, at K1's tile for the shape (bf16:
-    `msda_bwd_bf16` at `k1_bf16_plan`)."""
+    `msda_bwd_bf16` at `k34_bf16_plan`)."""
     if value.device.type == "cpu":
         return ms_deform_attn_backward_plain(value, spatial_shapes, loc, attw, grad_out)
     spatial_shapes = _cuda_args("ms_deform_attn_backward", value, spatial_shapes, loc, attw,
                                 VALUE_DTYPES)
     _check_grad(value, loc, grad_out)
     bf16 = value.dtype == torch.bfloat16
-    plan = k1_bf16_plan_for(value, loc) if bf16 else (k1_tile_for(value, loc),)
+    plan = k34_bf16_plan_for(value, loc) if bf16 else (k1_tile_for(value, loc),)
     grads = _launch_bwd(value, spatial_shapes, loc, attw, grad_out, *plan)
     (MSDA_BWD_BF16 if bf16 else ms_deform_attn_backward).launches += 1
     QUERIES["msda_bwd_bf16" if bf16 else "msda_bwd"][tuple(loc.shape[:2])] += 1

@@ -2,8 +2,8 @@
 and bevformer_tiny_fp16's three call sites, against other builds of their
 sources and against the fp32 entries, from the repository root on a card:
 
-    python -m bevformer_torch.tools.bench_msda_bf16 [fwd bwd split round passes]
-        [--against DIR ...] [--shapes base tiny] [--reps N]
+    python -m bevformer_torch.tools.bench_msda_bf16 [fwd bwd plan passes]
+        [--against DIR ...] [--variant NAME ...] [--shapes base tiny] [--reps N]
 
 Shapes (`SHAPES`): base's TSA (B 2, Q 40,000, one 200 x 200 level, P 4),
 SCA (B 6, Q 10,112, four levels, P 8) and decoder (B 1, Q 900, P 4);
@@ -13,26 +13,29 @@ them (numpy seed 0): value N(0, 1) rounded to bf16, locations uniform on
 
 Cases:
   fwd     bf16 K1 at its plan (`msda.k1_bf16_plan`), fp32 K1 on the same
-          value in fp32, and each `--against` build's bf16 and fp32 K1;
-  bwd     the same for K3/K4, each through its wrapper's work: the fp32
-          workspace's zero-fill, the kernel and the rounding pass;
-  split   bf16 K1 and K3/K4 at the plan's tile and every SPLIT;
-  round   bf16 K3/K4 rounding dValue inside the kernel (the last block of
-          each (b, h) range) in place of the separate pass;
+          value in fp32, and each other build's bf16 and fp32 K1;
+  bwd     the same for K3/K4 (`msda.k34_bf16_plan`), each through the
+          wrapper's work: the fp32 workspace's zero-fill, the kernel and the
+          rounding pass;
+  plan    the package's bf16 K1 at 4 and 8 lanes a row, each SPLIT and each
+          tile from 8 that fits; bf16 K3/K4 at each SPLIT and tile;
   passes  the zero-fill and the rounding pass alone.
 An `--against` directory holds a `msda_fwd.cu`, `msda_fwd.cuh` and
 `msda_bwd.cu`, built by one `nvcc` with the package's flags into
 `build/against/`: the parent commit's files (`git archive`) time the
-earlier design in the same process. Sources whose bf16 entries take no
-SPLIT (before the 4-lane mapping) are called at the tile alone.
+earlier design in the same process. Sources whose bf16 entries take the
+tile alone (PR 8's) are called so. A `--variant` is the package's sources
+with the text edits of `VARIANTS` applied (each must match once), built the
+same way: a design choice inside the kernel timed without a second path in
+it. Each build's ptxas report (registers, spills) goes to stderr.
 
 Kernels are timed in turns within one process: the package's entry, the
 other builds, then the same in reverse; each turn `--reps` launches back
-to back (CUDA events, as `chip_smoke.py` times them). One JSON line per
-shape, case and kernel: both turns' ms, the bound (`tools/roofline.py`)
-and the share of it, the error against the plain version (bf16: in ulps
-at max |plain|, and the bitwise-equal share; dLoc and dAttw: max abs error
-over max |plain|), the card's line.
+to back (CUDA events, as `chip_smoke.py` times them; the backward half as
+many). One JSON line per shape, case and kernel: both turns' ms, the bound
+(`tools/roofline.py`) and the share of it, the error against the plain
+version (bf16: in ulps at max |plain| and the bitwise-equal share; dLoc and
+dAttw: max abs error over max |plain|), the plan, the card's line.
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ import argparse
 import ctypes
 import json
 import subprocess
+import sys
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,9 +55,27 @@ from bevformer_torch.kernels import build, msda
 from bevformer_torch.tools import common, roofline
 
 TOOL = "bench_msda_bf16"
-CASES = ("fwd", "bwd", "split", "round", "passes")
+CASES = ("fwd", "bwd", "plan", "passes")
 SOURCES = ("msda_fwd.cu", "msda_bwd.cu")
 HEADERS = ("msda_fwd.cuh",)
+
+_FWD_BOUND = "__global__ void __launch_bounds__(kThreads, 4)\nmsda_fwd_bf16_kernel("
+_FWD_LOOP = ("#pragma unroll 1\n          for (int j = first; j < end; j += SPLIT) "
+             "add_sample8(")
+
+# name: [(file, text in it, its replacement), ...]
+VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
+    # bf16 K1's four-lane kernel without the four-blocks bound (ptxas then
+    # takes 80 registers, three blocks an SM)
+    "fwd4_unbound": [("msda_fwd.cu", _FWD_BOUND,
+                      _FWD_BOUND.replace("(kThreads, 4)", "(kThreads)"))],
+    # ... with two samples' loads in flight a group, not one
+    "fwd4_unroll2": [("msda_fwd.cu", _FWD_LOOP, _FWD_LOOP.replace("unroll 1", "unroll 2"))],
+    # ... with the corner loads left to ptxas to order (conditional __ldg)
+    "fwd4_nopin": [("msda_fwd.cu", f"ldg8_if(c.{k} >= 0, v + c.{k} * row);",
+                    f"c.{k} >= 0 ? __ldg(reinterpret_cast<const uint4*>(v + c.{k} * row)) "
+                    f": make_uint4(0u, 0u, 0u, 0u);") for k in "xyzw"],
+}
 
 S = common.Shape
 SHAPES = {
@@ -71,53 +93,108 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--against", action="append", default=[], metavar="DIR",
                     help="a directory of msda_fwd.cu, msda_fwd.cuh, msda_bwd.cu to time beside "
                          "the package's (repeatable)")
+    ap.add_argument("--variant", action="append", default=[], choices=sorted(VARIANTS),
+                    help="a variant of the package's sources to time beside it (repeatable)")
     ap.add_argument("--shapes", nargs="+", choices=list(SHAPES), default=list(SHAPES),
                     help="which shape sets (default both)")
     return ap
 
 
+def _level_hw(shape) -> np.ndarray:
+    return np.asarray(shape.levels, np.int32).reshape(-1)
+
+
 class Build:
-    """The msda entries of one library: `split` whether its bf16 entries
-    take a SPLIT."""
+    """The msda entries of one library; `planned` whether its bf16 entries
+    take the plan beyond the tile (lanes and SPLIT forward, SPLIT
+    backward), as the package's do, or the tile alone (PR 8's)."""
 
-    def __init__(self, name: str, lib: ctypes.CDLL, split: bool):
-        self.name, self.lib, self.split = name, lib, split
+    def __init__(self, name: str, lib: ctypes.CDLL, planned: bool):
+        self.name, self.lib, self.planned = name, lib, planned
+        sigs = dict(build.SIGNATURES)
+        if not planned:
+            sigs["msda_fwd_bf16"], sigs["msda_bwd_bf16"] = sigs["msda_fwd"], sigs["msda_bwd"]
+        for entry in ("msda_fwd", "msda_fwd_bf16", "msda_bwd", "msda_bwd_bf16"):
+            fn = getattr(lib, entry)
+            fn.argtypes = sigs[entry]
+            fn.restype = ctypes.c_int
+
+    def _extra(self, value, loc, plan, plan_for):
+        if value.dtype != torch.bfloat16:
+            return (msda.k1_tile_for(value, loc),)
+        plan = plan or plan_for(value, loc)
+        return plan if self.planned else plan[:1]
+
+    def fwd(self, value, shape, loc, attw, plan: Optional[Tuple[int, ...]] = None):
+        """One forward launch for the value's dtype, at `plan` (tile, lanes,
+        SPLIT) or the wrapper's."""
+        extra = self._extra(value, loc, plan, msda.k1_bf16_plan_for)
+        b, k, h, d = value.shape
+        out = torch.empty((b, shape.q, h * d), dtype=value.dtype, device=value.device)
+        entry = "msda_fwd_bf16" if value.dtype == torch.bfloat16 else "msda_fwd"
+        rc = getattr(self.lib, entry)(
+            value.data_ptr(), loc.data_ptr(), attw.data_ptr(), out.data_ptr(),
+            _level_hw(shape).ctypes.data, len(shape.levels), b, k, shape.q, h, d, shape.p, *extra,
+            torch.cuda.current_stream().cuda_stream)
+        build.check_launch(entry, rc)
+        return out
+
+    def bwd(self, value, shape, loc, attw, g, plan: Optional[Tuple[int, ...]] = None):
+        """One backward for the value's dtype, at `plan` (tile, SPLIT) or the
+        wrapper's, with the wrapper's work around the launch: the zeroed
+        fp32 workspace and the rounding of a bf16 dValue."""
+        extra = self._extra(value, loc, plan, msda.k34_bf16_plan_for)
+        b, k, h, d = value.shape
+        dvalue = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+        dloc, dattw = torch.empty_like(loc), torch.empty_like(attw)
+        entry = "msda_bwd_bf16" if value.dtype == torch.bfloat16 else "msda_bwd"
+        rc = getattr(self.lib, entry)(
+            value.data_ptr(), loc.data_ptr(), attw.data_ptr(), g.data_ptr(), dvalue.data_ptr(),
+            dloc.data_ptr(), dattw.data_ptr(), _level_hw(shape).ctypes.data, len(shape.levels),
+            b, k, shape.q, h, d, shape.p, *extra, torch.cuda.current_stream().cuda_stream)
+        build.check_launch(entry, rc)
+        return dvalue.to(value.dtype), dloc, dattw
 
 
-def _declare(lib: ctypes.CDLL, split: bool) -> ctypes.CDLL:
-    sigs = dict(build.SIGNATURES)
-    if not split:  # the bf16 entries at the tile alone; no rounding pointers
-        sigs["msda_fwd_bf16"] = sigs["msda_fwd"]
-        sigs["msda_bwd_bf16"] = sigs["msda_bwd"]
-    for name in ("msda_fwd", "msda_fwd_bf16", "msda_bwd", "msda_bwd_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = sigs[name]
-        fn.restype = ctypes.c_int
-    return lib
+def variant_dir(name: str) -> Path:
+    """The package's sources with variant `name`'s edits, in a directory of
+    their own under `build/`; raises unless each edit matches once."""
+    out = build.BUILD_DIR / "msda_variants" / name
+    out.mkdir(parents=True, exist_ok=True)
+    texts = {f: (build.SRC_DIR / f).read_text() for f in SOURCES + HEADERS}
+    for f, old, new in VARIANTS[name]:
+        if texts[f].count(old) != 1:
+            raise ValueError(f"variant {name}: an edit of {f} matches {texts[f].count(old)} "
+                             f"times, not once:\n{old}")
+        texts[f] = texts[f].replace(old, new)
+    for f, text in texts.items():
+        (out / f).write_text(text)
+    return out
 
 
-def build_against(dirs: Sequence[str]) -> List[Build]:
-    """Each directory's sources compiled at once, one library each."""
+def build_dirs(dirs: Dict[str, Path]) -> List[Build]:
+    """{name: directory of sources}, compiled at once, one library each."""
     out_dir = build.BUILD_DIR / "against"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for i, d in enumerate(dirs):
-        src = Path(d).resolve()
+    for i, (name, src) in enumerate(dirs.items()):
+        src = Path(src).resolve()
         missing = [f for f in SOURCES + HEADERS if not (src / f).exists()]
         if missing:
             raise FileNotFoundError(f"{src}: no {', '.join(missing)}")
-        lib = out_dir / f"against{i}.so"
+        lib = out_dir / f"lib{i}.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(src), "-o", str(lib),
                *(str(src / f) for f in SOURCES)]
-        split = "int tile, int split, void* stream" in (src / "msda_fwd.cu").read_text()
-        procs.append((d, lib, split, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                      stderr=subprocess.STDOUT, text=True)))
+        planned = "int lanes, int split" in (src / "msda_fwd.cu").read_text()
+        procs.append((name, lib, planned, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                           stderr=subprocess.STDOUT, text=True)))
     builds = []
-    for d, lib, split, proc in procs:
+    for name, lib, planned, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {d}:\n{log}")
-        builds.append(Build(d, _declare(ctypes.CDLL(str(lib)), split), split))
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        print(f"[{TOOL}] {name}:\n{log}", file=sys.stderr, flush=True)
+        builds.append(Build(name, ctypes.CDLL(str(lib)), planned))
     return builds
 
 
@@ -146,62 +223,16 @@ def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
     return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
-def fwd_call(bld: Build, value, shape, loc, attw, split: Optional[int] = None):
-    """One forward launch of `bld`'s entry for the value's dtype."""
-    bf16 = value.dtype == torch.bfloat16
-    tile, plan_split = msda.k1_bf16_plan_for(value, loc)
-    if not bf16:
-        tile = msda.k1_tile_for(value, loc)
-    extra = (tile, split or plan_split) if bf16 and bld.split else (tile,)
-    b, k, h, d = value.shape
-    out = torch.empty((b, shape.q, h * d), dtype=value.dtype, device=value.device)
-    level_hw = np.asarray(shape.levels, np.int32).reshape(-1)
-    entry = "msda_fwd_bf16" if bf16 else "msda_fwd"
-    rc = getattr(bld.lib, entry)(value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
-                                 out.data_ptr(), level_hw.ctypes.data, len(shape.levels), b, k,
-                                 shape.q, h, d, shape.p, *extra,
-                                 torch.cuda.current_stream().cuda_stream)
-    build.check_launch(entry, rc)
-    return out
+def fwd_errors(out, ref) -> dict:
+    if out.dtype == torch.bfloat16:
+        return dict(ulps=bf16_ulps(out, ref), bitwise_equal_share=float((out == ref).float().mean()))
+    return dict(max_abs_err=float((out - ref.float()).abs().max()))
 
 
-def bwd_call(bld: Build, value, shape, loc, attw, g, split: Optional[int] = None):
-    """One backward of `bld`'s entry for the value's dtype, with its
-    wrapper's work: the zeroed fp32 workspace, the launch, the rounding."""
-    bf16 = value.dtype == torch.bfloat16
-    if bld.split or not bf16:  # the package's wrapper, on this library's entry
-        tile, plan_split = msda.k1_bf16_plan_for(value, loc)
-        if not bf16:
-            tile = msda.k1_tile_for(value, loc)
-        with _library(bld.lib):
-            return msda._launch_bwd(value, shape.levels, loc, attw, g, tile,
-                                    (split or plan_split) if bf16 else None)
-    b, k, h, d = value.shape
-    dvalue = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
-    dloc, dattw = torch.empty_like(loc), torch.empty_like(attw)
-    level_hw = np.asarray(shape.levels, np.int32).reshape(-1)
-    rc = bld.lib.msda_bwd_bf16(value.data_ptr(), loc.data_ptr(), attw.data_ptr(), g.data_ptr(),
-                               dvalue.data_ptr(), dloc.data_ptr(), dattw.data_ptr(),
-                               level_hw.ctypes.data, len(shape.levels), b, k, shape.q, h, d,
-                               shape.p, msda.k1_tile_for(value, loc),
-                               torch.cuda.current_stream().cuda_stream)
-    build.check_launch("msda_bwd_bf16", rc)
-    return dvalue.to(value.dtype), dloc, dattw
-
-
-class _library:
-    """`build.library()` returns `lib` inside the block."""
-
-    def __init__(self, lib):
-        self.lib = lib
-
-    def __enter__(self):
-        self.saved = build.library
-        build.library = lambda: self.lib
-        return self
-
-    def __exit__(self, *exc):
-        build.library = self.saved
+def bwd_errors(grads, ref) -> dict:
+    return dict(dvalue_ulps=bf16_ulps(grads[0], ref[0]),
+                dvalue_bitwise_equal_share=float((grads[0] == ref[0]).float().mean()),
+                dloc=rel_err(grads[1], ref[1]), dattw=rel_err(grads[2], ref[2]))
 
 
 def in_turns(fns: Dict[str, Callable], reps: int) -> Dict[str, List[float]]:
@@ -224,101 +255,87 @@ def emit(shape, case, kernel, ms, cost, **extra) -> dict:
     return rec
 
 
-def fwd_errors(out, ref) -> dict:
-    if out.dtype == torch.bfloat16:
-        return dict(ulps=bf16_ulps(out, ref), bitwise_equal_share=float((out == ref).float().mean()))
-    return dict(max_abs_err=float((out - ref).abs().max()))
+SMEM_LIMIT = 227 * 1024  # shared memory a block may use on sm_90
 
 
-def bwd_errors(grads, ref) -> dict:
-    out = dict(dloc=rel_err(grads[1], ref[1]), dattw=rel_err(grads[2], ref[2]))
-    if grads[0].dtype == torch.bfloat16:
-        out.update(dvalue_ulps=bf16_ulps(grads[0], ref[0]),
-                   dvalue_bitwise_equal_share=float((grads[0] == ref[0]).float().mean()))
-    else:
-        out["dvalue"] = rel_err(grads[0], ref[0])
-    return out
+def plans(samples: int, d: int):
+    """bf16 K1's (tile, lanes, SPLIT) and K3/K4's (tile, SPLIT) at every
+    tile from 8 whose payload fits shared memory (32 bytes a sample; K3/K4
+    also the tile's fp32 grad_out rows)."""
+    tiles = [t for t in msda.K1_TILES if t >= 8 and t * samples * 32 <= SMEM_LIMIT]
+    fwd = [(t, lanes, sp) for lanes in msda.K1_BF16_LANES for t in tiles
+           for sp in msda.SPLITS[lanes] if sp <= samples]
+    return fwd, [(t, sp) for t in tiles for sp in msda.SPLITS[8] if sp <= samples
+                 and t * (samples * 32 + d * 4) <= SMEM_LIMIT]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     args = parser().parse_args(argv)
-    common.require_cuda()
-    device = torch.device("cuda", 0)
+    device = common.require_cuda()
+    others = {d: Path(d) for d in args.against}
+    others.update((name, variant_dir(name)) for name in args.variant)
     package = Build("package", build.library(), True)
-    builds = [package] + build_against(args.against)
+    builds = [package] + build_dirs(others)
     records = []
     for shape in [s for name in args.shapes for s in SHAPES[name]]:
         value, loc, attw, g = inputs(shape, device)
         value32, g32 = value.float(), g.float()
-        tile, split = msda.k1_bf16_plan_for(value, loc)
-        plan = dict(tile=tile, split=split)
-        fcost = roofline.msda_fwd(shape.b, shape.q, shape.h, shape.d, shape.levels, shape.p,
-                                  itemsize=2)
-        bcost = roofline.msda_bwd(shape.b, shape.q, shape.h, shape.d, shape.levels, shape.p,
-                                  itemsize=2)
-        fcost32 = roofline.msda_fwd(shape.b, shape.q, shape.h, shape.d, shape.levels, shape.p)
-        bcost32 = roofline.msda_bwd(shape.b, shape.q, shape.h, shape.d, shape.levels, shape.p)
+        dims = (shape.b, shape.q, shape.h, shape.d, shape.levels, shape.p)
+        costs = dict(bf16=(roofline.msda_fwd(*dims, itemsize=2),
+                           roofline.msda_bwd(*dims, itemsize=2)),
+                     fp32=(roofline.msda_fwd(*dims), roofline.msda_bwd(*dims)))
+        plan = dict(plan=list(msda.k1_bf16_plan_for(value, loc)),
+                    bwd_plan=list(msda.k34_bf16_plan_for(value, loc)))
+        fwd_plans, bwd_plans = plans(len(shape.levels) * shape.p, shape.d)
         ref = msda.ms_deform_attn_plain(value, shape.levels, loc, attw)
         if "fwd" in args.cases:
             fns, errs = {}, {}
             for bld in builds:
                 for v, tag in ((value, "bf16"), (value32, "fp32")):
                     name = f"{bld.name} {tag}"
-                    fns[name] = (lambda bld=bld, v=v: fwd_call(bld, v, shape, loc, attw))
-                    errs[name] = fwd_errors(fns[name](), ref.float() if tag == "fp32" else ref)
+                    fns[name] = lambda bld=bld, v=v: bld.fwd(v, shape, loc, attw)
+                    errs[name] = fwd_errors(fns[name](), ref)
             for name, ms in in_turns(fns, args.reps).items():
-                records.append(emit(shape, "fwd", name, ms,
-                                    fcost if name.endswith("bf16") else fcost32,
-                                    **errs[name], **plan))
-        if "split" in args.cases:
-            fns = {f"split {s}": (lambda s=s: fwd_call(package, value, shape, loc, attw, s))
-                   for s in msda.K1_BF16_SPLITS}
+                records.append(emit(shape, "fwd", name, ms, costs[name[-4:]][0], **errs[name],
+                                    **plan))
+        if "plan" in args.cases:
+            fns = {f"tile {t} lanes {n} split {sp}": (lambda p=(t, n, sp): package.fwd(
+                value, shape, loc, attw, p)) for t, n, sp in fwd_plans}
             errs = {name: fwd_errors(fn(), ref) for name, fn in fns.items()}
             for name, ms in in_turns(fns, args.reps).items():
-                records.append(emit(shape, "split fwd", name, ms, fcost, **errs[name], tile=tile))
+                records.append(emit(shape, "plan fwd", name, ms, costs["bf16"][0], **errs[name],
+                                    **plan))
         del ref
         torch.cuda.empty_cache()
-        if {"bwd", "split", "round"} & set(args.cases):
+        if {"bwd", "plan"} & set(args.cases):
             bref = msda.ms_deform_attn_backward_plain(value, shape.levels, loc, attw, g)
         if "bwd" in args.cases:
             fns, errs = {}, {}
             for bld in builds:
                 for v, gg, tag in ((value, g, "bf16"), (value32, g32, "fp32")):
                     name = f"{bld.name} {tag}"
-                    fns[name] = (lambda bld=bld, v=v, gg=gg:
-                                 bwd_call(bld, v, shape, loc, attw, gg))
-                    if tag == "bf16":
-                        errs[name] = bwd_errors(fns[name](), bref)
-                    else:
-                        errs[name] = {}
+                    fns[name] = lambda bld=bld, v=v, gg=gg: bld.bwd(v, shape, loc, attw, gg)
+                    errs[name] = bwd_errors(fns[name](), bref) if tag == "bf16" else {}
             for name, ms in in_turns(fns, max(args.reps // 2, 1)).items():
-                records.append(emit(shape, "bwd", name, ms,
-                                    bcost if name.endswith("bf16") else bcost32,
-                                    **errs[name], **plan))
-        if "split" in args.cases:
-            fns = {f"split {s}": (lambda s=s: bwd_call(package, value, shape, loc, attw, g, s))
-                   for s in msda.K1_BF16_SPLITS}
+                records.append(emit(shape, "bwd", name, ms, costs[name[-4:]][1], **errs[name],
+                                    **plan))
+        if "plan" in args.cases:
+            fns = {f"tile {t} split {sp}": (lambda p=(t, sp): package.bwd(
+                value, shape, loc, attw, g, p)) for t, sp in bwd_plans}
             errs = {name: bwd_errors(fn(), bref) for name, fn in fns.items()}
             for name, ms in in_turns(fns, max(args.reps // 2, 1)).items():
-                records.append(emit(shape, "split bwd", name, ms, bcost, **errs[name], tile=tile))
-        if "round" in args.cases:
-            fns = {"separate pass": lambda: msda._launch_bwd(value, shape.levels, loc, attw, g,
-                                                             tile, split),
-                   "in kernel": lambda: msda._launch_bwd(value, shape.levels, loc, attw, g, tile,
-                                                         split, round_in_kernel=True)}
-            errs = {name: bwd_errors(fn(), bref) for name, fn in fns.items()}
-            for name, ms in in_turns(fns, max(args.reps // 2, 1)).items():
-                records.append(emit(shape, "round", name, ms, bcost, **errs[name], **plan))
+                records.append(emit(shape, "plan bwd", name, ms, costs["bf16"][1], **errs[name],
+                                    **plan))
         if "passes" in args.cases:
             n = value.numel()
             work = torch.zeros(n, dtype=torch.float32, device=device)
             fns = {"zero-fill": lambda: torch.zeros(n, dtype=torch.float32, device=device),
                    "rounding": lambda: work.to(torch.bfloat16)}
             # the fill writes 4 bytes an element; the rounding reads 4, writes 2
-            costs = {"zero-fill": roofline.Cost(bytes=4 * n, flops=0),
-                     "rounding": roofline.Cost(bytes=6 * n, flops=0)}
+            pcosts = {"zero-fill": roofline.Cost(bytes=4 * n, flops=0),
+                      "rounding": roofline.Cost(bytes=6 * n, flops=0)}
             for name, ms in in_turns(fns, args.reps).items():
-                records.append(emit(shape, "passes", name, ms, costs[name], elements=n))
+                records.append(emit(shape, "passes", name, ms, pcosts[name], elements=n))
             del work
         bref = None
         del value, value32, loc, attw, g, g32

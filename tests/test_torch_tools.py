@@ -240,6 +240,15 @@ def test_dcn_variant_edits_fit_the_kernel_source(name):
         bench_dcn_variants.variant_source(name, "")
 
 
+@pytest.mark.parametrize("name", sorted(bench_msda_bf16.VARIANTS))
+def test_msda_variant_edits_fit_the_kernel_sources(name):
+    """Each variant of the bf16 msda sources changes them as they stand."""
+    out = bench_msda_bf16.variant_dir(name)
+    changed = [f for f in bench_msda_bf16.SOURCES + bench_msda_bf16.HEADERS
+               if (out / f).read_text() != (bench_msda_bf16.build.SRC_DIR / f).read_text()]
+    assert changed == sorted({f for f, _, _ in bench_msda_bf16.VARIANTS[name]})
+
+
 def test_tool_cases_parse():
     assert common.parser("x", ("a", "b")).parse_args([]).cases == ["a", "b"]
     assert common.parser("x", ("a", "b")).parse_args(["b", "--tsa"]).cases == ["b"]
