@@ -70,7 +70,15 @@
 //   each lane's 4 channels by one 8-byte load widened to fp32 exactly
 //   (grad_out once, into the shared fp32 rows); dLoc and dAttw fp32;
 //   dValue summed by the same 16-byte fp32 vector atomics into an fp32
-//   workspace, which the wrapper rounds to bf16 once.
+//   workspace, which the wrapper rounds to bf16 once. It runs at bf16 K1's
+//   tile (kernels/msda.py::k1_bf16_plan). Measured on an H100 SXM and not
+//   kept (tools/bench_msda_bf16.py): four lanes a 64-byte row with 16-byte
+//   loads, 1.6x slower at SCA's shape, since a lane's two 16-byte atomics
+//   then cover half a 128-byte fp32 dValue row each, twice the L2 requests
+//   of eight lanes' one full row; rounding dValue in the last block of each
+//   (batch, head) range, 1.6-4x slower still, since one block then converts
+//   a range of several MB alone at the kernel's end. The zero-fill and the
+//   rounding pass run at 2.6-3.0 TB/s (0.062 + 0.097 ms at SCA).
 
 #include "msda_fwd.cuh"
 
@@ -257,11 +265,10 @@ int launch_split(const T* value, const float* loc, const float* attw, const T* g
 template <typename T>
 int launch_msda_bwd(const void* value, const void* loc, const void* attw, const void* grad_out,
                     void* dvalue, void* dloc, void* dattw, const void* level_hw, int L, int B,
-                    int K, int Q, int H, int D, int P, int tile, int split, void* stream) {
+                    int K, int Q, int H, int D, int P, int tile, void* stream) {
   if (L < 1 || L > kMaxLevels || P < 1 || D < 32 || D % 32 != 0)
     return (int)cudaErrorInvalidValue;
   if (tile < 1 || tile > kMaxTile || (tile & (tile - 1)) != 0) return (int)cudaErrorInvalidValue;
-  if (split != 1 && split != 2 && split != 4) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)value | (uintptr_t)grad_out | (uintptr_t)dvalue) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int lp_n = L * P;
@@ -273,6 +280,8 @@ int launch_msda_bwd(const void* value, const void* loc, const void* attw, const 
   const int tiles = (Q + tile - 1) / tile;
   const int64_t blocks = (int64_t)B * H * tiles;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  // SPLIT groups per query, as many as give each at least 4 samples
+  const int split = lp_n >= 16 ? 4 : lp_n >= 8 ? 2 : 1;
   const T* v = static_cast<const T*>(value);
   const float* lo = static_cast<const float*>(loc);
   const float* a = static_cast<const float*>(attw);
@@ -293,29 +302,24 @@ int launch_msda_bwd(const void* value, const void* loc, const void* attw, const 
 
 // dvalue (fp32) must be zeroed by the caller (the kernel adds into it).
 // tile: queries per block (the wrapper's kernels/msda.py::k1_tile). The
-// one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries, a
-// SPLIT of 1, 2 or 4 8-lane groups a query, D a multiple of 32, value,
-// grad_out and dvalue on 16-byte boundaries (the float4 loads and vector
-// atomics; bf16 is held to the same), a payload that fits shared memory
-// and a grid that fits one dimension; anything else returns
-// cudaErrorInvalidValue, which the wrapper raises.
+// one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries, D a
+// multiple of 32, value, grad_out and dvalue on 16-byte boundaries (the
+// float4 loads and vector atomics; bf16 is held to the same), a payload
+// that fits shared memory and a grid that fits one dimension; anything else
+// returns cudaErrorInvalidValue, which the wrapper raises.
 extern "C" int msda_bwd(const void* value, const void* loc, const void* attw,
                         const void* grad_out, void* dvalue, void* dloc,
                         void* dattw, const void* level_hw, int L, int B, int K,
                         int Q, int H, int D, int P, int tile, void* stream) {
-  // SPLIT groups per query, as many as give each at least 4 samples
-  const int split = L * P >= 16 ? 4 : L * P >= 8 ? 2 : 1;
   return launch_msda_bwd<float>(value, loc, attw, grad_out, dvalue, dloc, dattw, level_hw, L,
-                                B, K, Q, H, D, P, tile, split, stream);
+                                B, K, Q, H, D, P, tile, stream);
 }
 
-// msda_bwd on a bf16 value and grad_out (dvalue, dloc and dattw fp32), at
-// `split` 8-lane groups a query (the wrapper's kernels/msda.py::
-// k34_bf16_plan)
+// msda_bwd on a bf16 value and grad_out (dvalue, dloc and dattw fp32)
 extern "C" int msda_bwd_bf16(const void* value, const void* loc, const void* attw,
                              const void* grad_out, void* dvalue, void* dloc,
                              void* dattw, const void* level_hw, int L, int B, int K,
-                             int Q, int H, int D, int P, int tile, int split, void* stream) {
+                             int Q, int H, int D, int P, int tile, void* stream) {
   return launch_msda_bwd<__nv_bfloat16>(value, loc, attw, grad_out, dvalue, dloc, dattw,
-                                        level_hw, L, B, K, Q, H, D, P, tile, split, stream);
+                                        level_hw, L, B, K, Q, H, D, P, tile, stream);
 }

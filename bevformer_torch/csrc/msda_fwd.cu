@@ -47,24 +47,21 @@
 //
 // - bf16 (`msda_fwd_bf16`, the counterpart of _kernel_hi with
 //   compute_dtype=bfloat16, computing the exact path's function on a bf16
-//   value): loc and attw fp32, the sums fp32 in the order above, the output
-//   rounded to bf16 once (nearest even, as the plain version's cast). Two
-//   lane mappings of phase 2, picked per shape by the wrapper with the
-//   tile and SPLIT (kernels/msda.py::k1_bf16_plan):
-//   - four lanes a 64-byte row of 32 bf16 channels (sum_payload_bf16), each
-//     with one 16-byte load of eight channels widened to fp32 exactly, so a
-//     warp load moves eight corner rows; the warp's eight 4-lane groups take
-//     SPLIT shares of each of 8 / SPLIT queries; one 16-byte store of eight
-//     channels a lane. 64 registers (four blocks an SM), one sample's loads
-//     in flight a group: at SCA's shape it took 0.85 ms a call against the
-//     eight-lane mapping's 0.95 and fp32's 0.90 (tools/bench_msda_bf16.py,
-//     NVIDIA H100 80GB HBM3, 700 W);
-//   - eight lanes a row as fp32 (sum_payload on a bf16 value: 8-byte loads
-//     of four channels, PR 8's design), which stays faster where a query
-//     has few samples (TSA, the decoder: 0.14 ms a call at TSA against the
-//     four-lane mapping's 0.17).
-//   What bounds both is the rate of corner requests (one per 32-channel row
-//   whatever its bytes), so neither comes near the bf16 byte bound.
+//   value): the same body on a bf16 value, each lane's 4 channels by one
+//   8-byte load widened to fp32 exactly, loc and attw fp32, the sums fp32,
+//   the output rounded to bf16 once (nearest even, as the plain version's
+//   cast). 8 lanes cover a 64-byte row of 32 channels, as in fp32. Its plan
+//   is its own (kernels/msda.py::k1_bf16_plan, passed in): every 8-lane
+//   group takes whole queries (SPLIT 1) and a block at least the 32
+//   queries of one pass of its 8 warps. At SCA's shape that took a call
+//   from 0.95 ms (fp32's plan: 16 queries a block, SPLIT 4, whose
+//   instantiation takes 78 registers, three blocks an SM) to 0.63 (SPLIT 1
+//   at 64 registers, four blocks an SM, and no shuffles across groups);
+//   fp32 K1 there takes 0.89 (tools/bench_msda_bf16.py on an H100 SXM).
+//   Four lanes a row, each with one 16-byte load of 8 channels (half the
+//   load instructions a sample), measured slower at every plan (0.80 ms
+//   at SCA at best): a lane then holds 32 fp32 corner sums, and at the 64
+//   registers that four blocks an SM allow ptxas spills them.
 //
 // `msda_fwd` runs the msda (kFull) and `msda_fwd_probe` the cost-split
 // modes of csrc/msda_fwd.cuh on the same body (the counterpart of
@@ -77,7 +74,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kThreads4 = 128;  // bf16 K1's four-lane kernel
 constexpr int kSmemLimit = 227 * 1024;  // shared memory a block may use on sm_90
 constexpr int kMaxTile = 128;           // kernels/msda.py::K1_TILES
 
@@ -117,53 +113,77 @@ int launch_split(const T* value, const float* loc, const float* attw, T* out,
   return (int)cudaGetLastError();
 }
 
-// one sample's terms for this lane's 8 bf16 channels (lo: 0-3, hi: 4-7),
-// into one pair of accumulators per corner: the four 16-byte corner loads
-// go out, pinned in order by ldg8_if, before any is used
-__device__ __forceinline__ void add_sample8(float4 (&s)[4][2], int4 c, float4 w,
-                                            const __nv_bfloat16* v, int64_t row) {
-  const uint4 u0 = ldg8_if(c.x >= 0, v + c.x * row);
-  const uint4 u1 = ldg8_if(c.y >= 0, v + c.y * row);
-  const uint4 u2 = ldg8_if(c.z >= 0, v + c.z * row);
-  const uint4 u3 = ldg8_if(c.w >= 0, v + c.w * row);
-  float4 lo, hi;
-  widen8(u0, lo, hi);
-  fma4(s[0][0], w.x, lo);
-  fma4(s[0][1], w.x, hi);
-  widen8(u1, lo, hi);
-  fma4(s[1][0], w.y, lo);
-  fma4(s[1][1], w.y, hi);
-  widen8(u2, lo, hi);
-  fma4(s[2][0], w.z, lo);
-  fma4(s[2][1], w.z, hi);
-  widen8(u3, lo, hi);
-  fma4(s[3][0], w.w, lo);
-  fma4(s[3][1], w.w, hi);
+// 8 bf16 in four 32-bit words (element 0 in the low half of x) as fp32:
+// channels 0-3 in lo, 4-7 in hi
+__device__ __forceinline__ void widen8(uint4 u, float4& lo, float4& hi) {
+  lo = widen4(make_uint2(u.x, u.y));
+  hi = widen4(make_uint2(u.z, u.w));
 }
 
-// phase 2 on a bf16 value, four lanes x 8 channels per 32-channel row (64
-// bytes): the warp's eight 4-lane groups take SPLIT shares of each of
-// 8 / SPLIT queries, summed in the plain version's order within a share and
-// across the shares by __shfl_xor (a query's shares sit 4, 8 and 16 lanes
-// apart)
+// two fp32 as a bf16x2 word (nearest even), element 0 in the low half
+__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// 8 consecutive bf16 channels at p from fp32 (lo: 0-3, hi: 4-7), rounded
+// to nearest even: one 16-byte store
+__device__ __forceinline__ void store8(__nv_bfloat16* p, float4 lo, float4 hi) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
+                                            pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
+}
+
+// the 8 bf16 channels at p where `live`, else zeros, by one 16-byte load;
+// volatile, as ldg4_if
+__device__ __forceinline__ uint4 ldg8_if(bool live, const __nv_bfloat16* p) {
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %4, 0;\n\t"
+      "@q ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%5];\n\t}"
+      : "+r"(u.x), "+r"(u.y), "+r"(u.z), "+r"(u.w)
+      : "r"((int)live), "l"(p));
+  return u;
+}
+
+// the partner lane's float4 (`m` lanes away) within a lane group's mask
+__device__ __forceinline__ float4 shfl4(unsigned mask, float4 v, int m) {
+  return make_float4(__shfl_xor_sync(mask, v.x, m), __shfl_xor_sync(mask, v.y, m),
+                     __shfl_xor_sync(mask, v.z, m), __shfl_xor_sync(mask, v.w, m));
+}
+
+__device__ __forceinline__ void add4v(float4& acc, float4 v) {
+  acc.x += v.x;
+  acc.y += v.y;
+  acc.z += v.z;
+  acc.w += v.w;
+}
+
+// phase 2 on a head-major bf16 value [B, H, K, D] (the wrapper's copy): an
+// 8-lane group takes one sample's two columns at a time, lanes 0-3 the
+// left corners (x0), lanes 4-7 the right (x0 + 1), 8 channels a lane by
+// one 16-byte load a row. A row's two corners lie 64 bytes apart, in one
+// 128-byte line when x0 is even, so a sample costs 3 line requests on
+// average where the pixel-major layout costs 4. Each level's four corner
+// sums are summed in the plain version's order after the two columns
+// trade theirs (__shfl_xor 4 lanes apart).
 template <int SPLIT>
-__device__ __forceinline__ void sum_payload_bf16(const int4* corners, const float4* weights,
-                                                 const __nv_bfloat16* __restrict__ value,
-                                                 __nv_bfloat16* __restrict__ out, int b, int h,
-                                                 int q0, int tile, int K, int Q, int H, int D,
-                                                 int L, int P) {
-  constexpr int kWarps = kThreads4 / 32;
-  constexpr int kQueriesPerPass = 8 / SPLIT;
+__device__ __forceinline__ void sum_payload_pairs(const int4* corners, const float4* weights,
+                                                  const __nv_bfloat16* __restrict__ value,
+                                                  __nv_bfloat16* __restrict__ out, int b, int h,
+                                                  int q0, int tile, int K, int Q, int H, int D,
+                                                  int L, int P) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kQueriesPerPass = 4 / SPLIT;
   const int lp_n = L * P;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int grp = lane >> 2;
-  const int slot = grp / SPLIT;  // this group's query in the pass
-  const int part = grp % SPLIT;  // its share of that query's samples
-  const int64_t row = (int64_t)H * D;  // elements between value pixels
-  const __nv_bfloat16* vb = value + (int64_t)b * K * row + (int64_t)h * D + 8 * (lane & 3);
+  const int grp = lane >> 3;
+  const bool right = (lane >> 2) & 1;  // this lane's column: x0 + 1, else x0
+  const unsigned group_mask = 0xffu << (lane & 24);
+  const int slot = grp / SPLIT;
+  const int part = grp % SPLIT;
+  const __nv_bfloat16* vb = value + ((int64_t)b * H + h) * K * D + 8 * (lane & 3);
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  // the loop bounds are the same in every lane: the shuffles need them all
   for (int base = warp * kQueriesPerPass; base < tile; base += kWarps * kQueriesPerPass) {
     const int qi = base + slot;
     const bool active = qi < tile && q0 + qi < Q;
@@ -174,92 +194,99 @@ __device__ __forceinline__ void sum_payload_bf16(const int4* corners, const floa
       float4 lo = zero, hi = zero;
       if (active) {
         for (int l = 0; l < L; ++l) {
-          float4 s[4][2];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) s[k][0] = s[k][1] = zero;
+          float4 t0 = zero, t1 = zero, u0 = zero, u1 = zero;  // this column's top, bottom
           const int first = l * P + (part - l * P % SPLIT + SPLIT) % SPLIT;
           const int end = (l + 1) * P;
-#pragma unroll 1
-          for (int j = first; j < end; j += SPLIT) add_sample8(s, ck[j], cw[j], vb + d0, row);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            lo.x += s[k][0].x;
-            lo.y += s[k][0].y;
-            lo.z += s[k][0].z;
-            lo.w += s[k][0].w;
-            hi.x += s[k][1].x;
-            hi.y += s[k][1].y;
-            hi.z += s[k][1].z;
-            hi.w += s[k][1].w;
+#pragma unroll 2
+          for (int j = first; j < end; j += SPLIT) {
+            const int4 c = ck[j];
+            const float4 w = cw[j];
+            const int ct = right ? c.y : c.x, cb = right ? c.w : c.z;
+            const float wt = right ? w.y : w.x, wb = right ? w.w : w.z;
+            const uint4 a = ldg8_if(ct >= 0, vb + d0 + (int64_t)ct * D);
+            const uint4 e = ldg8_if(cb >= 0, vb + d0 + (int64_t)cb * D);
+            float4 x0, x1;
+            widen8(a, x0, x1);
+            fma4(t0, wt, x0);
+            fma4(t1, wt, x1);
+            widen8(e, x0, x1);
+            fma4(u0, wb, x0);
+            fma4(u1, wb, x1);
           }
+          const float4 pt0 = shfl4(group_mask, t0, 4), pt1 = shfl4(group_mask, t1, 4);
+          const float4 pu0 = shfl4(group_mask, u0, 4), pu1 = shfl4(group_mask, u1, 4);
+          // top-left, top-right, bottom-left, bottom-right
+          add4v(lo, right ? pt0 : t0);
+          add4v(hi, right ? pt1 : t1);
+          add4v(lo, right ? t0 : pt0);
+          add4v(hi, right ? t1 : pt1);
+          add4v(lo, right ? pu0 : u0);
+          add4v(hi, right ? pu1 : u1);
+          add4v(lo, right ? u0 : pu0);
+          add4v(hi, right ? u1 : pu1);
         }
       }
-#pragma unroll
-      for (int m = 4; m < 4 * SPLIT; m <<= 1) {
-        lo = shfl_xor4(lo, m);
-        hi = shfl_xor4(hi, m);
+      if (SPLIT >= 2) {
+        lo = shfl_xor4(lo, 8);
+        hi = shfl_xor4(hi, 8);
       }
-      if (active && part == 0) store8(op + d0, lo, hi);
+      if (SPLIT == 4) {
+        lo = shfl_xor4(lo, 16);
+        hi = shfl_xor4(hi, 16);
+      }
+      if (active && part == 0 && !right) store8(op + d0, lo, hi);
     }
   }
 }
 
-// K1 on a bf16 value with the four-lane mapping; 64 registers, four blocks
-// an SM (at 80 the SPLIT 1 instantiation spilled and SCA ran 15% slower)
 template <int SPLIT>
-__global__ void __launch_bounds__(kThreads4, 1024 / kThreads4)
-msda_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ value,  // [B, K, H, D]
-                     const float* __restrict__ loc,            // [B, Q, H, L, P, 2]
-                     const float* __restrict__ attw,           // [B, Q, H, L, P]
-                     __nv_bfloat16* __restrict__ out,          // [B, Q, H, D]
-                     int K, int Q, int H, int D, int L, int P, int tile, int tiles,
-                     Levels lv) {
+__global__ void __launch_bounds__(kThreads)
+msda_fwd_pairs_kernel(const __nv_bfloat16* __restrict__ value,  // [B, H, K, D]
+                      const float* __restrict__ loc,            // [B, Q, H, L, P, 2]
+                      const float* __restrict__ attw,           // [B, Q, H, L, P]
+                      __nv_bfloat16* __restrict__ out,          // [B, Q, H, D]
+                      int K, int Q, int H, int D, int L, int P, int tile, int tiles,
+                      Levels lv) {
   extern __shared__ int4 payload[];
-  int4* corners = payload;                                           // [tile * L * P]
-  float4* weights = reinterpret_cast<float4*>(payload + tile * L * P);  // [tile * L * P]
+  int4* corners = payload;
+  float4* weights = reinterpret_cast<float4*>(payload + tile * L * P);
   const int h = (int)(blockIdx.x % H);
   const int rest = (int)(blockIdx.x / H);
   const int q0 = (rest % tiles) * tile;
   const int b = rest / tiles;
-  build_payload<kFull, kThreads4>(corners, weights, loc, attw, b, h, q0, tile, Q, H, L, P, lv);
+  build_payload<kFull, kThreads>(corners, weights, loc, attw, b, h, q0, tile, Q, H, L, P, lv);
   __syncthreads();
-  sum_payload_bf16<SPLIT>(corners, weights, value, out, b, h, q0, tile, K, Q, H, D, L, P);
+  sum_payload_pairs<SPLIT>(corners, weights, value, out, b, h, q0, tile, K, Q, H, D, L, P);
 }
 
 template <int SPLIT>
-int launch_split4(const __nv_bfloat16* value, const float* loc, const float* attw,
-                  __nv_bfloat16* out, const Levels& lv, int K, int Q, int H, int D, int L, int P,
-                  int tile, int tiles, unsigned blocks, size_t smem, cudaStream_t stream) {
-  auto kernel = msda_fwd_bf16_kernel<SPLIT>;
+int launch_pairs(const __nv_bfloat16* value, const float* loc, const float* attw,
+                 __nv_bfloat16* out, const Levels& lv, int K, int Q, int H, int D, int L, int P,
+                 int tile, int tiles, unsigned blocks, size_t smem, cudaStream_t stream) {
+  auto kernel = msda_fwd_pairs_kernel<SPLIT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<blocks, kThreads4, smem, stream>>>(value, loc, attw, out, K, Q, H, D, L, P, tile,
+  kernel<<<blocks, kThreads, smem, stream>>>(value, loc, attw, out, K, Q, H, D, L, P, tile,
                                              tiles, lv);
   return (int)cudaGetLastError();
 }
 
-// The one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries;
-// lanes of 8 a 32-channel row, or of 4 on a bf16 value; a SPLIT of 1, 2 or 4
-// lane groups a query, or 8 with 4 lanes; a payload that fits shared
+// The one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries,
+// a SPLIT of 1, 2 or 4 8-lane groups a query, a payload that fits shared
 // memory, a grid that fits one dimension, D a multiple of 32, and value and
-// out on 16-byte boundaries (the fp32 float4 loads and stores, the bf16
-// 16-byte loads of eight channels; bf16's 8-byte loads are held to the
-// same); anything else returns cudaErrorInvalidValue, which the wrapper
-// raises.
+// out on 16-byte boundaries (as the fp32 float4 loads and stores need;
+// bf16 is held to the same); anything else returns cudaErrorInvalidValue,
+// which the wrapper raises.
 template <int MODE, typename T>
 int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* out,
                     const void* level_hw, int L, int B, int K, int Q, int H, int D,
-                    int P, int tile, int lanes, int split, void* stream) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+                    int P, int tile, int split, void* stream, bool pairs = false) {
   if (L < 1 || L > kMaxLevels || P < 1 || D % 32 != 0) return (int)cudaErrorInvalidValue;
   if (tile < 1 || tile > kMaxTile || (tile & (tile - 1)) != 0) return (int)cudaErrorInvalidValue;
-  const bool four = lanes == 4;
-  if (lanes != 8 && !(four && kBf16 && MODE == kFull)) return (int)cudaErrorInvalidValue;
-  if (split != 1 && split != 2 && split != 4 && !(four && split == 8))
-    return (int)cudaErrorInvalidValue;
+  if (split != 1 && split != 2 && split != 4) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)value | (uintptr_t)out) % 16 != 0) return (int)cudaErrorInvalidValue;
   const int lp_n = L * P;
   const size_t smem = (size_t)tile * lp_n * (sizeof(int4) + sizeof(float4));
@@ -275,13 +302,12 @@ int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* 
   T* o = static_cast<T*>(out);
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned n = (unsigned)blocks;
-  if constexpr (kBf16) {
-    if (four) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (pairs) {
       switch (split) {
-        case 1: return launch_split4<1>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-        case 2: return launch_split4<2>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-        case 4: return launch_split4<4>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-        default: return launch_split4<8>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+        case 1: return launch_pairs<1>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+        case 2: return launch_pairs<2>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
+        default: return launch_pairs<4>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
       }
     }
   }
@@ -299,35 +325,42 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attw,
                         void* out, const void* level_hw, int L, int B, int K,
                         int Q, int H, int D, int P, int tile, void* stream) {
   return launch_msda_fwd<kFull, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D, P,
-                                       tile, 8, split_for(L * P), stream);
+                                       tile, split_for(L * P), stream);
 }
 
-// msda_fwd on a bf16 value, with a bf16 out (loc and attw fp32), at `lanes`
-// (4 or 8) a 32-channel row and `split` lane groups a query (the wrapper's
+// msda_fwd on a bf16 value, with a bf16 out (loc and attw fp32), at `split`
+// 8-lane groups a query (tile and split: the wrapper's
 // kernels/msda.py::k1_bf16_plan)
 extern "C" int msda_fwd_bf16(const void* value, const void* loc, const void* attw,
                              void* out, const void* level_hw, int L, int B, int K,
-                             int Q, int H, int D, int P, int tile, int lanes, int split,
-                             void* stream) {
+                             int Q, int H, int D, int P, int tile, int split, void* stream) {
   return launch_msda_fwd<kFull, __nv_bfloat16>(value, loc, attw, out, level_hw, L, B, K, Q, H,
-                                               D, P, tile, lanes, split, stream);
+                                               D, P, tile, split, stream);
+}
+
+// msda_fwd_bf16 on a head-major value [B, H, K, D] (experimental)
+extern "C" int msda_fwd_bf16_pairs(const void* value, const void* loc, const void* attw,
+                                   void* out, const void* level_hw, int L, int B, int K,
+                                   int Q, int H, int D, int P, int tile, int split,
+                                   void* stream) {
+  return launch_msda_fwd<kFull, __nv_bfloat16>(value, loc, attw, out, level_hw, L, B, K, Q, H,
+                                               D, P, tile, split, stream, true);
 }
 
 extern "C" int msda_fwd_probe(const void* value, const void* loc, const void* attw,
                               void* out, const void* level_hw, int L, int B, int K,
                               int Q, int H, int D, int P, int mode, int tile,
                               void* stream) {
-  const int split = split_for(L * P);
   switch (mode) {
     case kGather:
       return launch_msda_fwd<kGather, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
-                                             P, tile, 8, split, stream);
+                                      P, tile, split_for(L * P), stream);
     case kWeights:
       return launch_msda_fwd<kWeights, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
-                                              P, tile, 8, split, stream);
+                                       P, tile, split_for(L * P), stream);
     case kNoop:
       return launch_msda_fwd<kNoop, float>(value, loc, attw, out, level_hw, L, B, K, Q, H, D,
-                                           P, tile, 8, split, stream);
+                                    P, tile, split_for(L * P), stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -13,9 +13,7 @@
 // sum_payload reads an fp32 value (a lane's 4 channels by one 16-byte load)
 // or a bf16 one (one 8-byte load, widened to fp32 exactly) and writes its
 // output in the value's dtype (bf16 rounded to nearest even, once); the sums
-// are fp32 either way. bf16 K1 also maps four lanes to a 64-byte bf16 row
-// (msda_fwd.cu::sum_payload_bf16: a lane's 8 channels by one 16-byte load,
-// widen8; the output by one 16-byte store, store8).
+// are fp32 either way.
 //
 // The modes split a kernel's cost (the probes of tools/bench_hi_probe.py
 // and tools/bench_kernel_probe.py time them). Each is a function of the
@@ -93,26 +91,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
                                             *reinterpret_cast<const unsigned*>(&hi));
 }
 
-// 8 bf16 in four 32-bit words (element 0 in the low half of x) as fp32:
-// channels 0-3 in lo, 4-7 in hi
-__device__ __forceinline__ void widen8(uint4 u, float4& lo, float4& hi) {
-  lo = widen4(make_uint2(u.x, u.y));
-  hi = widen4(make_uint2(u.z, u.w));
-}
-
-// two fp32 as a bf16x2 word (nearest even), element 0 in the low half
-__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// 8 consecutive bf16 channels at p from fp32 (lo: 0-3, hi: 4-7), rounded
-// to nearest even: one 16-byte store
-__device__ __forceinline__ void store8(__nv_bfloat16* p, float4 lo, float4 hi) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
-                                            pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
-}
-
 __device__ __forceinline__ void add4(float4& acc, float s) {
   acc.x += s;
   acc.y += s;
@@ -156,18 +134,6 @@ __device__ __forceinline__ float4 ldg4_if(bool live, const __nv_bfloat16* p) {
       : "+r"(u.x), "+r"(u.y)
       : "r"((int)live), "l"(p));
   return widen4(u);
-}
-
-// the 8 bf16 channels at p where `live`, else zeros, by one 16-byte load;
-// volatile, as ldg4_if
-__device__ __forceinline__ uint4 ldg8_if(bool live, const __nv_bfloat16* p) {
-  uint4 u = make_uint4(0u, 0u, 0u, 0u);
-  asm volatile(
-      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %4, 0;\n\t"
-      "@q ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%5];\n\t}"
-      : "+r"(u.x), "+r"(u.y), "+r"(u.z), "+r"(u.w)
-      : "r"((int)live), "l"(p));
-  return u;
 }
 
 // one sample's terms for this lane's 4 channels, into one accumulator per

@@ -17,8 +17,7 @@ bf16 value); locations and weights are fp32.
 `torch.autograd.Function` whose backward is `ms_deform_attn_backward` (the
 CUDA kernel `csrc/msda_bwd.cu`, on the forward's block mapping and tile;
 `msda_bwd_bf16` for a bf16 value, which sums dValue in an fp32 workspace).
-bf16 K1 takes its tile, lanes a 32-channel row and SPLIT from
-`k1_bf16_plan`, bf16 K3/K4 its tile and SPLIT from `k34_bf16_plan`;
+The bf16 entries take their tile (and K1 its SPLIT) from `k1_bf16_plan`;
 and the plain PyTorch version `ms_deform_attn_plain` under ordinary autograd
 on a CPU tensor. A bf16 launch counts on `MSDA_FWD_BF16` / `MSDA_BWD_BF16`,
 an fp32 one on the wrapper, and each launch of K1 or K3/K4 also counts its
@@ -39,7 +38,7 @@ from __future__ import annotations
 
 import collections
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -237,55 +236,30 @@ def k1_tile_for(value, loc) -> int:
     return k1_tile(b, q, h, l * p, _sm_count(value.device))
 
 
-K1_BF16_LANES = (4, 8)  # csrc/msda_fwd.cu: bf16 K1's lanes a 32-channel row
-SPLITS = {4: (1, 2, 4, 8), 8: (1, 2, 4)}  # lane groups a query, by lanes a row
-K1_BF16_GROUPS = 64  # 4-lane groups a block: 8 warps of 8
-K1_BF16_MIN_SAMPLES = 8  # samples a query from which bf16 K1 maps 4 lanes a row
+K1_SPLITS = (1, 2, 4)  # csrc/msda_fwd.cu: 8-lane groups a query
+K1_BF16_MIN_TILE = 32  # queries a pass of a block's 8 warps covers at SPLIT 1
+K1_BF16_ITEMS = 2 * K1_ITEMS  # samples a bf16 block's payload holds at most (32 KB)
 
 
-def split_for(samples: int) -> int:
-    """The fp32 kernels' 8-lane groups a query (csrc/msda_fwd.cuh::
-    split_for): as many as give each at least 4 samples."""
-    return 4 if samples >= 16 else 2 if samples >= 8 else 1
-
-
-def k1_bf16_plan(b: int, q: int, h: int, samples: int, sms: int) -> Tuple[int, int, int]:
-    """bf16 K1's (queries per block, lanes a 32-channel row, SPLIT lane
-    groups a query) for B `b`, Q `q`, H `h` and `samples` = L*P per query on
-    a card of `sms` SMs. From K1_BF16_MIN_SAMPLES samples a query (SCA) four
-    lanes, at K1's tile (`k1_tile`) with SPLIT doubled from 1 while a pass
-    of the block's K1_BF16_GROUPS groups (K1_BF16_GROUPS / SPLIT queries)
-    would outrun the tile, up to 8 and to the query's samples; with fewer
-    (TSA, the decoder) K1's own plan, eight lanes a row."""
+def k1_bf16_plan(b: int, q: int, h: int, samples: int, sms: int) -> Tuple[int, int]:
+    """bf16 K1's (and its backward's) (queries per block, SPLIT) for B `b`,
+    Q `q`, H `h` and `samples` = L*P per query on a card of `sms` SMs:
+    every 8-lane group takes whole queries (SPLIT 1), at K1's tile
+    (`k1_tile`) doubled up to K1_BF16_MIN_TILE while the payload holds at
+    most K1_BF16_ITEMS samples, so that a pass leaves no warp idle (SCA 32,
+    TSA 128, the decoder 32). K3/K4 takes the tile and picks its own
+    SPLIT."""
     tile = k1_tile(b, q, h, samples, sms)
-    if samples < K1_BF16_MIN_SAMPLES:
-        return tile, 8, split_for(samples)
-    split = 1
-    while split < SPLITS[4][-1] and tile * split < K1_BF16_GROUPS and 2 * split <= samples:
-        split *= 2
-    return tile, 4, split
+    while tile < K1_BF16_MIN_TILE and 2 * tile * samples <= K1_BF16_ITEMS:
+        tile *= 2
+    return tile, 1
 
 
-def k34_bf16_plan(b: int, q: int, h: int, samples: int, sms: int) -> Tuple[int, int]:
-    """bf16 K3/K4's (queries per block, SPLIT 8-lane groups a query): K1's
-    tile and the fp32 kernel's SPLIT."""
-    return k1_tile(b, q, h, samples, sms), split_for(samples)
-
-
-def _plan_args(value, loc):
+def k1_bf16_plan_for(value, loc) -> Tuple[int, int]:
+    """`k1_bf16_plan` for these inputs on their card."""
     b, _, h, _ = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
-    return b, q, h, l * p, _sm_count(value.device)
-
-
-def k1_bf16_plan_for(value, loc) -> Tuple[int, int, int]:
-    """`k1_bf16_plan` for these inputs on their card."""
-    return k1_bf16_plan(*_plan_args(value, loc))
-
-
-def k34_bf16_plan_for(value, loc) -> Tuple[int, int]:
-    """`k34_bf16_plan` for these inputs on their card."""
-    return k34_bf16_plan(*_plan_args(value, loc))
+    return k1_bf16_plan(b, q, h, l * p, _sm_count(value.device))
 
 
 def _launch_fwd(value, spatial_shapes, loc, attw) -> torch.Tensor:
@@ -361,16 +335,14 @@ def _check_grad(value, loc, grad_out):
         raise ValueError("grad_out must be contiguous")
 
 
-def _launch_bwd(value, spatial_shapes, loc, attw, grad_out, tile: int,
-                split: Optional[int] = None):
-    """One launch of `msda_bwd` at `tile` queries per block (the kernel's
-    own SPLIT), or of `msda_bwd_bf16` for a bf16 value at `tile` and
-    `split`: (dValue in the value's dtype, dLoc, dAttw). The kernel adds
-    dValue into an fp32 workspace; a bf16 dValue is that sum rounded once."""
+def _launch_bwd(value, spatial_shapes, loc, attw, grad_out, tile: int):
+    """One launch of `msda_bwd` (`msda_bwd_bf16` for a bf16 value) at `tile`
+    queries per block: (dValue in the value's dtype, dLoc, dAttw). The
+    kernel adds dValue into an fp32 workspace; a bf16 dValue is that sum
+    rounded once."""
     b, k, h, d = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
-    bf16 = value.dtype == torch.bfloat16
-    entry = "msda_bwd_bf16" if bf16 else "msda_bwd"
+    entry = "msda_bwd_bf16" if value.dtype == torch.bfloat16 else "msda_bwd"
     dvalue = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     dloc = torch.empty_like(loc)
     dattw = torch.empty_like(attw)
@@ -381,8 +353,7 @@ def _launch_bwd(value, spatial_shapes, loc, attw, grad_out, tile: int,
         rc = getattr(lib, entry)(
             value.data_ptr(), loc.data_ptr(), attw.data_ptr(),
             grad_out.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
-            dattw.data_ptr(), level_hw.ctypes.data, l, b, k, q, h, d, p, tile,
-            *((split,) if bf16 else ()), stream,
+            dattw.data_ptr(), level_hw.ctypes.data, l, b, k, q, h, d, p, tile, stream,
         )
     build.check_launch(entry, rc)
     return dvalue.to(value.dtype), dloc, dattw
@@ -393,15 +364,15 @@ def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
     [B, K, H, D] in the value's dtype, dLoc [B, Q, H, L, P, 2] and dAttw
     [B, Q, H, L, P] in fp32. The plain version for a CPU tensor, the CUDA
     kernel `msda_bwd` for a CUDA tensor, at K1's tile for the shape (bf16:
-    `msda_bwd_bf16` at `k34_bf16_plan`)."""
+    `msda_bwd_bf16` at bf16 K1's, `k1_bf16_plan`)."""
     if value.device.type == "cpu":
         return ms_deform_attn_backward_plain(value, spatial_shapes, loc, attw, grad_out)
     spatial_shapes = _cuda_args("ms_deform_attn_backward", value, spatial_shapes, loc, attw,
                                 VALUE_DTYPES)
     _check_grad(value, loc, grad_out)
     bf16 = value.dtype == torch.bfloat16
-    plan = k34_bf16_plan_for(value, loc) if bf16 else (k1_tile_for(value, loc),)
-    grads = _launch_bwd(value, spatial_shapes, loc, attw, grad_out, *plan)
+    tile = k1_bf16_plan_for(value, loc)[0] if bf16 else k1_tile_for(value, loc)
+    grads = _launch_bwd(value, spatial_shapes, loc, attw, grad_out, tile)
     (MSDA_BWD_BF16 if bf16 else ms_deform_attn_backward).launches += 1
     QUERIES["msda_bwd_bf16" if bf16 else "msda_bwd"][tuple(loc.shape[:2])] += 1
     return grads

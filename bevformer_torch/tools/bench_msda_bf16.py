@@ -13,18 +13,19 @@ them (numpy seed 0): value N(0, 1) rounded to bf16, locations uniform on
 
 Cases:
   fwd     bf16 K1 at its plan (`msda.k1_bf16_plan`), fp32 K1 on the same
-          value in fp32, and each other build's bf16 and fp32 K1;
-  bwd     the same for K3/K4 (`msda.k34_bf16_plan`), each through the
+          value in fp32, and each other build's bf16 and fp32 K1 at its own
+          plan (PR 8's: fp32's);
+  bwd     the same for K3/K4 (at the plan's tile), each through the
           wrapper's work: the fp32 workspace's zero-fill, the kernel and the
           rounding pass;
-  plan    the package's bf16 K1 at 4 and 8 lanes a row, each SPLIT and each
-          tile from 8 that fits; bf16 K3/K4 at each SPLIT and tile;
+  plan    the package's bf16 K1 at each SPLIT and each tile from 8 that
+          fits; bf16 K3/K4 at each tile;
   passes  the zero-fill and the rounding pass alone.
 An `--against` directory holds a `msda_fwd.cu`, `msda_fwd.cuh` and
 `msda_bwd.cu`, built by one `nvcc` with the package's flags into
 `build/against/`: the parent commit's files (`git archive`) time the
-earlier design in the same process. Sources whose bf16 entries take the
-tile alone (PR 8's) are called so. A `--variant` is the package's sources
+earlier design in the same process; sources whose bf16 K1 takes the tile
+alone (PR 8's) run at fp32's plan. A `--variant` is the package's sources
 with the text edits of `VARIANTS` applied (each must match once), built the
 same way: a design choice inside the kernel timed without a second path in
 it. Each build's ptxas report (registers, spills) goes to stderr.
@@ -55,26 +56,20 @@ from bevformer_torch.kernels import build, msda
 from bevformer_torch.tools import common, roofline
 
 TOOL = "bench_msda_bf16"
-CASES = ("fwd", "bwd", "plan", "passes")
+CASES = ("fwd", "bwd", "plan", "passes", "pairs")
 SOURCES = ("msda_fwd.cu", "msda_bwd.cu")
 HEADERS = ("msda_fwd.cuh",)
 
-_FWD_BOUND = "__global__ void __launch_bounds__(kThreads, 4)\nmsda_fwd_bf16_kernel("
-_FWD_LOOP = ("#pragma unroll 1\n          for (int j = first; j < end; j += SPLIT) "
-             "add_sample8(")
-
 # name: [(file, text in it, its replacement), ...]
 VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
-    # bf16 K1's four-lane kernel without the four-blocks bound (ptxas then
-    # takes 80 registers, three blocks an SM)
-    "fwd4_unbound": [("msda_fwd.cu", _FWD_BOUND,
-                      _FWD_BOUND.replace("(kThreads, 4)", "(kThreads)"))],
-    # ... with two samples' loads in flight a group, not one
-    "fwd4_unroll2": [("msda_fwd.cu", _FWD_LOOP, _FWD_LOOP.replace("unroll 1", "unroll 2"))],
-    # ... with the corner loads left to ptxas to order (conditional __ldg)
-    "fwd4_nopin": [("msda_fwd.cu", f"ldg8_if(c.{k} >= 0, v + c.{k} * row);",
-                    f"c.{k} >= 0 ? __ldg(reinterpret_cast<const uint4*>(v + c.{k} * row)) "
-                    f": make_uint4(0u, 0u, 0u, 0u);") for k in "xyzw"],
+    # K1's corner loads left to ptxas to order at every SPLIT (the package
+    # pins them at SPLIT 1 and 2, where bf16 K1 runs)
+    "nopin": [("msda_fwd.cuh", "  const bool pin = SPLIT <= 2;\n",
+               "  const bool pin = false;\n")],
+    # fp32 K1 at bf16 K1's plan (SPLIT 1, a tile of at least 32): whether
+    # the plan's gain is the bytes' or the requests'
+    "fp32_bf16_plan": [("msda_fwd.cu", "tile, split_for(L * P), stream);\n}\n\n// msda_fwd on",
+                        "tile < 32 ? 32 : tile, 1, stream);\n}\n\n// msda_fwd on")],
 }
 
 S = common.Shape
@@ -105,33 +100,34 @@ def _level_hw(shape) -> np.ndarray:
 
 
 class Build:
-    """The msda entries of one library; `planned` whether its bf16 entries
-    take the plan beyond the tile (lanes and SPLIT forward, SPLIT
-    backward), as the package's do, or the tile alone (PR 8's)."""
+    """The msda entries of one library; `planned` whether its bf16 K1 takes
+    a SPLIT after the tile, as the package's does, or the tile alone (PR
+    8's)."""
 
     def __init__(self, name: str, lib: ctypes.CDLL, planned: bool):
         self.name, self.lib, self.planned = name, lib, planned
         sigs = dict(build.SIGNATURES)
         if not planned:
-            sigs["msda_fwd_bf16"], sigs["msda_bwd_bf16"] = sigs["msda_fwd"], sigs["msda_bwd"]
-        for entry in ("msda_fwd", "msda_fwd_bf16", "msda_bwd", "msda_bwd_bf16"):
+            sigs["msda_fwd_bf16"] = sigs["msda_fwd"]
+        for entry in ("msda_fwd", "msda_fwd_bf16", "msda_bwd", "msda_bwd_bf16",
+                      "msda_fwd_bf16_pairs")[:5 if planned else 4]:
             fn = getattr(lib, entry)
             fn.argtypes = sigs[entry]
             fn.restype = ctypes.c_int
 
-    def _extra(self, value, loc, plan, plan_for):
-        if value.dtype != torch.bfloat16:
-            return (msda.k1_tile_for(value, loc),)
-        plan = plan or plan_for(value, loc)
-        return plan if self.planned else plan[:1]
-
-    def fwd(self, value, shape, loc, attw, plan: Optional[Tuple[int, ...]] = None):
-        """One forward launch for the value's dtype, at `plan` (tile, lanes,
-        SPLIT) or the wrapper's."""
-        extra = self._extra(value, loc, plan, msda.k1_bf16_plan_for)
+    def fwd(self, value, shape, loc, attw, plan: Optional[Tuple[int, int]] = None):
+        """One forward launch for the value's dtype, at `plan` (tile, SPLIT)
+        or the wrapper's (PR 8's build: its tile alone)."""
+        bf16 = value.dtype == torch.bfloat16
+        if not bf16:
+            extra = (msda.k1_tile_for(value, loc),)
+        elif self.planned:
+            extra = plan or msda.k1_bf16_plan_for(value, loc)
+        else:
+            extra = (plan[0] if plan else msda.k1_tile_for(value, loc),)
         b, k, h, d = value.shape
         out = torch.empty((b, shape.q, h * d), dtype=value.dtype, device=value.device)
-        entry = "msda_fwd_bf16" if value.dtype == torch.bfloat16 else "msda_fwd"
+        entry = "msda_fwd_bf16" if bf16 else "msda_fwd"
         rc = getattr(self.lib, entry)(
             value.data_ptr(), loc.data_ptr(), attw.data_ptr(), out.data_ptr(),
             _level_hw(shape).ctypes.data, len(shape.levels), b, k, shape.q, h, d, shape.p, *extra,
@@ -139,19 +135,23 @@ class Build:
         build.check_launch(entry, rc)
         return out
 
-    def bwd(self, value, shape, loc, attw, g, plan: Optional[Tuple[int, ...]] = None):
-        """One backward for the value's dtype, at `plan` (tile, SPLIT) or the
-        wrapper's, with the wrapper's work around the launch: the zeroed
-        fp32 workspace and the rounding of a bf16 dValue."""
-        extra = self._extra(value, loc, plan, msda.k34_bf16_plan_for)
+    def bwd(self, value, shape, loc, attw, g, tile: Optional[int] = None):
+        """One backward for the value's dtype, at `tile` or the wrapper's
+        (PR 8's build: K1's tile), with the wrapper's work around the
+        launch: the zeroed fp32 workspace and the rounding of a bf16
+        dValue."""
+        bf16 = value.dtype == torch.bfloat16
+        if not tile:
+            planned = bf16 and self.planned
+            tile = msda.k1_bf16_plan_for(value, loc)[0] if planned else msda.k1_tile_for(value, loc)
         b, k, h, d = value.shape
         dvalue = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
         dloc, dattw = torch.empty_like(loc), torch.empty_like(attw)
-        entry = "msda_bwd_bf16" if value.dtype == torch.bfloat16 else "msda_bwd"
+        entry = "msda_bwd_bf16" if bf16 else "msda_bwd"
         rc = getattr(self.lib, entry)(
             value.data_ptr(), loc.data_ptr(), attw.data_ptr(), g.data_ptr(), dvalue.data_ptr(),
             dloc.data_ptr(), dattw.data_ptr(), _level_hw(shape).ctypes.data, len(shape.levels),
-            b, k, shape.q, h, d, shape.p, *extra, torch.cuda.current_stream().cuda_stream)
+            b, k, shape.q, h, d, shape.p, tile, torch.cuda.current_stream().cuda_stream)
         build.check_launch(entry, rc)
         return dvalue.to(value.dtype), dloc, dattw
 
@@ -185,7 +185,7 @@ def build_dirs(dirs: Dict[str, Path]) -> List[Build]:
         lib = out_dir / f"lib{i}.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(src), "-o", str(lib),
                *(str(src / f) for f in SOURCES)]
-        planned = "int lanes, int split" in (src / "msda_fwd.cu").read_text()
+        planned = "int tile, int split, void* stream" in (src / "msda_fwd.cu").read_text()
         procs.append((name, lib, planned, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                            stderr=subprocess.STDOUT, text=True)))
     builds = []
@@ -259,14 +259,12 @@ SMEM_LIMIT = 227 * 1024  # shared memory a block may use on sm_90
 
 
 def plans(samples: int, d: int):
-    """bf16 K1's (tile, lanes, SPLIT) and K3/K4's (tile, SPLIT) at every
-    tile from 8 whose payload fits shared memory (32 bytes a sample; K3/K4
-    also the tile's fp32 grad_out rows)."""
+    """bf16 K1's (tile, SPLIT) and K3/K4's tiles: every tile from 8 whose
+    payload fits shared memory (32 bytes a sample; K3/K4 also the tile's
+    fp32 grad_out rows)."""
     tiles = [t for t in msda.K1_TILES if t >= 8 and t * samples * 32 <= SMEM_LIMIT]
-    fwd = [(t, lanes, sp) for lanes in msda.K1_BF16_LANES for t in tiles
-           for sp in msda.SPLITS[lanes] if sp <= samples]
-    return fwd, [(t, sp) for t in tiles for sp in msda.SPLITS[8] if sp <= samples
-                 and t * (samples * 32 + d * 4) <= SMEM_LIMIT]
+    return ([(t, sp) for t in tiles for sp in msda.K1_SPLITS if sp <= samples],
+            [t for t in tiles if t * (samples * 32 + d * 4) <= SMEM_LIMIT])
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
@@ -284,8 +282,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         costs = dict(bf16=(roofline.msda_fwd(*dims, itemsize=2),
                            roofline.msda_bwd(*dims, itemsize=2)),
                      fp32=(roofline.msda_fwd(*dims), roofline.msda_bwd(*dims)))
-        plan = dict(plan=list(msda.k1_bf16_plan_for(value, loc)),
-                    bwd_plan=list(msda.k34_bf16_plan_for(value, loc)))
+        plan = dict(plan=list(msda.k1_bf16_plan_for(value, loc)))
         fwd_plans, bwd_plans = plans(len(shape.levels) * shape.p, shape.d)
         ref = msda.ms_deform_attn_plain(value, shape.levels, loc, attw)
         if "fwd" in args.cases:
@@ -299,12 +296,37 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
                 records.append(emit(shape, "fwd", name, ms, costs[name[-4:]][0], **errs[name],
                                     **plan))
         if "plan" in args.cases:
-            fns = {f"tile {t} lanes {n} split {sp}": (lambda p=(t, n, sp): package.fwd(
-                value, shape, loc, attw, p)) for t, n, sp in fwd_plans}
+            fns = {f"tile {t} split {sp}": (lambda p=(t, sp): package.fwd(
+                value, shape, loc, attw, p)) for t, sp in fwd_plans}
             errs = {name: fwd_errors(fn(), ref) for name, fn in fns.items()}
             for name, ms in in_turns(fns, args.reps).items():
                 records.append(emit(shape, "plan fwd", name, ms, costs["bf16"][0], **errs[name],
                                     **plan))
+        if "pairs" in args.cases:
+            vt = value.transpose(1, 2).contiguous()
+
+            def pairs(vt, t, sp):
+                b, k, h, d = value.shape
+                out = torch.empty((b, shape.q, h * d), dtype=value.dtype, device=device)
+                rc = package.lib.msda_fwd_bf16_pairs(
+                    vt.data_ptr(), loc.data_ptr(), attw.data_ptr(), out.data_ptr(),
+                    _level_hw(shape).ctypes.data, len(shape.levels), b, k, shape.q, h, d,
+                    shape.p, t, sp, torch.cuda.current_stream().cuda_stream)
+                build.check_launch("msda_fwd_bf16_pairs", rc)
+                return out
+
+            t0 = plan["plan"][0]
+            fns = {"plan": lambda: package.fwd(value, shape, loc, attw),
+                   "transpose": lambda: value.transpose(1, 2).contiguous(),
+                   "transpose + pairs": lambda: pairs(value.transpose(1, 2).contiguous(), t0, 1)}
+            fns.update({f"pairs tile {t} split {sp}": (lambda t=t, sp=sp: pairs(vt, t, sp))
+                        for t, sp in fwd_plans})
+            errs = {name: (fwd_errors(fn(), ref) if name != "transpose" else {})
+                    for name, fn in fns.items()}
+            for name, ms in in_turns(fns, args.reps).items():
+                records.append(emit(shape, "pairs", name, ms, costs["bf16"][0], **errs[name],
+                                    **plan))
+            del vt
         del ref
         torch.cuda.empty_cache()
         if {"bwd", "plan"} & set(args.cases):
@@ -320,8 +342,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
                 records.append(emit(shape, "bwd", name, ms, costs[name[-4:]][1], **errs[name],
                                     **plan))
         if "plan" in args.cases:
-            fns = {f"tile {t} split {sp}": (lambda p=(t, sp): package.bwd(
-                value, shape, loc, attw, g, p)) for t, sp in bwd_plans}
+            fns = {f"tile {t}": (lambda t=t: package.bwd(value, shape, loc, attw, g, t))
+                   for t in bwd_plans}
             errs = {name: bwd_errors(fn(), bref) for name, fn in fns.items()}
             for name, ms in in_turns(fns, max(args.reps // 2, 1)).items():
                 records.append(emit(shape, "plan bwd", name, ms, costs["bf16"][1], **errs[name],

@@ -598,7 +598,7 @@ def check_bf16_msda(device, gen):
         value, loc, attw = msda_inputs(b, q, h, d, shapes, p, gen, device)
         value = value.bfloat16()
         g = torch.randn((b, q, h * d), generator=gen, device=device).bfloat16()
-        plan, bplan = msda.k1_bf16_plan_for(value, loc), msda.k34_bf16_plan_for(value, loc)
+        plan = msda.k1_bf16_plan_for(value, loc)
         out = msda.ms_deform_attn(value, shapes, loc, attw)
         ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
         torch.cuda.synchronize()
@@ -622,8 +622,7 @@ def check_bf16_msda(device, gen):
         log(f"[bf16-k1] {name}: value {list(value.shape)} bf16 max abs err {fwd_err:.3e} = "
             f"{fwd_ulps:.2f} bf16 ulps at max|plain| (tol {BF16_FWD_ULPS}; {same:.2%} bitwise "
             f"equal) kernel {ms:.4f} ms ({cost.bound_ms / ms:.1%} of its bound "
-            f"{cost.bound_ms:.4f}; tile {plan[0]}, {plan[1]} lanes a row, split {plan[2]}; "
-            f"{launches}) plain "
+            f"{cost.bound_ms:.4f}; tile {plan[0]}, split {plan[1]}; {launches}) plain "
             f"{plain_ms:.4f} ms")
         check(fwd_ulps <= BF16_FWD_ULPS, f"bf16 K1 {name}: {fwd_ulps:.2f} ulps")
         fwd_rows.append(dict(shape=name, max_abs_err=fwd_err, ulps=fwd_ulps, ms=ms,
@@ -653,8 +652,8 @@ def check_bf16_msda(device, gen):
         log(f"[bf16-k3k4] {name}: dvalue {dv_ulps:.2f} bf16 ulps at max|plain| (tol "
             f"{BF16_FWD_ULPS}; {dv_same:.2%} bitwise equal), max abs err / max |plain|: "
             f"{fmt_errors(aux)} (tol {BF16_AUX_TOL:.0e}) kernel {bms:.4f} ms "
-            f"({bcost.bound_ms / bms:.1%} of its bound {bcost.bound_ms:.4f}; tile {bplan[0]}, "
-            f"split {bplan[1]}; {launches}) plain "
+            f"({bcost.bound_ms / bms:.1%} of its bound {bcost.bound_ms:.4f}; tile {plan[0]}; "
+            f"{launches}) plain "
             f"{bplain_ms:.4f} ms")
         check(dv_ulps <= BF16_FWD_ULPS, f"bf16 K3/K4 {name} dvalue: {dv_ulps:.2f} ulps")
         for k, e in aux.items():
@@ -662,7 +661,7 @@ def check_bf16_msda(device, gen):
         bwd_rows.append(dict(shape=name, max_abs_err=err, dvalue_ulps=dv_ulps, ms=bms,
                              plain_ms=bplain_ms, per_step=per, base_per_step=base_bwd,
                              share_of_bound=bcost.bound_ms / bms, dvalue_bitwise_equal_share=dv_same,
-                             plan=list(bplan), cost=bcost,
+                             tile=plan[0], cost=bcost,
                              **({"fp32_ms": fp32["fp32_bwd_ms"]} if base else {}), **aux))
         del value, loc, attw, g
     return fwd_rows, bwd_rows

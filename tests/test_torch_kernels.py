@@ -713,20 +713,17 @@ def test_bf16_msda_kernel_matches_plain(cuda_device, name, b, q, h, d, shapes, p
     _within_a_bf16_ulp(out, msda.ms_deform_attn_plain(value, shapes, loc, attw), name)
 
 
-BF16_FWD_PLANS = [(lanes, split) for lanes in msda.K1_BF16_LANES for split in msda.SPLITS[lanes]]
-
-
-@pytest.mark.parametrize("lanes,split", BF16_FWD_PLANS, ids=[f"{n}x{s}" for n, s in BF16_FWD_PLANS])
+@pytest.mark.parametrize("split", msda.K1_SPLITS)
 @pytest.mark.parametrize("tile", msda.K1_TILES)
 @pytest.mark.parametrize("case", [0, 1, 3], ids=["tsa", "sca", "base_sca"])
-def test_bf16_msda_kernel_every_tile(cuda_device, tile, case, lanes, split):
-    """bf16 K1 at every tile, both lane mappings and every SPLIT."""
+def test_bf16_msda_kernel_every_tile(cuda_device, tile, case, split):
+    """bf16 K1 at every tile and every SPLIT of 8-lane groups a query."""
     name, b, q, h, d, shapes, p = BF16_CASES[case]
     value, loc, attw = _bf16_inputs(b, 137, h, d, shapes, p, tile, cuda_device)
-    out = msda._launch("msda_fwd_bf16", value, shapes, loc, attw, tile, lanes, split)
+    out = msda._launch("msda_fwd_bf16", value, shapes, loc, attw, tile, split)
     torch.cuda.synchronize()
     _within_a_bf16_ulp(out, msda.ms_deform_attn_plain(value, shapes, loc, attw),
-                       f"{name} tile {tile} lanes {lanes} split {split}")
+                       f"{name} tile {tile} split {split}")
 
 
 @pytest.mark.parametrize("name,b,q,h,d,shapes,p", BF16_CASES, ids=[c[0] for c in BF16_CASES])
@@ -740,17 +737,14 @@ def test_bf16_msda_backward_kernel_matches_plain(cuda_device, name, b, q, h, d, 
     _check_bf16_backward(grads, value, shapes, loc, attw, g, name)
 
 
-@pytest.mark.parametrize("split", msda.SPLITS[8])
 @pytest.mark.parametrize("tile", msda.K1_TILES)
 @pytest.mark.parametrize("case", [0, 1, 3], ids=["tsa", "sca", "base_sca"])
-def test_bf16_msda_backward_kernel_every_tile(cuda_device, tile, case, split):
-    """bf16 K3/K4 at every tile and every SPLIT of 8-lane groups a query."""
+def test_bf16_msda_backward_kernel_every_tile(cuda_device, tile, case):
     name, b, q, h, d, shapes, p = BF16_CASES[case]
     value, loc, attw = _bf16_inputs(b, 137, h, d, shapes, p, 120 + tile, cuda_device)
     g = torch.randn((b, 137, h * d), device=cuda_device).bfloat16()
-    grads = msda._launch_bwd(value, shapes, loc, attw, g, tile, split)
-    _check_bf16_backward(grads, value, shapes, loc, attw, g,
-                         f"{name} tile {tile} split {split}")
+    grads = msda._launch_bwd(value, shapes, loc, attw, g, tile)
+    _check_bf16_backward(grads, value, shapes, loc, attw, g, f"{name} tile {tile}")
 
 
 def test_bf16_msda_autograd_runs_the_bf16_kernels(cuda_device):
@@ -816,18 +810,13 @@ def test_bf16_msda_refuses_misaligned_tensors(cuda_device, offset):
     assert (msda.MSDA_FWD_BF16.launches, msda.MSDA_BWD_BF16.launches) == before
 
 
-@pytest.mark.parametrize("lanes,split", [(4, 0), (4, 3), (4, 16), (8, 8), (6, 1), (2, 2)])
-def test_bf16_msda_refuses_a_plan_it_has_no_kernel_for(cuda_device, lanes, split):
-    """The C entries are the one check of the plan: 4 or 8 lanes a row, a
-    SPLIT of 1, 2 or 4 lane groups a query (8 too at 4 lanes forward),
-    anything else refused before a launch."""
+@pytest.mark.parametrize("split", [0, 3, 8])
+def test_bf16_msda_refuses_a_split_it_has_no_kernel_for(cuda_device, split):
+    """bf16 K1's C entry is the one check of its SPLIT: 1, 2 or 4 8-lane
+    groups a query, anything else refused before a launch."""
     value, loc, attw = _bf16_inputs(1, 5, 8, 32, ((4, 5),), 2, 0, cuda_device)
-    g = torch.randn((1, 5, 256), device=cuda_device).bfloat16()
     with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
-        msda._launch("msda_fwd_bf16", value, ((4, 5),), loc, attw, 8, lanes, split)
-    if split not in msda.SPLITS[8]:
-        with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
-            msda._launch_bwd(value, ((4, 5),), loc, attw, g, 8, split)
+        msda._launch("msda_fwd_bf16", value, ((4, 5),), loc, attw, 8, split)
 
 
 # ---------------------------------------------------------------- bf16 DCN

@@ -105,39 +105,23 @@ def test_k1_tile_per_shape(shape, want):
 
 
 @pytest.mark.parametrize("shape,want", [
-    ((2, 40000, 8, 1 * 4), (128, 8, 1)),   # base TSA: few samples, 8 lanes a row as fp32
-    ((6, 10112, 8, 4 * 8), (16, 4, 4)),    # base SCA: 4 lanes, 16 queries of 4 groups each
-    ((1, 900, 8, 1 * 4), (16, 8, 1)),      # base and tiny_fp16 decoder
-    ((2, 2500, 8, 1 * 4), (128, 8, 1)),    # tiny_fp16 TSA
-    ((6, 2500, 8, 1 * 8), (64, 4, 1)),     # tiny_fp16 dense SCA (one level)
-    ((2, 1000, 8, 8 * 100), (1, 4, 8)),    # one query a block: SPLIT at most 8
-    ((2, 2000, 8, 8), (64, 4, 1)),         # 8 samples: 4 lanes
-    ((2, 2000, 8, 6), (64, 8, 1)),         # 6 samples: 8 lanes
-], ids=["base_tsa", "base_sca", "decoder", "tiny_tsa", "tiny_sca", "wide", "eight", "six"])
+    ((2, 40000, 8, 1 * 4), 128),    # base TSA: K1's tile
+    ((6, 10112, 8, 4 * 8), 32),     # base SCA: K1's 16 doubled to a pass of 32
+    ((1, 900, 8, 1 * 4), 32),       # base and tiny_fp16 decoder
+    ((2, 2500, 8, 1 * 4), 128),     # tiny_fp16 TSA
+    ((6, 2500, 8, 1 * 8), 64),      # tiny_fp16 dense SCA (one level)
+    ((1, 5, 8, 4), 32),             # tiny Q
+    ((2, 1000, 8, 8 * 100), 1),     # wide: doubled only within 1024 samples a block
+    ((2, 1000, 8, 8 * 60), 2),
+], ids=["base_tsa", "base_sca", "decoder", "tiny_tsa", "tiny_sca", "tiny_q", "wide", "wide2"])
 def test_k1_bf16_plan_per_shape(shape, want):
-    """bf16 K1's queries per block, lanes a 32-channel row and SPLIT on a
-    132-SM card (an H100 SXM): K1's tile; 4 lanes from K1_BF16_MIN_SAMPLES
-    samples a query, with a SPLIT that gives every 4-lane group of the block
-    a share where the tile allows; else fp32's mapping and SPLIT."""
+    """bf16 K1's (and K3/K4's) queries per block and SPLIT on a 132-SM card
+    (an H100 SXM): whole queries a group (SPLIT 1), K1's tile doubled to at
+    least the 32 queries a pass of the block's 8 warps covers, the payload
+    within K1_BF16_ITEMS samples."""
     b, q, h, samples = shape
-    tile, lanes, split = msda.k1_bf16_plan(b, q, h, samples, 132)
-    assert (tile, lanes, split) == want
-    assert tile == msda.k1_tile(b, q, h, samples, 132) and split in msda.SPLITS[lanes]
-    assert split <= samples  # every group has a sample
-    assert tile * samples * 32 <= 227 * 1024  # the payload fits shared memory
-
-
-@pytest.mark.parametrize("shape,want", [
-    ((2, 40000, 8, 1 * 4), (128, 1)),
-    ((6, 10112, 8, 4 * 8), (16, 4)),
-    ((1, 900, 8, 1 * 4), (16, 1)),
-    ((6, 2500, 8, 1 * 8), (64, 2)),
-], ids=["base_tsa", "base_sca", "decoder", "tiny_sca"])
-def test_k34_bf16_plan_per_shape(shape, want):
-    """bf16 K3/K4's queries per block and SPLIT 8-lane groups a query: K1's
-    tile, fp32's SPLIT; its payload (with the tile's fp32 grad_out rows)
-    fits shared memory."""
-    b, q, h, samples = shape
-    tile, split = msda.k34_bf16_plan(b, q, h, samples, 132)
-    assert (tile, split) == want and split == msda.split_for(samples)
-    assert tile * samples * 32 + tile * 32 * 4 <= 227 * 1024
+    tile, split = msda.k1_bf16_plan(b, q, h, samples, 132)
+    assert (tile, split) == (want, 1) and tile in msda.K1_TILES
+    k1 = msda.k1_tile(b, q, h, samples, 132)
+    assert tile == k1 or tile * samples <= msda.K1_BF16_ITEMS
+    assert tile * samples * 32 + tile * 32 * 4 <= 227 * 1024  # K3/K4's payload fits too
