@@ -71,14 +71,14 @@
 //   (grad_out once, into the shared fp32 rows); dLoc and dAttw fp32;
 //   dValue summed by the same 16-byte fp32 vector atomics into an fp32
 //   workspace, which the wrapper rounds to bf16 once. It runs at bf16 K1's
-//   tile (kernels/msda.py::k1_bf16_plan). Measured on an H100 SXM and not
-//   kept (tools/bench_msda_bf16.py): four lanes a 64-byte row with 16-byte
+//   tile (kernels/msda.py::k1_bf16_tile). Measured on an H100 SXM with
+//   tools/bench_msda_bf16.py and not kept: four lanes a 64-byte row with 16-byte
 //   loads, 1.6x slower at SCA's shape, since a lane's two 16-byte atomics
 //   then cover half a 128-byte fp32 dValue row each, twice the L2 requests
 //   of eight lanes' one full row; rounding dValue in the last block of each
 //   (batch, head) range, 1.6-4x slower still, since one block then converts
 //   a range of several MB alone at the kernel's end. The zero-fill and the
-//   rounding pass run at 2.6-3.0 TB/s (0.062 + 0.097 ms at SCA).
+//   rounding pass run at 2.8-3.1 TB/s (0.061 + 0.096 ms at SCA).
 
 #include "msda_fwd.cuh"
 

@@ -51,9 +51,9 @@
 //   8-byte load widened to fp32 exactly, loc and attw fp32, the sums fp32,
 //   the output rounded to bf16 once (nearest even, as the plain version's
 //   cast). 8 lanes cover a 64-byte row of 32 channels, as in fp32. Its plan
-//   is its own (kernels/msda.py::k1_bf16_plan, passed in): every 8-lane
-//   group takes whole queries (SPLIT 1) and a block at least the 32
-//   queries of one pass of its 8 warps. At SCA's shape that took a call
+//   is its own: every 8-lane group takes whole queries (SPLIT 1, here), and
+//   the wrapper gives a block at least the 32 queries of one pass of its 8
+//   warps (kernels/msda.py::k1_bf16_tile). At SCA's shape that took a call
 //   from 0.95 ms (fp32's plan: 16 queries a block, SPLIT 4, whose
 //   instantiation takes 78 registers, three blocks an SM) to 0.63 (SPLIT 1
 //   at 64 registers, four blocks an SM, and no shuffles across groups);
@@ -66,8 +66,6 @@
 // `msda_fwd` runs the msda (kFull) and `msda_fwd_probe` the cost-split
 // modes of csrc/msda_fwd.cuh on the same body (the counterpart of
 // tools/bench_hi_probe.py's kernel variants), both on an fp32 value.
-
-#include <type_traits>
 
 #include "msda_fwd.cuh"
 
@@ -113,180 +111,18 @@ int launch_split(const T* value, const float* loc, const float* attw, T* out,
   return (int)cudaGetLastError();
 }
 
-// 8 bf16 in four 32-bit words (element 0 in the low half of x) as fp32:
-// channels 0-3 in lo, 4-7 in hi
-__device__ __forceinline__ void widen8(uint4 u, float4& lo, float4& hi) {
-  lo = widen4(make_uint2(u.x, u.y));
-  hi = widen4(make_uint2(u.z, u.w));
-}
-
-// two fp32 as a bf16x2 word (nearest even), element 0 in the low half
-__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// 8 consecutive bf16 channels at p from fp32 (lo: 0-3, hi: 4-7), rounded
-// to nearest even: one 16-byte store
-__device__ __forceinline__ void store8(__nv_bfloat16* p, float4 lo, float4 hi) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
-                                            pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
-}
-
-// the 8 bf16 channels at p where `live`, else zeros, by one 16-byte load;
-// volatile, as ldg4_if
-__device__ __forceinline__ uint4 ldg8_if(bool live, const __nv_bfloat16* p) {
-  uint4 u = make_uint4(0u, 0u, 0u, 0u);
-  asm volatile(
-      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %4, 0;\n\t"
-      "@q ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%5];\n\t}"
-      : "+r"(u.x), "+r"(u.y), "+r"(u.z), "+r"(u.w)
-      : "r"((int)live), "l"(p));
-  return u;
-}
-
-// the partner lane's float4 (`m` lanes away) within a lane group's mask
-__device__ __forceinline__ float4 shfl4(unsigned mask, float4 v, int m) {
-  return make_float4(__shfl_xor_sync(mask, v.x, m), __shfl_xor_sync(mask, v.y, m),
-                     __shfl_xor_sync(mask, v.z, m), __shfl_xor_sync(mask, v.w, m));
-}
-
-__device__ __forceinline__ void add4v(float4& acc, float4 v) {
-  acc.x += v.x;
-  acc.y += v.y;
-  acc.z += v.z;
-  acc.w += v.w;
-}
-
-// phase 2 on a head-major bf16 value [B, H, K, D] (the wrapper's copy): an
-// 8-lane group takes one sample's two columns at a time, lanes 0-3 the
-// left corners (x0), lanes 4-7 the right (x0 + 1), 8 channels a lane by
-// one 16-byte load a row. A row's two corners lie 64 bytes apart, in one
-// 128-byte line when x0 is even, so a sample costs 3 line requests on
-// average where the pixel-major layout costs 4. Each level's four corner
-// sums are summed in the plain version's order after the two columns
-// trade theirs (__shfl_xor 4 lanes apart).
-template <int SPLIT>
-__device__ __forceinline__ void sum_payload_pairs(const int4* corners, const float4* weights,
-                                                  const __nv_bfloat16* __restrict__ value,
-                                                  __nv_bfloat16* __restrict__ out, int b, int h,
-                                                  int q0, int tile, int K, int Q, int H, int D,
-                                                  int L, int P) {
-  constexpr int kWarps = kThreads / 32;
-  constexpr int kQueriesPerPass = 4 / SPLIT;
-  const int lp_n = L * P;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int grp = lane >> 3;
-  const bool right = (lane >> 2) & 1;  // this lane's column: x0 + 1, else x0
-  const unsigned group_mask = 0xffu << (lane & 24);
-  const int slot = grp / SPLIT;
-  const int part = grp % SPLIT;
-  const __nv_bfloat16* vb = value + ((int64_t)b * H + h) * K * D + 8 * (lane & 3);
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int base = warp * kQueriesPerPass; base < tile; base += kWarps * kQueriesPerPass) {
-    const int qi = base + slot;
-    const bool active = qi < tile && q0 + qi < Q;
-    const int4* ck = corners + qi * lp_n;
-    const float4* cw = weights + qi * lp_n;
-    __nv_bfloat16* op = out + (((int64_t)b * Q + q0 + qi) * H + h) * D + 8 * (lane & 3);
-    for (int d0 = 0; d0 < D; d0 += 32) {
-      float4 lo = zero, hi = zero;
-      if (active) {
-        for (int l = 0; l < L; ++l) {
-          float4 t0 = zero, t1 = zero, u0 = zero, u1 = zero;  // this column's top, bottom
-          const int first = l * P + (part - l * P % SPLIT + SPLIT) % SPLIT;
-          const int end = (l + 1) * P;
-#pragma unroll 2
-          for (int j = first; j < end; j += SPLIT) {
-            const int4 c = ck[j];
-            const float4 w = cw[j];
-            const int ct = right ? c.y : c.x, cb = right ? c.w : c.z;
-            const float wt = right ? w.y : w.x, wb = right ? w.w : w.z;
-            const uint4 a = ldg8_if(ct >= 0, vb + d0 + (int64_t)ct * D);
-            const uint4 e = ldg8_if(cb >= 0, vb + d0 + (int64_t)cb * D);
-            float4 x0, x1;
-            widen8(a, x0, x1);
-            fma4(t0, wt, x0);
-            fma4(t1, wt, x1);
-            widen8(e, x0, x1);
-            fma4(u0, wb, x0);
-            fma4(u1, wb, x1);
-          }
-          const float4 pt0 = shfl4(group_mask, t0, 4), pt1 = shfl4(group_mask, t1, 4);
-          const float4 pu0 = shfl4(group_mask, u0, 4), pu1 = shfl4(group_mask, u1, 4);
-          // top-left, top-right, bottom-left, bottom-right
-          add4v(lo, right ? pt0 : t0);
-          add4v(hi, right ? pt1 : t1);
-          add4v(lo, right ? t0 : pt0);
-          add4v(hi, right ? t1 : pt1);
-          add4v(lo, right ? pu0 : u0);
-          add4v(hi, right ? pu1 : u1);
-          add4v(lo, right ? u0 : pu0);
-          add4v(hi, right ? u1 : pu1);
-        }
-      }
-      if (SPLIT >= 2) {
-        lo = shfl_xor4(lo, 8);
-        hi = shfl_xor4(hi, 8);
-      }
-      if (SPLIT == 4) {
-        lo = shfl_xor4(lo, 16);
-        hi = shfl_xor4(hi, 16);
-      }
-      if (active && part == 0 && !right) store8(op + d0, lo, hi);
-    }
-  }
-}
-
-template <int SPLIT>
-__global__ void __launch_bounds__(kThreads)
-msda_fwd_pairs_kernel(const __nv_bfloat16* __restrict__ value,  // [B, H, K, D]
-                      const float* __restrict__ loc,            // [B, Q, H, L, P, 2]
-                      const float* __restrict__ attw,           // [B, Q, H, L, P]
-                      __nv_bfloat16* __restrict__ out,          // [B, Q, H, D]
-                      int K, int Q, int H, int D, int L, int P, int tile, int tiles,
-                      Levels lv) {
-  extern __shared__ int4 payload[];
-  int4* corners = payload;
-  float4* weights = reinterpret_cast<float4*>(payload + tile * L * P);
-  const int h = (int)(blockIdx.x % H);
-  const int rest = (int)(blockIdx.x / H);
-  const int q0 = (rest % tiles) * tile;
-  const int b = rest / tiles;
-  build_payload<kFull, kThreads>(corners, weights, loc, attw, b, h, q0, tile, Q, H, L, P, lv);
-  __syncthreads();
-  sum_payload_pairs<SPLIT>(corners, weights, value, out, b, h, q0, tile, K, Q, H, D, L, P);
-}
-
-template <int SPLIT>
-int launch_pairs(const __nv_bfloat16* value, const float* loc, const float* attw,
-                 __nv_bfloat16* out, const Levels& lv, int K, int Q, int H, int D, int L, int P,
-                 int tile, int tiles, unsigned blocks, size_t smem, cudaStream_t stream) {
-  auto kernel = msda_fwd_pairs_kernel<SPLIT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<blocks, kThreads, smem, stream>>>(value, loc, attw, out, K, Q, H, D, L, P, tile,
-                                             tiles, lv);
-  return (int)cudaGetLastError();
-}
-
 // The one check of the arguments: a tile of 1, 2, 4, ..., kMaxTile queries,
-// a SPLIT of 1, 2 or 4 8-lane groups a query, a payload that fits shared
-// memory, a grid that fits one dimension, D a multiple of 32, and value and
-// out on 16-byte boundaries (as the fp32 float4 loads and stores need;
-// bf16 is held to the same); anything else returns cudaErrorInvalidValue,
-// which the wrapper raises.
+// a payload that fits shared memory, a grid that fits one dimension, D a
+// multiple of 32, and value and out on 16-byte boundaries (as the fp32
+// float4 loads and stores need; bf16 is held to the same); anything else
+// returns cudaErrorInvalidValue, which the wrapper raises. `split`: 8-lane
+// groups a query, 1, 2 or 4.
 template <int MODE, typename T>
 int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* out,
                     const void* level_hw, int L, int B, int K, int Q, int H, int D,
-                    int P, int tile, int split, void* stream, bool pairs = false) {
+                    int P, int tile, int split, void* stream) {
   if (L < 1 || L > kMaxLevels || P < 1 || D % 32 != 0) return (int)cudaErrorInvalidValue;
   if (tile < 1 || tile > kMaxTile || (tile & (tile - 1)) != 0) return (int)cudaErrorInvalidValue;
-  if (split != 1 && split != 2 && split != 4) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)value | (uintptr_t)out) % 16 != 0) return (int)cudaErrorInvalidValue;
   const int lp_n = L * P;
   const size_t smem = (size_t)tile * lp_n * (sizeof(int4) + sizeof(float4));
@@ -302,15 +138,6 @@ int launch_msda_fwd(const void* value, const void* loc, const void* attw, void* 
   T* o = static_cast<T*>(out);
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned n = (unsigned)blocks;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (pairs) {
-      switch (split) {
-        case 1: return launch_pairs<1>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-        case 2: return launch_pairs<2>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-        default: return launch_pairs<4>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
-      }
-    }
-  }
   switch (split) {
     case 1: return launch_split<MODE, 1, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
     case 2: return launch_split<MODE, 2, T>(v, lo, a, o, lv, K, Q, H, D, L, P, tile, tiles, n, smem, s);
@@ -328,23 +155,13 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attw,
                                        tile, split_for(L * P), stream);
 }
 
-// msda_fwd on a bf16 value, with a bf16 out (loc and attw fp32), at `split`
-// 8-lane groups a query (tile and split: the wrapper's
-// kernels/msda.py::k1_bf16_plan)
+// msda_fwd on a bf16 value, with a bf16 out (loc and attw fp32), whole
+// queries a group (tile: the wrapper's kernels/msda.py::k1_bf16_tile)
 extern "C" int msda_fwd_bf16(const void* value, const void* loc, const void* attw,
                              void* out, const void* level_hw, int L, int B, int K,
-                             int Q, int H, int D, int P, int tile, int split, void* stream) {
+                             int Q, int H, int D, int P, int tile, void* stream) {
   return launch_msda_fwd<kFull, __nv_bfloat16>(value, loc, attw, out, level_hw, L, B, K, Q, H,
-                                               D, P, tile, split, stream);
-}
-
-// msda_fwd_bf16 on a head-major value [B, H, K, D] (experimental)
-extern "C" int msda_fwd_bf16_pairs(const void* value, const void* loc, const void* attw,
-                                   void* out, const void* level_hw, int L, int B, int K,
-                                   int Q, int H, int D, int P, int tile, int split,
-                                   void* stream) {
-  return launch_msda_fwd<kFull, __nv_bfloat16>(value, loc, attw, out, level_hw, L, B, K, Q, H,
-                                               D, P, tile, split, stream, true);
+                                               D, P, tile, 1, stream);
 }
 
 extern "C" int msda_fwd_probe(const void* value, const void* loc, const void* attw,

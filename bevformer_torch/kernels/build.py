@@ -44,9 +44,8 @@ SIGNATURES = {
     # value, loc, attw, out, level_hw (host int32 [2L]), L, B, K, Q, H, D, P,
     # queries per block, stream
     "msda_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # msda_fwd's arguments, value and out bf16, then the 8-lane groups a
-    # query (SPLIT) before the stream
-    "msda_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # msda_fwd's arguments; value and out bf16
+    "msda_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # msda_fwd's arguments with the probe mode (1 gather, 2 weights, 3 noop)
     # before the queries per block
     "msda_fwd_probe": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -69,8 +68,6 @@ SIGNATURES = {
     # L, B, K, Q, H, D, P, queries per block, stream
     "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # msda_fwd_bf16's arguments, the value head-major [B, H, K, D]
-    "msda_fwd_bf16_pairs": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # msda_bwd's arguments; value and grad_out bf16, dvalue fp32
     "msda_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _P],

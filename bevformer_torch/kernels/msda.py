@@ -16,12 +16,12 @@ bf16 value); locations and weights are fp32.
 (its C entry `msda_fwd`, or `msda_fwd_bf16` for a bf16 value), as a
 `torch.autograd.Function` whose backward is `ms_deform_attn_backward` (the
 CUDA kernel `csrc/msda_bwd.cu`, on the forward's block mapping and tile;
-`msda_bwd_bf16` for a bf16 value, which sums dValue in an fp32 workspace).
-The bf16 entries take their tile (and K1 its SPLIT) from `k1_bf16_plan`;
+`msda_bwd_bf16` for a bf16 value, which sums dValue in an fp32 workspace),
 and the plain PyTorch version `ms_deform_attn_plain` under ordinary autograd
-on a CPU tensor. A bf16 launch counts on `MSDA_FWD_BF16` / `MSDA_BWD_BF16`,
-an fp32 one on the wrapper, and each launch of K1 or K3/K4 also counts its
-(B, Q) in `QUERIES`. The backward's plain version
+on a CPU tensor. The bf16 entries take their tile from `k1_bf16_tile`. A
+bf16 launch counts on `MSDA_FWD_BF16` / `MSDA_BWD_BF16`, an fp32 one on the
+wrapper, and each launch of K1 or K3/K4 also counts its (B, Q) in
+`QUERIES`. The backward's plain version
 `ms_deform_attn_backward_plain` is autograd through
 `ms_deform_attn_plain`.
 
@@ -236,37 +236,40 @@ def k1_tile_for(value, loc) -> int:
     return k1_tile(b, q, h, l * p, _sm_count(value.device))
 
 
-K1_SPLITS = (1, 2, 4)  # csrc/msda_fwd.cu: 8-lane groups a query
 K1_BF16_MIN_TILE = 32  # queries a pass of a block's 8 warps covers at SPLIT 1
 K1_BF16_ITEMS = 2 * K1_ITEMS  # samples a bf16 block's payload holds at most (32 KB)
 
 
-def k1_bf16_plan(b: int, q: int, h: int, samples: int, sms: int) -> Tuple[int, int]:
-    """bf16 K1's (and its backward's) (queries per block, SPLIT) for B `b`,
-    Q `q`, H `h` and `samples` = L*P per query on a card of `sms` SMs:
-    every 8-lane group takes whole queries (SPLIT 1), at K1's tile
-    (`k1_tile`) doubled up to K1_BF16_MIN_TILE while the payload holds at
-    most K1_BF16_ITEMS samples, so that a pass leaves no warp idle (SCA 32,
-    TSA 128, the decoder 32). K3/K4 takes the tile and picks its own
-    SPLIT."""
+def k1_bf16_tile(b: int, q: int, h: int, samples: int, sms: int) -> int:
+    """bf16 K1's (and its backward's) queries per block for B `b`, Q `q`, H
+    `h` and `samples` = L*P per query on a card of `sms` SMs. bf16 K1 gives
+    each 8-lane group whole queries (SPLIT 1), so a block's 8 warps cover
+    32 queries a pass: K1's tile (`k1_tile`), doubled up to
+    K1_BF16_MIN_TILE while the payload holds at most K1_BF16_ITEMS samples
+    (SCA 32, TSA 128, the decoder 32)."""
     tile = k1_tile(b, q, h, samples, sms)
     while tile < K1_BF16_MIN_TILE and 2 * tile * samples <= K1_BF16_ITEMS:
         tile *= 2
-    return tile, 1
+    return tile
 
 
-def k1_bf16_plan_for(value, loc) -> Tuple[int, int]:
-    """`k1_bf16_plan` for these inputs on their card."""
+def k1_bf16_tile_for(value, loc) -> int:
+    """`k1_bf16_tile` for these inputs on their card."""
     b, _, h, _ = value.shape
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
-    return k1_bf16_plan(b, q, h, l * p, _sm_count(value.device))
+    return k1_bf16_tile(b, q, h, l * p, _sm_count(value.device))
+
+
+def msda_tile_for(value, loc) -> int:
+    """K1's and K3/K4's queries per block for these inputs: `k1_bf16_tile`
+    on a bf16 value, `k1_tile` on an fp32 one."""
+    return (k1_bf16_tile_for if value.dtype == torch.bfloat16 else k1_tile_for)(value, loc)
 
 
 def _launch_fwd(value, spatial_shapes, loc, attw) -> torch.Tensor:
     bf16 = value.dtype == torch.bfloat16
     entry = "msda_fwd_bf16" if bf16 else "msda_fwd"
-    plan = k1_bf16_plan_for(value, loc) if bf16 else (k1_tile_for(value, loc),)
-    out = _launch(entry, value, spatial_shapes, loc, attw, *plan)
+    out = _launch(entry, value, spatial_shapes, loc, attw, msda_tile_for(value, loc))
     (MSDA_FWD_BF16 if bf16 else ms_deform_attn).launches += 1
     QUERIES[entry][tuple(loc.shape[:2])] += 1
     return out
@@ -363,16 +366,15 @@ def ms_deform_attn_backward(value, spatial_shapes, loc, attw, grad_out):
     """msda backward: grad_out [B, Q, H*D] (the value's dtype) -> dValue
     [B, K, H, D] in the value's dtype, dLoc [B, Q, H, L, P, 2] and dAttw
     [B, Q, H, L, P] in fp32. The plain version for a CPU tensor, the CUDA
-    kernel `msda_bwd` for a CUDA tensor, at K1's tile for the shape (bf16:
-    `msda_bwd_bf16` at bf16 K1's, `k1_bf16_plan`)."""
+    kernel `msda_bwd` for a CUDA tensor, at the forward's tile for the shape
+    (`msda_tile_for`)."""
     if value.device.type == "cpu":
         return ms_deform_attn_backward_plain(value, spatial_shapes, loc, attw, grad_out)
     spatial_shapes = _cuda_args("ms_deform_attn_backward", value, spatial_shapes, loc, attw,
                                 VALUE_DTYPES)
     _check_grad(value, loc, grad_out)
+    grads = _launch_bwd(value, spatial_shapes, loc, attw, grad_out, msda_tile_for(value, loc))
     bf16 = value.dtype == torch.bfloat16
-    tile = k1_bf16_plan_for(value, loc)[0] if bf16 else k1_tile_for(value, loc)
-    grads = _launch_bwd(value, spatial_shapes, loc, attw, grad_out, tile)
     (MSDA_BWD_BF16 if bf16 else ms_deform_attn_backward).launches += 1
     QUERIES["msda_bwd_bf16" if bf16 else "msda_bwd"][tuple(loc.shape[:2])] += 1
     return grads

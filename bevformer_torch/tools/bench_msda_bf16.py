@@ -2,7 +2,7 @@
 and bevformer_tiny_fp16's three call sites, against other builds of their
 sources and against the fp32 entries, from the repository root on a card:
 
-    python -m bevformer_torch.tools.bench_msda_bf16 [fwd bwd plan passes]
+    python -m bevformer_torch.tools.bench_msda_bf16 [fwd bwd tiles passes]
         [--against DIR ...] [--variant NAME ...] [--shapes base tiny] [--reps N]
 
 Shapes (`SHAPES`): base's TSA (B 2, Q 40,000, one 200 x 200 level, P 4),
@@ -12,20 +12,18 @@ them (numpy seed 0): value N(0, 1) rounded to bf16, locations uniform on
 [-0.1, 1.1], softmaxed weights, grad_out N(0, 1) in bf16.
 
 Cases:
-  fwd     bf16 K1 at its plan (`msda.k1_bf16_plan`), fp32 K1 on the same
-          value in fp32, and each other build's bf16 and fp32 K1 at its own
-          plan (PR 8's: fp32's);
-  bwd     the same for K3/K4 (at the plan's tile), each through the
-          wrapper's work: the fp32 workspace's zero-fill, the kernel and the
-          rounding pass;
-  plan    the package's bf16 K1 at each SPLIT and each tile from 8 that
-          fits; bf16 K3/K4 at each tile;
+  fwd     bf16 K1 at its tile (`msda.k1_bf16_tile`), fp32 K1 on the same
+          value in fp32 (`msda.k1_tile`), and each other build's bf16 and
+          fp32 K1 (a variant's at the same tiles, an `--against` build's at
+          K1's tile, as the design before bf16 K1's own tile ran);
+  bwd     the same for K3/K4, each through the wrapper's work: the fp32
+          workspace's zero-fill, the kernel and the rounding pass;
+  tiles   the package's bf16 K1 and K3/K4 at each tile from 8 that fits;
   passes  the zero-fill and the rounding pass alone.
 An `--against` directory holds a `msda_fwd.cu`, `msda_fwd.cuh` and
 `msda_bwd.cu`, built by one `nvcc` with the package's flags into
 `build/against/`: the parent commit's files (`git archive`) time the
-earlier design in the same process; sources whose bf16 K1 takes the tile
-alone (PR 8's) run at fp32's plan. A `--variant` is the package's sources
+earlier design in the same process. A `--variant` is the package's sources
 with the text edits of `VARIANTS` applied (each must match once), built the
 same way: a design choice inside the kernel timed without a second path in
 it. Each build's ptxas report (registers, spills) goes to stderr.
@@ -36,7 +34,7 @@ to back (CUDA events, as `chip_smoke.py` times them; the backward half as
 many). One JSON line per shape, case and kernel: both turns' ms, the bound
 (`tools/roofline.py`) and the share of it, the error against the plain
 version (bf16: in ulps at max |plain| and the bitwise-equal share; dLoc and
-dAttw: max abs error over max |plain|), the plan, the card's line.
+dAttw: max abs error over max |plain|), the tile, the card's line.
 """
 
 from __future__ import annotations
@@ -56,7 +54,7 @@ from bevformer_torch.kernels import build, msda
 from bevformer_torch.tools import common, roofline
 
 TOOL = "bench_msda_bf16"
-CASES = ("fwd", "bwd", "plan", "passes", "pairs")
+CASES = ("fwd", "bwd", "tiles", "passes")
 SOURCES = ("msda_fwd.cu", "msda_bwd.cu")
 HEADERS = ("msda_fwd.cuh",)
 
@@ -66,8 +64,8 @@ VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
     # pins them at SPLIT 1 and 2, where bf16 K1 runs)
     "nopin": [("msda_fwd.cuh", "  const bool pin = SPLIT <= 2;\n",
                "  const bool pin = false;\n")],
-    # fp32 K1 at bf16 K1's plan (SPLIT 1, a tile of at least 32): whether
-    # the plan's gain is the bytes' or the requests'
+    # fp32 K1 as bf16 K1 runs (SPLIT 1, a tile of at least 32): whether the
+    # gain is bf16's 64-byte rows' or the plan's alone
     "fp32_bf16_plan": [("msda_fwd.cu", "tile, split_for(L * P), stream);\n}\n\n// msda_fwd on",
                         "tile < 32 ? 32 : tile, 1, stream);\n}\n\n// msda_fwd on")],
 }
@@ -100,58 +98,47 @@ def _level_hw(shape) -> np.ndarray:
 
 
 class Build:
-    """The msda entries of one library; `planned` whether its bf16 K1 takes
-    a SPLIT after the tile, as the package's does, or the tile alone (PR
-    8's)."""
+    """The msda entries of one library; `bf16_tile` whether its bf16 entries
+    run at bf16 K1's tile (the package's sources) or at K1's (an earlier
+    design's)."""
 
-    def __init__(self, name: str, lib: ctypes.CDLL, planned: bool):
-        self.name, self.lib, self.planned = name, lib, planned
-        sigs = dict(build.SIGNATURES)
-        if not planned:
-            sigs["msda_fwd_bf16"] = sigs["msda_fwd"]
-        for entry in ("msda_fwd", "msda_fwd_bf16", "msda_bwd", "msda_bwd_bf16",
-                      "msda_fwd_bf16_pairs")[:5 if planned else 4]:
+    def __init__(self, name: str, lib: ctypes.CDLL, bf16_tile: bool):
+        self.name, self.lib, self.bf16_tile = name, lib, bf16_tile
+        for entry in ("msda_fwd", "msda_fwd_bf16", "msda_bwd", "msda_bwd_bf16"):
             fn = getattr(lib, entry)
-            fn.argtypes = sigs[entry]
+            fn.argtypes = build.SIGNATURES[entry]
             fn.restype = ctypes.c_int
 
-    def fwd(self, value, shape, loc, attw, plan: Optional[Tuple[int, int]] = None):
-        """One forward launch for the value's dtype, at `plan` (tile, SPLIT)
-        or the wrapper's (PR 8's build: its tile alone)."""
-        bf16 = value.dtype == torch.bfloat16
-        if not bf16:
-            extra = (msda.k1_tile_for(value, loc),)
-        elif self.planned:
-            extra = plan or msda.k1_bf16_plan_for(value, loc)
-        else:
-            extra = (plan[0] if plan else msda.k1_tile_for(value, loc),)
+    def tile(self, value, loc) -> int:
+        if value.dtype == torch.bfloat16 and self.bf16_tile:
+            return msda.k1_bf16_tile_for(value, loc)
+        return msda.k1_tile_for(value, loc)
+
+    def fwd(self, value, shape, loc, attw, tile: Optional[int] = None):
+        """One forward launch for the value's dtype, at `tile` or its own."""
         b, k, h, d = value.shape
         out = torch.empty((b, shape.q, h * d), dtype=value.dtype, device=value.device)
-        entry = "msda_fwd_bf16" if bf16 else "msda_fwd"
+        entry = "msda_fwd_bf16" if value.dtype == torch.bfloat16 else "msda_fwd"
         rc = getattr(self.lib, entry)(
             value.data_ptr(), loc.data_ptr(), attw.data_ptr(), out.data_ptr(),
-            _level_hw(shape).ctypes.data, len(shape.levels), b, k, shape.q, h, d, shape.p, *extra,
-            torch.cuda.current_stream().cuda_stream)
+            _level_hw(shape).ctypes.data, len(shape.levels), b, k, shape.q, h, d, shape.p,
+            tile or self.tile(value, loc), torch.cuda.current_stream().cuda_stream)
         build.check_launch(entry, rc)
         return out
 
     def bwd(self, value, shape, loc, attw, g, tile: Optional[int] = None):
-        """One backward for the value's dtype, at `tile` or the wrapper's
-        (PR 8's build: K1's tile), with the wrapper's work around the
-        launch: the zeroed fp32 workspace and the rounding of a bf16
-        dValue."""
-        bf16 = value.dtype == torch.bfloat16
-        if not tile:
-            planned = bf16 and self.planned
-            tile = msda.k1_bf16_plan_for(value, loc)[0] if planned else msda.k1_tile_for(value, loc)
+        """One backward for the value's dtype, at `tile` or its own, with the
+        wrapper's work around the launch: the zeroed fp32 workspace and the
+        rounding of a bf16 dValue."""
         b, k, h, d = value.shape
         dvalue = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
         dloc, dattw = torch.empty_like(loc), torch.empty_like(attw)
-        entry = "msda_bwd_bf16" if bf16 else "msda_bwd"
+        entry = "msda_bwd_bf16" if value.dtype == torch.bfloat16 else "msda_bwd"
         rc = getattr(self.lib, entry)(
             value.data_ptr(), loc.data_ptr(), attw.data_ptr(), g.data_ptr(), dvalue.data_ptr(),
             dloc.data_ptr(), dattw.data_ptr(), _level_hw(shape).ctypes.data, len(shape.levels),
-            b, k, shape.q, h, d, shape.p, tile, torch.cuda.current_stream().cuda_stream)
+            b, k, shape.q, h, d, shape.p, tile or self.tile(value, loc),
+            torch.cuda.current_stream().cuda_stream)
         build.check_launch(entry, rc)
         return dvalue.to(value.dtype), dloc, dattw
 
@@ -172,8 +159,8 @@ def variant_dir(name: str) -> Path:
     return out
 
 
-def build_dirs(dirs: Dict[str, Path]) -> List[Build]:
-    """{name: directory of sources}, compiled at once, one library each."""
+def build_dirs(dirs: Dict[str, Path]) -> List[Path]:
+    """{name: directory of sources}, compiled at once: one library each."""
     out_dir = build.BUILD_DIR / "against"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -185,17 +172,16 @@ def build_dirs(dirs: Dict[str, Path]) -> List[Build]:
         lib = out_dir / f"lib{i}.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(src), "-o", str(lib),
                *(str(src / f) for f in SOURCES)]
-        planned = "int tile, int split, void* stream" in (src / "msda_fwd.cu").read_text()
-        procs.append((name, lib, planned, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                           stderr=subprocess.STDOUT, text=True)))
-    builds = []
-    for name, lib, planned, proc in procs:
+        procs.append((name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    for name, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         print(f"[{TOOL}] {name}:\n{log}", file=sys.stderr, flush=True)
-        builds.append(Build(name, ctypes.CDLL(str(lib)), planned))
-    return builds
+        libs.append(lib)
+    return libs
 
 
 def inputs(shape: common.Shape, device):
@@ -224,9 +210,7 @@ def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def fwd_errors(out, ref) -> dict:
-    if out.dtype == torch.bfloat16:
-        return dict(ulps=bf16_ulps(out, ref), bitwise_equal_share=float((out == ref).float().mean()))
-    return dict(max_abs_err=float((out - ref.float()).abs().max()))
+    return dict(ulps=bf16_ulps(out, ref), bitwise_equal_share=float((out == ref).float().mean()))
 
 
 def bwd_errors(grads, ref) -> dict:
@@ -258,13 +242,11 @@ def emit(shape, case, kernel, ms, cost, **extra) -> dict:
 SMEM_LIMIT = 227 * 1024  # shared memory a block may use on sm_90
 
 
-def plans(samples: int, d: int):
-    """bf16 K1's (tile, SPLIT) and K3/K4's tiles: every tile from 8 whose
-    payload fits shared memory (32 bytes a sample; K3/K4 also the tile's
-    fp32 grad_out rows)."""
-    tiles = [t for t in msda.K1_TILES if t >= 8 and t * samples * 32 <= SMEM_LIMIT]
-    return ([(t, sp) for t in tiles for sp in msda.K1_SPLITS if sp <= samples],
-            [t for t in tiles if t * (samples * 32 + d * 4) <= SMEM_LIMIT])
+def tiles(samples: int, d: int):
+    """K1's and K3/K4's tiles from 8 whose payload fits shared memory (32
+    bytes a sample; K3/K4 also the tile's fp32 grad_out rows)."""
+    fit = [t for t in msda.K1_TILES if t >= 8 and t * samples * 32 <= SMEM_LIMIT]
+    return fit, [t for t in fit if t * (samples * 32 + d * 4) <= SMEM_LIMIT]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
@@ -273,7 +255,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     others = {d: Path(d) for d in args.against}
     others.update((name, variant_dir(name)) for name in args.variant)
     package = Build("package", build.library(), True)
-    builds = [package] + build_dirs(others)
+    builds = [package] + [Build(name, ctypes.CDLL(str(lib)), name in args.variant)
+                          for name, lib in zip(others, build_dirs(others))]
     records = []
     for shape in [s for name in args.shapes for s in SHAPES[name]]:
         value, loc, attw, g = inputs(shape, device)
@@ -282,8 +265,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         costs = dict(bf16=(roofline.msda_fwd(*dims, itemsize=2),
                            roofline.msda_bwd(*dims, itemsize=2)),
                      fp32=(roofline.msda_fwd(*dims), roofline.msda_bwd(*dims)))
-        plan = dict(plan=list(msda.k1_bf16_plan_for(value, loc)))
-        fwd_plans, bwd_plans = plans(len(shape.levels) * shape.p, shape.d)
+        meta = dict(tile=msda.k1_bf16_tile_for(value, loc))
+        fwd_tiles, bwd_tiles = tiles(len(shape.levels) * shape.p, shape.d)
         ref = msda.ms_deform_attn_plain(value, shape.levels, loc, attw)
         if "fwd" in args.cases:
             fns, errs = {}, {}
@@ -291,45 +274,21 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
                 for v, tag in ((value, "bf16"), (value32, "fp32")):
                     name = f"{bld.name} {tag}"
                     fns[name] = lambda bld=bld, v=v: bld.fwd(v, shape, loc, attw)
-                    errs[name] = fwd_errors(fns[name](), ref)
+                    out = fns[name]()
+                    errs[name] = fwd_errors(out, ref) if tag == "bf16" else {}
             for name, ms in in_turns(fns, args.reps).items():
                 records.append(emit(shape, "fwd", name, ms, costs[name[-4:]][0], **errs[name],
-                                    **plan))
-        if "plan" in args.cases:
-            fns = {f"tile {t} split {sp}": (lambda p=(t, sp): package.fwd(
-                value, shape, loc, attw, p)) for t, sp in fwd_plans}
+                                    **meta))
+        if "tiles" in args.cases:
+            fns = {f"tile {t}": (lambda t=t: package.fwd(value, shape, loc, attw, t))
+                   for t in fwd_tiles}
             errs = {name: fwd_errors(fn(), ref) for name, fn in fns.items()}
             for name, ms in in_turns(fns, args.reps).items():
-                records.append(emit(shape, "plan fwd", name, ms, costs["bf16"][0], **errs[name],
-                                    **plan))
-        if "pairs" in args.cases:
-            vt = value.transpose(1, 2).contiguous()
-
-            def pairs(vt, t, sp):
-                b, k, h, d = value.shape
-                out = torch.empty((b, shape.q, h * d), dtype=value.dtype, device=device)
-                rc = package.lib.msda_fwd_bf16_pairs(
-                    vt.data_ptr(), loc.data_ptr(), attw.data_ptr(), out.data_ptr(),
-                    _level_hw(shape).ctypes.data, len(shape.levels), b, k, shape.q, h, d,
-                    shape.p, t, sp, torch.cuda.current_stream().cuda_stream)
-                build.check_launch("msda_fwd_bf16_pairs", rc)
-                return out
-
-            t0 = plan["plan"][0]
-            fns = {"plan": lambda: package.fwd(value, shape, loc, attw),
-                   "transpose": lambda: value.transpose(1, 2).contiguous(),
-                   "transpose + pairs": lambda: pairs(value.transpose(1, 2).contiguous(), t0, 1)}
-            fns.update({f"pairs tile {t} split {sp}": (lambda t=t, sp=sp: pairs(vt, t, sp))
-                        for t, sp in fwd_plans})
-            errs = {name: (fwd_errors(fn(), ref) if name != "transpose" else {})
-                    for name, fn in fns.items()}
-            for name, ms in in_turns(fns, args.reps).items():
-                records.append(emit(shape, "pairs", name, ms, costs["bf16"][0], **errs[name],
-                                    **plan))
-            del vt
+                records.append(emit(shape, "tiles fwd", name, ms, costs["bf16"][0], **errs[name],
+                                    **meta))
         del ref
         torch.cuda.empty_cache()
-        if {"bwd", "plan"} & set(args.cases):
+        if {"bwd", "tiles"} & set(args.cases):
             bref = msda.ms_deform_attn_backward_plain(value, shape.levels, loc, attw, g)
         if "bwd" in args.cases:
             fns, errs = {}, {}
@@ -337,17 +296,18 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
                 for v, gg, tag in ((value, g, "bf16"), (value32, g32, "fp32")):
                     name = f"{bld.name} {tag}"
                     fns[name] = lambda bld=bld, v=v, gg=gg: bld.bwd(v, shape, loc, attw, gg)
-                    errs[name] = bwd_errors(fns[name](), bref) if tag == "bf16" else {}
+                    grads = fns[name]()
+                    errs[name] = bwd_errors(grads, bref) if tag == "bf16" else {}
             for name, ms in in_turns(fns, max(args.reps // 2, 1)).items():
                 records.append(emit(shape, "bwd", name, ms, costs[name[-4:]][1], **errs[name],
-                                    **plan))
-        if "plan" in args.cases:
+                                    **meta))
+        if "tiles" in args.cases:
             fns = {f"tile {t}": (lambda t=t: package.bwd(value, shape, loc, attw, g, t))
-                   for t in bwd_plans}
+                   for t in bwd_tiles}
             errs = {name: bwd_errors(fn(), bref) for name, fn in fns.items()}
             for name, ms in in_turns(fns, max(args.reps // 2, 1)).items():
-                records.append(emit(shape, "plan bwd", name, ms, costs["bf16"][1], **errs[name],
-                                    **plan))
+                records.append(emit(shape, "tiles bwd", name, ms, costs["bf16"][1], **errs[name],
+                                    **meta))
         if "passes" in args.cases:
             n = value.numel()
             work = torch.zeros(n, dtype=torch.float32, device=device)

@@ -78,12 +78,12 @@ def bf16_case(case, shape, value, loc, attw, reps) -> dict:
     grad_out N(0, 1) from seed 0 in bf16)."""
     levels, value = shape.levels, value.bfloat16()
     dims = (shape.b, shape.q, shape.h, shape.d, levels, shape.p)
-    plan = list(msda.k1_bf16_plan_for(value, loc)) if value.is_cuda else None
+    tile = msda.k1_bf16_tile_for(value, loc) if value.is_cuda else None
     if case == "k1_bf16":
         ref = msda.ms_deform_attn_plain(value, levels, loc, attw)
         return common.measure(TOOL, case, lambda: msda.ms_deform_attn(value, levels, loc, attw),
                               ref, roofline.msda_fwd(*dims, itemsize=2), reps,
-                              shape=shape.describe(), inputs="y-coherent", plan=plan)
+                              shape=shape.describe(), inputs="y-coherent", tile=tile)
     rng = np.random.RandomState(common.SEED)
     g = torch.from_numpy(rng.randn(shape.b, shape.q, shape.h * shape.d).astype(np.float32))
     g = g.to(value.device).bfloat16()
@@ -91,7 +91,7 @@ def bf16_case(case, shape, value, loc, attw, reps) -> dict:
     return common.measure(
         TOOL, case, lambda: msda.ms_deform_attn_backward(value, levels, loc, attw, g)[0], ref,
         roofline.msda_bwd(*dims, itemsize=2), reps, shape=shape.describe(),
-        inputs="y-coherent", compared="dValue", plan=plan)
+        inputs="y-coherent", compared="dValue", tile=tile)
 
 
 if __name__ == "__main__":

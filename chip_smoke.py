@@ -576,7 +576,8 @@ BF16_MSDA_CASES = [
     ("base_sca", *K1_CASES[1][1:7], 0, 6, 3 * 6 + 6, 6),
     ("base_decoder", *K1_CASES[2][1:7], 0, 6, 6, 6),
 ]
-BF16_BASE_PLAIN_REPS = 1  # timed plain calls at base's shapes (tiny's: 3 forward, 2 backward)
+# timed plain calls (forward, backward) at tiny's shapes and at base's
+BF16_PLAIN_REPS = dict(tiny=(3, 2), base=(1, 1))
 
 
 def check_bf16_msda(device, gen):
@@ -594,11 +595,11 @@ def check_bf16_msda(device, gen):
     fwd_rows, bwd_rows = [], []
     for name, b, q, h, d, shapes, p, per, base_frame, base_fwd, base_bwd in BF16_MSDA_CASES:
         base = name.startswith("base")
-        plain_reps = BF16_BASE_PLAIN_REPS if base else None
+        plain_reps = BF16_PLAIN_REPS[name.split("_")[0]]
         value, loc, attw = msda_inputs(b, q, h, d, shapes, p, gen, device)
         value = value.bfloat16()
         g = torch.randn((b, q, h * d), generator=gen, device=device).bfloat16()
-        plan = msda.k1_bf16_plan_for(value, loc)
+        tile = msda.k1_bf16_tile_for(value, loc)
         out = msda.ms_deform_attn(value, shapes, loc, attw)
         ref = msda.ms_deform_attn_plain(value, shapes, loc, attw)
         torch.cuda.synchronize()
@@ -608,28 +609,28 @@ def check_bf16_msda(device, gen):
         del out, ref
         ms = time_ms(lambda: msda.ms_deform_attn(value, shapes, loc, attw), 20)
         plain_ms = time_ms(lambda: msda.ms_deform_attn_plain(value, shapes, loc, attw),
-                           plain_reps or 3)
-        fp32 = {}
+                           plain_reps[0])
+        fp32_ms = fp32_bwd_ms = None
         if base:
             v32, g32 = value.float(), g.float()
-            fp32 = dict(fp32_ms=time_ms(lambda: msda.ms_deform_attn(v32, shapes, loc, attw), 20),
-                        fp32_bwd_ms=time_ms(lambda: msda.ms_deform_attn_backward(
-                            v32, shapes, loc, attw, g32), 10))
+            fp32_ms = time_ms(lambda: msda.ms_deform_attn(v32, shapes, loc, attw), 20)
+            fp32_bwd_ms = time_ms(
+                lambda: msda.ms_deform_attn_backward(v32, shapes, loc, attw, g32), 10)
             del v32, g32
         cost = roofline.msda_fwd(b, q, h, d, shapes, p, itemsize=2)
         launches = (f"{base_frame} launches a base frame, {base_fwd} a base step; fp32 K1 "
-                    f"{fp32['fp32_ms']:.4f} ms" if base else f"{per} launches a tiny_fp16 frame")
+                    f"{fp32_ms:.4f} ms" if base else f"{per} launches a tiny_fp16 frame")
         log(f"[bf16-k1] {name}: value {list(value.shape)} bf16 max abs err {fwd_err:.3e} = "
             f"{fwd_ulps:.2f} bf16 ulps at max|plain| (tol {BF16_FWD_ULPS}; {same:.2%} bitwise "
             f"equal) kernel {ms:.4f} ms ({cost.bound_ms / ms:.1%} of its bound "
-            f"{cost.bound_ms:.4f}; tile {plan[0]}, split {plan[1]}; {launches}) plain "
+            f"{cost.bound_ms:.4f}; tile {tile}; {launches}) plain "
             f"{plain_ms:.4f} ms")
         check(fwd_ulps <= BF16_FWD_ULPS, f"bf16 K1 {name}: {fwd_ulps:.2f} ulps")
         fwd_rows.append(dict(shape=name, max_abs_err=fwd_err, ulps=fwd_ulps, ms=ms,
                              plain_ms=plain_ms, per_frame=per, base_per_frame=base_frame,
                              base_per_step=base_fwd, share_of_bound=cost.bound_ms / ms,
-                             bitwise_equal_share=same, plan=list(plan), cost=cost,
-                             **({"fp32_ms": fp32["fp32_ms"]} if base else {})))
+                             bitwise_equal_share=same, tile=tile, fp32_ms=fp32_ms,
+                             cost=cost))
 
         ours = msda.ms_deform_attn_backward(value, shapes, loc, attw, g)
         ref = msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g)
@@ -645,14 +646,14 @@ def check_bf16_msda(device, gen):
         bms = time_ms(lambda: msda.ms_deform_attn_backward(value, shapes, loc, attw, g), 10)
         bplain_ms = time_ms(
             lambda: msda.ms_deform_attn_backward_plain(value, shapes, loc, attw, g),
-            plain_reps or 2)
+            plain_reps[1])
         bcost = roofline.msda_bwd(b, q, h, d, shapes, p, itemsize=2)
-        launches = (f"{base_bwd} launches a base step; fp32 K3/K4 {fp32['fp32_bwd_ms']:.4f} ms"
+        launches = (f"{base_bwd} launches a base step; fp32 K3/K4 {fp32_bwd_ms:.4f} ms"
                     if base else f"{per} launches a tiny_fp16 step")
         log(f"[bf16-k3k4] {name}: dvalue {dv_ulps:.2f} bf16 ulps at max|plain| (tol "
             f"{BF16_FWD_ULPS}; {dv_same:.2%} bitwise equal), max abs err / max |plain|: "
             f"{fmt_errors(aux)} (tol {BF16_AUX_TOL:.0e}) kernel {bms:.4f} ms "
-            f"({bcost.bound_ms / bms:.1%} of its bound {bcost.bound_ms:.4f}; tile {plan[0]}; "
+            f"({bcost.bound_ms / bms:.1%} of its bound {bcost.bound_ms:.4f}; tile {tile}; "
             f"{launches}) plain "
             f"{bplain_ms:.4f} ms")
         check(dv_ulps <= BF16_FWD_ULPS, f"bf16 K3/K4 {name} dvalue: {dv_ulps:.2f} ulps")
@@ -661,8 +662,7 @@ def check_bf16_msda(device, gen):
         bwd_rows.append(dict(shape=name, max_abs_err=err, dvalue_ulps=dv_ulps, ms=bms,
                              plain_ms=bplain_ms, per_step=per, base_per_step=base_bwd,
                              share_of_bound=bcost.bound_ms / bms, dvalue_bitwise_equal_share=dv_same,
-                             tile=plan[0], cost=bcost,
-                             **({"fp32_ms": fp32["fp32_bwd_ms"]} if base else {}), **aux))
+                             tile=tile, fp32_ms=fp32_bwd_ms, cost=bcost, **aux))
         del value, loc, attw, g
     return fwd_rows, bwd_rows
 

@@ -713,17 +713,15 @@ def test_bf16_msda_kernel_matches_plain(cuda_device, name, b, q, h, d, shapes, p
     _within_a_bf16_ulp(out, msda.ms_deform_attn_plain(value, shapes, loc, attw), name)
 
 
-@pytest.mark.parametrize("split", msda.K1_SPLITS)
 @pytest.mark.parametrize("tile", msda.K1_TILES)
 @pytest.mark.parametrize("case", [0, 1, 3], ids=["tsa", "sca", "base_sca"])
-def test_bf16_msda_kernel_every_tile(cuda_device, tile, case, split):
-    """bf16 K1 at every tile and every SPLIT of 8-lane groups a query."""
+def test_bf16_msda_kernel_every_tile(cuda_device, tile, case):
     name, b, q, h, d, shapes, p = BF16_CASES[case]
     value, loc, attw = _bf16_inputs(b, 137, h, d, shapes, p, tile, cuda_device)
-    out = msda._launch("msda_fwd_bf16", value, shapes, loc, attw, tile, split)
+    out = msda._launch("msda_fwd_bf16", value, shapes, loc, attw, tile)
     torch.cuda.synchronize()
     _within_a_bf16_ulp(out, msda.ms_deform_attn_plain(value, shapes, loc, attw),
-                       f"{name} tile {tile} split {split}")
+                       f"{name} tile {tile}")
 
 
 @pytest.mark.parametrize("name,b,q,h,d,shapes,p", BF16_CASES, ids=[c[0] for c in BF16_CASES])
@@ -808,15 +806,6 @@ def test_bf16_msda_refuses_misaligned_tensors(cuda_device, offset):
         with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
             msda.ms_deform_attn_backward(args[0], ((4, 5),), loc, attw, args[1])
     assert (msda.MSDA_FWD_BF16.launches, msda.MSDA_BWD_BF16.launches) == before
-
-
-@pytest.mark.parametrize("split", [0, 3, 8])
-def test_bf16_msda_refuses_a_split_it_has_no_kernel_for(cuda_device, split):
-    """bf16 K1's C entry is the one check of its SPLIT: 1, 2 or 4 8-lane
-    groups a query, anything else refused before a launch."""
-    value, loc, attw = _bf16_inputs(1, 5, 8, 32, ((4, 5),), 2, 0, cuda_device)
-    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
-        msda._launch("msda_fwd_bf16", value, ((4, 5),), loc, attw, 8, split)
 
 
 # ---------------------------------------------------------------- bf16 DCN

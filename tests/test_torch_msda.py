@@ -114,14 +114,14 @@ def test_k1_tile_per_shape(shape, want):
     ((2, 1000, 8, 8 * 100), 1),     # wide: doubled only within 1024 samples a block
     ((2, 1000, 8, 8 * 60), 2),
 ], ids=["base_tsa", "base_sca", "decoder", "tiny_tsa", "tiny_sca", "tiny_q", "wide", "wide2"])
-def test_k1_bf16_plan_per_shape(shape, want):
-    """bf16 K1's (and K3/K4's) queries per block and SPLIT on a 132-SM card
-    (an H100 SXM): whole queries a group (SPLIT 1), K1's tile doubled to at
-    least the 32 queries a pass of the block's 8 warps covers, the payload
+def test_k1_bf16_tile_per_shape(shape, want):
+    """bf16 K1's (and K3/K4's) queries per block on a 132-SM card (an H100
+    SXM): bf16 K1 gives each 8-lane group whole queries, so K1's tile is
+    doubled to at least the 32 queries a pass of the block's 8 warps covers,
     within K1_BF16_ITEMS samples."""
     b, q, h, samples = shape
-    tile, split = msda.k1_bf16_plan(b, q, h, samples, 132)
-    assert (tile, split) == (want, 1) and tile in msda.K1_TILES
+    tile = msda.k1_bf16_tile(b, q, h, samples, 132)
+    assert tile == want and tile in msda.K1_TILES
     k1 = msda.k1_tile(b, q, h, samples, 132)
     assert tile == k1 or tile * samples <= msda.K1_BF16_ITEMS
     assert tile * samples * 32 + tile * 32 * 4 <= 227 * 1024  # K3/K4's payload fits too

@@ -266,16 +266,21 @@ def test_bf16_msda_tool_cases_parse():
     assert (parsed.cases, parsed.tsa, parsed.reps) == (["k1_bf16", "k34_bf16"], True, 3)
     ap = bench_msda_bf16.parser()
     every = ap.parse_args([])
-    assert every.cases == list(bench_msda_bf16.CASES) and every.against == []
+    assert every.cases == list(bench_msda_bf16.CASES) and every.against == every.variant == []
     assert every.shapes == ["base", "tiny"]
-    one = ap.parse_args(["fwd", "bwd", "--against", "a", "--against", "b", "--shapes", "base"])
-    assert (one.cases, one.against, one.shapes) == (["fwd", "bwd"], ["a", "b"], ["base"])
+    one = ap.parse_args(["fwd", "bwd", "--against", "a", "--against", "b", "--shapes", "base",
+                         "--variant", "nopin"])
+    assert (one.cases, one.against, one.shapes, one.variant) == (
+        ["fwd", "bwd"], ["a", "b"], ["base"], ["nopin"])
     names = [s.name for group in bench_msda_bf16.SHAPES.values() for s in group]
     assert names == ["base_tsa", "base_sca", "base_decoder", "tiny_tsa", "tiny_sca",
                      "tiny_decoder"]
-    for bad in (["nope"], ["--shapes", "huge"]):
+    for bad in (["nope"], ["--shapes", "huge"], ["--variant", "nope"]):
         with pytest.raises(SystemExit):
             ap.parse_args(bad)
+    # the tiles a sweep covers: from 8, the payload within shared memory
+    assert bench_msda_bf16.tiles(32, 32) == ([8, 16, 32, 64, 128], [8, 16, 32, 64, 128])
+    assert bench_msda_bf16.tiles(800, 32)[0] == [8]
 
 
 @pytest.fixture
@@ -297,12 +302,13 @@ def cpu_tools(monkeypatch):
 
 
 @pytest.mark.parametrize("tool,argv,n", [
-    (bench_msda_kernel, [], 7),
+    (bench_msda_kernel, ["k7", "k1", "plain", "check"], 5),
     (bench_kernel_probe3, ["t16a1", "t64a2"], 2),
     (bench_kernel_probe, [], 4),
     (bench_hi_probe, ["--tsa"], 4),
     (bench_msda_decompose, [], 4),
     (bench_dma_gather, [], 2),
+    (bench_msda_kernel, ["k1_bf16", "k34_bf16"], 2),
 ], ids=lambda v: v.__name__.rsplit(".", 1)[1] if hasattr(v, "__name__") else None)
 def test_tool_main_end_to_end_on_the_cpu(cpu_tools, capsys, tool, argv, n):
     records = tool.main(argv)
