@@ -17,10 +17,14 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+// four bf16 (8 bytes) widened to fp32
+__device__ __forceinline__ float4 widen4(uint2 u) {
   return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
 }
 
 // streaming stores (evict first): written once, read by a later kernel

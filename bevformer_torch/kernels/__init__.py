@@ -5,6 +5,8 @@ version on a CPU tensor."""
 from bevformer_torch.kernels import dcn, msda
 from bevformer_torch.kernels.dcn import (
     dcn_col2im,
+    dcn_col2im_gw,
+    dcn_col2im_gw_plain,
     dcn_col2im_plain,
     dcn_conv,
     dcn_conv_backward_plain,
@@ -29,7 +31,8 @@ def kernel_counters() -> dict:
     launches in `.launches`, by counter name (K1 msda_fwd, K2 dcn_conv_fwd,
     K3/K4 msda_bwd, K5 dcn_im2col, K6 dcn_col2im), and the counts of their
     bf16 entries (msda_fwd_bf16, msda_bwd_bf16, dcn_conv_fwd_bf16,
-    dcn_im2col_bf16, dcn_col2im_bf16)."""
+    dcn_im2col_bf16, and dcn_col2im_bf16: K6 on a bf16 x,
+    `dcn_col2im_gw`)."""
     # read through the modules: a wrapper counts under its module's name
     return dict(msda_fwd=msda.ms_deform_attn, dcn_conv_fwd=dcn.dcn_conv,
                 msda_bwd=msda.ms_deform_attn_backward, dcn_im2col=dcn.dcn_im2col,
@@ -57,7 +60,7 @@ def zero_counts() -> None:
 
 
 __all__ = [
-    "dcn_col2im", "dcn_col2im_plain", "dcn_conv", "dcn_conv_backward_plain",
+    "dcn_col2im", "dcn_col2im_gw", "dcn_col2im_gw_plain", "dcn_col2im_plain", "dcn_conv", "dcn_conv_backward_plain",
     "dcn_conv_plain", "dcn_im2col", "dcn_im2col_plain", "kernel_counters", "launch_counts",
     "launch_queries",
     "ms_deform_attn", "ms_deform_attn_backward", "ms_deform_attn_backward_plain",

@@ -79,9 +79,11 @@ SIGNATURES = {
     # B, H, W, C, OH, OW, stride, stream
     "dcn_col2im": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _P],
-    # dcn_col2im's arguments; x bf16, dcols and dx (zeroed) fp32
-    "dcn_col2im_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _P],
+    # x (bf16), off_y, off_x, mask, g (bf16 [B*OH*OW, Cout]), weight (fp32
+    # [9C, Cout]), its scratch (the bf16 weight in tile order), dx (fp32,
+    # zeroed), doff_y, doff_x, dmask, B, H, W, C, OH, OW, Cout, stride, stream
+    "dcn_col2im_gw": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -171,9 +173,11 @@ def build(force: bool = False) -> BuildResult:
     return BuildResult(out, seconds, log, built=True)
 
 
+@functools.lru_cache(maxsize=None)
 def sass(path: Path) -> str:
     """The SASS of a built library, as the toolkit's `cuobjdump -sass`
-    prints it (next to nvcc)."""
+    prints it (next to nvcc); disassembled once a process (a built
+    library's path names its sources' hash)."""
     cuobjdump = Path(_nvcc()).parent / "cuobjdump"
     return subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout

@@ -14,20 +14,23 @@ Layouts are channels-last: x [B, H, W, C], offsets and mask [B, OH, OW, 9]
 weight are fp32. On a bf16 x (the JAX kernels at compute_dtype=bfloat16)
 the samples are taken in fp32, the column is rounded once to bf16, the
 weight too, the product sums in fp32 and the output is rounded once to
-bf16; the backward's column gradient is the fp32 product of the output
-gradient with that bf16 weight, dx is summed in fp32 and rounded once to
-bf16, and d offsets, dmask and dWeight are fp32 (the parameter's dtype).
+bf16; the backward's column gradient is the product of the bf16 output
+gradient with that bf16 weight, summed in fp32, dx is summed in fp32 and
+rounded once to bf16, and d offsets, dmask and dWeight are fp32 (the
+parameter's dtype).
 
 `dcn_conv` runs the CUDA kernel `csrc/dcn_conv_fwd.cu` on a CUDA tensor, as
 a `torch.autograd.Function` whose backward runs `dcn_im2col`
-(`csrc/dcn_im2col.cu`), two matrix products and `dcn_col2im`
-(`csrc/dcn_col2im.cu`), and the plain PyTorch version `dcn_conv_plain` under
-ordinary autograd on a CPU tensor. Each of the two backward kernels has its
-plain version beside it (`dcn_im2col_plain`, `dcn_col2im_plain`). Each
-kernel has a bf16 entry (`dcn_conv_fwd_bf16`, `dcn_im2col_bf16`,
-`dcn_col2im_bf16`), which a bf16 x reaches; a bf16 launch counts on
-`DCN_CONV_FWD_BF16` / `DCN_IM2COL_BF16` / `DCN_COL2IM_BF16`, an fp32 one on
-the wrapper.
+(`csrc/dcn_im2col.cu`) and the dWeight product, then on an fp32 x the
+column gradient's product and `dcn_col2im` (`csrc/dcn_col2im.cu`), on a
+bf16 x `dcn_col2im_gw` (the same file), which makes the column gradient
+itself on the tensor cores from the output gradient and the weight; on a
+CPU tensor `dcn_conv` runs the plain PyTorch version `dcn_conv_plain` under
+ordinary autograd. Each backward kernel has its plain version beside it
+(`dcn_im2col_plain`, `dcn_col2im_plain`, `dcn_col2im_gw_plain`). K2 and K5
+have a bf16 entry (`dcn_conv_fwd_bf16`, `dcn_im2col_bf16`), which a bf16 x
+reaches; a bf16 launch counts on `DCN_CONV_FWD_BF16` / `DCN_IM2COL_BF16` /
+`DCN_COL2IM_BF16` (`dcn_col2im_gw`), an fp32 one on the wrapper.
 """
 
 from __future__ import annotations
@@ -41,12 +44,14 @@ from bevformer_torch.kernels.msda import FP32_ONLY, LaunchCount
 
 K_TILE = 32  # csrc/dcn_conv_fwd.cu: a K tile never spans two taps
 N_BLOCK = 256  # csrc/dcn_conv_fwd.cu: output channels per block
+GW_PART = 256  # csrc/dcn_col2im.cu (dcn_col2im_gw): channels of a tap per product
+GW_K_STEP = 16  # ... the depth of one bf16 wgmma: Cout a multiple of it
 
 X_DTYPES = (torch.float32, torch.bfloat16)  # x of K2, K5 and K6
 
 DCN_CONV_FWD_BF16 = LaunchCount()  # dcn_conv on a bf16 x
 DCN_IM2COL_BF16 = LaunchCount()  # dcn_im2col on a bf16 x
-DCN_COL2IM_BF16 = LaunchCount()  # dcn_col2im on a bf16 x
+DCN_COL2IM_BF16 = LaunchCount()  # dcn_col2im_gw (the bf16 DCN backward's sampling half)
 
 
 def bilinear_gather(img: torch.Tensor, py: torch.Tensor, px: torch.Tensor):
@@ -192,12 +197,13 @@ def bf16_conv_grid() -> dict:
 
 class _DCNConv(torch.autograd.Function):
     """K2 forward. The backward follows the JAX `_conv_bwd`: it recomputes
-    the im2col (`dcn_im2col`), takes dWeight = cols^T g and dCols = g W^T
-    as plain matrix products, and scatters dCols back through the sampling
-    (`dcn_col2im`). Only the inputs are saved, never the 9x column. On a
-    bf16 x both products run in fp32 with autocast off, on the bf16 column
-    and the bf16-rounded weight widened exactly, so dWeight and dCols are
-    fp32 whatever the caller's autocast."""
+    the im2col (`dcn_im2col`), takes dWeight = cols^T g as a plain matrix
+    product, and scatters dCols = g W^T back through the sampling. Only the
+    inputs are saved, never the 9x column. On an fp32 x dCols is a plain
+    product and `dcn_col2im` scatters it. On a bf16 x dWeight runs in fp32
+    with autocast off, on the bf16 column widened exactly (fp32 whatever
+    the caller's autocast), and `dcn_col2im_gw` takes the bf16 g and the
+    weight: dCols is made inside the kernel and never stored."""
 
     @staticmethod
     def forward(ctx, x, off_y, off_x, mask, weight, stride):
@@ -212,18 +218,16 @@ class _DCNConv(torch.autograd.Function):
         g = grad_out.contiguous().view(-1, weight.shape[1])
         if x.dtype == torch.bfloat16:
             with torch.autocast(x.device.type, enabled=False):
-                g = g.float()
                 cols = dcn_im2col(x, off_y, off_x, mask, ctx.stride)
-                dweight = cols.float().t() @ g
+                dweight = cols.float().t() @ g.float()
                 del cols
-                dcols = g @ weight.to(torch.bfloat16).float().t()
+            grads = dcn_col2im_gw(x, off_y, off_x, mask, g, weight, ctx.stride)
         else:
             cols = dcn_im2col(x, off_y, off_x, mask, ctx.stride)
             dweight = cols.t() @ g
             del cols
-            dcols = g @ weight.t()
-        dx, doff_y, doff_x, dmask = dcn_col2im(x, off_y, off_x, mask, dcols, ctx.stride)
-        return dx, doff_y, doff_x, dmask, dweight, None
+            grads = dcn_col2im(x, off_y, off_x, mask, g @ weight.t(), ctx.stride)
+        return (*grads, dweight, None)
 
 
 def dcn_conv(x, off_y, off_x, mask, weight, stride: int = 1) -> torch.Tensor:
@@ -318,22 +322,19 @@ dcn_im2col.launches = 0
 def dcn_col2im(x, off_y, off_x, mask, dcols, stride: int = 1):
     """The sampling backward: (dx [B, H, W, C] in x's dtype, d off_y, d
     off_x, dmask [B, OH, OW, 9]) for an fp32 column gradient `dcols`
-    [B*OH*OW, 9C]. The plain version for a CPU tensor, the CUDA kernel
-    `dcn_col2im` (`dcn_col2im_bf16` for a bf16 x, whose dx the kernel sums
-    in an fp32 workspace that is rounded to bf16 once) for a CUDA
-    tensor."""
+    [B*OH*OW, 9C]. The plain version for a CPU tensor (any x dtype), the
+    CUDA kernel `dcn_col2im` for a CUDA tensor (fp32 x; the backward of a
+    bf16 x is `dcn_col2im_gw`)."""
     if x.device.type == "cpu":
         return dcn_col2im_plain(x, off_y, off_x, mask, dcols, stride)
     if x.device.type != "cuda":
         raise ValueError(f"dcn_col2im: unsupported device {x.device}")
     b, h, w, c = x.shape
-    _check_sampling(x, off_y, off_x, mask, stride)
+    _check_sampling(x, off_y, off_x, mask, stride, FP32_ONLY)
     oh, ow = off_y.shape[1], off_y.shape[2]
     _check_tensor("dcols", dcols, x.device)
     if tuple(dcols.shape) != (b * oh * ow, 9 * c):
         raise ValueError(f"dcols must be {(b * oh * ow, 9 * c)}, got {tuple(dcols.shape)}")
-    bf16 = x.dtype == torch.bfloat16
-    entry = "dcn_col2im_bf16" if bf16 else "dcn_col2im"
     dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     doff_y = torch.empty_like(off_y)
     doff_x = torch.empty_like(off_x)
@@ -341,15 +342,86 @@ def dcn_col2im(x, off_y, off_x, mask, dcols, stride: int = 1):
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(
+        rc = lib.dcn_col2im(
             x.data_ptr(), off_y.data_ptr(), off_x.data_ptr(), mask.data_ptr(),
             dcols.data_ptr(), dx.data_ptr(), doff_y.data_ptr(),
             doff_x.data_ptr(), dmask.data_ptr(), b, h, w, c, oh, ow, stride,
             stream,
         )
-    build.check_launch(entry, rc)
-    (DCN_COL2IM_BF16 if bf16 else dcn_col2im).launches += 1
-    return dx.to(x.dtype), doff_y, doff_x, dmask
+    build.check_launch("dcn_col2im", rc)
+    dcn_col2im.launches += 1
+    return dx, doff_y, doff_x, dmask
 
 
 dcn_col2im.launches = 0
+
+
+def dcn_col2im_gw_plain(x, off_y, off_x, mask, g, weight, stride: int = 1):
+    """`dcn_col2im_gw`'s function (any device): the column gradient g
+    W_bf16^T as an fp32 product with autocast off (the weight rounded once
+    to bf16, g and it widened exactly), then `dcn_col2im_plain`."""
+    with torch.autocast(x.device.type, enabled=False):
+        dcols = g.float() @ weight.to(torch.bfloat16).float().t()
+    return dcn_col2im_plain(x, off_y, off_x, mask, dcols, stride)
+
+
+def _check_col2im_gw(x, off_y, off_x, mask, g, weight, stride):
+    """What `dcn_col2im_gw`'s kernel takes: a bf16 x, fp32 offsets, mask
+    and weight [9C, Cout] (C a multiple of K_TILE), a bf16 g [B*OH*OW,
+    Cout], Cout a multiple of GW_K_STEP, all contiguous; else raises."""
+    _check(x, off_y, off_x, mask, weight, stride, (torch.bfloat16,))
+    b, oh, ow = off_y.shape[:3]
+    cout = weight.shape[1]
+    _check_tensor("g", g, x.device, (torch.bfloat16,))
+    if tuple(g.shape) != (b * oh * ow, cout):
+        raise ValueError(f"g must be {(b * oh * ow, cout)}, got {tuple(g.shape)}")
+    if cout % GW_K_STEP:
+        raise ValueError(f"Cout {cout} must be a multiple of {GW_K_STEP}")
+
+
+def dcn_col2im_gw(x, off_y, off_x, mask, g, weight, stride: int = 1):
+    """The sampling half of the DCN backward on a bf16 x, from the output
+    gradient: (dx [B, H, W, C] bf16, d off_y, d off_x, dmask [B, OH, OW, 9]
+    fp32) for the column gradient g W_bf16^T, where g is the bf16 gradient
+    [B*OH*OW, Cout] of the conv's output and W the fp32 weight [9C, Cout]
+    rounded once to bf16. The plain version `dcn_col2im_gw_plain` for a CPU
+    tensor; for a CUDA tensor the kernel `dcn_col2im_gw`, which makes the
+    column gradient on the tensor cores inside the kernel (never stored)
+    and sums dx in an fp32 workspace rounded to bf16 once. Anything it does
+    not take raises (`_check_col2im_gw`, and the C entry's alignment:
+    x on 8 bytes, g on 16)."""
+    if x.device.type == "cpu":
+        return dcn_col2im_gw_plain(x, off_y, off_x, mask, g, weight, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"dcn_col2im_gw: unsupported device {x.device}")
+    _check_col2im_gw(x, off_y, off_x, mask, g, weight, stride)
+    grads = launch_col2im_gw(build.library(), x, off_y, off_x, mask, g, weight, stride)
+    DCN_COL2IM_BF16.launches += 1
+    return grads
+
+
+def launch_col2im_gw(lib, x, off_y, off_x, mask, g, weight, stride: int = 1):
+    """One launch of the C entry `dcn_col2im_gw` of the library `lib` (the
+    package's, or another build of its source) on checked CUDA tensors, with
+    the wrapper's work around it: the weight's scratch, the zeroed fp32 dx
+    workspace and its rounding to bf16."""
+    b, h, w, c = x.shape
+    oh, ow = off_y.shape[1], off_y.shape[2]
+    cout = weight.shape[1]
+    # the kernel's copy of the weight: per tap and 256-channel part, bf16
+    wprep = torch.empty(9 * -(-c // GW_PART) * GW_PART * cout, dtype=torch.bfloat16,
+                        device=x.device)
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    doff_y = torch.empty_like(off_y)
+    doff_x = torch.empty_like(off_x)
+    dmask = torch.empty_like(mask)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.dcn_col2im_gw(
+            x.data_ptr(), off_y.data_ptr(), off_x.data_ptr(), mask.data_ptr(),
+            g.data_ptr(), weight.data_ptr(), wprep.data_ptr(), dx.data_ptr(),
+            doff_y.data_ptr(), doff_x.data_ptr(), dmask.data_ptr(),
+            b, h, w, c, oh, ow, cout, stride, stream,
+        )
+    build.check_launch("dcn_col2im_gw", rc)
+    return dx.to(x.dtype), doff_y, doff_x, dmask

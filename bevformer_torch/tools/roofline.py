@@ -165,6 +165,20 @@ def dcn_col2im(b: int, h: int, w: int, c: int, stride: int = 1, itemsize: int = 
     return Cost(2 * (x + offsets) + taps * c * F32, taps * c * 24)
 
 
+def dcn_col2im_gw(b: int, h: int, w: int, c: int, cout: int, stride: int = 1) -> Cost:
+    """One sampling backward of the DCN on a bf16 x from the output gradient
+    (bf16 K6, `dcn_col2im_gw`): x (bf16), offsets, mask, g [b*oh*ow, cout]
+    (bf16) and the fp32 weight [9c, cout] -> dx (bf16), d offsets, dmask.
+    The column gradient g W^T [b*oh*ow, 9c] is made inside and never
+    stored: its product (2 * cout per tap and channel) is one bf16 product
+    per multiply-add on the tensor cores; the scatter is K6's 24 per tap
+    and channel on the SIMT units. dx's fp32 workspace and its atomic adds
+    are the kernel's, not the function's: not counted."""
+    pixels, taps, x, offsets = _dcn_sizes(b, h, w, c, stride, BF16)
+    return Cost(2 * (x + offsets) + pixels * cout * BF16 + 9 * c * cout * F32, taps * c * 24,
+                bf16_flops=taps * c * 2 * cout)
+
+
 def row_gather(b: int, m: int, r: int, e: int, itemsize: int) -> Cost:
     """One row gather: src [b, m, e], idx [b, r] int32 -> out [b, r, e]; no
     arithmetic."""

@@ -26,8 +26,7 @@ Phases, each printed as it runs:
      shapes, and at SCA's also on y-coherent locations as the kernel tools
      build them (their corners collide in the atomics), with times, the
      corner rows read and the 16-byte atomic adds made per call and their
-     rates; the build's SASS must hold the dValue adds as vector reductions
-     (those of the bf16 entry too); then bf16 K1 and K3/K4 (msda_fwd_bf16,
+     rates; then bf16 K1 and K3/K4 (msda_fwd_bf16,
      msda_bwd_bf16: a bf16 value and grad_out, fp32 sums, a bf16 output and
      dValue) against their plain versions at bevformer_tiny_fp16's three
      shapes and at bevformer_base's three (output and dValue within one
@@ -43,18 +42,25 @@ Phases, each printed as it runs:
      and, as a yardstick, ATen's grid_sampler_2d_backward on the same
      sampling (dx and the position gradient; with grid_sampler_2d and a
      channel dot for dmask, the two-call composition of K6's function);
-     then bf16 K2, K5 and K6 (dcn_conv_fwd_bf16, dcn_im2col_bf16,
-     dcn_col2im_bf16: a bf16 x, fp32 sums, a bf16 output, column and dx)
-     against their plain versions at bevformer_base's and bevformer_small's
-     DCN stages (output, column and dx within one bf16 ulp at their scale,
-     d offsets, dmask and dWeight 1e-3; the whole bf16 DCN gradient against
-     autograd through the plain conv), with times, bounds at bf16's 2-byte
-     tensors, and the yardsticks (K5 bf16 + a bf16 cuBLAS product; ATen's
-     grid_sampler_2d_backward on bf16); bf16 K2's column (its output for
+     then bf16 K2, K5 and K6 (dcn_conv_fwd_bf16, dcn_im2col_bf16: a bf16
+     x, fp32 sums, a bf16 output and column; dcn_col2im_gw: the bf16
+     backward's sampling half from the bf16 output gradient and the
+     weight, its column gradient made on the tensor cores inside the
+     kernel, a bf16 dx) against their plain versions at bevformer_base's
+     and bevformer_small's DCN stages (output, column and dx within one
+     bf16 ulp at their scale, d offsets, dmask and dWeight 1e-3, bf16 K6's
+     d offsets and dmask bitwise the same in a second launch; the whole
+     bf16 DCN gradient against autograd through the plain conv), with
+     times, bounds at bf16's 2-byte tensors, bf16 K6's dx adds, and the
+     yardsticks (K5 bf16 + a bf16 cuBLAS product; for bf16 K6 ATen's
+     grid_sampler_2d_backward on bf16, and the fp32 product g W^T alone
+     that the earlier route ran before K6); bf16 K2's column (its output for
      the identity weight) bitwise the plain one, its persistent grid as
      the launch records it (blocks, tiles per SM), and bf16 K2 at ragged shapes (M no multiple
      of 64, Cout 40 and 320, C 32 and 96, stride 2, x on an 8-byte
-     boundary) within one bf16 ulp;
+     boundary) within one bf16 ulp; then the build's SASS (read on the
+     host since the build) must hold K3/K4's dValue adds (the bf16
+     entry's too) and bf16 K6's dx adds as 16-byte vector reductions;
   7. probes: the kernel benchmark and probe tools (bevformer_torch/tools),
      each through its `main` at bevformer_base's full SCA width (and TSA's
      for K1's cost split): K7 (msda_fwd_ho) against K1, bf16 K1 and K3/K4
@@ -175,7 +181,10 @@ Phases, each printed as it runs:
      (bf16 launches per frame: base 18 K1, 26 K2), 4 training steps (base
      54 K1, 52 K2, 18 K3/K4, 26 K5, 26 K6), frame and step medians, peaks,
      the witness against the plain and noisy plain paths under phase 13's
-     bf16 rule;
+     bf16 rule; bevformer_base then takes one more step with every bf16 K6
+     call recorded (its offsets, masks, output gradients and weights), and
+     K6 runs each call alone, timed, held against its plain version, with
+     the offsets' rms and the dx adds (`[train-k6-bf16]` lines);
   17. data parallel and remat. On phase 12's root (before it is removed):
      `torchrun --nproc-per-node 1 -m bevformer_torch.tools.train
      bevformer_base` over NCCL (the process group, DDP, the rank-mean loss
@@ -273,6 +282,7 @@ import math
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -668,16 +678,20 @@ def check_bf16_msda(device, gen):
 
 
 def check_vector_atomics(lib_path):
-    """The dValue adds of every msda_bwd_kernel instantiation in the built
-    library are 16-byte vector reductions (REDG.E.ADD.F32x4 in the SASS);
-    K6's dx adds are printed beside them."""
+    """The dValue adds of every msda_bwd_kernel instantiation and bf16 K6's
+    dx adds (dcn_col2im_gw_kernel) in the built library are 16-byte vector
+    reductions (REDG.E.ADD.F32x4 in the SASS); fp32 K6's are printed beside
+    them."""
     from bevformer_torch.kernels import build
 
-    ops = build.atomic_ops(lib_path, "msda_bwd_kernel")
-    log(f"[build] atomic instructions in the SASS: msda_bwd_kernel {ops}, "
-        f"dcn_col2im_kernel {build.atomic_ops(lib_path, 'dcn_col2im_kernel')}")
-    check(bool(ops) and all("F32x4" in op for op in ops),
-          f"msda_bwd_kernel's dValue adds are not all 16-byte vector reductions: {ops}")
+    t = time.perf_counter()
+    ops = {k: build.atomic_ops(lib_path, k) for k in ("msda_bwd_kernel", "dcn_col2im_gw_kernel")}
+    log(f"[build] atomic instructions in the SASS: {ops}, "
+        f"dcn_col2im_kernel {build.atomic_ops(lib_path, 'dcn_col2im_kernel')} (the SASS read "
+        f"in {time.perf_counter() - t:.1f} s)")
+    for kernel, found in ops.items():
+        check(bool(found) and all("F32x4" in op for op in found),
+              f"{kernel}'s adds are not all 16-byte vector reductions: {found}")
 
 
 def check_k56(device, gen):
@@ -858,16 +872,18 @@ def bf16_column_bitwise(dcn, x, off_y, off_x, mask, stride=1) -> bool:
 
 def check_bf16_dcn(device, gen):
     """bf16 K2 (dcn_conv_fwd_bf16), K5 (dcn_im2col_bf16) and K6
-    (dcn_col2im_bf16) against their plain versions at the DCN stages of
-    bevformer_base and bevformer_small, offsets N(0, 3) px: K2's output,
-    K5's column and K6's dx within BF16_FWD_ULPS bf16 ulps at their scale,
-    K2's own column bitwise (bf16_column_bitwise),
-    K6's d offsets and dmask within BF16_AUX_TOL; the whole bf16 DCN
-    gradient (`_DCNConv`: K5, two fp32 products, K6) against autograd
-    through the plain conv. Times, bounds at bf16's 2-byte x, output,
-    column and dx, the plain versions' times, and the yardsticks: K5 bf16
-    + one bf16 cuBLAS product for K2, ATen's grid_sampler_2d_backward on
-    bf16 for K6."""
+    (dcn_col2im_gw, from the bf16 output gradient and the weight) against
+    their plain versions at the DCN stages of bevformer_base and
+    bevformer_small, offsets N(0, 3) px: K2's output, K5's column and K6's
+    dx within BF16_FWD_ULPS bf16 ulps at their scale, K2's own column
+    bitwise (bf16_column_bitwise), K6's d offsets and dmask within
+    BF16_AUX_TOL and bitwise the same in a second launch; the whole bf16
+    DCN gradient (`_DCNConv`: K5, the fp32 dWeight product, K6) against
+    autograd through the plain conv. Times, bounds at bf16's 2-byte
+    tensors, the plain versions' times, K6's dx adds, and the yardsticks:
+    K5 bf16 + one bf16 cuBLAS product for K2; for K6 ATen's
+    grid_sampler_2d_backward on bf16 and the fp32 product g W_bf16^T
+    alone."""
     import torch
     from bevformer_torch.kernels import dcn
     from bevformer_torch.tools import roofline
@@ -880,7 +896,6 @@ def check_bf16_dcn(device, gen):
         mask = torch.rand((b, h, w, 9), generator=gen, device=device)
         weight = torch.randn((9 * c, cout), generator=gen, device=device) / (9 * c) ** 0.5
         g = torch.randn((b, h, w, cout), generator=gen, device=device).bfloat16()
-        dcols = torch.randn((b * h * w, 9 * c), generator=gen, device=device)
         args = (x, off_y, off_x, mask, weight, 1)
 
         # K2
@@ -939,16 +954,20 @@ def check_bf16_dcn(device, gen):
                             bitwise_equal_share=same, cost=cost))
 
         # K6 alone, then the whole gradient through _DCNConv
-        ours = dcn.dcn_col2im(x, off_y, off_x, mask, dcols)
-        ref = dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols)
+        k6_args = (x, off_y, off_x, mask, g.view(-1, cout), weight)
+        ours = dcn.dcn_col2im_gw(*k6_args)
+        again = dcn.dcn_col2im_gw(*k6_args)
+        ref = dcn.dcn_col2im_gw_plain(*k6_args)
         torch.cuda.synchronize()
         check(ours[0].dtype == torch.bfloat16 and all(t.dtype == torch.float32 for t in ours[1:]),
               f"bf16 K6 {name}: dtypes {[t.dtype for t in ours]}")
+        same = all(torch.equal(a, a2) for a, a2 in zip(ours[1:], again[1:]))
+        check(same, f"bf16 K6 {name}: d offsets or dmask differ between two launches")
         errs = {"dx ulps": ulps(ours[0], ref[0])}
         errs.update({k: rel_err(a, r) for k, a, r in zip(("doff_y", "doff_x", "dmask"), ours[1:],
                                                            ref[1:])})
         k6_err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(ours, ref))
-        del ours, ref
+        del ours, again, ref
         leaves = [t.detach().requires_grad_() for t in (x, off_y, off_x, mask, weight)]
         grads = torch.autograd.grad(dcn.dcn_conv(*leaves, 1), leaves, g)
         ref = dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g)
@@ -959,10 +978,17 @@ def check_bf16_dcn(device, gen):
         errs.update({f"gradient {k}": rel_err(a, r) for k, a, r in zip(
             ("doff_y", "doff_x", "dmask", "dweight"), grads[1:], ref[1:])})
         del grads, ref, leaves
-        ms = time_ms(lambda: dcn.dcn_col2im(x, off_y, off_x, mask, dcols), 10)
-        plain_ms = time_ms(lambda: dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols), 3)
-        cost = roofline.dcn_col2im(b, h, w, c, itemsize=2)
-        # the yardstick on bf16 (its grid bf16 too: ATen takes one dtype)
+        ms = time_ms(lambda: dcn.dcn_col2im_gw(*k6_args), 10)
+        plain_ms = time_ms(lambda: dcn.dcn_col2im_gw_plain(*k6_args), 3)
+        cost = roofline.dcn_col2im_gw(b, h, w, c, cout)
+        adds = col2im_dx_adds(x.shape, off_y, off_x)
+        # the yardsticks: the fp32 product alone (the column gradient the
+        # route before this kernel made), and ATen's sampler backward on
+        # bf16 (its grid bf16 too: ATen takes one dtype)
+        gm, wb = g.view(-1, cout).float(), weight.bfloat16().float()
+        product_ms = time_ms(lambda: gm @ wb.t(), 10)
+        dcols = gm @ wb.t()
+        del gm, wb
         py, px = dcn._grid(h, w, 1, off_y, off_x)
         grid = torch.stack([px * (2 / (w - 1)) - 1, py * (2 / (h - 1)) - 1],
                            -1).view(b, h, w * 9, 2).bfloat16()
@@ -971,18 +997,22 @@ def check_bf16_dcn(device, gen):
             b, c, h, w * 9).bfloat16()
         gs_ms = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
             gout, xn, grid, 0, 0, True, [True, True]), 10)
-        del grid, xn, gout
-        log(f"[bf16-k6] {name}: {fmt_errors(errs)} (dx tol {BF16_FWD_ULPS} ulps, the rest "
-            f"{BF16_AUX_TOL:.0e}) kernel {ms:.4f} ms ({cost.bound_ms / ms:.1%} of its bound "
-            f"{cost.bound_ms:.4f}); yardstick aten grid_sampler_2d_backward (bf16) {gs_ms:.4f} ms; "
-            f"plain {plain_ms:.4f} ms")
+        del grid, xn, gout, dcols
+        log(f"[bf16-k6] {name}: dcn_col2im_gw {fmt_errors(errs)} (dx tol {BF16_FWD_ULPS} ulps, "
+            f"the rest {BF16_AUX_TOL:.0e}; d offsets and dmask bitwise the same in a second "
+            f"launch) kernel {ms:.4f} ms ({cost.bound_ms / ms:.1%} of its bound "
+            f"{cost.bound_ms:.4f}, {cost.bound_by}); dx adds through global atomics "
+            f"{adds * c * 4 / 1e6:.1f} MB ({adds * c * 4 / ms / 1e9:.2f} TB/s); yardsticks: the "
+            f"fp32 product g W^T alone {product_ms:.4f} ms, aten grid_sampler_2d_backward (bf16) "
+            f"{gs_ms:.4f} ms; plain {plain_ms:.4f} ms")
         for k, e in errs.items():
             check(e <= (BF16_FWD_ULPS if "ulps" in k else BF16_AUX_TOL),
                   f"bf16 K6 {name} {k}: {e:.3e}")
         k6_rows.append(dict(shape=name, max_abs_err=k6_err, ms=ms, plain_ms=plain_ms,
                             per_step=per, share_of_bound=cost.bound_ms / ms,
-                            grid_sampler_ms=gs_ms, cost=cost, **errs))
-        del x, off_y, off_x, mask, weight, g, dcols, args
+                            grid_sampler_ms=gs_ms, product_ms=product_ms,
+                            dx_add_bytes=adds * c * 4, cost=cost, **errs))
+        del x, off_y, off_x, mask, weight, g, args, k6_args
         torch.cuda.empty_cache()
     return k2_rows, k5_rows, k6_rows
 
@@ -1529,6 +1559,9 @@ def check_preset(name, device, smi, dtype=None):
         f"{', '.join(f'{x:.4f}' for x in step_secs)}; median of steps 1-"
         f"{PRESET_TRAIN_STEPS - 1}: {step_ms:.1f} ms; peak memory {step_peak / 2**30:.2f} GiB; "
         f"card: {smi}")
+    k6 = None
+    if bf16 and name == "bevformer_base":
+        k6 = check_k6_bf16_training_step(trainer, batch, per_step["dcn_col2im_bf16"], smi)
     del trainer, batch
 
     damp_box_refinement(model)
@@ -1551,7 +1584,7 @@ def check_preset(name, device, smi, dtype=None):
     return dict(name=name, dtype=cfg.dtype, frame_ms=frame_ms, frame_peak_gib=frame_peak / 2**30,
                 frame_launches=per_frame, step_ms=step_ms, step_peak_gib=step_peak / 2**30,
                 step_launches=per_step, train_counts=train_counts, inference_counts=counts,
-                witness=witness, frozen_bn_mb=bn_mb)
+                witness=witness, frozen_bn_mb=bn_mb, k6=k6)
 
 
 # ---------------------------------------------------------------- V2
@@ -1708,7 +1741,8 @@ def check_v2(name, device, smi):
 
 
 KERNEL_NAMES = ("msda_fwd_kernel", "dcn_conv_fwd_kernel", "dcn_conv_fwd_bf16_kernel",
-                "msda_bwd_kernel", "dcn_im2col_kernel", "dcn_col2im_kernel")
+                "msda_bwd_kernel", "dcn_im2col_kernel", "dcn_col2im_kernel",
+                "dcn_col2im_gw_kernel")
 
 
 def profile_run(fn, tag, what, smi):
@@ -1834,26 +1868,32 @@ def check_training(device, smi):
 
 
 @contextmanager
-def recorded_col2im(calls: list):
-    """Within the block, each call of `dcn.dcn_col2im` (the DCN backward's)
-    also appends its arguments (x, off_y, off_x, mask, dcols, stride) to
-    `calls`."""
+def recorded_col2im(calls: list, name: str = "dcn_col2im"):
+    """Within the block, each call of `dcn.<name>` (the DCN backward's K6:
+    `dcn_col2im`, or `dcn_col2im_gw` on a bf16 x) also appends its
+    arguments, defaults filled in, to `calls`: (x, off_y, off_x, mask,
+    dcols, stride), or (x, off_y, off_x, mask, g, weight, stride)."""
+    import inspect
+
     from bevformer_torch.kernels import dcn
 
-    kernel = dcn.dcn_col2im
+    kernel = getattr(dcn, name)
+    sig = inspect.signature(kernel)
 
-    def recording(x, off_y, off_x, mask, dcols, stride=1):
-        calls.append((x, off_y, off_x, mask, dcols, stride))
-        return kernel(x, off_y, off_x, mask, dcols, stride)
+    def recording(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        calls.append(tuple(bound.arguments.values()))
+        return kernel(*args, **kwargs)
 
-    # the wrapper counts its launches under the module's name, which is
-    # this function's while recording: those launches land here
+    # the fp32 wrapper counts its launches under the module's name, which
+    # is this function's while recording: those launches land here
     recording.launches = 0
-    dcn.dcn_col2im = recording
+    setattr(dcn, name, recording)
     try:
         yield calls
     finally:
-        dcn.dcn_col2im = kernel
+        setattr(dcn, name, kernel)
 
 
 def check_k6_training_step(trainer, batch, smi):
@@ -1910,6 +1950,70 @@ def check_k6_training_step(trainer, batch, smi):
                  bound_ms=sum(s["bound_ms"] for s in shapes.values()),
                  dx_add_bytes=sum(s["dx_add_bytes"] for s in shapes.values()), shapes=shapes)
     log(f"[train-k6] K6 on one training step's own inputs: {total['ms']:.4f} ms "
+        f"({total['bound_ms'] / total['ms']:.1%} of its bound {total['bound_ms']:.4f}), "
+        f"{total['dx_add_bytes'] / 1e6:.1f} MB of dx adds; card: {smi}")
+    return total
+
+
+def check_k6_bf16_training_step(trainer, batch, want: int, smi):
+    """bf16 K6 (dcn_col2im_gw) on what a bf16 training step hands it: one
+    more step with every call recorded (the offsets and masks of the
+    model's offset convs, the bf16 output gradients, the weights); each
+    call then runs alone on those tensors, timed, its dx adds counted and
+    its offsets' rms taken, and held against the plain version (dx within
+    BF16_FWD_ULPS bf16 ulps at its scale, d offsets and dmask within
+    BF16_AUX_TOL)."""
+    import torch
+    from bevformer_torch.kernels import dcn
+    from bevformer_torch.tools import roofline
+
+    calls = []
+    with recorded_col2im(calls, "dcn_col2im_gw"):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    check(len(calls) == want, f"the bf16 step made {len(calls)} dcn_col2im_gw calls, expected "
+                              f"{want}")
+    shapes = {}
+    for args in calls:
+        x, off_y, off_x, mask, g, weight, stride = args
+        b, h, w, c = x.shape
+        key = f"x [{b}, {h}, {w}, {c}] Cout {weight.shape[1]} stride {stride}"
+        ms = time_ms(lambda: dcn.dcn_col2im_gw(*args), 5)
+        ours = dcn.dcn_col2im_gw(*args)
+        ref = dcn.dcn_col2im_gw_plain(*args)
+        torch.cuda.synchronize()
+        errs = [ulps(ours[0], ref[0])] + [rel_err(a, r) for a, r in zip(ours[1:], ref[1:])]
+        del ours, ref
+        check(errs[0] <= BF16_FWD_ULPS and max(errs[1:]) <= BF16_AUX_TOL,
+              f"dcn_col2im_gw on the bf16 step's {key}: dx {errs[0]:.3f} ulps, d offsets and "
+              f"dmask {max(errs[1:]):.2e}")
+        adds = col2im_dx_adds(x.shape, off_y, off_x, stride)
+        offsets = torch.cat([off_y.reshape(-1), off_x.reshape(-1)]).detach()
+        s = shapes.setdefault(key, dict(calls=0, ms=0.0, dx_add_bytes=0, dx_ulps=0.0,
+                                        aux_err=0.0, offset_rms_px=[], bound_ms=0.0))
+        s["calls"] += 1
+        s["ms"] += ms
+        s["dx_add_bytes"] += adds * c * 4
+        s["dx_ulps"] = max(s["dx_ulps"], errs[0])
+        s["aux_err"] = max(s["aux_err"], max(errs[1:]))
+        s["offset_rms_px"].append(float(offsets.square().mean().sqrt()))
+        s["bound_ms"] += roofline.dcn_col2im_gw(b, h, w, c, weight.shape[1], stride).bound_ms
+    del calls
+    for key, s in shapes.items():
+        rms = s.pop("offset_rms_px")
+        s["offset_rms_px"] = [min(rms), max(rms)]
+        s["dx_add_TB_per_s"] = s["dx_add_bytes"] / s["ms"] / 1e9
+        log(f"[train-k6-bf16] {key}: {s['calls']} calls, bf16 K6 {s['ms']:.4f} ms in all "
+            f"({s['bound_ms'] / s['ms']:.1%} of their bound {s['bound_ms']:.4f}); dx adds "
+            f"through global atomics {s['dx_add_bytes'] / 1e6:.1f} MB "
+            f"({s['dx_add_TB_per_s']:.2f} TB/s); offsets' rms {s['offset_rms_px'][0]:.3f}"
+            f"-{s['offset_rms_px'][1]:.3f} px; every call vs plain: dx {s['dx_ulps']:.3f} ulps "
+            f"(tol {BF16_FWD_ULPS}), d offsets and dmask {s['aux_err']:.2e} (tol "
+            f"{BF16_AUX_TOL:.0e})")
+    total = dict(ms=sum(s["ms"] for s in shapes.values()),
+                 bound_ms=sum(s["bound_ms"] for s in shapes.values()),
+                 dx_add_bytes=sum(s["dx_add_bytes"] for s in shapes.values()), shapes=shapes)
+    log(f"[train-k6-bf16] bf16 K6 on one bf16 training step's own inputs: {total['ms']:.4f} ms "
         f"({total['bound_ms'] / total['ms']:.1%} of its bound {total['bound_ms']:.4f}), "
         f"{total['dx_add_bytes'] / 1e6:.1f} MB of dx adds; card: {smi}")
     return total
@@ -4049,7 +4153,10 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
     build.library()
-    check_vector_atomics(res.path)
+    # the library's SASS (one cuobjdump, ~10 s on the host) is read while
+    # phases 3-6 run on the card; check_vector_atomics reads it after them
+    sass = ThreadPoolExecutor(1)
+    pending_sass = sass.submit(build.sass, res.path)
 
     seconds = {}  # each phase's wall time
 
@@ -4076,6 +4183,9 @@ def main() -> int:
         im2col_rows, col2im_rows = check_k56(device, gen)
         bf16_k2_rows, bf16_k5_rows, bf16_k6_rows = check_bf16_dcn(device, gen)
         bf16_k2_ragged = check_bf16_k2_ragged(device, gen)
+    pending_sass.result()
+    sass.shutdown()
+    check_vector_atomics(res.path)
     with phase("7"):
         probe_runs, probe_counts = check_probes()
     with phase("8"):
@@ -4122,11 +4232,11 @@ def main() -> int:
     with phase("20"):
         tools = check_tools(smi, sl["median_ms"])
 
-    def record(name, src, replaces, rows, per, library_note, counts=tr["counts"]):
+    def record(name, src, replaces, rows, per, library_note, counts=tr["counts"], counter=None):
         bound = roofline.total([(r.pop("cost"), r[per]) for r in rows])
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts[name],
+            counter=counter or name, launches=counts[counter or name],
             max_abs_err=max(r["max_abs_err"] for r in rows),
             # one frame's (forward kernels) or one training step's (backward
             # kernels) worth of launches at the path's shapes
@@ -4191,18 +4301,22 @@ def main() -> int:
                "bevformer_tpu/kernels/dcn_pallas.py:112", bf16_k5_rows, "per_step",
                "no single PyTorch call computes a modulated deformable im2col",
                counts=base16["train_counts"]),
-        record("dcn_col2im_bf16", "bevformer_torch/csrc/dcn_col2im.cu",
+        record("dcn_col2im_gw", "bevformer_torch/csrc/dcn_col2im.cu",
                "bevformer_tpu/kernels/msda_pallas.py:318", bf16_k6_rows, "per_step",
-               "no single PyTorch call computes the DCN col2im: grid_sampler_2d_backward "
-               "(bf16) leaves out dmask (grid_sampler_ms)", counts=base16["train_counts"]),
+               "no single PyTorch call computes g W^T and the DCN col2im: "
+               "grid_sampler_2d_backward (bf16) leaves out dmask and the product "
+               "(grid_sampler_ms; the fp32 product alone product_ms)",
+               counts=base16["train_counts"], counter="dcn_col2im_bf16"),
     ]
     kernels[-3]["inference_launches"] = base16["inference_counts"]["dcn_conv_fwd_bf16"]
     kernels[-3]["ragged"] = bf16_k2_ragged
     kernels[-3]["im2col_matmul_ms"] = sum(r["im2col_matmul_ms"] * r["per_frame"]
                                           for r in bf16_k2_rows)
-    kernels[-1]["grid_sampler_ms"] = sum(r["grid_sampler_ms"] * r["per_step"] for r in bf16_k6_rows)
+    for key in ("grid_sampler_ms", "product_ms"):
+        kernels[-1][key] = sum(r[key] * r["per_step"] for r in bf16_k6_rows)
+    kernels[-1]["training_step"] = base16["k6"]
     for k in kernels[-3:]:
-        k["launches_per_preset"] = {name: r["train_counts"][k["name"]] for name, r in
+        k["launches_per_preset"] = {name: r["train_counts"][k["counter"]] for name, r in
                                     bf16_dcn.items()}
     # K1 on the V2 presets' samples: launches per preset's run, and at V2's
     # shapes per frame encoded (the decoder's once per sample)

@@ -16,13 +16,17 @@ CPU.
   bf16 as well).
 * The plain versions' bf16 semantics: the column is the fp32 column
   rounded once; the output is the fp32 sum of the rounded column and
-  weight, rounded once; the backward the card runs (im2col, two fp32
-  products, col2im) equals autograd through the plain conv; dx is bf16,
-  the rest fp32.
+  weight, rounded once; the backward the card runs (im2col and the fp32
+  dWeight product, then `dcn_col2im_gw` on the bf16 output gradient and
+  the weight) equals autograd through the plain conv, as does the same
+  with the column gradient's fp32 product and col2im; dx is bf16, the
+  rest fp32.
 * The DCN call sites of a bf16 frame and of a bf16 training step hand the
   kernels what their CUDA wrappers accept (the wrappers' own checks in
-  front of the plain versions, through the kernels' autograd Function),
-  and the backward's products are fp32 under the caller's autocast.
+  front of the plain versions, through the kernels' autograd Function):
+  the backward's dWeight product is fp32 under the caller's autocast, and
+  its column gradient is never made outside `dcn_col2im_gw`; what that
+  wrapper refuses.
 * FrozenBN keeps a bf16 input's dtype under autocast and is unchanged,
   bitwise, in fp32.
 * bevformer_small's mini detector (caffe R10 with DCN in stages 3-4) at
@@ -137,12 +141,12 @@ def test_bf16_plain_column_and_output_round_once():
 
 
 def test_bf16_backward_decomposes_into_im2col_and_col2im():
-    """The backward the card runs on a bf16 x (`_DCNConv.backward`: the bf16
-    column, dWeight = cols^T g and dCols = g W_bf16^T in fp32, col2im with
-    an fp32 column gradient), in plain versions, equals autograd through
-    the plain bf16 conv: dx bf16 (within 1 ulp: one rounding of fp32 sums
-    in another order), d offsets, dmask and dWeight fp32 to 1e-5 of
-    scale."""
+    """The bf16 backward as plain products and col2im (the bf16 column,
+    dWeight = cols^T g and dCols = g W_bf16^T in fp32, col2im with an fp32
+    column gradient: what `dcn_col2im_gw_plain` composes), equals autograd
+    through the plain bf16 conv: dx bf16 (within 1 ulp: one rounding of
+    fp32 sums in another order), d offsets, dmask and dWeight fp32 to 1e-5
+    of scale."""
     x, off_y, off_x, mask, weight, g = _inputs(2)
     ref = dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g)
     assert [r.dtype for r in ref] == [torch.bfloat16] + [torch.float32] * 4
@@ -157,6 +161,62 @@ def test_bf16_backward_decomposes_into_im2col_and_col2im():
         assert a.dtype == torch.float32, name
         scale = float(r.abs().max())
         assert float((a - r).abs().max()) <= 1e-5 * scale, name
+
+
+def test_bf16_backward_decomposes_into_im2col_and_col2im_gw():
+    """The backward the card runs on a bf16 x (`_DCNConv.backward`: the bf16
+    column and dWeight = cols^T g in fp32, then `dcn_col2im_gw` on the bf16
+    output gradient and the weight), in plain versions, equals autograd
+    through the plain bf16 conv: dx bf16 within 1 ulp, d offsets, dmask and
+    dWeight fp32 to 1e-5 of scale."""
+    x, off_y, off_x, mask, weight, g = _inputs(4, cout=48)
+    ref = dcn.dcn_conv_backward_plain(x, off_y, off_x, mask, weight, g)
+    gm = g.reshape(-1, weight.shape[1])
+    assert gm.dtype == torch.bfloat16
+    cols = dcn.dcn_im2col(x, off_y, off_x, mask)
+    ours = (*dcn.dcn_col2im_gw(x, off_y, off_x, mask, gm, weight), cols.float().t() @ gm.float())
+    assert ours[0].dtype == torch.bfloat16
+    assert bf16_ulps(ours[0].float().numpy(), ref[0].float().numpy()) <= 1.0
+    for name, a, r in zip(("doff_y", "doff_x", "dmask", "dweight"), ours[1:], ref[1:]):
+        assert a.dtype == torch.float32, name
+        scale = float(r.abs().max())
+        assert float((a - r).abs().max()) <= 1e-5 * scale, name
+
+
+def test_bf16_col2im_gw_plain_is_col2im_of_the_fp32_column_gradient():
+    """`dcn_col2im_gw` on CPU tensors is its plain version: `dcn_col2im_plain`
+    of g W_bf16^T in fp32, bitwise, inside bf16 autocast too (the product
+    stays fp32)."""
+    x, off_y, off_x, mask, weight, g = _inputs(5, cout=48)
+    gm = g.reshape(-1, 48)
+    dcols = gm.float() @ weight.bfloat16().float().t()
+    ref = dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols)
+    with precision("bfloat16", "cpu"):
+        ours = dcn.dcn_col2im_gw(x, off_y, off_x, mask, gm, weight)
+    for a, r in zip(ours, ref):
+        assert a.dtype == r.dtype and torch.equal(a, r)
+
+
+def test_bf16_col2im_gw_refuses_what_its_kernel_does_not_take():
+    """The wrapper's checks (`_check_col2im_gw`, run before each launch):
+    an fp32 g, a g of the wrong shape, Cout not a multiple of 16, an fp32
+    x, a bf16 weight and a strided g raise; the model's arguments pass."""
+    x, off_y, off_x, mask, weight, g = _inputs(6, cout=48)
+    gm = g.reshape(-1, 48)
+    dcn._check_col2im_gw(x, off_y, off_x, mask, gm, weight, 1)
+    with pytest.raises(TypeError):
+        dcn._check_col2im_gw(x, off_y, off_x, mask, gm.float(), weight, 1)
+    with pytest.raises(ValueError, match="g must be"):
+        dcn._check_col2im_gw(x, off_y, off_x, mask, gm[1:], weight, 1)
+    x40, off40, _, _, w40, g40 = _inputs(6, cout=40)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        dcn._check_col2im_gw(x40, off40, off40, off40, g40.reshape(-1, 40), w40, 1)
+    with pytest.raises(TypeError):
+        dcn._check_col2im_gw(x.float(), off_y, off_x, mask, gm, weight, 1)
+    with pytest.raises(TypeError):
+        dcn._check_col2im_gw(x, off_y, off_x, mask, gm, weight.bfloat16(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        dcn._check_col2im_gw(x, off_y, off_x, mask, torch.cat([gm, gm], 1)[:, ::2], weight, 1)
 
 
 def test_bf16_col2im_plain_sums_in_fp32_and_rounds_dx_once():
@@ -178,28 +238,55 @@ def _small_bf16_model():
 def test_bf16_dcn_call_sites_meet_the_kernel_contract(monkeypatch):
     """Every DCN call of a bf16 frame and of a bf16 training step hands the
     kernels what their CUDA wrappers accept: a bf16 x, fp32 offsets, mask
-    and weight, all contiguous; the backward's K5 a bf16 x and K6 an fp32
-    column gradient, though the step runs backward inside bf16 autocast
-    (checked with the wrappers' own checks in front of the plain versions,
-    through the kernels' autograd Function); dWeight comes back fp32."""
-    calls = {"fwd": 0, "im2col": 0, "col2im": 0}
+    and weight, all contiguous; the backward's K5 a bf16 x and K6
+    (`dcn_col2im_gw`) a bf16 x and the bf16 output gradient with the
+    weight, though the step runs backward inside bf16 autocast (checked
+    with the wrappers' own checks in front of the plain versions, through
+    the kernels' autograd Function); dWeight comes back fp32. Outside the
+    wrappers, the bf16 route makes no [B*OH*OW, 9C] matrix product (the
+    column gradient) and never calls the fp32 route's `dcn_col2im`."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = {"fwd": 0, "im2col": 0, "col2im": 0, "col2im_gw": 0}
     bf16 = (torch.bfloat16,)
+    inside = [False]  # in a checked plain version, whose own products do not count
+    columns = set()  # (B*OH*OW, 9C) of every DCN call
+    products = []  # shapes of the matrix products made outside the wrappers
+
+    def plain(fn, *args):
+        inside[0] = True
+        try:
+            return fn(*args)
+        finally:
+            inside[0] = False
+
+    class Products(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not inside[0] and func.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.addmm,
+                                                         torch.ops.aten.bmm):
+                products.append(tuple(out.shape[-2:]))
+            return out
 
     def fwd_checked(x, off_y, off_x, mask, weight, stride):
         dcn._check(x, off_y, off_x, mask, weight, stride, bf16)
         calls["fwd"] += 1
-        return dcn.dcn_conv_plain(x, off_y, off_x, mask, weight, stride)
+        columns.add((off_y.shape[0] * off_y.shape[1] * off_y.shape[2], weight.shape[0]))
+        return plain(dcn.dcn_conv_plain, x, off_y, off_x, mask, weight, stride)
 
     def im2col_checked(x, off_y, off_x, mask, stride=1):
         dcn._check_sampling(x, off_y, off_x, mask, stride, bf16)
         calls["im2col"] += 1
-        return dcn.dcn_im2col_plain(x, off_y, off_x, mask, stride)
+        return plain(dcn.dcn_im2col_plain, x, off_y, off_x, mask, stride)
 
     def col2im_checked(x, off_y, off_x, mask, dcols, stride=1):
-        dcn._check_sampling(x, off_y, off_x, mask, stride, bf16)
-        dcn._check_tensor("dcols", dcols, x.device)
         calls["col2im"] += 1
-        return dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols, stride)
+        return plain(dcn.dcn_col2im_plain, x, off_y, off_x, mask, dcols, stride)
+
+    def col2im_gw_checked(x, off_y, off_x, mask, g, weight, stride=1):
+        dcn._check_col2im_gw(x, off_y, off_x, mask, g, weight, stride)
+        calls["col2im_gw"] += 1
+        return plain(dcn.dcn_col2im_gw_plain, x, off_y, off_x, mask, g, weight, stride)
 
     weights = []
 
@@ -210,19 +297,25 @@ def test_bf16_dcn_call_sites_meet_the_kernel_contract(monkeypatch):
     monkeypatch.setattr(dcn, "_launch_fwd", fwd_checked)
     monkeypatch.setattr(dcn, "dcn_im2col", im2col_checked)
     monkeypatch.setattr(dcn, "dcn_col2im", col2im_checked)
+    monkeypatch.setattr(dcn, "dcn_col2im_gw", col2im_gw_checked)
     monkeypatch.setattr(resnet, "dcn_conv", through_function)
     cfg, model = _small_bf16_model()
     VideoEvaluator(model).infer_frame(SyntheticVideo(cfg, (1,), seed=1, device="cpu")
                                       .get_test_sample(0))
     per_frame = sum(resnet.ARCH_SETTINGS[cfg.backbone_depth][s] for s in cfg.backbone_dcn_stages)
-    assert per_frame == 2 and calls == dict(fwd=per_frame, im2col=0, col2im=0)
-    calls.update(fwd=0, im2col=0, col2im=0)
+    assert per_frame == 2 and calls == dict(fwd=per_frame, im2col=0, col2im=0, col2im_gw=0)
+    calls.update(dict.fromkeys(calls, 0))
     trainer = Trainer(model, total_steps=10)
-    out = trainer.step(train_batch(cfg, seed=2, device="cpu"))
+    batch = train_batch(cfg, seed=2, device="cpu")
+    with Products():
+        out = trainer.step(batch)
     assert all(np.isfinite(v) for v in out.values()), out
-    assert calls == dict(fwd=2 * per_frame, im2col=per_frame, col2im=per_frame)
+    assert calls == dict(fwd=2 * per_frame, im2col=per_frame, col2im=0, col2im_gw=per_frame)
     grads = [w.grad for w in model.parameters() if w.grad is not None]
     assert grads and all(g.dtype == torch.float32 for g in grads)
+    # the step's own products were seen (dWeight's [9C, Cout] among them)
+    assert columns and products
+    assert not columns & set(products), (columns, sorted(set(products)))
 
 
 def test_frozen_bn_keeps_bf16_and_is_unchanged_in_fp32():

@@ -136,6 +136,29 @@ def test_recorded_col2im_records_and_restores():
     assert dcn.dcn_col2im is kernel
 
 
+def test_recorded_col2im_records_the_bf16_entry():
+    """The recorder on `dcn_col2im_gw` (phase 16's bf16 step) keeps each
+    call's arguments with the stride filled in, hands the call through and
+    puts the wrapper back."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from bevformer_torch.kernels import dcn
+
+    kernel = dcn.dcn_col2im_gw
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(1, 4, 5, 32).astype(np.float32)).bfloat16()
+    off = torch.from_numpy(rng.randn(3, 1, 4, 5, 9).astype(np.float32))
+    g = torch.from_numpy(rng.randn(20, 16).astype(np.float32)).bfloat16()
+    weight = torch.from_numpy(rng.randn(9 * 32, 16).astype(np.float32))
+    calls = []
+    with chip_smoke.recorded_col2im(calls, "dcn_col2im_gw"):
+        got = dcn.dcn_col2im_gw(x, off[0], off[1], off[2], g, weight)
+    assert dcn.dcn_col2im_gw is kernel
+    assert len(calls) == 1 and len(calls[0]) == 7 and calls[0][4] is g and calls[0][6] == 1
+    for a, r in zip(got, kernel(*calls[0])):
+        assert torch.equal(a, r)
+
+
 def test_perfect_detector_scores_the_ground_truth_as_exact(tmp_path):
     """chip_smoke.py's phase-12 check of the evaluation: a synthetic root's
     val ground truth, scored as predictions, gives mAP 1 and TP errors 0."""

@@ -22,6 +22,13 @@ per-32 order (fresh accumulators per tile, added to nearest) drifts 2.7e-7
 and 4.7e-7, slopes -3.8e-8 and -3.7e-8. Both round to within one bf16 ulp of JAX's
 bf16 exact DCN, as the float64 product of the bf16 operands does: the
 operands' rounding to bf16, not the sums, sets that error.
+
+bf16 K6 (`csrc/dcn_col2im.cu::dcn_col2im_gw`) makes the DCN backward's
+column gradient g W^T with the same wgmma on the bf16 output gradient and
+the bf16 weight, one truncating accumulator over K = Cout (256 and 512 on
+bevformer_base's stages), and scatters it through the sampling as
+`dcn_col2im_plain` does: that composition is held here to JAX's bf16
+gradient of its exact DCN.
 """
 
 import numpy as np
@@ -33,9 +40,10 @@ import jax.numpy as jnp
 
 from bevformer_tpu.models.resnet import ModulatedDeformConv as JaxDCN
 from bevformer_torch.kernels import dcn
+from bevformer_torch.kernels.dcn import dcn_col2im_plain
 from tests.test_torch_dcn import _port_dcn
 from tests.test_torch_dcn_tf32 import f32_toward_zero
-from tests.torch_port_helpers import bf16_ulps
+from tests.torch_port_helpers import assert_close, bf16_ulps, t
 
 K_STEP = 16  # the depth of one bf16 wgmma
 
@@ -111,3 +119,40 @@ def test_one_accumulator_drifts_within_a_hundredth_of_an_ulp(k):
     one = contract_kernel(col, w)
     one_err = float(np.abs(one - ref).max() / scale)
     assert one_err <= 1e-5 and bf16_ulps(one, ref) <= 0.01, (one_err, bf16_ulps(one, ref))
+
+
+@pytest.mark.parametrize("cout", [256, 512])
+def test_col2im_gw_sums_through_the_plain_scatter_match_jax_bf16_gradient(cout):
+    """bf16 K6's arithmetic: its column gradient, the bf16 g times the bf16
+    weight summed as the kernel sums them (`contract_kernel` over K = Cout),
+    through `dcn_col2im_plain`, against `jax.vjp` of JAX's bf16 exact DCN
+    (`ModulatedDeformConv(impl="off", dtype=bfloat16)`: its sampling of the
+    bf16 x in fp32, the fp32 einsum, the bf16 output) at the same bf16 g,
+    on a weight of bf16 values (the port rounds its weight once to bf16) and
+    offsets N(0, 3) px: dx (bf16 on both sides) within one bf16 ulp at its
+    scale, d offsets and dmask within 1e-3 of theirs (BF16_AUX_TOL of
+    chip_smoke.py: fp32 sums in another order, and the truncating
+    accumulator's drift of ~1e-6 of scale)."""
+    rng = np.random.RandomState(cout + 1)
+    b, h, w, c = 2, 5, 6, 32
+    x = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).bfloat16()
+    off_y, off_x = ((rng.randn(b, h, w, 9) * 3).astype(np.float32) for _ in "yx")
+    mask = rng.rand(b, h, w, 9).astype(np.float32)
+    weight = bf16(rng.randn(9 * c, cout) / np.sqrt(9 * c))
+    g = bf16(rng.randn(b, h, w, cout))
+    jmod = JaxDCN(cout, impl="off", dtype=jnp.bfloat16)
+
+    def jax_dcn(xx, oy, ox, mk):
+        sampled = jmod._sample_gather(xx, oy, ox, mk, h, w).reshape(b, h, w, 9 * c)
+        return jnp.einsum("bhwi,io->bhwo", sampled, jnp.asarray(weight)).astype(jnp.bfloat16)
+
+    vjp = jax.jit(lambda *a: jax.vjp(jax_dcn, *a)[1](jnp.asarray(g).astype(jnp.bfloat16)))
+    ref = jax.block_until_ready(vjp(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                                    off_y, off_x, mask))
+    dcols = contract_kernel(g.reshape(-1, cout), np.ascontiguousarray(weight.T))
+    ours = dcn_col2im_plain(x, t(off_y), t(off_x), t(mask), t(dcols))
+    assert ours[0].dtype == torch.bfloat16 and ref[0].dtype == jnp.bfloat16
+    err = bf16_ulps(ours[0], np.asarray(ref[0].astype(jnp.float32)))
+    assert err <= 1.0, f"Cout {cout}: dx {err:.2f} bf16 ulps from JAX"
+    for name, a, r in zip(("doff_y", "doff_x", "dmask"), ours[1:], ref[1:]):
+        assert_close(a, np.asarray(r), 1e-3, f"Cout {cout} {name}")

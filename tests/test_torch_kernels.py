@@ -850,17 +850,21 @@ def test_bf16_dcn_im2col_kernel_matches_plain(cuda_device, stride):
 
 @pytest.mark.parametrize("stride", [1, 2])
 def test_bf16_dcn_col2im_kernel_matches_plain(cuda_device, stride):
-    """bf16 K6 (dcn_col2im_bf16) on an fp32 column gradient: dx bf16 within
-    one bf16 ulp at its scale (fp32 atomic sums, rounded once), d offsets
-    and dmask fp32 to 1e-5 of their scale."""
-    x, off_y, off_x, mask, _ = _bf16_dcn_inputs(6, cuda_device, stride=stride)
-    dcols = torch.randn((off_y.shape[0] * off_y.shape[1] * off_y.shape[2], 9 * x.shape[3]),
-                        device=cuda_device)
+    """bf16 K6 (dcn_col2im_gw) on a bf16 output gradient and the weight:
+    dx bf16 within one bf16 ulp at its scale (fp32 atomic sums, rounded
+    once), d offsets and dmask fp32 to 1e-5 of their scale (the column
+    gradient summed by the tensor cores, truncating, drifts ~1e-6 of scale
+    from the plain version's fp32 product); ragged M (a last 64-pixel tile
+    part empty), C 64 (a 256-channel part mostly empty) and Cout 96 (a K
+    tile of 32)."""
+    x, off_y, off_x, mask, weight = _bf16_dcn_inputs(6, cuda_device, stride=stride)
+    g = torch.randn((off_y.shape[0] * off_y.shape[1] * off_y.shape[2], weight.shape[1]),
+                    device=cuda_device).bfloat16()
     before = dcn.DCN_COL2IM_BF16.launches
-    grads = dcn.dcn_col2im(x, off_y, off_x, mask, dcols, stride)
+    grads = dcn.dcn_col2im_gw(x, off_y, off_x, mask, g, weight, stride)
     torch.cuda.synchronize()
     assert dcn.DCN_COL2IM_BF16.launches == before + 1
-    ref = dcn.dcn_col2im_plain(x, off_y, off_x, mask, dcols, stride)
+    ref = dcn.dcn_col2im_gw_plain(x, off_y, off_x, mask, g, weight, stride)
     assert grads[0].dtype == torch.bfloat16
     _within_a_bf16_ulp(grads[0], ref[0], f"stride {stride} dx")
     for what, a, r in zip(("doff_y", "doff_x", "dmask"), grads[1:], ref[1:]):
@@ -868,12 +872,44 @@ def test_bf16_dcn_col2im_kernel_matches_plain(cuda_device, stride):
         assert_close(a, r, 1e-5, f"stride {stride} {what}")
 
 
+BF16_K6_CASES = [
+    # name, B, H, W, C, Cout, stride
+    ("c512_cout512_s2", 1, 11, 13, 512, 512, 2),  # two 256-channel parts a tap
+    ("stage4_rows", 1, 29, 50, 512, 512, 1),
+    ("c96_cout48", 2, 9, 10, 96, 48, 1),  # a K tile of 48, a part of 96 channels
+    ("c32_cout16", 1, 8, 11, 32, 16, 2),  # one 16-deep K tile
+    ("c288_cout80", 1, 7, 9, 288, 80, 1),  # a second part of 32 channels, K tiles 64 + 16
+]
+
+
+@pytest.mark.parametrize("name,b,h,w,c,cout,stride", BF16_K6_CASES,
+                         ids=[x[0] for x in BF16_K6_CASES])
+def test_bf16_dcn_col2im_gw_cases(cuda_device, name, b, h, w, c, cout, stride):
+    """bf16 K6 (dcn_col2im_gw) where its parts, K tiles or last tile could
+    go wrong, against its plain version: dx within one bf16 ulp, d offsets
+    and dmask to 1e-5 of their scale, and d offsets and dmask bitwise the
+    same in a second launch (their sums run in a fixed order)."""
+    x, off_y, off_x, mask, weight = _bf16_dcn_inputs(17 + len(name), cuda_device, b, h, w, c,
+                                                     cout, stride)
+    g = torch.randn((off_y.shape[0] * off_y.shape[1] * off_y.shape[2], cout),
+                    device=cuda_device).bfloat16()
+    grads = dcn.dcn_col2im_gw(x, off_y, off_x, mask, g, weight, stride)
+    again = dcn.dcn_col2im_gw(x, off_y, off_x, mask, g, weight, stride)
+    ref = dcn.dcn_col2im_gw_plain(x, off_y, off_x, mask, g, weight, stride)
+    torch.cuda.synchronize()
+    _within_a_bf16_ulp(grads[0], ref[0], f"{name} dx")
+    for what, a, a2, r in zip(("doff_y", "doff_x", "dmask"), grads[1:], again[1:], ref[1:]):
+        assert_close(a, r, 1e-5, f"{name} {what}")
+        assert torch.equal(a, a2), f"{name} {what}: not deterministic"
+
+
 def test_bf16_dcn_gradient_matches_autograd_through_plain(cuda_device):
-    """The bf16 `_DCNConv` (K2, then K5, two fp32 products and K6) against
-    autograd through the plain bf16 conv, inside bf16 autocast (the
-    backward's dtypes do not follow the caller's): dx bf16 within one bf16
-    ulp, d offsets, dmask and dWeight fp32 to 1e-4 of their scale (the
-    column gradient's fp32 products in another order)."""
+    """The bf16 `_DCNConv` (K2, then K5, the fp32 dWeight product and K6
+    from the output gradient) against autograd through the plain bf16 conv,
+    inside bf16 autocast (the backward's dtypes do not follow the
+    caller's): dx bf16 within one bf16 ulp, d offsets, dmask and dWeight
+    fp32 to 1e-4 of their scale (the column gradient and dWeight summed in
+    another order)."""
     args = _bf16_dcn_inputs(8, cuda_device, c=256, cout=256)
     g = torch.randn(args[0].shape[:3] + (256,), device=cuda_device).bfloat16()
     leaves = [a.detach().requires_grad_() for a in args]
@@ -893,8 +929,8 @@ def test_bf16_dcn_gradient_matches_autograd_through_plain(cuda_device):
 
 
 def test_bf16_dcn_refuses_what_its_kernels_do_not_take(cuda_device):
-    """bf16 offsets, mask or weight, a bf16 column gradient, a float16 x
-    and an x off its 8-byte boundary raise; nothing launches."""
+    """bf16 offsets, mask or weight, an fp32 output gradient for bf16 K6, a
+    float16 x and an x off its 8-byte boundary raise; nothing launches."""
     x, off_y, off_x, mask, weight = _bf16_dcn_inputs(9, cuda_device, c=32, cout=32)
     counts = [c.launches for c in (dcn.DCN_CONV_FWD_BF16, dcn.DCN_IM2COL_BF16,
                                    dcn.DCN_COL2IM_BF16)]
@@ -905,14 +941,14 @@ def test_bf16_dcn_refuses_what_its_kernels_do_not_take(cuda_device):
             dcn.dcn_conv(*args, 1)
     with pytest.raises(TypeError):
         dcn.dcn_conv(x.half(), off_y, off_x, mask, weight, 1)
-    dcols = torch.zeros((x.shape[0] * x.shape[1] * x.shape[2], 9 * 32), device=cuda_device)
+    g = torch.zeros((x.shape[0] * x.shape[1] * x.shape[2], 32), device=cuda_device)
     with pytest.raises(TypeError):
-        dcn.dcn_col2im(x, off_y, off_x, mask, dcols.bfloat16())
+        dcn.dcn_col2im_gw(x, off_y, off_x, mask, g, weight)
     buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)[2:]
     shifted = buf.view_as(x).copy_(x)
     with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
         dcn.dcn_im2col(shifted, off_y, off_x, mask)
     with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
-        dcn.dcn_col2im(shifted, off_y, off_x, mask, dcols)
+        dcn.dcn_col2im_gw(shifted, off_y, off_x, mask, g.bfloat16(), weight)
     assert counts == [c.launches for c in (dcn.DCN_CONV_FWD_BF16, dcn.DCN_IM2COL_BF16,
                                            dcn.DCN_COL2IM_BF16)]

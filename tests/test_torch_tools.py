@@ -15,6 +15,7 @@ from bevformer_torch.tools import (
     audit_sca_capacity,
     bench_components,
     bench_dcn,
+    bench_dcn_bwd_bf16,
     bench_dcn_variants,
     bench_dma_gather,
     bench_enc_only,
@@ -40,7 +41,7 @@ TOOLS = [bench_msda_kernel, bench_kernel_probe3, bench_kernel_probe, bench_hi_pr
          bench_msda_decompose, bench_dma_gather, witness_seeds, bench_dcn_variants,
          bench_vovnet, bench_train_step, bench_v2, bench_train_v2, bench_components,
          bench_enc_only, bench_dcn, bench_train2, bench_train_bisect, audit_sca_capacity,
-         bench_msda_bf16]
+         bench_msda_bf16, bench_dcn_bwd_bf16]
 # the tools whose config is a required argument
 TOOL_ARGV = {benchmark: ["bevformer_base"]}
 
@@ -173,6 +174,31 @@ def test_roofline_k6_per_stage(args, bound):
     assert cost.bound_ms == pytest.approx(bound)
 
 
+@pytest.mark.parametrize("args,nbytes", [
+    # 2 x (17,817,600 x + 3,758,400 offsets and mask) + 17,817,600 g + 2,359,296 weight
+    ((6, 58, 100, 256, 256), 63_328_896),
+    # 2 x (8,908,800 + 939,600) + 8,908,800 + 9,437,184
+    ((6, 29, 50, 512, 512), 38_042_784),
+], ids=["layer3", "layer4"])
+def test_roofline_bf16_k6_from_the_output_gradient(args, nbytes):
+    """bf16 K6 (`dcn_col2im_gw`) at bevformer_base's stages 3 and 4,
+    counted by hand: x (bf16), offsets and mask read and their gradients
+    written, g (bf16) and the fp32 weight read once, no column gradient;
+    the product 2 x 313,200 (stage 3) or 78,300 (stage 4) taps x C x Cout
+    = 41,051,750,400 bf16 operations at both stages, over 989 TFLOP/s
+    0.041508 ms: operations bound it; K6's 24 SIMT operations a tap and
+    channel beside it."""
+    b, h, w, c, cout = args
+    cost = roofline.dcn_col2im_gw(*args)
+    assert cost.bytes == nbytes
+    assert cost.bf16_flops == 41_051_750_400 and cost.tf32_flops == 0
+    assert cost.flops == b * h * w * 9 * c * 24
+    assert cost.bound_by == "operations"
+    assert cost.bound_ms == pytest.approx(41_051_750_400 / 989e12 * 1e3)
+    assert cost.bytes_ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert cost.bound_ms == pytest.approx(0.041508, abs=1e-6)
+
+
 def test_roofline_totals_and_the_gather_bound():
     tsa = roofline.msda_fwd(2, 40000, 8, 32, ((200, 200),), 4)
     dec = roofline.msda_fwd(1, 900, 8, 32, ((200, 200),), 4)
@@ -238,6 +264,29 @@ def test_dcn_variant_edits_fit_the_kernel_source(name):
     assert bench_dcn_variants.variant_source(name, text) != text
     with pytest.raises(ValueError, match="matches 0 times"):
         bench_dcn_variants.variant_source(name, "")
+
+
+@pytest.mark.parametrize("name", sorted(bench_dcn_bwd_bf16.VARIANTS))
+def test_bf16_k6_variant_edits_fit_the_kernel_source(name):
+    """Each of bench_dcn_bwd_bf16's variants edits the package's bf16 K6
+    source where it still matches, once."""
+    text = (bench_dcn_bwd_bf16.build.SRC_DIR / bench_dcn_bwd_bf16.SOURCE).read_text()
+    assert bench_dcn_bwd_bf16.variant_source(name, text) != text
+    with pytest.raises(ValueError, match="not once"):
+        bench_dcn_bwd_bf16.variant_source(name, "")
+
+
+def test_bf16_k6_tool_cases_parse():
+    """bench_dcn_bwd_bf16's cases, its earlier build and variants; its
+    product's cost on the SIMT units (base stage 3: 41 GFLOP, 0.613 ms)."""
+    ap = bench_dcn_bwd_bf16.parser()
+    every = ap.parse_args([])
+    assert every.cases == ["stages", "step"] and every.against is None and every.variant == []
+    one = ap.parse_args(["step", "--against", "d", "--variant", "pf1", "--reps", "4"])
+    assert one.cases == ["step"] and one.against == "d" and one.variant == ["pf1"]
+    cost = bench_dcn_bwd_bf16.product_cost(34800, 256, 256)
+    assert cost.flops == 41_051_750_400 and cost.bound_by == "operations"
+    assert cost.bound_ms == pytest.approx(0.6127, abs=1e-4)
 
 
 @pytest.mark.parametrize("name", sorted(bench_msda_bf16.VARIANTS))
