@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from bevformer_torch.core.assigner import assign_costs, match_cost
 from bevformer_torch.core.boxes import normalize_bbox
 from bevformer_torch.runtime import distributed
+from bevformer_torch.utils.profiler import span
 
 
 def rank_mean_normalisers(sums: torch.Tensor, minimum) -> torch.Tensor:
@@ -147,7 +148,8 @@ def bevformer_loss(
     costs = torch.stack([match_cost(all_cls[lid][:, sl].detach(), all_box[lid][:, sl].detach(),
                                     gt_boxes, gt_labels, num_gt, **weights)
                          for lid, sl in slices])
-    assigned = assign_costs(costs, num_gt)  # [layers x groups, B, Q]
+    with span("match"):
+        assigned = assign_costs(costs, num_gt)  # [layers x groups, B, Q]
     num_pos = rank_mean_normalisers((assigned >= 0).flatten(1).sum(1).float(), 1.0)
     losses: Dict[str, torch.Tensor] = {}
     total = 0.0

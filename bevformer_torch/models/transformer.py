@@ -17,6 +17,7 @@ from bevformer_torch.device import fp32
 from bevformer_torch.models.decoder import DetectionTransformerDecoder
 from bevformer_torch.models.encoder import BEVFormerEncoder
 from bevformer_torch.models.layers import Fp32Linear, layer_norm
+from bevformer_torch.utils.profiler import span
 
 
 def flatten_feats(mlvl_feats: Sequence[torch.Tensor], bs: int, cams_embeds: torch.Tensor,
@@ -89,10 +90,11 @@ class PerceptionTransformer(nn.Module):
         queries = queries + self.can_bus_mlp(can_bus)[:, None, :]
         value, spatial_shapes = flatten_feats(mlvl_feats, bs, self.cams_embeds,
                                               self.level_embeds)
-        return self.encoder(
-            queries, value, bev_pos, prev_bev, has_prev, shift, lidar2img,
-            img_shape, spatial_shapes, bev_h, bev_w,
-        )
+        with span("encoder"):
+            return self.encoder(
+                queries, value, bev_pos, prev_bev, has_prev, shift, lidar2img,
+                img_shape, spatial_shapes, bev_h, bev_w,
+            )
 
     def forward(self, mlvl_feats, bev_queries, object_query_embed, bev_pos,
                 bev_h, bev_w, grid_length, can_bus, lidar2img, img_shape,
@@ -106,8 +108,9 @@ class PerceptionTransformer(nn.Module):
         query_pos = object_query_embed[:, :e][None].expand(bs, -1, -1)
         query = object_query_embed[:, e:][None].expand(bs, -1, -1)
         reference_points = self.reference_points(query_pos).sigmoid()
-        states, refs = self.decoder(
-            query, bev_embed, query_pos, reference_points, (bev_h, bev_w),
-            reg_branch_fn,
-        )
+        with span("decoder"):
+            states, refs = self.decoder(
+                query, bev_embed, query_pos, reference_points, (bev_h, bev_w),
+                reg_branch_fn,
+            )
         return bev_embed, states, reference_points, refs

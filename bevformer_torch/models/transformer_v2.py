@@ -29,6 +29,7 @@ from bevformer_torch.models.decoder import DetectionTransformerDecoder
 from bevformer_torch.models.encoder import BEVFormerEncoder
 from bevformer_torch.models.layers import Fp32Linear, SyncBatchNorm2d, layer_norm
 from bevformer_torch.models.transformer import flatten_feats
+from bevformer_torch.utils.profiler import span
 
 
 def bev_grid_sample(bev: torch.Tensor, grid_xy: torch.Tensor) -> torch.Tensor:
@@ -148,10 +149,11 @@ class PerceptionTransformerV2(nn.Module):
         dev = bev_queries.device
         queries = bev_queries[None].expand(bs, bev_h * bev_w, self.embed_dims)
         value, spatial_shapes = flatten_feats(mlvl_feats, bs, self.cams_embeds, self.level_embeds)
-        bev = self.encoder(
-            queries, value, bev_pos, None, torch.zeros(bs, dtype=torch.bool, device=dev),
-            torch.zeros(bs, 2, device=dev), lidar2img, img_shape, spatial_shapes, bev_h, bev_w,
-        )
+        with span("encoder"):
+            bev = self.encoder(
+                queries, value, bev_pos, None, torch.zeros(bs, dtype=torch.bool, device=dev),
+                torch.zeros(bs, 2, device=dev), lidar2img, img_shape, spatial_shapes, bev_h, bev_w,
+            )
         if bda_mat is None:
             return bev
         # undo GlobalRotScaleTrans: sample at the bda-rotated grid
@@ -198,8 +200,9 @@ class PerceptionTransformerV2(nn.Module):
         query_pos = object_query_embed[:, :e][None].expand(bs, -1, -1)
         query = object_query_embed[:, e:][None].expand(bs, -1, -1)
         reference_points = self.reference_points(query_pos).sigmoid()
-        states, refs = self.decoder(
-            query, bev_embed, query_pos, reference_points, (bev_h, bev_w), reg_branch_fn,
-            num_groups,
-        )
+        with span("decoder"):
+            states, refs = self.decoder(
+                query, bev_embed, query_pos, reference_points, (bev_h, bev_w), reg_branch_fn,
+                num_groups,
+            )
         return bev_embed, states, reference_points, refs

@@ -27,6 +27,7 @@ from bevformer_torch.core import coder
 from bevformer_torch.device import precision
 from bevformer_torch.models import BEVFormer, BEVFormerV2
 from bevformer_torch.runtime.distributed import allgather_results, world_size
+from bevformer_torch.utils.profiler import span
 
 RESULT_WIDTH = 11  # a gathered box: 9 box values, score, label
 
@@ -70,14 +71,15 @@ class VideoEvaluator:
         whatever the caller's TF32 flags. Returns (bev_embed, decoded
         batch)."""
         c = self.cfg
-        with precision(c.dtype, self.device.type):
-            preds = self.model(images, can_bus, lidar2img, prev_bev, has_prev)
-        dec = coder.decode_batch(
-            preds,
-            max_num=self.max_num,
-            num_classes=c.num_classes,
-            post_center_range=c.post_center_range,
-        )
+        with span("frame"):
+            with precision(c.dtype, self.device.type):
+                preds = self.model(images, can_bus, lidar2img, prev_bev, has_prev)
+            dec = coder.decode_batch(
+                preds,
+                max_num=self.max_num,
+                num_classes=c.num_classes,
+                post_center_range=c.post_center_range,
+            )
         return preds["bev_embed"], dec
 
     def infer_frame(self, sample: Dict) -> Dict[str, np.ndarray]:
@@ -140,16 +142,18 @@ class VideoEvaluatorV2:
         current frame's head outputs and their top-k decode. Returns
         (head outputs, decoded batch)."""
         c, m = self.cfg, self.model
-        with precision(c.dtype, self.device.type):
-            prev = [None if off == 0 else m.bev_only(images[:, i], lidar2img[:, i], flip, bda_mat)
-                    for i, off in enumerate(c.frames)]
-            preds = m(images[:, self.cur], lidar2img[:, self.cur], prev, flip, bda_mat)
-        dec = coder.decode_batch(
-            preds,
-            max_num=self.max_num,
-            num_classes=c.num_classes,
-            post_center_range=c.post_center_range,
-        )
+        with span("sample"):
+            with precision(c.dtype, self.device.type):
+                prev = [None if off == 0 else
+                        m.bev_only(images[:, i], lidar2img[:, i], flip, bda_mat)
+                        for i, off in enumerate(c.frames)]
+                preds = m(images[:, self.cur], lidar2img[:, self.cur], prev, flip, bda_mat)
+            dec = coder.decode_batch(
+                preds,
+                max_num=self.max_num,
+                num_classes=c.num_classes,
+                post_center_range=c.post_center_range,
+            )
         return preds, dec
 
     def infer_sample(self, sample: Dict) -> Dict[str, np.ndarray]:

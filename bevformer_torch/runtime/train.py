@@ -32,6 +32,7 @@ from bevformer_torch.runtime import distributed
 from bevformer_torch.runtime.optim import make_optimizer
 from bevformer_torch.runtime.parallel import data_parallel, split_queries
 from bevformer_torch.runtime.train_v2 import loss_fn_v2
+from bevformer_torch.utils.profiler import span
 
 
 class Batch(NamedTuple):
@@ -118,17 +119,19 @@ def loss_fn(model: BEVFormer, batch: Batch) -> Tuple[torch.Tensor, Dict[str, tor
     model's current mode (train: dropout and GridMask on). The losses are
     computed in fp32 whatever the autocast around them."""
     c = model.cfg
-    prev_bev, has_prev = history_bev(model, batch)
+    with span("history"):
+        prev_bev, has_prev = history_bev(model, batch)
     if prev_bev is None:
         bs = batch.images.shape[0]
         prev_bev = torch.zeros((bs, c.bev_h * c.bev_w, c.embed_dims),
                                device=batch.images.device)
-    preds = model(
-        batch.images[:, -1], batch.can_bus[:, -1], batch.lidar2img[:, -1],
-        prev_bev, has_prev,
-    )
+    with span("forward"):
+        preds = model(
+            batch.images[:, -1], batch.can_bus[:, -1], batch.lidar2img[:, -1],
+            prev_bev, has_prev,
+        )
     # the head's last layers hand the losses fp32 scores and boxes
-    with fp32(batch.images.device):
+    with span("loss"), fp32(batch.images.device):
         losses = bevformer_loss(
             preds, batch.gt_boxes, batch.gt_labels, batch.num_gt, c.code_weights,
             num_classes=c.num_classes, cls_loss_weight=c.cls_loss_weight,
@@ -143,23 +146,29 @@ def train_step(model, optimizer, scheduler, params, max_norm: float,
     """Zero grads, forward + backward (`loss(model, batch)`), global clip,
     AdamW step, scheduler step. Returns the loss terms (their means over
     the `dp` group under a process group), `grad_norm` (before clipping)
-    and the `lr` this step used."""
-    optimizer.zero_grad(set_to_none=True)
-    total, losses = loss(model, batch)
-    total.backward()
-    # global L2 clip over the trainable gradients (after DDP's all-reduce);
-    # the norm before clipping
-    grad_norm = torch.nn.utils.clip_grad_norm_(params, max_norm)
-    lr = optimizer.param_groups[0]["lr"]
-    optimizer.step()
-    scheduler.step()
-    keys = list(losses)
-    terms = distributed.mean_over_ranks(torch.stack([losses[k].detach() for k in keys]),
-                                        distributed.dp_group())
-    out = dict(zip(keys, terms.tolist()))
-    out["grad_norm"] = float(grad_norm)
-    out["lr"] = lr
-    return out
+    and the `lr` this step used. Under a profiler the step is the span
+    `step`, its phases spans within it (`utils.profiler.span`)."""
+    with span("step"):
+        optimizer.zero_grad(set_to_none=True)
+        total, losses = loss(model, batch)
+        with span("backward"):
+            total.backward()
+        # global L2 clip over the trainable gradients (after DDP's
+        # all-reduce); the norm before clipping
+        with span("clip"):
+            grad_norm = torch.nn.utils.clip_grad_norm_(params, max_norm)
+        lr = optimizer.param_groups[0]["lr"]
+        with span("optimizer"):
+            optimizer.step()
+            scheduler.step()
+        with span("readback"):
+            keys = list(losses)
+            terms = distributed.mean_over_ranks(torch.stack([losses[k].detach() for k in keys]),
+                                                distributed.dp_group())
+            out = dict(zip(keys, terms.tolist()))
+            out["grad_norm"] = float(grad_norm)
+        out["lr"] = lr
+        return out
 
 
 def rank_seed(seed: int, rank: int) -> int:

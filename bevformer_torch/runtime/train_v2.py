@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from bevformer_torch.core.losses import bevformer_loss
 from bevformer_torch.device import fp32
 from bevformer_torch.models import BEVFormerV2
+from bevformer_torch.utils.profiler import span
 
 # the DD3D targets as `get_train_sample_v2` names them -> as
 # `models.dd3d.assign_targets` takes them
@@ -142,13 +143,15 @@ def loss_fn_v2(model: BEVFormerV2, batch: BatchV2
     layer, and the DD3D terms `*_mono`), the current frame run in the
     model's mode. The losses are computed in fp32."""
     c = model.cfg
-    prev = history_bevs(model, batch)
+    with span("history"):
+        prev = history_bevs(model, batch)
     cur = c.frames.index(0)
-    preds, mono_feats = model(batch.images[:, cur], batch.lidar2img[:, cur], prev, batch.flip,
-                              batch.bda_mat, return_mono_feats=True)
+    with span("forward"):
+        preds, mono_feats = model(batch.images[:, cur], batch.lidar2img[:, cur], prev,
+                                  batch.flip, batch.bda_mat, return_mono_feats=True)
     # the head reads every GroupDETR group in train mode, the first in eval
     groups = preds["all_cls_scores"].shape[2] // c.num_query
-    with fp32(batch.images.device):
+    with span("loss"), fp32(batch.images.device):
         losses = bevformer_loss(
             preds, batch.gt_boxes, batch.gt_labels, batch.num_gt, c.code_weights,
             num_classes=c.num_classes, cls_loss_weight=c.cls_loss_weight,

@@ -7,6 +7,11 @@ lies on the card), then prints the call's time and the running mean per
 name. `trace(log_dir)` records a `torch.profiler` trace of the block, the
 card's activity included where there is a card (view it with TensorBoard or
 Perfetto).
+
+`span(name)` marks a layer or phase of the program in such a trace:
+`bevformer::<name>` around the block, on the profiler's clock beside the
+kernels the block launched. Spans are on exactly while a profiler records;
+otherwise a span is one read of the profiler's state.
 """
 
 from __future__ import annotations
@@ -17,7 +22,10 @@ import time
 from collections import defaultdict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
+SPAN_PREFIX = "bevformer::"
+_NO_SPAN = contextlib.nullcontext()
 _TOTALS = defaultdict(float)
 _COUNTS = defaultdict(int)
 
@@ -57,6 +65,15 @@ def run_time(name: str):
         return wrapper
 
     return deco
+
+
+def span(name: str):
+    """`torch.profiler.record_function(SPAN_PREFIX + name)` while a profiler
+    records; otherwise one shared no-op context (no clock read, nothing
+    allocated)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 @contextlib.contextmanager
