@@ -2,7 +2,8 @@
 Each wrapper runs its CUDA kernel on a CUDA tensor and its plain PyTorch
 version on a CPU tensor."""
 
-from bevformer_torch.kernels import dcn, msda
+from bevformer_torch.kernels import conv, dcn, msda
+from bevformer_torch.kernels.conv import conv2d_nhwc, conv2d_nhwc_plain
 from bevformer_torch.kernels.dcn import (
     dcn_col2im,
     dcn_col2im_gw,
@@ -29,16 +30,17 @@ from bevformer_torch.kernels.msda import (
 def kernel_counters() -> dict:
     """The wrappers of the model's paths' kernels, each of which counts its
     launches in `.launches`, by counter name (K1 msda_fwd, K2 dcn_conv_fwd,
-    K3/K4 msda_bwd, K5 dcn_im2col, K6 dcn_col2im), and the counts of their
-    bf16 entries (msda_fwd_bf16, msda_bwd_bf16, dcn_conv_fwd_bf16,
-    dcn_im2col_bf16, and dcn_col2im_bf16: K6 on a bf16 x,
-    `dcn_col2im_gw`)."""
+    K3/K4 msda_bwd, K5 dcn_im2col, K6 dcn_col2im, the dense conv conv_fwd),
+    and the counts of their bf16 entries (msda_fwd_bf16, msda_bwd_bf16,
+    dcn_conv_fwd_bf16, dcn_im2col_bf16, and dcn_col2im_bf16: K6 on a bf16
+    x, `dcn_col2im_gw`)."""
     # read through the modules: a wrapper counts under its module's name
     return dict(msda_fwd=msda.ms_deform_attn, dcn_conv_fwd=dcn.dcn_conv,
                 msda_bwd=msda.ms_deform_attn_backward, dcn_im2col=dcn.dcn_im2col,
-                dcn_col2im=dcn.dcn_col2im, msda_fwd_bf16=msda.MSDA_FWD_BF16,
-                msda_bwd_bf16=msda.MSDA_BWD_BF16, dcn_conv_fwd_bf16=dcn.DCN_CONV_FWD_BF16,
-                dcn_im2col_bf16=dcn.DCN_IM2COL_BF16, dcn_col2im_bf16=dcn.DCN_COL2IM_BF16)
+                dcn_col2im=dcn.dcn_col2im, conv_fwd=conv.conv2d_nhwc,
+                msda_fwd_bf16=msda.MSDA_FWD_BF16, msda_bwd_bf16=msda.MSDA_BWD_BF16,
+                dcn_conv_fwd_bf16=dcn.DCN_CONV_FWD_BF16, dcn_im2col_bf16=dcn.DCN_IM2COL_BF16,
+                dcn_col2im_bf16=dcn.DCN_COL2IM_BF16)
 
 
 def launch_counts() -> dict:
@@ -60,6 +62,7 @@ def zero_counts() -> None:
 
 
 __all__ = [
+    "conv2d_nhwc", "conv2d_nhwc_plain",
     "dcn_col2im", "dcn_col2im_gw", "dcn_col2im_gw_plain", "dcn_col2im_plain", "dcn_conv", "dcn_conv_backward_plain",
     "dcn_conv_plain", "dcn_im2col", "dcn_im2col_plain", "kernel_counters", "launch_counts",
     "launch_queries",

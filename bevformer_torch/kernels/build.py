@@ -64,6 +64,14 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # int32 [5]: the last dcn_conv_fwd_bf16 launch's grid
     "dcn_conv_fwd_bf16_grid": [_P],
+    # weight [Cout, Cin, KH, KW], its prepared copy (2 * numel floats),
+    # Cout, Cin, KH, KW, the column block (64 or 128), stream
+    "conv_weight_prep": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # x [B, H, W, Cin], the prepared weight, scale, shift, residual (or
+    # null), out, B, H, W, Cin, OH, OW, Cout, KH, KW, stride, padding,
+    # relu, the column block, stream
+    "conv_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _P],
     # value, loc, attw, grad_out, dvalue (zeroed), dloc, dattw, level_hw,
     # L, B, K, Q, H, D, P, queries per block, stream
     "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -2,6 +2,8 @@
 upsampling, 3x3 output convs, and stride-2 extra convs on the last output
 (`add_extra_convs='on_output'`, a ReLU before every extra conv after the
 first). Port of `bevformer_tpu/models/fpn.py` (`bevformer_base.py:61-70`).
+Each conv runs through `resnet.conv_norm`: on the kernel with its bias in
+the epilogue where the rule allows it.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from bevformer_torch.models.resnet import conv_norm
 
 
 class ConvModule(nn.Module):
@@ -22,7 +26,7 @@ class ConvModule(nn.Module):
         self.conv = nn.Conv2d(cin, cout, k, stride=stride, padding=padding)
 
     def forward(self, x):
-        return self.conv(x)
+        return conv_norm(x, self.conv)
 
 
 class FPN(nn.Module):

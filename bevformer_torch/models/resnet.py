@@ -13,18 +13,30 @@ Submodules carry the reference `.pth` names (`conv1`, `bn1`,
 both norms. With `use_remat`, every block after the first of each stage is
 recomputed in backward (`layers.remat`), as JAX's `nn.remat` of its
 scanned blocks (`resnet.py:440-452`).
+
+Each dense conv runs with the norm after it, and where there is one the
+residual add and the ReLU, through `conv_norm`: on the kernel
+`kernels.conv.conv2d_nhwc` (span `conv`) where `kernels.conv.engage_rule`
+allows it, as before (cuDNN, then the norm, the add and the ReLU; span
+`conv_fallback`) elsewhere: on the CPU, under autocast, where a gradient is
+recorded, with a BatchNorm in train mode, or at a Cin not a multiple of 32
+(the stem) or a Cout not a multiple of 64. The DCN layer is not one of
+them.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from contextlib import contextmanager
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bevformer_torch.kernels.conv import cached, conv2d_nhwc, engage_rule, out_size
 from bevformer_torch.kernels.dcn import dcn_conv
 from bevformer_torch.models.layers import SyncBatchNorm2d, remat
+from bevformer_torch.utils.profiler import span
 
 ARCH_SETTINGS = {
     10: (1, 1, 1, 1),  # toy depth for tests
@@ -87,6 +99,100 @@ class ModulatedDeformConv(nn.Module):
         return out.permute(0, 3, 1, 2)
 
 
+def _norm_affine(conv: nn.Conv2d, norm: Optional[nn.Module]):
+    """(scale, shift) [Cout] of `norm(conv(x))` as conv(x) without its bias
+    times scale plus shift: a FrozenBN's or an eval-mode BatchNorm's
+    running statistics, or none (the identity a folded model leaves), and
+    the conv's bias."""
+    bias = conv.bias
+    if norm is None or isinstance(norm, nn.Identity):
+        scale = torch.ones(conv.out_channels, device=conv.weight.device)
+        shift = torch.zeros_like(scale) if bias is None else bias.detach().clone()
+        return scale, shift
+    weight = 1.0 if norm.weight is None else norm.weight.detach()
+    scale = weight * torch.rsqrt(norm.running_var + norm.eps)
+    shift = (0 if norm.bias is None else norm.bias.detach()) - norm.running_mean * scale
+    if bias is not None:
+        shift = shift + bias.detach() * scale
+    return scale.float().contiguous(), shift.float().contiguous()
+
+
+def _norm_tensors(conv: nn.Conv2d, norm: Optional[nn.Module]):
+    tensors = [conv.bias]
+    if norm is not None and not isinstance(norm, nn.Identity):
+        tensors += [norm.weight, norm.bias, norm.running_mean, norm.running_var]
+    return tensors
+
+
+def rule_inputs(x: torch.Tensor, conv: nn.Conv2d, norm: Optional[nn.Module] = None,
+                residual: Optional[torch.Tensor] = None) -> dict:
+    """`kernels.conv.engage_rule`'s arguments for `conv` on x, then `norm`
+    (a FrozenBN, a BatchNorm, nn.Identity or None), then the residual."""
+    grads = [x, conv.weight, conv.bias, residual]
+    norm_training = False
+    if isinstance(norm, nn.BatchNorm2d):
+        grads += [norm.weight, norm.bias]
+        norm_training = norm.training or norm.running_mean is None
+    plain = (conv.groups == 1 and conv.dilation == (1, 1) and conv.padding_mode == "zeros"
+             and isinstance(conv.padding, tuple) and conv.padding[0] == conv.padding[1]
+             and conv.stride[0] == conv.stride[1] and conv.weight.dtype == torch.float32)
+    elements = x.numel()
+    if plain:
+        (b, _, h, w), (kh, kw), s, p = x.shape, conv.kernel_size, conv.stride[0], conv.padding[0]
+        elements = max(elements, b * conv.out_channels * out_size(h, kh, s, p)
+                       * out_size(w, kw, s, p))
+    return dict(
+        device_type=x.device.type, dtype=x.dtype,
+        autocast=x.device.type != "meta" and torch.is_autocast_enabled(x.device.type),
+        records_grad=torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in grads),
+        norm_training=norm_training, cin=conv.in_channels, cout=conv.out_channels,
+        plain=plain, elements=elements)
+
+
+_CALLS: Optional[list] = None  # conv_norm's calls while `record_calls` keeps them
+
+
+@contextmanager
+def record_calls():
+    """Keep each `conv_norm` call made inside in the list this yields: its
+    conv and norm, x's shape, the ReLU, whether a residual is added, and
+    its `rule_inputs`."""
+    global _CALLS
+    saved, _CALLS = _CALLS, []
+    try:
+        yield _CALLS
+    finally:
+        _CALLS = saved
+
+
+def conv_norm(x: torch.Tensor, conv: nn.Conv2d, norm: Optional[nn.Module] = None,
+              relu: bool = False, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """relu(norm(conv(x)) + residual), each part where given, on NCHW
+    tensors: on the kernel where `engage_rule` allows it (its output
+    channels-last in memory), else as the modules compute it."""
+    inputs = rule_inputs(x, conv, norm, residual)
+    if _CALLS is not None:
+        _CALLS.append(dict(conv=conv, norm=norm, shape=tuple(x.shape), relu=relu,
+                           residual=residual is not None, inputs=inputs))
+    if not engage_rule(**inputs):
+        with span("conv_fallback"):
+            out = conv(x)
+            if norm is not None:
+                out = norm(out)
+            if residual is not None:
+                out = out + residual
+            return F.relu(out) if relu else out
+    with span("conv"):
+        weight = conv.weight
+        scale, shift = cached(weight, "affine", _norm_tensors(conv, norm),
+                              lambda: _norm_affine(conv, norm))
+        res = None if residual is None else residual.permute(0, 2, 3, 1).contiguous()
+        out = conv2d_nhwc(x.permute(0, 2, 3, 1).contiguous(), weight, conv.stride[0],
+                          conv.padding[0], scale, shift, res, relu)
+        return out.permute(0, 3, 1, 2)
+
+
 def _conv(cin, cout, k, stride=1, padding=0):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
 
@@ -130,11 +236,16 @@ class Bottleneck(nn.Module):
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        out = conv_norm(x, self.conv1, self.bn1, relu=True)
+        if isinstance(self.conv2, ModulatedDeformConv):
+            out = F.relu(self.bn2(self.conv2(out)))
+        else:
+            out = conv_norm(out, self.conv2, self.bn2, relu=True)
+        if self.downsample is None:
+            identity = x
+        else:
+            identity = conv_norm(x, self.downsample[0], self.downsample[1])
+        return conv_norm(out, self.conv3, self.bn3, relu=True, residual=identity)
 
 
 class ResNet(nn.Module):
@@ -169,7 +280,7 @@ class ResNet(nn.Module):
         self.num_stages = len(ARCH_SETTINGS[depth])
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        out = F.relu(self.bn1(self.conv1(x)))
+        out = conv_norm(x, self.conv1, self.bn1, relu=True)
         out = F.max_pool2d(out, 3, stride=2, padding=1)
         outputs = []
         recompute = self.use_remat and torch.is_grad_enabled()

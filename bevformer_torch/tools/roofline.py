@@ -17,7 +17,8 @@ it counts the bytes the function must move and the operations it must do:
 Each kind of operation counts against the units that can do it at fp32
 accuracy:
 
-- DCN's contraction (K2) on the tensor cores in TF32, at three TF32
+- DCN's contraction (K2) and the dense convs' (`conv_fwd`) on the tensor
+  cores in TF32, at three TF32
   products per fp32 multiply-add (3xTF32: big*big' + big*small' +
   small*big', the least that keeps fp32's accuracy; one TF32 product misses
   the port's 1e-4 tolerance at K = 9*256), against 495 TFLOP/s dense TF32;
@@ -177,6 +178,21 @@ def dcn_col2im_gw(b: int, h: int, w: int, c: int, cout: int, stride: int = 1) ->
     pixels, taps, x, offsets = _dcn_sizes(b, h, w, c, stride, BF16)
     return Cost(2 * (x + offsets) + pixels * cout * BF16 + 9 * c * cout * F32, taps * c * 24,
                 bf16_flops=taps * c * 2 * cout)
+
+
+def conv_fwd(b: int, h: int, w: int, cin: int, oh: int, ow: int, cout: int, k: int,
+             residual: bool = False) -> Cost:
+    """One dense conv with its epilogue (`conv_fwd`): x [b, h, w, cin], the
+    weight [cout, cin, k, k], scale and shift [cout], and where added the
+    residual [b, oh, ow, cout] -> out [b, oh, ow, cout], all fp32. Of x the
+    pixels its taps touch are read (a quarter at a 1x1 stride-2 conv). The
+    contraction (2 * cin * k * k an output) at three TF32 products each;
+    the epilogue's affine (2 an output) and add (1) on the SIMT units."""
+    m = b * oh * ow
+    read = b * min(h * w, oh * ow * k * k) * cin
+    contraction = 2.0 * m * cout * cin * k * k
+    return Cost(F32 * (read + cout * cin * k * k + 2 * cout + m * cout * (2 if residual else 1)),
+                m * cout * (3 if residual else 2), TF32_PRODUCTS * contraction)
 
 
 def row_gather(b: int, m: int, r: int, e: int, itemsize: int) -> Cost:

@@ -21,7 +21,13 @@ Phases, each printed as it runs:
      shapes, with offsets past +-2 px and off the image, with times, its
      TFLOP/s, the error of both against a float64 product and, as a
      yardstick, the two-call composition dcn_im2col + torch.matmul (fp32,
-     TF32 off) of the same function;
+     TF32 off) of the same function; then the dense conv kernel
+     (conv_fwd, `kernels.conv.conv2d_nhwc`) against its plain version
+     (cuDNN fp32, TF32 off, then the affine, the residual and the ReLU) on
+     the same inputs at each distinct shape and epilogue a frame of
+     bevformer_base and of bevformerv2-r50-t8 gives it (`models.conv_sites`),
+     both against F.conv2d in fp64 (the kernel within 2x the plain
+     version's error), with times, TFLOP/s and the bound;
   5. K3/K4 (msda_bwd) against autograd through the plain msda at K1's three
      shapes, and at SCA's also on y-coherent locations as the kernel tools
      build them (their corners collide in the atomics), with times, the
@@ -291,14 +297,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the DCN conv2 of the 23 + 3 blocks of stages 3-4
 K1_PER_FRAME = 18
 K2_PER_FRAME = 26
+# the dense conv kernel (`conv_fwd`): every backbone and neck conv but the
+# stem, 84 a base frame (`conv_launches`)
+CONV_PER_FRAME = 84
 FRAMES = (3, 1)  # scene lengths
 # per training step (queue 4): K1 in 3 history frames (encoder only, 12
 # each) and the trained frame (18); K2 in one backbone pass over the 18
 # history images and one over the trained frame's 6; the backward kernels
-# once per K1 / K2 call of the trained frame
+# once per K1 / K2 call of the trained frame; the dense conv kernel in the
+# history pass and in the trained frame's frozen stage 1 (10 convs)
 TRAIN_PER_STEP = dict(msda_fwd=3 * 12 + 18, dcn_conv_fwd=2 * 26, msda_bwd=18,
-                      dcn_im2col=26, dcn_col2im=26, msda_fwd_bf16=0, msda_bwd_bf16=0,
-                      dcn_conv_fwd_bf16=0, dcn_im2col_bf16=0, dcn_col2im_bf16=0)
+                      dcn_im2col=26, dcn_col2im=26, conv_fwd=CONV_PER_FRAME + 10,
+                      msda_fwd_bf16=0, msda_bwd_bf16=0, dcn_conv_fwd_bf16=0, dcn_im2col_bf16=0,
+                      dcn_col2im_bf16=0)
 TRAIN_STEPS = 4
 TRAIN_TOTAL_STEPS = 1000  # length of the lr schedule the steps run on
 
@@ -480,6 +491,69 @@ def check_k2(device, gen):
                          plain_err_vs_float64=vs_exact[1],
                          cost=roofline.dcn_conv(b, h, w, c, cout)))
         del x, off_y, off_x, mask, weight, args, out, ref
+    return rows
+
+
+CONV_FLOOR = 4e-7  # a conv error that always passes: a few fp32 roundings of the scale
+
+
+def check_conv(device, gen, config="bevformer_base"):
+    """The dense conv kernel against its plain version at each distinct
+    (shape, residual, ReLU) of `config`'s engaged sites in a frame, with
+    their launches a frame; seeded weights, scale 1 + 0.1 N(0, 1), shift
+    0.1 N(0, 1)."""
+    import torch
+    from bevformer_torch.configs import get_config
+    from bevformer_torch.kernels import conv
+    from bevformer_torch.models.conv_sites import conv_sites
+    from bevformer_torch.tools import roofline
+
+    shapes = {}
+    for site in conv_sites(get_config(config)):
+        if site["engaged"]:
+            key = tuple(site[k] for k in ("cin", "cout", "k", "stride", "pad", "h", "w", "relu",
+                                          "residual"))
+            shapes.setdefault(key, [site, 0])[1] += 1
+    rows = []
+    for site, per_frame in shapes.values():
+        b, h, w, cin, cout, k = (site[n] for n in ("b", "h", "w", "cin", "cout", "k"))
+        oh, ow = site["oh"], site["ow"]
+        x = torch.randn((b, h, w, cin), generator=gen, device=device)
+        weight = torch.randn((cout, cin, k, k), generator=gen, device=device)
+        weight *= (2.0 / (cin * k * k)) ** 0.5
+        scale = 1 + 0.1 * torch.randn(cout, generator=gen, device=device)
+        shift = 0.1 * torch.randn(cout, generator=gen, device=device)
+        res = (torch.randn((b, oh, ow, cout), generator=gen, device=device)
+               if site["residual"] else None)
+        args = (x, weight, site["stride"], site["pad"], scale, shift, res, site["relu"])
+        before = conv.conv2d_nhwc.launches
+        out = conv.conv2d_nhwc(*args)
+        ref = conv.conv2d_nhwc_plain(*args)
+        exact = conv.conv2d_nhwc_plain(*(a.double() if torch.is_tensor(a) else a for a in args))
+        torch.cuda.synchronize()
+        check(conv.conv2d_nhwc.launches == before + 1, f"conv {site['name']}: no launch")
+        err = float((out - ref).abs().max())
+        exact_scale = float(exact.abs().max())
+        vs_exact = [float((o.double() - exact).abs().max()) / exact_scale for o in (out, ref)]
+        del exact
+        ms = time_ms(lambda: conv.conv2d_nhwc(*args), 10)
+        plain_ms = time_ms(lambda: conv.conv2d_nhwc_plain(*args), 3)
+        cost = roofline.conv_fwd(b, h, w, cin, oh, ow, cout, k, site["residual"])
+        gflop = 2.0 * b * oh * ow * cout * cin * k * k / 1e9
+        name = (f"{site['name']} {cin}->{cout} k{k} s{site['stride']} {h}x{w}"
+                + (" +res" if site["residual"] else "") + (" relu" if site["relu"] else ""))
+        log(f"[conv] {config} {name} ({per_frame} a frame): against float64 kernel "
+            f"{vs_exact[0]:.2e}, plain {vs_exact[1]:.2e} of scale (kernel within "
+            f"max(2x plain, {CONV_FLOOR:.0e})); kernel vs plain {err / float(ref.abs().max()):.2e}; "
+            f"kernel {ms:.4f} ms ({gflop / ms:.2f} TFLOP/s, {cost.bound_ms / ms:.1%} of its bound "
+            f"{cost.bound_ms:.4f} by {cost.bound_by}) plain {plain_ms:.4f} ms")
+        check(vs_exact[0] <= max(2 * vs_exact[1], CONV_FLOOR),
+              f"conv {config} {name}: error {vs_exact[0]:.2e} > 2 x plain {vs_exact[1]:.2e}")
+        rows.append(dict(shape=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         per_frame=per_frame, TFLOP_per_s=gflop / ms,
+                         err_vs_float64=vs_exact[0], plain_err_vs_float64=vs_exact[1],
+                         cost=cost))
+        del x, weight, res, args, out, ref
     return rows
 
 
@@ -1193,17 +1267,17 @@ class TimedFrames:
 
 @contextmanager
 def plain_kernels(noise: float = 0.0, seed: int = 0, recompute: bool = False):
-    """Route the model's two kernel call sites to the plain versions (their
-    gradients then come from autograd). With `noise`, each output is
-    multiplied by (1 + noise * N(0, 1)), and so is each gradient that flows
-    back into their inputs: a perturbation of the size of a few fp32
-    roundings. With `recompute`, each plain call runs under
+    """Route the model's three kernel call sites (msda, the DCN, the dense
+    convs) to the plain versions (their gradients then come from autograd).
+    With `noise`, each output is multiplied by (1 + noise * N(0, 1)), and so
+    is each gradient that flows back into their inputs: a perturbation of
+    the size of a few fp32 roundings. With `recompute`, each plain call runs under
     `torch.utils.checkpoint`: autograd recomputes its gathers in backward
     instead of keeping them (the SCA's alone are ~8 GB per encoder layer),
     with the same arithmetic."""
     import torch
     import torch.utils.checkpoint
-    from bevformer_torch.kernels import dcn, msda
+    from bevformer_torch.kernels import conv, dcn, msda
     from bevformer_torch.models import attention, resnet
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1232,13 +1306,14 @@ def plain_kernels(noise: float = 0.0, seed: int = 0, recompute: bool = False):
             return out + jitter(out) if noise else out
         return call
 
-    saved = attention.ms_deform_attn, resnet.dcn_conv
+    saved = attention.ms_deform_attn, resnet.dcn_conv, resnet.conv2d_nhwc
     attention.ms_deform_attn = perturbed(msda.ms_deform_attn_plain)
     resnet.dcn_conv = perturbed(dcn.dcn_conv_plain)
+    resnet.conv2d_nhwc = perturbed(conv.conv2d_nhwc_plain)
     try:
         yield
     finally:
-        attention.ms_deform_attn, resnet.dcn_conv = saved
+        attention.ms_deform_attn, resnet.dcn_conv, resnet.conv2d_nhwc = saved
 
 
 def damp_box_refinement(model) -> None:
@@ -1284,7 +1359,7 @@ def check_slice(device, smi):
     import torch
     from bevformer_torch.configs import get_config
     from bevformer_torch.data import SyntheticVideo
-    from bevformer_torch.kernels import dcn, launch_counts, msda, zero_counts
+    from bevformer_torch.kernels import conv, dcn, launch_counts, msda, zero_counts
     from bevformer_torch.runtime import build_model, init_state_dict
 
     cfg = get_config("bevformer_base")
@@ -1301,13 +1376,15 @@ def check_slice(device, smi):
     zero_counts()
     results, preds, secs = run_video(model, video)
     counts = launch_counts()
-    k1, k2 = counts["msda_fwd"], counts["dcn_conv_fwd"]
+    k1, k2, kc = counts["msda_fwd"], counts["dcn_conv_fwd"], counts["conv_fwd"]
     peak = torch.cuda.max_memory_allocated(device)
-    log(f"[slice] launches: K1 {k1} ({k1 / n:g}/frame), K2 {k2} ({k2 / n:g}/frame)")
+    log(f"[slice] launches: K1 {k1} ({k1 / n:g}/frame), K2 {k2} ({k2 / n:g}/frame), conv_fwd "
+        f"{kc} ({kc / n:g}/frame)")
     check(counts["msda_bwd"] == counts["dcn_im2col"] == counts["dcn_col2im"] == 0,
           f"inference launched a backward kernel: {counts}")
     check(k1 == K1_PER_FRAME * n, f"K1 launched {k1} times, expected {K1_PER_FRAME * n}")
     check(k2 == K2_PER_FRAME * n, f"K2 launched {k2} times, expected {K2_PER_FRAME * n}")
+    check(kc == CONV_PER_FRAME * n, f"conv_fwd launched {kc} times, expected {CONV_PER_FRAME * n}")
     for i, p in enumerate(preds):
         for key, v in p.items():
             check(bool(torch.isfinite(v).all()), f"frame {i}: {key} not finite")
@@ -1333,8 +1410,8 @@ def check_slice(device, smi):
         _, plain_preds, plain_secs = run_video(model, video)
     with plain_kernels(noise=WITNESS_NOISE):
         _, noisy_preds, _ = run_video(model, video)
-    check(msda.ms_deform_attn.launches == k1 and dcn.dcn_conv.launches == k2,
-          "the plain run launched a kernel")
+    check(msda.ms_deform_attn.launches == k1 and dcn.dcn_conv.launches == k2
+          and conv.conv2d_nhwc.launches == kc, "the plain run launched a kernel")
     kernel_errs = output_errors(preds, plain_preds)
     noise_errs = output_errors(noisy_preds, plain_preds)
     log(f"[slice] witness at these weights, max abs err / max |plain| over the frames: "
@@ -1362,7 +1439,7 @@ def check_slice(device, smi):
         sb = torch.as_tensor(plain_results[i]["scores_3d"]).sort().values
         check(sa.shape == sb.shape and bool(torch.allclose(sa, sb, atol=1e-4)),
               f"frame {i}: decoded scores differ")
-    return dict(k1=k1, k2=k2, median_ms=median * 1e3, peak_gib=peak / 2**30,
+    return dict(k1=k1, k2=k2, conv=kc, median_ms=median * 1e3, peak_gib=peak / 2**30,
                 model=model, video=video)
 
 
@@ -1406,6 +1483,16 @@ def check_precision(model, video):
 
 # ---------------------------------------------------------------- presets
 
+def conv_launches(cfg):
+    """(a backbone pass's, a training step's trained frame's) launches of
+    the dense conv kernel: the sites `engage_rule` gives it in a frame and
+    in the trained frame (`models.conv_sites`)."""
+    from bevformer_torch.models.conv_sites import conv_sites
+
+    return tuple(sum(s["engaged"] for s in conv_sites(cfg, train=train))
+                 for train in (False, True))
+
+
 def path_launches(cfg):
     """(per frame, per training step) launches of every kernel counter on
     `cfg`'s paths: per frame TSA and SCA in each encoder layer and the
@@ -1424,9 +1511,11 @@ def path_launches(cfg):
     enc, dec = 2 * cfg.encoder_layers, cfg.decoder_layers
     dcn = sum(ARCH_SETTINGS[cfg.backbone_depth][s] for s in cfg.backbone_dcn_stages)
     history = cfg.data.queue_length - 1
-    frame = dict(zero, **{k1: enc + dec, k2: dcn})
+    per_pass, trained = conv_launches(cfg)
+    frame = dict(zero, **{k1: enc + dec, k2: dcn, "conv_fwd": per_pass})
     step = dict(zero, **{k1: history * enc + enc + dec, k34: enc + dec,
-                         k2: (2 if history else 1) * dcn, k5: dcn, k6: dcn})
+                         k2: (2 if history else 1) * dcn, k5: dcn, k6: dcn,
+                         "conv_fwd": (per_pass if history else 0) + trained})
     return frame, step
 
 
@@ -1599,7 +1688,8 @@ def v2_per_sample(cfg) -> dict:
     from bevformer_torch.kernels import kernel_counters
 
     k1 = len(cfg.frames) * 2 * cfg.encoder_layers + cfg.decoder_layers
-    return dict(dict.fromkeys(kernel_counters(), 0), msda_fwd=k1)
+    return dict(dict.fromkeys(kernel_counters(), 0), msda_fwd=k1,
+                conv_fwd=len(cfg.frames) * conv_launches(cfg)[0])
 
 
 def v2_samples(cfg, n: int, device):
@@ -1742,7 +1832,7 @@ def check_v2(name, device, smi):
 
 KERNEL_NAMES = ("msda_fwd_kernel", "dcn_conv_fwd_kernel", "dcn_conv_fwd_bf16_kernel",
                 "msda_bwd_kernel", "dcn_im2col_kernel", "dcn_col2im_kernel",
-                "dcn_col2im_gw_kernel")
+                "dcn_col2im_gw_kernel", "conv::conv_fwd_kernel")
 
 
 def profile_run(fn, tag, what, smi):
@@ -1753,13 +1843,17 @@ def profile_run(fn, tag, what, smi):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from bevformer_torch.utils.profiler import SPAN_PREFIX
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the device's events, less the program spans' ranges on its timeline
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.name.startswith(SPAN_PREFIX)]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     check(busy_ms > 0, f"the profiled {what} ran nothing on the device")
     # device time by the aten op that launched it; the port's kernels are
@@ -2164,9 +2258,11 @@ K1_V2_TRAIN_CASES = [
 def v2_train_per_step(cfg) -> dict:
     """Launches per V2 training step: K1 in every encoder layer of every
     frame encoded and in the decoder once; K3/K4 once per K1 call of the
-    current frame; nothing else."""
+    current frame; the dense conv kernel in the history frames (eval-mode
+    BN, no gradient); nothing else."""
     zero = v2_per_sample(cfg)
-    return dict(zero, msda_bwd=2 * cfg.encoder_layers + cfg.decoder_layers)
+    return dict(zero, msda_bwd=2 * cfg.encoder_layers + cfg.decoder_layers,
+                conv_fwd=(len(cfg.frames) - 1) * conv_launches(cfg)[0])
 
 
 def check_k34_v2(device, gen):
@@ -2934,7 +3030,7 @@ def check_cli(smi):
         summary = one(test_recs, "NDS", "tools.test")
         frames = timing["frames"]
         per_frame = dict(TRAIN_PER_STEP, msda_fwd=K1_PER_FRAME, dcn_conv_fwd=K2_PER_FRAME,
-                         msda_bwd=0, dcn_im2col=0, dcn_col2im=0)
+                         msda_bwd=0, dcn_im2col=0, dcn_col2im=0, conv_fwd=CONV_PER_FRAME)
         want = {k: v * frames for k, v in per_frame.items()}
         check(timing["launches"] == want, f"tools.test launches {timing['launches']}, want {want}")
         keys = ["NDS", "mAP", *ERR_NAME_MAPPING.values()]
@@ -3994,6 +4090,7 @@ def check_tools(smi, frame_ms):
     fp32 frame median."""
     import torch
     from bevformer_torch.configs import get_config
+    from bevformer_torch.models.conv_sites import conv_sites
 
     recs = {}
     for name, argv in TOOL_RUNS:
@@ -4054,9 +4151,16 @@ def check_tools(smi, frame_ms):
     check(enc["L6"]["launches_per_call"] == {"msda_fwd": 2 * base.encoder_layers},
           f"bench_enc_only L6: launches {enc['L6']['launches_per_call']}")
     dcn = recs["bench_dcn"]["cases"]
-    check(dcn["dcn"]["launches_per_call"] == {"dcn_conv_fwd": frame["dcn_conv_fwd"]}
-          and not dcn["plain"]["launches_per_call"], f"bench_dcn: launches "
-          f"{dcn['dcn']['launches_per_call']} / {dcn['plain']['launches_per_call']}")
+
+    def backbone_convs(cfg):  # the dense conv kernel's launches in a backbone pass
+        return sum(s["engaged"] and s["name"].startswith("img_backbone.")
+                   for s in conv_sites(cfg))
+
+    want = (dict(dcn_conv_fwd=frame["dcn_conv_fwd"], conv_fwd=backbone_convs(base)),
+            dict(conv_fwd=backbone_convs(base.replace(backbone_dcn_stages=()))))
+    check((dcn["dcn"]["launches_per_call"], dcn["plain"]["launches_per_call"]) == want,
+          f"bench_dcn: launches {dcn['dcn']['launches_per_call']} / "
+          f"{dcn['plain']['launches_per_call']}, not {want[0]} / {want[1]}")
     t1 = get_config("bevformerv2-r50-t1")
     check(recs["bench_v2"]["launches"] == nonzero(v2_per_sample(t1)),
           f"bench_v2: launches {recs['bench_v2']['launches']}")
@@ -4175,6 +4279,8 @@ def main() -> int:
         k1_v2_train_rows = check_k1(device, gen, K1_V2_TRAIN_CASES, "k1-v2-train")
     with phase("4"):
         k2_rows = check_k2(device, gen)
+        conv_rows = check_conv(device, gen)
+        conv_v2_rows = check_conv(device, gen, "bevformerv2-r50-t8")
     with phase("5"):
         k34_rows = check_k34(device, gen)
         k34_v2_train_rows = check_k34_v2(device, gen)
@@ -4367,6 +4473,21 @@ def main() -> int:
     k6["training_step"] = tr["k6"]
     for key in ("grid_sampler_ms", "grid_sampler_pair_ms"):
         k6[key] = sum(r[key] * r["per_step"] for r in col2im_rows)
+    # the dense conv kernel: launches of the training run (history frames
+    # and the trained frame's stage 1) and of the inference run; per frame
+    # at base's shapes, at t8's beside
+    kernels.append(record(
+        "conv_fwd", "bevformer_torch/csrc/conv_fwd.cu",
+        "none: bevformer_tpu's convolutions are XLA's", conv_rows, "per_frame",
+        "plain_ms is the library's route: cuDNN fp32 (F.conv2d, TF32 off), then the affine, "
+        "the residual and the ReLU"))
+    conv_v2_bound = roofline.total([(r.pop("cost"), r["per_frame"]) for r in conv_v2_rows])
+    kernels[-1].update(
+        inference_launches=sl["conv"], v2_shapes=conv_v2_rows,
+        v2_ms_per_frame=sum(r["ms"] * r["per_frame"] for r in conv_v2_rows),
+        v2_plain_ms_per_frame=sum(r["plain_ms"] * r["per_frame"] for r in conv_v2_rows),
+        v2_bound_ms_per_frame=conv_v2_bound["bound_ms"],
+        v2_launches={name: r["counts"]["conv_fwd"] for name, r in v2.items()})
     log(f"[summary] training step median {tr['median_ms']:.1f} ms, peak {tr['peak_gib']:.2f} GiB; "
         f"inference frame median {sl['median_ms']:.1f} ms, peak {sl['peak_gib']:.2f} GiB; "
         f"on {smi}; bounds against {roofline.PEAKS}")

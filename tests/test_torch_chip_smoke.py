@@ -187,19 +187,23 @@ def test_cli_helpers():
 
 
 @pytest.mark.parametrize("name,frame,step", [
-    ("bevformer_base", dict(msda_fwd=18, dcn_conv_fwd=26),
-     dict(msda_fwd=54, dcn_conv_fwd=52, msda_bwd=18, dcn_im2col=26, dcn_col2im=26)),
-    ("bevformer_small", dict(msda_fwd=12, dcn_conv_fwd=26),
-     dict(msda_fwd=24, dcn_conv_fwd=52, msda_bwd=12, dcn_im2col=26, dcn_col2im=26)),
-    ("bevformer_tiny", dict(msda_fwd=12), dict(msda_fwd=24, msda_bwd=12)),
+    ("bevformer_base", dict(msda_fwd=18, dcn_conv_fwd=26, conv_fwd=84),
+     dict(msda_fwd=54, dcn_conv_fwd=52, msda_bwd=18, dcn_im2col=26, dcn_col2im=26,
+          conv_fwd=94)),
+    ("bevformer_small", dict(msda_fwd=12, dcn_conv_fwd=26, conv_fwd=79),
+     dict(msda_fwd=24, dcn_conv_fwd=52, msda_bwd=12, dcn_im2col=26, dcn_col2im=26,
+          conv_fwd=89)),
+    ("bevformer_tiny", dict(msda_fwd=12, conv_fwd=54), dict(msda_fwd=24, msda_bwd=12, conv_fwd=64)),
     ("bevformer_tiny_fp16", dict(msda_fwd_bf16=12), dict(msda_fwd_bf16=24, msda_bwd_bf16=12)),
 ])
 def test_path_launches(name, frame, step):
     """chip_smoke.py's launches per frame and per training step of each v1
     preset (3 or 6 encoder layers of TSA + SCA, 6 decoder layers; queue 3
     or 4, the history frames encoder only with one backbone pass; the DCN
-    blocks of R101's stages 3-4), every other counter 0; bevformer_base's
-    are the phases' constants."""
+    blocks of R101's stages 3-4; the dense conv kernel at every backbone and
+    neck conv but the stem in fp32, in the history pass and the trained
+    frame's frozen stage 1), every other counter 0; bevformer_base's are
+    the phases' constants."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from bevformer_torch.configs import get_config
@@ -209,7 +213,8 @@ def test_path_launches(name, frame, step):
     assert chip_smoke.path_launches(get_config(name)) == (dict(zero, **frame), dict(zero, **step))
     if name == "bevformer_base":
         assert step == {k: v for k, v in chip_smoke.TRAIN_PER_STEP.items() if v}
-        assert frame == dict(msda_fwd=chip_smoke.K1_PER_FRAME, dcn_conv_fwd=chip_smoke.K2_PER_FRAME)
+        assert frame == dict(msda_fwd=chip_smoke.K1_PER_FRAME, dcn_conv_fwd=chip_smoke.K2_PER_FRAME,
+                             conv_fwd=chip_smoke.CONV_PER_FRAME)
 
 
 @pytest.mark.parametrize("name,frame,step", [
@@ -274,17 +279,19 @@ def test_box_set_errors():
     assert chip_smoke.box_set_errors({k: v[:4] for k, v in ours.items()}, ref)[0] == float("inf")
 
 
-@pytest.mark.parametrize("name,k1,k34", [("bevformerv2-r50-t1", 18, 18),
-                                         ("bevformerv2-r50-t8", 102, 18)])
-def test_v2_train_per_step(name, k1, k34):
+@pytest.mark.parametrize("name,k1,k34,convs", [("bevformerv2-r50-t1", 18, 18, 0),
+                                               ("bevformerv2-r50-t8", 102, 18, 7 * 60)])
+def test_v2_train_per_step(name, k1, k34, convs):
     """K1 in every encoder layer of the 1 or 8 frames encoded and the
-    decoder; K3/K4 in the current frame's; no other kernel."""
+    decoder; K3/K4 in the current frame's; the dense conv kernel at the 60
+    convs of each history frame's backbone and neck (eval-mode BN, no
+    gradient); no other kernel."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from bevformer_torch.configs import get_config
 
     per = chip_smoke.v2_train_per_step(get_config(name))
-    assert per == dict(dict.fromkeys(per, 0), msda_fwd=k1, msda_bwd=k34)
+    assert per == dict(dict.fromkeys(per, 0), msda_fwd=k1, msda_bwd=k34, conv_fwd=convs)
 
 
 @pytest.mark.parametrize("name,extra", [

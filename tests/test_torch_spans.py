@@ -7,7 +7,9 @@ queries, queue 3) and bevformerv2-r50-t2 (the same cut, frames (-1, 0)).
   made to raise.
 * Under a CPU profiler, a v1 frame, a V2 sample and a training step show
   their spans `bevformer::<name>`, nested as the program calls them, each
-  the expected number of times.
+  the expected number of times: on the CPU every dense backbone and neck
+  conv is a `conv_fallback` (`models.conv_sites` counts them a
+  backbone pass).
 * The outputs, and a training step's parameters after it, are bitwise the
   same with the profiler on and off.
 """
@@ -31,6 +33,7 @@ from bevformer_torch.runtime import (
     build_model,
     init_state_dict,
 )
+from bevformer_torch.models.conv_sites import conv_sites
 from bevformer_torch.utils import profiler
 
 PHASES = ("history", "forward", "loss", "backward", "clip", "optimizer", "readback")
@@ -115,8 +118,10 @@ def test_frame_spans(v1):
     ev = VideoEvaluator(model)
     args = frame_inputs(cfg)
     (bev, dec), spans = traced(lambda: ev.step(*args))
-    assert called(spans) == {"frame": 1, "encoder": 1, "decoder": 1}
+    convs = len(conv_sites(cfg))
+    assert called(spans) == {"frame": 1, "encoder": 1, "decoder": 1, "conv_fallback": convs}
     assert within(spans, "encoder", "frame") == within(spans, "decoder", "frame") == 1
+    assert within(spans, "conv_fallback", "frame") == convs
     bev_off, dec_off = ev.step(*args)
     assert torch.equal(bev, bev_off)
     assert all(torch.equal(dec[k], dec_off[k]) for k in dec)
@@ -128,7 +133,9 @@ def test_sample_spans():
     ev = VideoEvaluatorV2(model)
     args = sample_inputs(cfg)
     (preds, dec), spans = traced(lambda: ev.step(*args))
-    assert called(spans) == {"sample": 1, "encoder": 2, "decoder": 1}
+    convs = 2 * len(conv_sites(cfg))  # a backbone pass a frame
+    assert called(spans) == {"sample": 1, "encoder": 2, "decoder": 1, "conv_fallback": convs}
+    assert within(spans, "conv_fallback", "sample") == convs
     assert within(spans, "encoder", "sample") == 2 and within(spans, "decoder", "sample") == 1
     preds_off, dec_off = ev.step(*args)
     for k in ("bev_embed", "all_cls_scores", "all_bbox_preds"):
@@ -140,8 +147,12 @@ def test_step_spans(v1):
     cfg, model = v1
     assert cfg.data.queue_length == 3
     (out, params), spans = traced(lambda: trained(cfg, model))
-    assert called(spans) == dict({"step": 1, "encoder": 3, "decoder": 1, "match": 1},
-                                 **{p: 1 for p in PHASES})
+    # backbone passes: the history frame after the scene break, the trained frame
+    convs = len(conv_sites(cfg))
+    assert called(spans) == dict({"step": 1, "encoder": 3, "decoder": 1, "match": 1,
+                                  "conv_fallback": 2 * convs}, **{p: 1 for p in PHASES})
+    assert within(spans, "conv_fallback", "history") == within(spans, "conv_fallback",
+                                                               "forward") == convs
     for p in PHASES:
         assert within(spans, p, "step") == 1, p
     assert within(spans, "encoder", "history") == 2 and within(spans, "encoder", "forward") == 1
